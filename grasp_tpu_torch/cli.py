@@ -1,0 +1,131 @@
+"""Command-line entry point of the port (counterpart of grasp_tpu/cli.py).
+
+``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine,
+from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
+``params.pt``; grasp_tpu checkpoints convert with
+``scripts/convert_grasp_tpu_checkpoint.py``) or a named architecture preset
+with random weights made from ``--seed``. HF checkpoint import, quantized
+weights, int8 KV, the prefix cache, chunked prefill and speculative decoding
+are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import logging
+import os
+import sys
+from typing import Optional
+
+import torch
+
+logger = logging.getLogger("grasp_tpu_torch")
+
+_PRESETS = {
+    "tiny": "tiny",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "llama2-7b": "llama2_7b",
+    "llama3-8b": "llama3_8b",
+    "llama3.1-8b": "llama3_1_8b",
+    "mistral-7b": "mistral_7b",
+    "qwen2-7b": "qwen2_7b",
+    "phi3-mini-4k": "phi3_mini_4k",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "gemma-2b": "gemma_2b",
+    "gemma-7b": "gemma_7b",
+    "gemma2-9b": "gemma2_9b",
+}
+
+
+def setup_logger(log_file: Optional[str] = None) -> None:
+    logger.setLevel(logging.INFO)
+    logger.handlers.clear()
+    handler = logging.FileHandler(log_file) if log_file else logging.StreamHandler()
+    handler.setFormatter(logging.Formatter("%(asctime)s - %(name)s - %(levelname)s - %(message)s"))
+    logger.addHandler(handler)
+
+
+def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int = 0):
+    """(config, params, plan, tokenizer) from a port checkpoint directory or
+    a named preset (random init from ``seed``; the checkpoint keeps its own
+    dtype, a preset takes ``dtype``)."""
+    from grasp_tpu.configs import ModelConfig
+    from grasp_tpu.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.models.llama import default_plan, init_params
+
+    if os.path.isdir(name_or_path):
+        if not os.path.exists(os.path.join(name_or_path, "grasp_meta.json")):
+            raise NotImplementedError(
+                f"{name_or_path} has no grasp_meta.json: HF checkpoint import is not "
+                "ported yet")
+        from grasp_tpu_torch.checkpoints import load_checkpoint
+
+        params, config, plan, _meta = load_checkpoint(name_or_path, device)
+        return config, params, plan, load_tokenizer(None)
+    key = name_or_path.lower()
+    if key not in _PRESETS:
+        raise FileNotFoundError(f"{name_or_path!r} is neither a checkpoint directory nor a "
+                                f"preset ({sorted(_PRESETS)})")
+    # the tiny preset pairs with the ByteTokenizer fallback (259 ids)
+    config = (ModelConfig.tiny(vocab_size=260) if key == "tiny"
+              else getattr(ModelConfig, _PRESETS[key])())
+    config = dataclasses.replace(config, dtype=dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params = init_params(gen, config, device=device)
+    logger.info("preset %s: RANDOM-INIT weights (seed %d)", key, seed)
+    return config, params, default_plan(config), load_tokenizer(None)
+
+
+def _serve_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="GRASP serving (PyTorch/CUDA)")
+    p.add_argument("--model_path", type=str, required=True,
+                   help="grasp_tpu_torch checkpoint dir or preset name")
+    p.add_argument("--tokenizer_path", type=str, default=None)
+    p.add_argument("--model_name", type=str, default=None,
+                   help="model id reported by /v1/models (default: model_path)")
+    p.add_argument("--host", type=str, default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"],
+                   help="parameter dtype of a preset (a checkpoint keeps its own)")
+    p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
+    p.add_argument("--stop_token_ids", type=str, default=None,
+                   help="comma-separated extra stop token ids beyond the tokenizer's eos")
+    p.add_argument("--max_batch", type=int, default=8)
+    p.add_argument("--num_pages", type=int, default=256)
+    p.add_argument("--page_size", type=int, default=128)
+    p.add_argument("--max_pages_per_seq", type=int, default=16)
+    p.add_argument("--log_file", type=str, default=None)
+    return p
+
+
+def serve_main(argv=None, block: bool = True):
+    """``grasp-serve-torch``. With ``block=False`` returns
+    ``(GraspServer, ThreadingHTTPServer, thread)`` instead of serving
+    forever (``--port 0`` picks a free port: ``httpd.server_address[1]``)."""
+    args = _serve_parser().parse_args(argv)
+    setup_logger(args.log_file)
+    from grasp_tpu.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.serving.paged import ServingEngine
+    from grasp_tpu_torch.serving.server import serve
+
+    device = torch.device(args.device)
+    config, params, plan, tokenizer = load_model(args.model_path, device=device,
+                                                 dtype=args.dtype, seed=args.seed)
+    if args.tokenizer_path:
+        tokenizer = load_tokenizer(args.tokenizer_path)
+    eos = getattr(tokenizer, "eos_token_id", None)
+    if args.stop_token_ids:
+        extra = [int(t) for t in args.stop_token_ids.split(",") if t.strip()]
+        eos = ([int(eos)] if eos is not None else []) + extra
+    engine = ServingEngine(params, config, plan, device=device, num_pages=args.num_pages,
+                           page_size=args.page_size, max_batch=args.max_batch,
+                           max_pages_per_seq=args.max_pages_per_seq, eos_token_id=eos)
+    handles = serve(engine, host=args.host, port=args.port, tokenizer=tokenizer,
+                    model_id=args.model_name or args.model_path, block=block)
+    return 0 if block else handles
+
+
+if __name__ == "__main__":
+    sys.exit(serve_main())

@@ -1,0 +1,91 @@
+"""Build the CUDA kernels in ``grasp_tpu_torch/csrc`` and load them with ctypes.
+
+Every ``csrc/*.cu`` file compiles, in one ``nvcc`` call, into one shared
+library with a plain C interface (no PyTorch headers, so the build takes
+seconds). The library lands in ``build/kernels/`` at the repository root,
+named by a hash of the sources and flags, so an edited kernel is rebuilt and a
+stale one is never loaded. The build happens at the first kernel launch, never
+at import: machines without a GPU import every module of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (restype, argtypes) of every C entry point in csrc/
+SIGNATURES = {
+    "grasp_paged_attention_decode": (
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+             ctypes.c_float, _P]),
+}
+
+
+def find_nvcc() -> str:
+    for var in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(var)
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels of "
+                       "grasp_tpu_torch are built from source at first use")
+
+
+def library_path() -> Path:
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libgrasp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/*.cu unless a library for these exact sources exists.
+    The compiler's report (registers, shared memory, spills) is kept beside
+    the library as ``<name>.log``."""
+    so = library_path()
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
+    so.with_suffix(".log").write_text(log)
+    os.replace(tmp, so)  # atomic: a reader never sees a half-written library
+    return so
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, (restype, argtypes) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
