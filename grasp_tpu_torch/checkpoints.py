@@ -16,7 +16,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from grasp_tpu.configs import ModelConfig
+from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.models.convert import flatten_params, unflatten_params
 from grasp_tpu_torch.models.llama import ModelPlan
 

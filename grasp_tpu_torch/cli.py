@@ -1,4 +1,10 @@
-"""Command-line entry point of the port (counterpart of grasp_tpu/cli.py).
+"""Command-line entry points of the port (counterpart of grasp_tpu/cli.py).
+
+``grasp-compress-torch``: the GRASP compression pipeline (block influence,
+SVD, calibration gradient sweeps, rank selection, low-rank compilation) on a
+port checkpoint or a named preset, saved as a port checkpoint. Recovery
+training, evaluation, HF export, meshes, resume and the parallel sweep are
+not ported yet and raise NotImplementedError.
 
 ``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine,
 from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
@@ -13,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import logging
 import os
 import sys
@@ -50,8 +57,8 @@ def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int =
     """(config, params, plan, tokenizer) from a port checkpoint directory or
     a named preset (random init from ``seed``; the checkpoint keeps its own
     dtype, a preset takes ``dtype``)."""
-    from grasp_tpu.configs import ModelConfig
-    from grasp_tpu.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.configs import ModelConfig
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
     from grasp_tpu_torch.models.llama import default_plan, init_params
 
     if os.path.isdir(name_or_path):
@@ -75,6 +82,105 @@ def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int =
     params = init_params(gen, config, device=device)
     logger.info("preset %s: RANDOM-INIT weights (seed %d)", key, seed)
     return config, params, default_plan(config), load_tokenizer(None)
+
+
+def _compress_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="GRASP model compression (PyTorch/CUDA)")
+    p.add_argument("--model_name_or_path", type=str, required=True,
+                   help="grasp_tpu_torch checkpoint dir or preset name")
+    p.add_argument("--dataset_name", type=str, default="wikitext2",
+                   help="wikitext2 | c4 | synthetic")
+    p.add_argument("--layers_id", type=int, nargs="+", default=None)
+    p.add_argument("--num_prune_layers", type=int, default=None)
+    p.add_argument("--mlp_target_layer_types", type=str, nargs="+",
+                   default=["down_proj", "up_proj", "gate_proj"])
+    p.add_argument("--attn_target_layer_types", type=str, nargs="+",
+                   default=["q_proj", "k_proj", "v_proj", "o_proj"])
+    p.add_argument("--metric", type=str, choices=["gradient", "taylor"], default="taylor")
+    p.add_argument("--compression_ratio", type=float, default=None)
+    p.add_argument("--threshold_ratio", type=float, default=None)
+    p.add_argument("--save_path", type=str, default=None)
+    p.add_argument("--angular", action="store_true")
+    p.add_argument("--merge", action="store_true")
+    p.add_argument("--verbose", action="store_true")
+    p.add_argument("--num_samples", type=int, default=1024)
+    p.add_argument("--batch_size", type=int, default=1)
+    p.add_argument("--seq_len", type=int, default=512)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--log_file", type=str, default=None)
+    p.add_argument("--dtype", type=str, default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--data_root", type=str, default=".")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--sweep", type=str, choices=["sequential", "parallel"], default="sequential")
+    p.add_argument("--grad_mode", type=str, choices=["dense", "svd"], default="dense")
+    p.add_argument("--svd_method", type=str, choices=["auto", "host", "device", "gram"],
+                   default="auto", help="SVD backend: torch.linalg.svd on the device (auto, "
+                                        "device) or host LAPACK")
+    # parsed so that a grasp-compress command line carries over; each raises
+    p.add_argument("--dp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--export_hf_dir", type=str, default=None)
+    p.add_argument("--compress_resume_dir", type=str, default=None)
+    p.add_argument("--recovery", action="store_true")
+    p.add_argument("--evaluate", action="store_true")
+    return p
+
+
+def compress_main(argv=None) -> int:
+    """``grasp-compress-torch``: compress a model and save the checkpoint."""
+    args = _compress_parser().parse_args(argv)
+    setup_logger(args.log_file)
+    unported = {"--recovery": args.recovery, "--evaluate": args.evaluate,
+                "--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1,
+                "--compress_resume_dir": args.compress_resume_dir,
+                "--sweep parallel": args.sweep == "parallel"}
+    for flag, asked in unported.items():
+        if asked:
+            raise NotImplementedError(f"grasp-compress-torch does not support {flag} yet")
+    from grasp_tpu_torch.checkpoints import save_checkpoint
+    from grasp_tpu_torch.configs import GraspConfig
+    from grasp_tpu_torch.core.engine import GraspEngine
+    from grasp_tpu_torch.data.loader import get_calibration_batches
+
+    device = torch.device(args.device)
+    config, params, plan, tokenizer = load_model(args.model_name_or_path, device=device,
+                                                 dtype=args.dtype, seed=args.seed)
+    batches = get_calibration_batches(
+        args.dataset_name, tokenizer, num_samples=args.num_samples, seq_len=args.seq_len,
+        batch_size=args.batch_size, seed=args.seed, data_root=args.data_root)
+    logger.info("=======> Done Loading Data! (%d batches)", len(batches))
+
+    cfg = GraspConfig(
+        model_name_or_path=args.model_name_or_path,
+        layers_id=args.layers_id,
+        num_prune_layers=args.num_prune_layers,
+        mlp_target_layer_types=tuple(args.mlp_target_layer_types),
+        attn_target_layer_types=tuple(args.attn_target_layer_types),
+        metric=args.metric,
+        compression_ratio=args.compression_ratio,
+        threshold_ratio=args.threshold_ratio,
+        angular=args.angular,
+        merge=args.merge,
+        verbose=args.verbose,
+        sweep=args.sweep,
+        grad_mode=args.grad_mode,
+    )
+    engine = GraspEngine(params, config, plan, svd_method=args.svd_method, device=device)
+    summary = engine.run(batches, cfg)
+    logger.info("summary: %s", json.dumps(summary))
+
+    save_path = args.save_path
+    if not save_path:
+        os.makedirs("./checkpoint", exist_ok=True)
+        save_path = os.path.join("./checkpoint", args.model_name_or_path.replace("/", "-"))
+    # the model's own config: a flash-attention switch made for the sweeps is
+    # the engine's, not the checkpoint's
+    save_checkpoint(save_path, engine.params, config, engine.plan,
+                    rank_dict=engine.rank_dict, redundant_layers=engine.redundant_layers,
+                    layer_importances=engine.layer_importances,
+                    extra={"grasp_config": vars(args), "summary": summary})
+    logger.info("checkpoint saved to %s", save_path)
+    return 0
 
 
 def _serve_parser() -> argparse.ArgumentParser:
@@ -106,7 +212,7 @@ def serve_main(argv=None, block: bool = True):
     forever (``--port 0`` picks a free port: ``httpd.server_address[1]``)."""
     args = _serve_parser().parse_args(argv)
     setup_logger(args.log_file)
-    from grasp_tpu.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
     from grasp_tpu_torch.serving.paged import ServingEngine
     from grasp_tpu_torch.serving.server import serve
 

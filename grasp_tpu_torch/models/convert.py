@@ -33,11 +33,12 @@ def _tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _map(tree, fn):
+def map_params(tree, fn):
+    """A new tree (fresh dicts and lists) with ``fn`` applied to every leaf."""
     if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
+        return {k: map_params(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
+        return [map_params(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -50,12 +51,12 @@ def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None) ->
             t = t.to(dtype)
         return t.to(device)
 
-    return _map(tree, leaf)
+    return map_params(tree, leaf)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     """Port params -> the numpy tree grasp_tpu takes (bf16 as ml_dtypes)."""
-    return _map(params, _tensor_to_numpy)
+    return map_params(params, _tensor_to_numpy)
 
 
 def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict[str, torch.Tensor]:

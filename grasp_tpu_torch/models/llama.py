@@ -12,8 +12,10 @@ rotate_half, GQA by repeating KV heads, fp32 scores and softmax. Unlike JAX,
 the KV-cache functions write the cache in place.
 
 Ported: the LLaMA/TinyLlama/Qwen2-style families (bias optional, rope scaling
-"linear" and "llama3"). Softcapping, sliding windows, MoE, Gemma norms,
-quantized weights, int8 KV and full-SVD projections raise NotImplementedError.
+"linear" and "llama3"), dense, full-SVD and low-rank projections, and the
+flash-attention route of the full-sequence forward (CUDA kernels, see
+ops/flash_attention.py). Softcapping, sliding windows, MoE, Gemma norms,
+quantized weights and int8 KV raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,8 +27,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from grasp_tpu.configs import ModelConfig
-from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply
+from grasp_tpu_torch.configs import ModelConfig
+from grasp_tpu_torch.ops.flash_attention import flash_attention
+from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
 
 Params = Dict[str, Any]
 
@@ -240,7 +243,9 @@ def proj_apply(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
         return dense_apply(x, p["kernel"], bias)
     if kind == LOWRANK:
         return lowrank_apply(x, p["in_kernel"], p["out_kernel"], bias)
-    if kind in (SVD, HYBRID):
+    if kind == SVD:
+        return svd_apply(x, p["u"], p["s"], p["vh"], bias)
+    if kind == HYBRID:
         raise NotImplementedError(f"grasp_tpu_torch does not support {kind!r} projections yet")
     raise ValueError(f"unknown projection kind {kind!r}")
 
@@ -285,13 +290,21 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
     return h + proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"])
 
 
+def _takes_flash_route(config: ModelConfig, q: torch.Tensor, causal_full_sequence: bool) -> bool:
+    """Whether attention runs in the flash kernels: asked for by the config,
+    a purely causal full-sequence call (no cache, no padding mask), and CUDA
+    tensors; on the CPU the flag is inert, as in the JAX package."""
+    return config.use_flash_attention and causal_full_sequence and q.device.type == "cuda"
+
+
 def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
                    config: ModelConfig, kv: Optional[Dict[str, torch.Tensor]] = None,
-                   cache_index: int = 0):
+                   cache_index: int = 0, flash_ok: bool = False):
     """One decoder layer. With ``kv``, the new K/V are written into the cache
     in place at [cache_index, cache_index + S) and attention reads the whole
-    cache under ``mask``."""
+    cache under ``mask``. ``flash_ok``: the caller's mask is purely causal, so
+    a CUDA full-sequence call may take the flash-attention kernels."""
     b, s, _ = h.shape
     nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim_
     kinds = dict(zip(PROJ_ORDER, layer_plan))
@@ -310,7 +323,11 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
         kv["v"][:, :, cache_index:cache_index + s] = v.to(kv["v"].dtype)
         k, v = kv["k"], kv["v"]
 
-    attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config))
+    if _takes_flash_route(config, q, kv is None and flash_ok):
+        attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), nh // nkv,
+                               attention_scale(config))
+    else:
+        attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config))
     attn = attn.transpose(1, 2).reshape(b, s, nh * hd)
     attn = proj_apply(attn, ap["o_proj"], kinds["o_proj"])
     return attn_mlp_residual(h, attn, lp, kinds, config), kv
@@ -351,11 +368,10 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
             output_hidden_states: bool = False) -> Dict[str, Any]:
     """Full-sequence forward. Returns {"logits": [B, S, V]} and, if asked,
     "hidden_states": the L inputs of the decoder layers plus the final-norm
-    output (HF semantics)."""
+    output (HF semantics). With ``config.use_flash_attention``, no
+    ``attention_mask`` and CUDA tensors, attention runs in the flash kernels;
+    on the CPU the flag is inert."""
     check_supported(config)
-    if config.use_flash_attention:
-        raise NotImplementedError(
-            "grasp_tpu_torch has no flash-attention kernel yet (use_flash_attention)")
     plan = plan or default_plan(config)
     b, s = input_ids.shape
     h = embed_lookup(params, input_ids, config)
@@ -367,17 +383,37 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
     if attention_mask is not None:
         mask = mask + _padding_bias(attention_mask)
 
+    flash_ok = attention_mask is None  # softcap and windows are refused above
     hidden_states: List[torch.Tensor] = []
     for li in range(config.num_hidden_layers):
         if output_hidden_states:
             hidden_states.append(h)
-        h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, mask, config)
+        h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, mask, config,
+                              flash_ok=flash_ok)
     h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
     out: Dict[str, Any] = {"logits": _lm_logits(h, params)}
     if output_hidden_states:
         hidden_states.append(h)
         out["hidden_states"] = hidden_states
     return out
+
+
+def hf_causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      ignore_index: int = -100) -> torch.Tensor:
+    """HF CausalLM loss: shift logits[:-1] against labels[1:], mean cross
+    entropy in fp32 over the labels that are not ``ignore_index``.
+
+    The calibration loader pre-shifts the labels one step and this shifts
+    again: the "predict t+2" objective is a quirk of the reference that both
+    packages keep."""
+    shift_logits = logits[:, :-1, :].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe_labels = torch.where(valid, shift_labels, 0)
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
+    nll = torch.where(valid, nll, 0.0)
+    return nll.sum() / torch.clamp(valid.sum(), min=1)
 
 
 # ---------------------------------------------------------------------------

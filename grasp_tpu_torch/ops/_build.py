@@ -1,8 +1,9 @@
 """Build the CUDA kernels in ``grasp_tpu_torch/csrc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file compiles, in one ``nvcc`` call, into one shared
-library with a plain C interface (no PyTorch headers, so the build takes
-seconds). The library lands in ``build/kernels/`` at the repository root,
+Every ``csrc/*.cu`` file compiles to an object file, one ``nvcc`` process per
+source and all started together, and the objects link into one shared library
+with a plain C interface (no PyTorch headers, so the build takes seconds, not
+minutes). The library lands in ``build/kernels/`` at the repository root,
 named by a hash of the sources and flags, so an edited kernel is rebuilt and a
 stale one is never loaded. The build happens at the first kernel launch, never
 at import: machines without a GPU import every module of the port.
@@ -22,15 +23,24 @@ from pathlib import Path
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # name -> (restype, argtypes) of every C entry point in csrc/
 SIGNATURES = {
     "grasp_paged_attention_decode": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-             ctypes.c_float, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q k v o lse | batch nh nkv S head_dim dtype | scale stream
+    "grasp_flash_attention_fwd": (
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q k v dout lse di dk dv | batch nh nkv S head_dim dtype | scale stream
+    "grasp_flash_attention_bwd_dkv": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q k v dout lse di dq | batch nh nkv S head_dim dtype | scale stream
+    "grasp_flash_attention_bwd_dq": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
 }
 
 
@@ -66,17 +76,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(p) for p in sorted(CSRC_DIR.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = f"$ {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{log}")
-    so.with_suffix(".log").write_text(log)
-    os.replace(tmp, so)  # atomic: a reader never sees a half-written library
+    nvcc = find_nvcc()
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        jobs = []
+        for src in sources:  # one nvcc per source, all running at once
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o",
+                   os.path.join(tmp_dir, src.stem + ".o")]
+            jobs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        log, failed = "", None
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log += f"$ {' '.join(cmd)}\n{out}"
+            if proc.returncode != 0 and failed is None:
+                failed = proc.returncode
+        if failed is None:
+            tmp_so = os.path.join(tmp_dir, "lib.so")
+            cmd = [nvcc, "-shared", "-o", tmp_so, *(c[-1] for c, _ in jobs)]
+            link = subprocess.run(cmd, capture_output=True, text=True)
+            log += f"$ {' '.join(cmd)}\n{link.stdout}{link.stderr}"
+            if link.returncode != 0:
+                failed = link.returncode
+        if failed is not None:
+            raise RuntimeError(f"nvcc failed (exit {failed}):\n{log}")
+        so.with_suffix(".log").write_text(log)
+        os.replace(tmp_so, so)  # atomic: a reader never sees a half-written library
     return so
 
 

@@ -25,7 +25,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from grasp_tpu.configs import ModelConfig
+from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.eval.generate import topk_topp_filter
 from grasp_tpu_torch.models.llama import (
     PROJ_ORDER,

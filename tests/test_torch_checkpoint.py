@@ -19,7 +19,7 @@ from grasp_tpu_torch import checkpoints as tckpt
 from grasp_tpu_torch.cli import load_model, serve_main
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.models.convert import flatten_params
-from torch_parity import small_config, to_port
+from torch_parity import port_config, small_config, to_port
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -56,7 +56,7 @@ def test_save_load_round_trip_keeps_grasp_tpu_meta_schema(tmp_path, dtype):
                           redundant_layers=[1], layer_importances=[0.5, 0.1])
     got, gconfig, gplan, meta = tckpt.load_checkpoint(str(tmp_path / "port"), "cpu")
     _assert_same(got, params)
-    assert gconfig == config and gplan == plan and meta["rank_dict"] == rank_dict
+    assert gconfig == port_config(config) and gplan == plan and meta["rank_dict"] == rank_dict
     jckpt.save_checkpoint(str(tmp_path / "jax"), jparams, config, plan, rank_dict=rank_dict,
                           redundant_layers=[1], layer_importances=[0.5, 0.1])
     with open(tmp_path / "jax" / "grasp_meta.json") as f:

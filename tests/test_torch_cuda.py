@@ -11,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from grasp_tpu.configs import ModelConfig
+from grasp_tpu_torch.configs import GraspConfig, ModelConfig
+from grasp_tpu_torch.core.engine import GraspEngine
 from grasp_tpu_torch.models.convert import params_from_numpy, params_to_numpy
-from grasp_tpu_torch.models.llama import init_params
+from grasp_tpu_torch.models.llama import forward, init_params
+from grasp_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
 from grasp_tpu_torch.serving.paged import ServingEngine
 
@@ -101,3 +103,110 @@ def test_engine_on_cuda_matches_cpu_and_runs_kernel(dev):
     got, eng = run(dev)
     assert got == want
     assert paged_attention.launches - before == config.num_hidden_layers * eng.decode_steps
+
+
+def _flash_case(dev, dtype, b, nh, nkv, s, hd, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(b, heads, s, hd, generator=gen, device=dev).to(dtype).requires_grad_()
+                 for heads in (nh, nkv, nkv))
+
+
+def _out_and_grads(fn, q, k, v, groups, scale):
+    out = fn(q, k, v, groups, scale)
+    return (out.detach(),) + torch.autograd.grad((out.float() ** 2).sum(), (q, k, v))
+
+
+def test_flash_kernels_match_plain(dev):
+    """Forward and the three gradients of sum(o ** 2): head dims 64 and 128,
+    group sizes 1 to 8, lengths 1, tile +- 1 and ragged, a batch of 3, scales
+    other than hd ** -0.5, fp32 and bf16. Gradients are held to 2e-2 of the
+    plain gradient's max (the JAX package's gate for its TPU kernels)."""
+    for b, nh, nkv, s, hd, scale in ((1, 8, 2, 1, 64, 0.125), (3, 4, 4, 63, 64, 0.125),
+                                     (1, 8, 1, 64, 64, 0.3), (2, 8, 2, 65, 128, 0.05),
+                                     (1, 16, 4, 300, 64, 0.125), (1, 4, 2, 257, 128, 128 ** -0.5)):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _flash_case(dev, dtype, b, nh, nkv, s, hd)
+            got = _out_and_grads(flash_attention, q, k, v, nh // nkv, scale)
+            want = _out_and_grads(flash_attention_reference, q, k, v, nh // nkv, scale)
+            torch.cuda.synchronize()
+            case = f"B={b} nh={nh} nkv={nkv} S={s} hd={hd} {dtype}"
+            assert got[0].dtype == dtype and got[0].shape == q.shape, case
+            assert all(torch.isfinite(t).all() for t in got), case
+            assert (got[0].float() - want[0].float()).abs().max().item() <= TOL[dtype], case
+            floor = 1e-3 * max(w.float().abs().max().item() for w in want[1:])
+            for g, w in zip(got[1:], want[1:]):
+                assert g.dtype == dtype and g.shape == w.shape, case
+                err = (g.float() - w.float()).abs().max().item()
+                assert err <= 2e-2 * max(w.float().abs().max().item(), floor), case
+
+
+def test_flash_counts_launches_is_reproducible_and_rejects_bad_input(dev):
+    q, k, v = _flash_case(dev, torch.bfloat16, 2, 8, 2, 100, 64)
+    before = dict(flash_attention.launches)
+    first = _out_and_grads(flash_attention, q, k, v, 4, 0.125)
+    assert flash_attention.launches == {n: c + 1 for n, c in before.items()}
+    with torch.no_grad():
+        flash_attention(q, k, v, 4, 0.125)
+    assert flash_attention.launches == {"fwd": before["fwd"] + 2, "dkv": before["dkv"] + 1,
+                                        "dq": before["dq"] + 1}
+    again = _out_and_grads(flash_attention, q, k, v, 4, 0.125)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)  # no atomics: the same bits from run to run
+    counted = dict(flash_attention.launches)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q[..., :32].contiguous(), k[..., :32].contiguous(),
+                        v[..., :32].contiguous(), 4, 0.125)
+    with pytest.raises(TypeError):
+        flash_attention(q.half(), k.half(), v.half(), 4, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, 2, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v, 4, 0.125)
+    with pytest.raises(ValueError):
+        flash_attention(q, k.cpu(), v, 4, 0.125)
+    assert flash_attention.launches == counted
+
+
+def test_model_forward_takes_the_flash_route_on_cuda(dev):
+    import dataclasses
+
+    config = ModelConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                              num_hidden_layers=3, query_pre_attn_scalar=100.0)
+    params = init_params(torch.Generator(device=dev).manual_seed(0), config, device=dev)
+    ids = torch.arange(70, device=dev)[None] % config.vocab_size
+    with torch.no_grad():
+        want = forward(params, ids, config=config)["logits"]
+        before = flash_attention.launches["fwd"]
+        got = forward(params, ids, config=dataclasses.replace(
+            config, use_flash_attention=True))["logits"]
+        assert flash_attention.launches["fwd"] == before + 3
+        forward(params, ids, config=dataclasses.replace(config, use_flash_attention=True),
+                attention_mask=torch.ones_like(ids))
+        assert flash_attention.launches["fwd"] == before + 3  # a padding mask: plain path
+    assert (got - want).abs().max().item() <= 1e-4
+
+
+def test_compression_engine_on_cuda_chooses_the_cpu_engine_layers_and_ranks(dev):
+    config = ModelConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
+                              num_hidden_layers=4, use_flash_attention=True)
+    params = init_params(torch.Generator().manual_seed(1), config, device="cpu")
+    rng = np.random.default_rng(7)
+    rows = rng.integers(0, config.vocab_size, (3, 1, 41))
+    batches = [{"input_ids": r[:, :-1], "labels": r[:, 1:]} for r in rows]
+    cfg = GraspConfig(num_prune_layers=2, compression_ratio=0.6)
+    cpu = GraspEngine(params, config, device="cpu")
+    want = cpu.run(batches, cfg)
+    for name in flash_attention.launches:
+        flash_attention.launches[name] = 0
+    gpu = GraspEngine(params, config, device=dev)
+    got = gpu.run(batches, cfg)
+    assert got["redundant_layers"] == want["redundant_layers"]
+    assert got["rank_dict"] == want["rank_dict"] and gpu.plan == cpu.plan
+    np.testing.assert_allclose(got["layer_importances"], want["layer_importances"], rtol=1e-3)
+    forwards = len(batches) * (1 + 2 * 2)
+    above = sum((4 - 1 - li) + (4 - li) for li in got["redundant_layers"])
+    assert flash_attention.launches == {"fwd": 4 * forwards, "dkv": len(batches) * above,
+                                        "dq": len(batches) * above}
+    for name in want["rank_dict"]:
+        same = len(set(gpu.indices_log[name].tolist()) & set(cpu.indices_log[name].tolist()))
+        assert same >= 0.9 * len(cpu.indices_log[name]), name

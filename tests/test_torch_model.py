@@ -132,7 +132,7 @@ def test_unported_paths_raise(models):
     x = torch.zeros(1, config.hidden_size)
     q_proj = tp["layers"][0]["self_attn"]["q_proj"]
     with pytest.raises(NotImplementedError):
-        tl.proj_apply(x, q_proj, "svd")
+        tl.proj_apply(x, q_proj, "hybrid")
     with pytest.raises(NotImplementedError):
         tl.proj_apply(x, {"kernel_q": q_proj["kernel"], "kernel_scale": None}, "dense")
     with pytest.raises(NotImplementedError):
@@ -143,7 +143,7 @@ def test_unported_paths_raise(models):
             "original_max_position_embeddings": 8})
     with pytest.raises(NotImplementedError):
         tl.forward(tp, torch.zeros(1, 4, dtype=torch.long),
-                   config=dataclasses.replace(config, use_flash_attention=True))
+                   config=dataclasses.replace(config, use_pallas_lowrank=True))
 
 
 def test_llama_model_owns_the_params(models):

@@ -8,6 +8,7 @@ import numpy as np
 from grasp_tpu.configs import GraspConfig, ModelConfig
 from grasp_tpu.core.engine import GraspEngine
 from grasp_tpu.models import init_params
+from grasp_tpu_torch.configs import ModelConfig as PortConfig
 from grasp_tpu_torch.models.convert import params_from_numpy
 
 
@@ -16,6 +17,18 @@ def small_config(**overrides) -> ModelConfig:
                 num_hidden_layers=3)
     base.update(overrides)
     return ModelConfig.tiny(**base)
+
+
+def port_config(jax_config: ModelConfig) -> PortConfig:
+    """The port's ModelConfig with the JAX config's fields."""
+    return PortConfig.from_json(jax_config.to_json())
+
+
+def calibration_batches(config: ModelConfig, n: int = 3, seq: int = 16, seed: int = 7):
+    """Numpy calibration batches (pre-shifted rows of one stream) for both engines."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, config.vocab_size, (n, 1, seq + 1))
+    return [{"input_ids": r[:, :-1].copy(), "labels": r[:, 1:].copy()} for r in rows]
 
 
 def grasp_compressed(config: ModelConfig):
