@@ -23,22 +23,39 @@ Phases, each of which raises on failure (exit code != 0):
    prompts of 16 to 1500 tokens, and /v1/models. Checks every response, that
    the kernel ran once per layer per decode step, and that the served tokens
    agree with a teacher-forced plain forward of the same weights.
-6. compression slice: ``grasp-compress-torch`` on a dense TinyLlama-1.1B at
+6. low-rank, int4 and quantizer kernels: the fused low-rank kernel against
+   its plain version at five shapes in float32 and bfloat16, with the
+   gradients through its autograd function; the int4 matmul kernels (grid
+   and double-buffered) at m = 1, 8, 64 for the model's four weight shapes
+   and a ragged one, against the plain version and each other; the
+   stochastic int8 quantizer by structure, distribution and seed. Each is
+   timed against its plain version, its bound and, where one exists, the
+   library call (two matmuls; a matmul on the dequantized weight).
+7. quantized and fused serving: the serving checkpoint again through
+   ``grasp_tpu_torch.cli`` with ``--quantize int4`` (then once more with
+   ``GRASP_INT4_KERNEL=dma``), with ``--quantize int8``, and with
+   ``use_pallas_lowrank`` set in its model config. Tokens are checked
+   against a teacher-forced plain forward of the served (quantized) params
+   and launch counts against counts derived from the dispatch rules.
+8. compression slice: ``grasp-compress-torch`` on a dense TinyLlama-1.1B at
    full width and depth with 16 synthetic calibration rows of 2047 tokens
    (2 layers, ratio 0.9). Checks the chosen layers, every rank, the plan, the
    parameter count, that the flash kernels ran as often as the sweeps imply,
    that the saved checkpoint loads and runs, and one round's gradients with
    the flash route and the plain route in bf16 against the plain route in
-   fp32.
+   fp32. Then the same compression from a checkpoint whose model config has
+   ``use_pallas_lowrank``: the same layers and ranks, and the fused low-rank
+   kernel launched once per compiled projection per later forward.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound); then the card's
 line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX and nothing of grasp_tpu. ``--only flash|serve|compress`` runs one part
-while developing and prints no result lines.
+JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|compress`` runs
+one part while developing and prints no result lines.
 """
 
 import argparse
+import contextlib
 import functools
 import http.client
 import json
@@ -81,7 +98,7 @@ def phase_build():
     log = so.with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
                 print(f"  ptxas: {line.strip()}")
 
 
@@ -246,10 +263,17 @@ def phase_flash(torch):
     return worst
 
 
-def _event_ms(torch, fn, iters):
+def _event_ms(torch, fn, iters, run_ahead=False):
+    """Mean ms per call by CUDA events. ``run_ahead``: for calls shorter than
+    the host takes to enqueue them (tens of microseconds), the card first spins
+    for about 20 ms (one idle kernel, which draws no power that would lower
+    the clocks), so that the host enqueues the whole loop meanwhile and the
+    events bracket device time alone."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        torch.cuda._sleep(int(0.02 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
     start.record()
     for _ in range(iters):
         fn()
@@ -349,6 +373,284 @@ def phase_flash_timing(torch):
                      "library_ms": mean["library", name], "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
     return out
+
+
+# (m, k, r, n) of the fused low-rank kernel: q/o and k/v projections in a
+# 512-token prefill, up_proj over a calibration row, down_proj, a ragged case
+LOWRANK_CASES = ((512, 2048, 102, 2048), (512, 2048, 22, 256), (2047, 2048, 150, 5632),
+                 (512, 5632, 150, 2048), (300, 64, 16, 48))
+# max abs error over the plain output's (or gradient's) max abs
+LOWRANK_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def phase_lowrank(torch):
+    """The fused low-rank kernel against its plain version: the output, and
+    the gradients of sum(y * g) through the autograd function against
+    autograd through the plain version. Returns the worst absolute error."""
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank, fused_lowrank_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2024)
+    worst = 0.0
+    for m, k, r, n in LOWRANK_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            x = torch.randn(m, k, generator=gen, device=dev).to(dtype).requires_grad_()
+            a = (torch.randn(k, r, generator=gen, device=dev) * k ** -0.5).to(dtype).requires_grad_()
+            b = (torch.randn(r, n, generator=gen, device=dev) * r ** -0.5).to(dtype).requires_grad_()
+            g = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            got = fused_lowrank(x, a, b)
+            want = fused_lowrank_plain(x, a, b)
+            got_g = torch.autograd.grad(got, (x, a, b), g)
+            want_g = torch.autograd.grad(want, (x, a, b), g)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            rel = _rel_err(got, want)
+            grad_rel = [_rel_err(gg, wg) for gg, wg in zip(got_g, want_g)]
+            tol = LOWRANK_RTOL[dtype_name]
+            finite = all(torch.isfinite(t).all().item() for t in (got, *got_g))
+            ok = finite and got.dtype == dtype and rel <= tol and max(grad_rel) <= 2 * tol
+            print(f"lowrank vs plain: m={m} k={k} r={r} n={n} {dtype_name}: max_abs_err={err:.3e}, "
+                  f"over the plain max {rel:.3e} (tol {tol:g}), gradients dx={grad_rel[0]:.3e} "
+                  f"da={grad_rel[1]:.3e} db={grad_rel[2]:.3e} (tol {2 * tol:g}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fused low-rank kernel disagrees: {(m, k, r, n)} {dtype_name}")
+            worst = max(worst, err)
+    return worst
+
+
+def _turns_ms(torch, runners, iters=10):
+    """Each runner timed in turns plain, kernel, library, library, kernel,
+    plain (those it has); returns the mean of each pair and the raw pairs."""
+    t = {}
+    for turn in ("plain", "kernel", "library", "library", "kernel", "plain"):
+        if turn in runners:
+            t.setdefault(turn, []).append(_event_ms(torch, runners[turn], iters, run_ahead=True))
+    return {k: sum(v) / len(v) for k, v in t.items()}, t
+
+
+def _bound(nbytes, flops):
+    bytes_ms, ops_ms = nbytes / 3.35e12 * 1e3, flops / 989e12 * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def phase_lowrank_timing(torch):
+    """Kernel, plain version and the library call (two torch.matmul) in bf16
+    at the up_proj of a calibration row and at a 512-token prefill's q_proj.
+    Bound: x, A, B, y moved once against 2 m r (k + n) flops at the bf16 peak.
+    The record is the first shape's."""
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank, fused_lowrank_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    out = None
+    for m, k, r, n in (LOWRANK_CASES[2], LOWRANK_CASES[0]):
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        a = (torch.randn(k, r, generator=gen, device=dev) * k ** -0.5).bfloat16()
+        b = (torch.randn(r, n, generator=gen, device=dev) * r ** -0.5).bfloat16()
+        with torch.no_grad():
+            mean, raw = _turns_ms(torch, {
+                "kernel": lambda: fused_lowrank(x, a, b),
+                "plain": lambda: fused_lowrank_plain(x, a, b),
+                "library": lambda: torch.matmul(torch.matmul(x, a), b)})
+        rec = {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": mean["library"],
+               **_bound(2 * (m * k + k * r + r * n + m * n), 2 * m * r * (k + n))}
+        print(f"lowrank timing (m={m} k={k} r={r} n={n} bf16), ms per call, two turns each: "
+              + ", ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}" for name, v in raw.items())
+              + f"; bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}")
+        out = out or rec
+    return out
+
+
+# (in, out) of the model's int4 weights: q/o, gate/up, down, lm_head
+INT4_SHAPES = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 32000))
+# |kernel - plain| <= atol + rtol * |plain| (the JAX package's gates: fp32 is
+# a change of summation order; bf16 rounds the output once)
+INT4_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (1e-2, 0.5)}
+
+
+def _int4_weight(torch, gen, dev, in_f, out_f):
+    from grasp_tpu_torch.ops.quant import quantize_int4
+
+    return quantize_int4(torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02)
+
+
+def phase_int4(torch):
+    """Both int4 matmul kernels against the plain version and each other.
+    Returns the worst absolute error per variant."""
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(31)
+    worst = {"grid": 0.0, "dma": 0.0}
+    cases = [(shape, m) for shape in INT4_SHAPES for m in (1, 8, 64)] + [((512, 130), 3)]
+    for (in_f, out_f), m in cases:
+        packed, scale = _int4_weight(torch, gen, dev, in_f, out_f)
+        for dtype_name in ("float32", "bfloat16"):
+            rtol, atol = INT4_TOL[dtype_name]
+            x = torch.randn(m, in_f, generator=gen, device=dev).to(getattr(torch, dtype_name))
+            want = int4_matmul_plain(x, packed, scale)
+            before = dict(int4_matmul.launches)
+            got = {v: int4_matmul(x, packed, scale, kernel=v) for v in ("grid", "dma")}
+            torch.cuda.synchronize()
+            # out % 128 != 0: the double-buffered variant hands over to the grid kernel
+            ran = {v: int4_matmul.launches[v] - before[v] for v in got}
+            want_ran = {"grid": 1, "dma": 1} if out_f % 128 == 0 else {"grid": 2, "dma": 0}
+            errs, ok = {}, ran == want_ran
+            for v, y in got.items():
+                diff = (y.float() - want.float()).abs()
+                errs[v] = diff.max().item()
+                ok = ok and y.dtype == x.dtype and torch.isfinite(y).all().item() and bool(
+                    (diff <= atol + rtol * want.float().abs()).all().item())
+            between = (got["grid"].float() - got["dma"].float()).abs()
+            ok = ok and bool((between <= atol + rtol * want.float().abs()).all().item())
+            print(f"int4 vs plain: in={in_f} out={out_f} m={m} {dtype_name}: max_abs_err grid="
+                  f"{errs['grid']:.3e} dma={errs['dma']:.3e} (rtol {rtol:g}, atol {atol:g}), grid "
+                  f"against dma {between.max().item():.3e}, bit-equal: "
+                  f"{torch.equal(got['grid'], got['dma'])}, launches {ran} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"int4 matmul kernels disagree: {(in_f, out_f)} m={m} "
+                                     f"{dtype_name}")
+            if out_f % 128 == 0:
+                worst["dma"] = max(worst["dma"], errs["dma"])
+            worst["grid"] = max(worst["grid"], errs["grid"])
+    return worst
+
+
+def phase_int4_timing(torch):
+    """Both kernels, the plain version and the library call (torch.matmul on
+    the dequantized bf16 weight; the dequantization is timed apart) at the
+    decode shape m=8 bf16 for each of the model's weight shapes. Every timed
+    call takes the next of enough weight copies to exceed the 50 MB L2, as a
+    decode step walks 22 layers of weights. Bound: packed weight, scales, x
+    and y moved once against 2 m in out flops at the bf16 peak. The record
+    is the gate/up shape's."""
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from grasp_tpu_torch.ops.quant import unpack_int4
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(32)
+    m, out = 8, None
+    for in_f, out_f in (INT4_SHAPES[1], INT4_SHAPES[0], INT4_SHAPES[2], INT4_SHAPES[3]):
+        copies = max(2, -(-64 * 2 ** 20 // (in_f * out_f // 2)))
+        weights = [_int4_weight(torch, gen, dev, in_f, out_f) for _ in range(copies)]
+        x = torch.randn(m, in_f, generator=gen, device=dev).bfloat16()
+
+        def dequant(packed, scale):
+            w = unpack_int4(packed).float().reshape(scale.shape[0], -1, out_f)
+            return (w * scale[:, None, :]).reshape(-1, out_f).bfloat16()
+
+        dense = [dequant(*w) for w in weights[:max(2, copies // 4)]]  # 4x the packed bytes
+        turn = {"i": 0}
+
+        def cycle(fn, pool):
+            def run():
+                turn["i"] += 1
+                return fn(pool[turn["i"] % len(pool)])
+            return run
+
+        mean, raw = _turns_ms(torch, {
+            "kernel": cycle(lambda w: int4_matmul(x, *w, kernel="grid"), weights),
+            "plain": cycle(lambda w: int4_matmul_plain(x, *w), weights),
+            "library": cycle(lambda w: torch.matmul(x, w), dense)}, iters=2 * copies)
+        dma, _ = _turns_ms(torch, {"kernel": cycle(lambda w: int4_matmul(x, *w, kernel="dma"),
+                                                   weights)}, iters=2 * copies)
+        dequant_ms = _event_ms(torch, cycle(lambda w: dequant(*w), weights), copies,
+                               run_ahead=True)
+        g = weights[0][1].shape[0]
+        bound = _bound(in_f * out_f // 2 + g * out_f * 4 + 2 * m * (in_f + out_f),
+                       2 * m * in_f * out_f)
+        print(f"int4 timing (m={m} in={in_f} out={out_f} bf16, {copies} weight copies in turn), ms "
+              f"per call: grid {raw['kernel'][0]:.4f}/{raw['kernel'][1]:.4f}, dma "
+              f"{dma['kernel']:.4f}, plain {raw['plain'][0]:.4f}/{raw['plain'][1]:.4f}, library "
+              f"matmul on a dequantized weight {raw['library'][0]:.4f}/{raw['library'][1]:.4f} "
+              f"(dequantizing it {dequant_ms:.4f}); bound {bound['bound_ms']:.5f} ms by "
+              f"{bound['bound_by']}")
+        if out is None:
+            shared = {"plain_ms": mean["plain"], "library_ms": mean["library"], **bound}
+            out = {"grid": {"ms": mean["kernel"], **shared}, "dma": {"ms": dma["kernel"], **shared}}
+        del weights, dense
+    return out
+
+
+def phase_quantizer(torch):
+    """The stochastic int8 quantizer by structure and distribution: scales
+    equal to quantize_int8's, every q one of the two neighbours of w / scale,
+    |q scale - w| <= scale, the mean rounding error within 4 standard errors
+    of 0, the same seed bit-equal and another seed different. Returns the
+    worst |q scale - w| (the error a round-to-nearest quantizer halves)."""
+    from grasp_tpu_torch.ops.quant import (
+        quantize_int8, quantize_int8_stochastic, quantize_int8_stochastic_plain)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(61)
+    worst = 0.0
+    for (in_f, out_f), dtype_name in (((2048, 5632), "bfloat16"), ((256, 128), "float32")):
+        w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).to(
+            getattr(torch, dtype_name))
+        w[:, 5] = 0
+        q, scale = quantize_int8_stochastic(w, seed=7)
+        again, _ = quantize_int8_stochastic(w, seed=7)
+        other, _ = quantize_int8_stochastic(w, seed=8)
+        plain_q, plain_scale = quantize_int8_stochastic_plain(
+            w, torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        scaled = w.float() / scale
+        low = torch.clamp(torch.floor(scaled), -127, 127)
+        high = torch.clamp(torch.floor(scaled) + 1, -127, 127)
+        stats = {}
+        for name, qq in (("kernel", q), ("plain", plain_q)):
+            qf = qq.float()
+            stats[name] = {
+                "neighbours": bool(((qf == low) | (qf == high)).all().item()),
+                # |q scale - w| <= scale, with room for the product's own rounding
+                "err": ((qf * scale - w.float()).abs() - scale * (1 + 1e-5)).max().item(),
+                "mean": (qf - scaled).mean().item(),
+                "up": (qf == high).float().mean().item()}
+        se = 0.5 / (in_f * out_f) ** 0.5  # a rounding error's variance is at most 1/4
+        same_scale = (torch.equal(scale, quantize_int8(w)[1]) and torch.equal(scale, plain_scale))
+        ok = (same_scale and q.dtype == torch.int8 and tuple(scale.shape) == (1, out_f)
+              and torch.equal(q, again) and not torch.equal(q, other)
+              and bool((q[:, 5] == 0).all().item())
+              and all(s["neighbours"] and s["err"] <= 0 and abs(s["mean"]) <= 4 * se
+                      for s in stats.values()))
+        print(f"quantizer: {in_f}x{out_f} {dtype_name}: scales equal quantize_int8's: {same_scale}; "
+              f"q in the two neighbours of w/scale: kernel {stats['kernel']['neighbours']} plain "
+              f"{stats['plain']['neighbours']}; mean of q - w/scale kernel "
+              f"{stats['kernel']['mean']:.3e} plain {stats['plain']['mean']:.3e} (4 standard "
+              f"errors: {4 * se:.3e}); rounded up: kernel {stats['kernel']['up']:.4f} plain "
+              f"{stats['plain']['up']:.4f}; same seed bit-equal {torch.equal(q, again)}, another "
+              f"seed equal {torch.equal(q, other)} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"stochastic quantizer: {in_f}x{out_f} {dtype_name}")
+        worst = max(worst, (q.float() * scale - w.float()).abs().max().item())
+    return worst
+
+
+def phase_quantizer_timing(torch):
+    """Kernel and plain version at a gate/up projection (2048 x 5632, bf16);
+    no single PyTorch call computes the function. Bound: w read once, q and
+    the scales written once."""
+    from grasp_tpu_torch.ops.quant import quantize_int8_stochastic, quantize_int8_stochastic_plain
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(62)
+    in_f, out_f = 2048, 5632
+    w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).bfloat16()
+    mean, raw = _turns_ms(torch, {"kernel": lambda: quantize_int8_stochastic(w, seed=1),
+                                  "plain": lambda: quantize_int8_stochastic_plain(w, gen)})
+    rec = {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": None,
+           **_bound(in_f * out_f * 3 + out_f * 4, 3 * in_f * out_f)}
+    print(f"quantizer timing ({in_f}x{out_f} bf16), ms per call, two turns each: "
+          + ", ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}" for name, v in raw.items())
+          + f"; bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}")
+    return rec
 
 
 def build_flagship(torch, dev):
@@ -453,13 +755,151 @@ def check_against_plain(torch, params, config, plan, served, dev):
     return worst, match, total
 
 
-def phase_slice(torch, card, dev):
+SERVE_ARGS = ["--host", "127.0.0.1", "--port", "0", "--max_batch", "8", "--page_size", "128",
+              "--num_pages", "256", "--max_pages_per_seq", "16"]
+# prompts of the quantized and fused variants: all longer than 64 tokens, so
+# that the teacher-forced forward that checks them stays off the int4 kernels,
+# and one of 256 rows or more after padding, which the fused kernel takes
+VARIANT_PROMPT_LENS = (70, 130, 600)
+VARIANT_MAX_TOKENS = 16
+
+
+@contextlib.contextmanager
+def _served(torch, dev, ckpt_root, extra=()):
+    """``grasp-serve-torch`` on the checkpoint, in this process: yields
+    (engine, port) and shuts the server down afterwards."""
+    from grasp_tpu_torch.cli import serve_main
+
+    handles = serve_main(["--model_path", ckpt_root, "--device", str(dev), *SERVE_ARGS, *extra],
+                         block=False)
+    try:
+        yield handles[0].engine, handles[1].server_address[1]
+    finally:
+        handles[1].shutdown()
+        handles[1].server_close()
+        handles[0].close()
+        del handles
+        torch.cuda.empty_cache()
+
+
+def _int4_projections(params):
+    """(groups' size, output width) of every int4 product the model runs per
+    forward, in order: each dense projection, both products of each low-rank
+    pair, the lm_head."""
+    def geometry(packed, scale):
+        return 2 * packed.shape[0] // scale.shape[0], packed.shape[1]
+
+    out = []
+    for layer in params["layers"]:
+        for group in ("self_attn", "mlp"):
+            for p in layer[group].values():
+                for key in ("kernel", "in_kernel", "out_kernel"):
+                    if key + "_q4" in p:
+                        out.append(geometry(p[key + "_q4"], p[key + "_scale"]))
+    if "kernel_q4" in params.get("lm_head", {}):
+        out.append(geometry(params["lm_head"]["kernel_q4"], params["lm_head"]["kernel_scale"]))
+    return out
+
+
+def serve_variant(torch, dev, ckpt_root, label, extra=(), dma_round=False):
+    """Serve the checkpoint one more way, a few completions one after the
+    other, and hold the tokens to a teacher-forced plain forward of the
+    served params and the launch counts to the dispatch rules. Returns the
+    launches of the new kernels on this path."""
+    import dataclasses
+
     import numpy as np
 
-    from grasp_tpu_torch.checkpoints import save_checkpoint
-    from grasp_tpu_torch.cli import serve_main
-    from grasp_tpu_torch.models.convert import flatten_params
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul
+    from grasp_tpu_torch.ops.lowrank import FUSED_MIN_ROWS, fused_lowrank
     from grasp_tpu_torch.ops.paged_attention import paged_attention
+    from grasp_tpu_torch.ops.quant import takes_int4_kernel
+
+    rng = np.random.default_rng(17)
+    t0 = time.perf_counter()
+    with _served(torch, dev, ckpt_root, extra) as (engine, port):
+        config = engine.config
+        prompts = [rng.integers(3, config.vocab_size, size=n).tolist()
+                   for n in VARIANT_PROMPT_LENS]
+        _check_completion(*_post(port, {"prompt": prompts[0][:65], "max_tokens": 2}),
+                          prompts[0][:65])  # warm-up, not counted
+        start_s = time.perf_counter() - t0
+
+        def run_round():
+            """Counts set to 0, the three completions, counts read."""
+            int4_matmul.launches.update(grid=0, dma=0)
+            fused_lowrank.launches = paged_attention.launches = 0
+            engine.decode_steps, engine.decode_seconds = 0, 0.0
+            outs = []
+            for prompt in prompts:
+                status, data = _post(port, {"prompt": prompt, "max_tokens": VARIANT_MAX_TOKENS})
+                outs.append(_check_completion(status, data, prompt))
+            return outs, {"grid": int4_matmul.launches["grid"], "dma": int4_matmul.launches["dma"],
+                          "fused": fused_lowrank.launches, "paged": paged_attention.launches}
+
+        def derived(dma):
+            """Launches per round from the dispatch rules, in plain Python: an
+            int4 product takes a kernel at 64 rows or fewer and a group size
+            that is a multiple of 128 (decode runs max_batch rows, prefill the
+            padded prompt); a low-rank pair takes the fused kernel when the
+            config asks and the call has 256 rows or more."""
+            steps = engine.decode_steps
+            want = {"grid": 0, "dma": 0, "fused": 0, "paged": config.num_hidden_layers * steps}
+            ps = engine.pool.page_size
+            padded = [-(-len(p) // ps) * ps for p in prompts]
+            for rows, times in [(8, steps)] + [(n, 1) for n in padded]:
+                for gs, out_f in _int4_projections(engine.params):
+                    if takes_int4_kernel(rows, gs):
+                        want["dma" if dma and out_f % 128 == 0 else "grid"] += times
+                if config.use_pallas_lowrank and rows >= FUSED_MIN_ROWS:
+                    want["fused"] += times * sum(
+                        "in_kernel" in p for layer in engine.params["layers"]
+                        for group in ("self_attn", "mlp") for p in layer[group].values())
+            return want
+
+        outs, got = run_round()
+        steps, secs = engine.decode_steps, engine.decode_seconds
+        want = derived(dma=False)
+        print(f"serve {label}: started in {start_s:.1f} s; {len(outs)} completions of "
+              f"{[len(o) for o in outs]} tokens, {steps} decode steps in {secs:.3f} s "
+              f"({secs / max(steps, 1) * 1e3:.2f} ms per step, one request at a time); launches "
+              f"{got}, derived {want}")
+        if steps == 0 or got != want:
+            raise AssertionError(f"serve {label}: launch counts differ from the dispatch rules")
+        plain_config = dataclasses.replace(config, use_pallas_lowrank=False)
+        gap, match, total = check_against_plain(torch, engine.params, plain_config, engine.plan,
+                                                list(zip(prompts, outs)), dev)
+        print(f"serve {label}: served vs plain teacher-forced forward of the served params: "
+              f"argmax agrees at {match}/{total} positions, max logit gap {gap:.4f} "
+              f"(tol {GAP_TOL})")
+        if gap > GAP_TOL:
+            raise AssertionError(f"serve {label}: served tokens disagree with the plain forward")
+        if dma_round:
+            os.environ["GRASP_INT4_KERNEL"] = "dma"
+            try:
+                dma_outs, dma_got = run_round()
+                dma_secs = engine.decode_seconds / max(engine.decode_steps, 1)
+            finally:
+                del os.environ["GRASP_INT4_KERNEL"]
+            dma_want = derived(dma=True)
+            gap, match, total = check_against_plain(torch, engine.params, plain_config,
+                                                    engine.plan, list(zip(prompts, dma_outs)), dev)
+            print(f"serve {label}, GRASP_INT4_KERNEL=dma: {dma_secs * 1e3:.2f} ms per step; "
+                  f"launches {dma_got}, derived {dma_want}; argmax agrees at {match}/{total} "
+                  f"positions, max logit gap {gap:.4f}; same tokens as the grid kernel: "
+                  f"{dma_outs == outs}")
+            if dma_got != dma_want or dma_got["dma"] == 0 or gap > GAP_TOL:
+                raise AssertionError(f"serve {label}: the double-buffered variant failed")
+            got["dma"] = dma_got["dma"]
+    return got
+
+
+def phase_slice(torch, card, dev):
+    """The serving slice, then the same checkpoint served with int4 weights,
+    int8 weights and the fused low-rank kernel. Returns the launches of the
+    paged kernel on the main path and of the int4 and fused kernels on theirs."""
+    from grasp_tpu_torch.checkpoints import META_NAME, save_checkpoint
+    from grasp_tpu_torch.models.convert import flatten_params
 
     config, params, plan = build_flagship(torch, dev)
     n_params = sum(t.numel() for t in flatten_params(params).values())
@@ -468,18 +908,36 @@ def phase_slice(torch, card, dev):
           f"{n_params} parameters")
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="smoke_ckpt_", dir=os.path.join(ROOT, "build"))
-    handles = None
     try:
         t0 = time.perf_counter()
         save_checkpoint(ckpt_root, params, config, plan)
         del params
         torch.cuda.empty_cache()
-        handles = serve_main(["--model_path", ckpt_root, "--host", "127.0.0.1", "--port", "0",
-                              "--device", str(dev), "--max_batch", "8", "--page_size", "128",
-                              "--num_pages", "256", "--max_pages_per_seq", "16"], block=False)
-        gserver, httpd, _ = handles
-        port = httpd.server_address[1]
-        engine = gserver.engine
+        launches = _serve_main_path(torch, card, dev, ckpt_root, config, t0)
+        variants = {"int4": serve_variant(torch, dev, ckpt_root, "--quantize int4",
+                                          ["--quantize", "int4"], dma_round=True),
+                    "int8": serve_variant(torch, dev, ckpt_root, "--quantize int8",
+                                          ["--quantize", "int8"])}
+        meta_path = os.path.join(ckpt_root, META_NAME)
+        with open(meta_path) as f:
+            meta = json.load(f)
+        meta["model_config"]["use_pallas_lowrank"] = True
+        with open(meta_path, "w") as f:
+            json.dump(meta, f)
+        variants["fused"] = serve_variant(torch, dev, ckpt_root, "use_pallas_lowrank")
+        if variants["fused"]["fused"] == 0 or variants["int4"]["grid"] == 0:
+            raise AssertionError("a serving variant never reached its kernel")
+        return launches, variants
+    finally:
+        shutil.rmtree(ckpt_root, ignore_errors=True)
+
+
+def _serve_main_path(torch, card, dev, ckpt_root, config, t0):
+    import numpy as np
+
+    from grasp_tpu_torch.ops.paged_attention import paged_attention
+
+    with _served(torch, dev, ckpt_root) as (engine, port):
         print(f"slice: checkpoint saved and served on 127.0.0.1:{port} in "
               f"{time.perf_counter() - t0:.1f} s")
 
@@ -542,12 +1000,6 @@ def phase_slice(torch, card, dev):
         if gap > GAP_TOL:
             raise AssertionError("served tokens disagree with the plain forward")
         return launches
-    finally:
-        if handles is not None:
-            handles[1].shutdown()
-            handles[1].server_close()
-            handles[0].close()
-        shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
 # the compression slice: TinyLlama-1.1B at full width and depth, calibration
@@ -706,14 +1158,104 @@ def phase_compress(torch, card, dev):
         if not err["flash"] <= max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * err["plain"]):
             raise AssertionError("the flash route's gradients are further from the fp32 "
                                  "reference than the plain route's")
-        return launches
+        del engines, grads, dense_params, svd_out
+        torch.cuda.empty_cache()
+        fused = compress_with_fused_lowrank(torch, card, dev, meta, n_batches)
+        return launches, fused
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
+def compress_with_fused_lowrank(torch, card, dev, plain_meta, n_batches):
+    """The same compression from a checkpoint of the same dense model whose
+    config has ``use_pallas_lowrank``: every forward after a round has
+    compiled projections runs the fused kernel once per compiled projection
+    (calibration rows have 2047 tokens). Must choose the layers and ranks of
+    the run without the flag. Returns the fused kernel's launches."""
+    import dataclasses
+
+    from grasp_tpu_torch.checkpoints import load_checkpoint, save_checkpoint
+    from grasp_tpu_torch.cli import compress_main, load_model
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+
+    src = tempfile.mkdtemp(prefix="smoke_dense_", dir=os.path.join(ROOT, "build"))
+    dst = tempfile.mkdtemp(prefix="smoke_fused_", dir=os.path.join(ROOT, "build"))
+    try:
+        config, params, plan, _ = load_model("tinyllama-1.1b", device=dev, dtype="bfloat16",
+                                             seed=42)
+        save_checkpoint(src, params, dataclasses.replace(config, use_pallas_lowrank=True), plan)
+        del params
+        torch.cuda.empty_cache()
+        args = list(COMPRESS_ARGS)
+        args[args.index("--model_name_or_path") + 1] = src
+        fused_lowrank.launches = 0
+        t0 = time.perf_counter()
+        rc = compress_main(args + ["--save_path", dst, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_lowrank.launches
+        if rc != 0:
+            raise AssertionError(f"compress_main returned {rc}")
+        _, got_config, _, meta = load_checkpoint(dst, "cpu")
+        # rounds run per layer, highest first, the MLP block (3 projections)
+        # then the attention block (4); a round's sweep sees what earlier rounds compiled
+        compiled, want = 0, 0
+        for _ in meta["redundant_layers"]:
+            for block in (3, 4):
+                want += n_batches * compiled
+                compiled += block
+        stages = meta["extra"]["summary"]["stage_times_s"]
+        print(f"compress, use_pallas_lowrank: layers {meta['redundant_layers']}, "
+              f"{len(meta['rank_dict'])} ranks, fused low-rank launches {launches} (want "
+              f"{n_batches} rows x (0 + 3 + 7 + 10 ...) = {want}); {wall:.1f} s end to end, stage "
+              f"seconds {stages}; card {card}")
+        if (meta["redundant_layers"] != plain_meta["redundant_layers"]
+                or meta["rank_dict"] != plain_meta["rank_dict"]):
+            raise AssertionError("the fused kernel changed the chosen layers or ranks")
+        if not got_config.use_pallas_lowrank or launches == 0 or launches != want:
+            raise AssertionError("the sweeps did not run the fused low-rank kernel as counted")
+        return launches
+    finally:
+        shutil.rmtree(src, ignore_errors=True)
+        shutil.rmtree(dst, ignore_errors=True)
+
+
+def drive_quantizer(torch, dev):
+    """The stochastic quantizer as its users call it: every projection
+    kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
+    quantized on the card for a copy that will be fine-tuned, and the
+    quantized kernels used: q scale must stay within one scale of w and the
+    int8 product within 2% of the dense one. No entry point of either package
+    calls it (in the JAX package only its test does), so this is its main
+    path. Returns its launches."""
+    from grasp_tpu_torch.ops.quant import quant_matmul, quantize_int8_stochastic
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048), (2048, 5632), (2048, 5632),
+              (5632, 2048), (2048, 32000)]
+    quantize_int8_stochastic.launches = 0
+    worst = 0.0
+    for i, (in_f, out_f) in enumerate(shapes):
+        w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).bfloat16()
+        q, scale = quantize_int8_stochastic(w, seed=i)
+        x = torch.randn(8, in_f, generator=gen, device=dev).bfloat16()
+        got, want = quant_matmul(x, q, scale).float(), torch.matmul(x, w).float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        inside = bool(((q.float() * scale - w.float()).abs() <= scale * (1 + 1e-5)).all().item())
+        if not (inside and rel <= 0.02 and torch.isfinite(got).all().item()):
+            raise AssertionError(f"stochastic quantizer on {in_f}x{out_f}: product off by {rel}")
+        worst = max(worst, rel)
+    launches = quantize_int8_stochastic.launches
+    print(f"quantizer driven over {len(shapes)} projection kernels: {launches} launches, int8 "
+          f"product within {worst:.4f} of the dense product's max (tol 0.02)")
+    if launches != len(shapes):
+        raise AssertionError("the quantizer did not launch once per kernel")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["flash", "serve", "compress"], default=None,
+    parser.add_argument("--only", choices=["flash", "kernels", "serve", "compress"], default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -733,6 +1275,10 @@ def main(argv=None) -> int:
         print(phase_flash(torch))
         print(phase_flash_timing(torch))
         return 0
+    if args.only == "kernels":
+        print(phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch))
+        print(phase_lowrank_timing(torch), phase_int4_timing(torch), phase_quantizer_timing(torch))
+        return 0
     dev = torch.device("cuda", 0)
     if args.only == "compress":
         print(phase_compress(torch, card, dev))
@@ -741,16 +1287,22 @@ def main(argv=None) -> int:
     paged = phase_kernel_timing(torch, 22)
     if args.only == "serve":
         print(phase_slice(torch, card, dev))
+        print(drive_quantizer(torch, dev))
         return 0
     flash_err = phase_flash(torch)
     flash = phase_flash_timing(torch)
-    paged_launches = phase_slice(torch, card, dev)
-    flash_launches = phase_compress(torch, card, dev)
+    lowrank_err, int4_err, quant_err = phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch)
+    lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
+                            phase_quantizer_timing(torch))
+    paged_launches, served = phase_slice(torch, card, dev)
+    flash_launches, fused_compress_launches = phase_compress(torch, card, dev)
+    quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu"))
     if bad:
         raise AssertionError(f"the port imported {bad}")
     flash_src = "grasp_tpu_torch/csrc/flash_attention.cu"
+    int4_src = "grasp_tpu_torch/csrc/int4_matmul.cu"
     record = {"kernels": [
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
@@ -765,6 +1317,22 @@ def main(argv=None) -> int:
         {"name": "flash_attention_bwd_dq", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
+        # launches: prefill of the fused serving variant plus the flagged compression
+        {"name": "lowrank_fused", "route": "cuda",
+         "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
+         "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
+         "launches": served["fused"]["fused"] + fused_compress_launches,
+         "max_abs_err": lowrank_err, **lowrank},
+        {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
+         "replaces": "grasp_tpu/ops/pallas_int4.py:198",
+         "launches": served["int4"]["grid"], "max_abs_err": int4_err["grid"], **int4["grid"]},
+        {"name": "int4_matmul_dma", "route": "cuda", "source": int4_src,
+         "replaces": "grasp_tpu/ops/pallas_int4.py:139",
+         "launches": served["int4"]["dma"], "max_abs_err": int4_err["dma"], **int4["dma"]},
+        {"name": "quantize_int8_stochastic", "route": "cuda",
+         "source": "grasp_tpu_torch/csrc/quantize_int8.cu",
+         "replaces": "grasp_tpu/ops/quant.py:311",
+         "launches": quant_launches, "max_abs_err": quant_err, **quant},
     ]}
     print(json.dumps(record))
     print(card)

@@ -10,9 +10,11 @@ not ported yet and raise NotImplementedError.
 from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
 ``params.pt``; grasp_tpu checkpoints convert with
 ``scripts/convert_grasp_tpu_checkpoint.py``) or a named architecture preset
-with random weights made from ``--seed``. HF checkpoint import, quantized
-weights, int8 KV, the prefix cache, chunked prefill and speculative decoding
-are not ported yet.
+with random weights made from ``--seed``; ``--quantize int8|int4`` serves a
+quantized copy of the weights. A checkpoint whose model config has
+``use_pallas_lowrank`` runs its low-rank projections through the fused kernel
+at 256 rows or more (prefill). HF checkpoint import, int8 KV, the prefix
+cache, chunked prefill and speculative decoding are not ported yet.
 """
 
 from __future__ import annotations
@@ -196,6 +198,8 @@ def _serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"],
                    help="parameter dtype of a preset (a checkpoint keeps its own)")
     p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
+    p.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int4"],
+                   help="weight quantization for the serving copy")
     p.add_argument("--stop_token_ids", type=str, default=None,
                    help="comma-separated extra stop token ids beyond the tokenizer's eos")
     p.add_argument("--max_batch", type=int, default=8)
@@ -221,6 +225,13 @@ def serve_main(argv=None, block: bool = True):
                                                  dtype=args.dtype, seed=args.seed)
     if args.tokenizer_path:
         tokenizer = load_tokenizer(args.tokenizer_path)
+    if args.quantize != "none":
+        from grasp_tpu_torch.ops.quant import quantize_model_weights
+
+        # consume: the source tree is dropped layer by layer, so the peak
+        # holds one tree and one layer, not both trees
+        params = quantize_model_weights(params, bits=8 if args.quantize == "int8" else 4,
+                                        consume=True)
     eos = getattr(tokenizer, "eos_token_id", None)
     if args.stop_token_ids:
         extra = [int(t) for t in args.stop_token_ids.split(",") if t.strip()]

@@ -4,7 +4,7 @@ The fields, defaults and preset constructors equal the JAX package's, so a
 ``ModelConfig`` serialises to the same JSON in both and ``grasp_meta.json``
 reads both ways; a test pins that. Fields that name a TPU feature keep their
 name here: ``use_flash_attention`` selects the CUDA flash-attention kernels,
-``use_pallas_lowrank`` is not ported yet.
+``use_pallas_lowrank`` the CUDA fused low-rank kernel.
 
 Replaces the reference's two-stage env-var + argparse config system
 (reference: scripts/params_script.sh:1-53 expanded into grasp.py:155-244 flags)
@@ -61,7 +61,7 @@ class ModelConfig:
     sandwich_norms: bool = False            # Gemma-2 layer: norms around BOTH the
     #                                         attention output and the MLP (4 per layer)
     dtype: str = "float32"                  # parameter dtype ("float32" | "bfloat16")
-    use_pallas_lowrank: bool = False        # fused VMEM low-rank kernel for big-batch calls
+    use_pallas_lowrank: bool = False        # fused low-rank kernel for calls of 256 rows or more
     use_flash_attention: bool = False       # Pallas flash attention on full-sequence causal paths
     # Mixture-of-Experts (Mixtral-family): 0 => dense MLP. When > 0 every
     # layer's MLP is a sparse MoE block (router + num_local_experts SwiGLU

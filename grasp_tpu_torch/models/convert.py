@@ -44,14 +44,21 @@ def map_params(tree, fn):
 
 def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """grasp_tpu params as numpy -> port params on ``device``; ``dtype``
-    casts every floating leaf (None keeps each leaf's own dtype)."""
-    def leaf(a):
-        t = _tensor_from_numpy(a)
-        if dtype is not None and t.is_floating_point():
+    casts the floating weights (None keeps each leaf's own dtype). The leaves
+    of a quantized tree keep theirs either way: int8 ``*_q`` / ``*_q4``
+    values, and the fp32 ``*_scale`` leaves beside them, which both packages
+    multiply in fp32."""
+    def convert(node, key=""):
+        if isinstance(node, dict):
+            return {k: convert(v, k) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [convert(v, key) for v in node]
+        t = _tensor_from_numpy(node)
+        if dtype is not None and t.is_floating_point() and not key.endswith("_scale"):
             t = t.to(dtype)
         return t.to(device)
 
-    return map_params(tree, leaf)
+    return convert(tree)
 
 
 def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:

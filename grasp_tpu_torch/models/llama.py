@@ -12,10 +12,13 @@ rotate_half, GQA by repeating KV heads, fp32 scores and softmax. Unlike JAX,
 the KV-cache functions write the cache in place.
 
 Ported: the LLaMA/TinyLlama/Qwen2-style families (bias optional, rope scaling
-"linear" and "llama3"), dense, full-SVD and low-rank projections, and the
-flash-attention route of the full-sequence forward (CUDA kernels, see
-ops/flash_attention.py). Softcapping, sliding windows, MoE, Gemma norms,
-quantized weights and int8 KV raise NotImplementedError.
+"linear" and "llama3"), dense, full-SVD and low-rank projections, int8 and
+int4 projection weights (ops/quant.py), the fused low-rank kernel behind
+``config.use_pallas_lowrank`` (ops/lowrank.py; the field keeps the JAX
+package's name so that checkpoints carry over), and the flash-attention route
+of the full-sequence forward (ops/flash_attention.py). Softcapping, sliding
+windows, MoE, Gemma norms, the ``hybrid`` kind and int8 KV raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from torch import nn
 from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.ops.flash_attention import flash_attention
 from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
+from grasp_tpu_torch.ops.quant import quant_matmul, quant_matmul_int4
 
 Params = Dict[str, Any]
 
@@ -61,7 +65,6 @@ def check_supported(config: ModelConfig) -> None:
         "mixture-of-experts layers": config.num_local_experts > 0,
         "Gemma (1+w) norms / embedding scale / sandwich norms": (
             config.norm_plus_one or config.scale_embeddings or config.sandwich_norms),
-        "the fused low-rank kernel (use_pallas_lowrank)": config.use_pallas_lowrank,
     }
     for what, present in missing.items():
         if present:
@@ -235,14 +238,29 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
     return q * cos + _rotate_half(q) * sin, k * cos + _rotate_half(k) * sin
 
 
-def proj_apply(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
-    if "kernel_q" in p or "kernel_q4" in p or "in_kernel_q" in p or "in_kernel_q4" in p:
-        raise NotImplementedError("grasp_tpu_torch does not support int8/int4 weights yet")
+def proj_apply(x: torch.Tensor, p: Params, kind: str, use_fused: bool = False) -> torch.Tensor:
+    """One projection. Quantized weights (``*_q`` int8, ``*_q4`` packed int4,
+    see ops/quant.py) take the quantized products; ``use_fused`` lets an
+    unquantized low-rank pair take the fused kernel (ops/lowrank.py)."""
     bias = p.get("bias")
     if kind == DENSE:
-        return dense_apply(x, p["kernel"], bias)
+        if "kernel_q" in p:
+            y = quant_matmul(x, p["kernel_q"], p["kernel_scale"])
+        elif "kernel_q4" in p:
+            y = quant_matmul_int4(x, p["kernel_q4"], p["kernel_scale"])
+        else:
+            return dense_apply(x, p["kernel"], bias)
+        return y + bias if bias is not None else y
     if kind == LOWRANK:
-        return lowrank_apply(x, p["in_kernel"], p["out_kernel"], bias)
+        if "in_kernel_q" in p:
+            h = quant_matmul(x, p["in_kernel_q"], p["in_kernel_scale"])
+            y = quant_matmul(h, p["out_kernel_q"], p["out_kernel_scale"])
+        elif "in_kernel_q4" in p:
+            h = quant_matmul_int4(x, p["in_kernel_q4"], p["in_kernel_scale"])
+            y = quant_matmul_int4(h, p["out_kernel_q4"], p["out_kernel_scale"])
+        else:
+            return lowrank_apply(x, p["in_kernel"], p["out_kernel"], bias, use_fused=use_fused)
+        return y + bias if bias is not None else y
     if kind == SVD:
         return svd_apply(x, p["u"], p["s"], p["vh"], bias)
     if kind == HYBRID:
@@ -285,9 +303,10 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
     h = h + attn
     x = rms_norm(h, lp["post_attention_layernorm"]["weight"], config.rms_norm_eps)
     mp = lp["mlp"]
-    gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"])
-    up = proj_apply(x, mp["up_proj"], kinds["up_proj"])
-    return h + proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"])
+    fused = config.use_pallas_lowrank
+    gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"], fused)
+    up = proj_apply(x, mp["up_proj"], kinds["up_proj"], fused)
+    return h + proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
 
 
 def _takes_flash_route(config: ModelConfig, q: torch.Tensor, causal_full_sequence: bool) -> bool:
@@ -308,12 +327,13 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
     b, s, _ = h.shape
     nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim_
     kinds = dict(zip(PROJ_ORDER, layer_plan))
+    fused = config.use_pallas_lowrank
 
     x = rms_norm(h, lp["input_layernorm"]["weight"], config.rms_norm_eps)
     ap = lp["self_attn"]
-    q = proj_apply(x, ap["q_proj"], kinds["q_proj"]).reshape(b, s, nh, hd).transpose(1, 2)
-    k = proj_apply(x, ap["k_proj"], kinds["k_proj"]).reshape(b, s, nkv, hd).transpose(1, 2)
-    v = proj_apply(x, ap["v_proj"], kinds["v_proj"]).reshape(b, s, nkv, hd).transpose(1, 2)
+    q = proj_apply(x, ap["q_proj"], kinds["q_proj"], fused).reshape(b, s, nh, hd).transpose(1, 2)
+    k = proj_apply(x, ap["k_proj"], kinds["k_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
+    v = proj_apply(x, ap["v_proj"], kinds["v_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
 
     if kv is not None:
@@ -329,7 +349,7 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
     else:
         attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config))
     attn = attn.transpose(1, 2).reshape(b, s, nh * hd)
-    attn = proj_apply(attn, ap["o_proj"], kinds["o_proj"])
+    attn = proj_apply(attn, ap["o_proj"], kinds["o_proj"], fused)
     return attn_mlp_residual(h, attn, lp, kinds, config), kv
 
 
@@ -338,8 +358,10 @@ def _lm_logits(h: torch.Tensor, params: Params) -> torch.Tensor:
     if "lm_head" not in params:
         return torch.matmul(h, params["embed_tokens"]["weight"].T)
     head = params["lm_head"]
-    if "kernel_q" in head or "kernel_q4" in head:
-        raise NotImplementedError("grasp_tpu_torch does not support a quantized lm_head yet")
+    if "kernel_q" in head:
+        return quant_matmul(h, head["kernel_q"], head["kernel_scale"])
+    if "kernel_q4" in head:
+        return quant_matmul_int4(h, head["kernel_q4"], head["kernel_scale"])
     return dense_apply(h, head["kernel"])
 
 

@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U64 = ctypes.c_ulonglong
 # name -> (restype, argtypes) of every C entry point in csrc/
 SIGNATURES = {
     "grasp_paged_attention_decode": (
@@ -41,6 +42,13 @@ SIGNATURES = {
     # q k v dout lse di dq | batch nh nkv S head_dim dtype | scale stream
     "grasp_flash_attention_bwd_dq": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # x a b y | m k r n dtype | stream
+    "grasp_lowrank_fused": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x packed scale y partial | m in out groups gs dtype variant splits gpc | stream
+    "grasp_int4_matmul": (
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # w q scale | in out dtype | seed stream
+    "grasp_quantize_int8_stochastic": (_I, [_P, _P, _P, _I, _I, _I, _U64, _P]),
 }
 
 

@@ -12,8 +12,9 @@ CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention` (its plain version
 on CPU tensors). The pools are updated in place; the JAX engine donated them
 to its jitted step instead.
 
-Ported: fp pools, greedy and temperature/top-k/top-p sampling, eos stops,
-cancel. The prefix cache, chunked prefill, int8 KV, penalties, logit bias,
+Ported: fp pools, int8 and int4 weights (through ``proj_apply``), greedy and
+temperature/top-k/top-p sampling, eos stops, cancel. The prefix cache,
+chunked prefill, int8 KV, penalties, logit bias,
 logprobs and guided decoding raise NotImplementedError.
 """
 
@@ -123,6 +124,8 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
             kinds = dict(zip(PROJ_ORDER, plan[li]))
             x = rms_norm(h, lp["input_layernorm"]["weight"], config.rms_norm_eps)
             ap = lp["self_attn"]
+            # as in the JAX engine, the fused low-rank flag is not threaded
+            # through: decode rows stay below that kernel's 256-row threshold
             q = proj_apply(x, ap["q_proj"], kinds["q_proj"]).reshape(b, 1, nh, hd).transpose(1, 2)
             k = proj_apply(x, ap["k_proj"], kinds["k_proj"]).reshape(b, 1, nkv, hd).transpose(1, 2)
             v = proj_apply(x, ap["v_proj"], kinds["v_proj"]).reshape(b, 1, nkv, hd).transpose(1, 2)

@@ -2,10 +2,12 @@
 """Where a batched decode step of grasp_tpu_torch's serving engine spends its
 time, on one NVIDIA GPU.
 
-    python scripts/profile_serving_torch.py [--steps 20] [--out build/serving_profile.json]
+    python scripts/profile_serving_torch.py [--steps 20] [--quantize none|int8|int4]
+                                            [--out build/serving_profile.json]
 
 Builds chip_smoke.py's GRASP-compressed TinyLlama-1.1B (bf16, random weights
-from a seed), admits 8 requests with the smoke's prompt lengths into a
+from a seed), quantizes its weights if asked (as ``grasp-serve-torch
+--quantize`` does), admits 8 requests with the smoke's prompt lengths into a
 ServingEngine with the grasp-serve-torch defaults, and then
 
 - times ``--steps`` decode steps on the host clock (each step ends with the
@@ -32,6 +34,8 @@ sys.path.insert(0, ROOT)
 def _kind(name: str) -> str:
     if "paged_decode_kernel" in name:
         return "paged_attention (K3)"
+    if "int4_" in name:  # the grid or dma kernel and the reduction of its splits
+        return "int4_matmul (K5)"
     low = name.lower()
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")):
         return "matmul"
@@ -41,6 +45,7 @@ def _kind(name: str) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--steps", type=int, default=20)
+    p.add_argument("--quantize", choices=["none", "int8", "int4"], default="none")
     p.add_argument("--out", default=os.path.join(ROOT, "build", "serving_profile.json"))
     args = p.parse_args(argv)
 
@@ -52,12 +57,18 @@ def main(argv=None) -> int:
         raise SystemExit("profile_serving_torch: needs a CUDA device")
     from chip_smoke import PROMPT_LENS, build_flagship, card_line
     from grasp_tpu_torch.ops._build import load_library
+    from grasp_tpu_torch.ops.quant import quantize_model_weights, quantized_size_bytes
     from grasp_tpu_torch.serving.paged import ServingEngine
 
     load_library()  # build the kernels before anything is timed
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     config, params, plan = build_flagship(torch, dev)
+    if args.quantize != "none":
+        params = quantize_model_weights(params, bits=8 if args.quantize == "int8" else 4,
+                                        consume=True)
+        torch.cuda.empty_cache()
+    weight_bytes = quantized_size_bytes(params)
     engine = ServingEngine(params, config, plan, device=dev, num_pages=256, page_size=128,
                            max_batch=8, max_pages_per_seq=16)
     rng = np.random.default_rng(0)
@@ -100,6 +111,8 @@ def main(argv=None) -> int:
     record = {
         "card": card_line(),
         "config": "TinyLlama-1.1B bf16, layers 20-21 low-rank (ratio 0.9), batch 8, page 128",
+        "quantize": args.quantize,
+        "param_bytes": weight_bytes,
         "live_rows": live,
         "first_step_s_admits_8_prompts": admit_s,
         "decode_step_ms_host": step_ms,

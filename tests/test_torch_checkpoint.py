@@ -108,6 +108,59 @@ def test_cli_serves_a_port_checkpoint(tmp_path):
         gserver.close()
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_trees_save_load_convert_and_serve(tmp_path, bits):
+    """int8 leaves stay int8 and scales fp32 through the port's checkpoint,
+    through the converter from a quantized grasp_tpu checkpoint (a dtype cast
+    touches the other leaves only), and ``--quantize`` serves from the CLI."""
+    from grasp_tpu.ops.quant import quantize_model_weights as j_quantize
+    from grasp_tpu_torch.ops.quant import quantize_model_weights
+
+    config = small_config(num_hidden_layers=2, vocab_size=300)
+    jparams, plan = _lowrank_params(config)
+    jq = jax.tree.map(np.asarray, j_quantize(jparams, bits=bits))
+    qparams = quantize_model_weights(to_port(jparams), bits=bits)
+    _assert_same(qparams, to_port(jq))
+    tckpt.save_checkpoint(str(tmp_path / "port"), qparams, config, plan)
+    got, _, gplan, _ = tckpt.load_checkpoint(str(tmp_path / "port"), "cpu")
+    _assert_same(got, qparams)
+    assert gplan == plan == tl.plan_from_params(got, config)
+
+    spec = importlib.util.spec_from_file_location(
+        "convert_grasp_tpu_checkpoint",
+        os.path.join(ROOT, "scripts", "convert_grasp_tpu_checkpoint.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    jckpt.save_checkpoint(str(tmp_path / "jax"), jq, config, plan)
+    assert script.main([str(tmp_path / "jax"), str(tmp_path / "conv"), "--dtype", "bfloat16"]) == 0
+    conv, cconfig, _, _ = tckpt.load_checkpoint(str(tmp_path / "conv"), "cpu")
+    _assert_same(conv, to_port(jq, dtype=torch.bfloat16))
+    flat = flatten_params(conv)
+    suffix = "_q" if bits == 8 else "_q4"
+    assert flat["lm_head.kernel" + suffix].dtype == torch.int8
+    assert flat["lm_head.kernel_scale"].dtype == torch.float32
+    assert flat["norm.weight"].dtype == torch.bfloat16 and cconfig.dtype == "bfloat16"
+
+    tckpt.save_checkpoint(str(tmp_path / "dense"), to_port(jparams), config, plan)
+    gserver, httpd, _ = serve_main(["--model_path", str(tmp_path / "dense"), "--device", "cpu",
+                                    "--port", "0", "--page_size", "8", "--num_pages", "16",
+                                    "--max_pages_per_seq", "4", "--max_batch", "2",
+                                    "--quantize", f"int{bits}"], block=False)
+    try:
+        _assert_same(gserver.engine.params, qparams)
+        conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=120)
+        conn.request("POST", "/v1/completions",
+                     json.dumps({"prompt": [5, 6, 7, 8], "max_tokens": 3}))
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+        conn.close()
+        assert resp.status == 200 and len(body["choices"][0]["token_ids"]) == 3
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        gserver.close()
+
+
 def test_load_model_presets_and_unported_sources(tmp_path):
     config, params, plan, tok = load_model("tiny", device="cpu", seed=3)
     assert config.vocab_size == 260 and plan == tl.default_plan(config)

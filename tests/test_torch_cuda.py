@@ -2,7 +2,7 @@
 
 Needs an NVIDIA GPU and no JAX; from the repository root:
 
-    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py tests/test_torch_cuda_quant.py
 
 Every test is marked ``cuda`` and skips where torch sees no CUDA device.
 """

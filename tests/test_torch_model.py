@@ -17,6 +17,8 @@ from grasp_tpu.models import llama as jl
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.models.convert import (
     flatten_params, params_from_numpy, params_to_numpy, unflatten_params)
+from grasp_tpu_torch.ops.quant import quantize_model_weights
+from grasp_tpu_torch.serving.paged import ServingEngine
 from torch_parity import grasp_compressed, small_config, to_port
 
 TOL = 1e-4
@@ -119,11 +121,13 @@ def test_prefill_and_decode_match_jax(models, which):
 def test_unported_architecture_features_raise():
     for overrides in ({"attn_logit_softcapping": 50.0}, {"final_logit_softcapping": 30.0},
                       {"sliding_window": 16}, {"num_local_experts": 4},
-                      {"norm_plus_one": True}, {"sandwich_norms": True},
-                      {"use_pallas_lowrank": True}):
+                      {"norm_plus_one": True}, {"sandwich_norms": True}):
         config = small_config(**overrides)
         with pytest.raises(NotImplementedError):
             tl.LlamaModel(config, device="cpu", generator=torch.Generator().manual_seed(0))
+    # the fused low-rank flag is ported: the model builds with it
+    tl.LlamaModel(small_config(use_pallas_lowrank=True), device="cpu",
+                  generator=torch.Generator().manual_seed(0))
 
 
 def test_unported_paths_raise(models):
@@ -133,17 +137,21 @@ def test_unported_paths_raise(models):
     q_proj = tp["layers"][0]["self_attn"]["q_proj"]
     with pytest.raises(NotImplementedError):
         tl.proj_apply(x, q_proj, "hybrid")
-    with pytest.raises(NotImplementedError):
-        tl.proj_apply(x, {"kernel_q": q_proj["kernel"], "kernel_scale": None}, "dense")
+    with pytest.raises(NotImplementedError):  # MoE quantization waits for models/moe.py
+        quantize_model_weights({"layers": [dict(tp["layers"][0], moe={"experts": {}})]})
     with pytest.raises(NotImplementedError):
         tl.init_kv_cache(config, 1, 8, device="cpu", quantized=True)
+    with pytest.raises(NotImplementedError):
+        ServingEngine(tp, config, device="cpu", quantized_kv=True)
     with pytest.raises(NotImplementedError):
         tl.rope_cos_sin(torch.arange(4), 64, 1e4, scaling={
             "rope_type": "longrope", "short_factor": [1.0], "long_factor": [1.0],
             "original_max_position_embeddings": 8})
-    with pytest.raises(NotImplementedError):
-        tl.forward(tp, torch.zeros(1, 4, dtype=torch.long),
-                   config=dataclasses.replace(config, use_pallas_lowrank=True))
+    # on CPU tensors the fused low-rank flag is inert, as in the JAX package
+    ids = torch.zeros(1, 4, dtype=torch.long)
+    torch.testing.assert_close(
+        tl.forward(tp, ids, config=dataclasses.replace(config, use_pallas_lowrank=True))["logits"],
+        tl.forward(tp, ids, config=config)["logits"], atol=0, rtol=0)
 
 
 def test_llama_model_owns_the_params(models):
