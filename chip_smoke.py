@@ -10,7 +10,13 @@ Phases, each of which raises on failure (exit code != 0):
 3. paged kernel: the paged-attention decode kernel against its plain PyTorch
    version on the same inputs, at TinyLlama's decode shape and at head_dim
    128, in float32 and bfloat16, within stated tolerances; then both timed
-   with CUDA events at the decode shape.
+   with CUDA events at the decode shape. Then the chunk kernel of
+   speculative verification against its plain version and, row by row with
+   torch.equal, against the decode kernel at each row's own length (head_dim
+   64 and 128, float32 and bfloat16, groups of 1, 4 and 8, chunks of 1, 2, 5
+   and 9, pages of 16 and 128 slots, lengths across tile and page edges, a
+   dead row); and timed against its plain version and against one decode
+   launch per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at four
    shapes in float32 and bfloat16, dK/dV bit-equal over two runs; then each
@@ -37,7 +43,16 @@ Phases, each of which raises on failure (exit code != 0):
    ``use_pallas_lowrank`` set in its model config. Tokens are checked
    against a teacher-forced plain forward of the served (quantized) params
    and launch counts against counts derived from the dispatch rules.
-8. compression slice: ``grasp-compress-torch`` on a dense TinyLlama-1.1B at
+8. speculative and int8-KV serving: the serving checkpoint through
+   ``grasp_tpu_torch.cli`` with ``--speculative int8 --gamma 4`` (greedy
+   requests together, then a sampled one): launch counts of the chunk and
+   decode kernels against the engine's macro-steps, every greedy token
+   against a teacher-forced plain forward of the target, and the streams
+   against the plain engine's on the same requests. Then with
+   ``--quantized_kv``, alone and with speculation: tokens against a
+   teacher-forced forward through the int8 dense cache, and neither paged
+   kernel launched.
+9. compression slice: ``grasp-compress-torch`` on a dense TinyLlama-1.1B at
    full width and depth with 16 synthetic calibration rows of 2047 tokens
    (2 layers, ratio 0.9). Checks the chosen layers, every rank, the plan, the
    parameter count, that the flash kernels ran as often as the sweeps imply,
@@ -50,7 +65,7 @@ Phases, each of which raises on failure (exit code != 0):
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound); then the card's
 line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|compress`` runs
+JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|spec|compress`` runs
 one part while developing and prints no result lines.
 """
 
@@ -145,13 +160,23 @@ def phase_kernel(torch):
     return worst
 
 
-def _time_ms(torch, fn, n_layers, iters):
+def _spin(torch):
+    """Keep the card busy for about 20 ms with one idle kernel (it draws no
+    power that would lower the clocks), so that the host enqueues a whole
+    timed loop meanwhile and the events bracket device time alone."""
+    torch.cuda._sleep(int(0.02 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+
+
+def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
     """Mean ms per call over ``iters`` rounds of one call per layer slice
-    (the 22 layers' pools together exceed the L2 cache, as in decode)."""
+    (the 22 layers' pools together exceed the L2 cache, as in decode).
+    ``run_ahead``: see :func:`_spin`."""
     for li in range(n_layers):
         fn(li)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        _spin(torch)
     start.record()
     for _ in range(iters):
         for li in range(n_layers):
@@ -196,6 +221,155 @@ def phase_kernel_timing(torch, n_layers):
     bytes_ms = nbytes / 3.35e12 * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+
+
+# base lengths of the chunk kernel's cases: 1, both sides of the tile edges
+# (32 slots at head_dim 128, 64 at 64) and of the page edges (16, 128), such
+# that chunks end inside a tile, on its edge and beyond it; 0 marks a dead row
+# (null page, base length 1). Pools are random throughout, so every slot beyond
+# a row's length holds stale finite values.
+CHUNK_BASES = (1, 14, 16, 30, 33, 62, 64, 120, 127, 128, 200, 0)
+CHUNK_LENS = (1, 2, 5, 9)
+SPEC_GAMMA = 4
+
+
+# the verify step's own shape (B=8, 32 query heads over 4, head_dim 64, pages
+# of 128, 16 pages per row, a chunk of gamma + 1): base lengths from the
+# shortest served context to 1532, one on a page edge, a dead row, and one
+# whose last query fills all 16 pages (2044 + 4 = 2048 slots)
+SERVED_CHUNK_BASES = (70, 127, 128, 632, 1532, 0, 2044, 1000)
+
+
+def _chunk_compare(torch, q, k, v, base, tables, scale):
+    """One chunk-kernel call held against its plain version and, row by row
+    with torch.equal, against the decode kernel at length base + c. Returns
+    (max abs error against the plain version, chunk positions that differ)."""
+    from grasp_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_chunk, paged_attention_chunk_reference)
+
+    got = paged_attention_chunk(q, k, v, base, tables, scale)
+    want = paged_attention_chunk_reference(q, k, v, base, tables, scale)
+    unequal = []
+    for c in range(q.shape[1]):
+        single = paged_attention(q[:, c].contiguous(), k, v, base + c, tables, scale)
+        if not torch.equal(got[:, c], single):
+            unequal.append(c)
+    torch.cuda.synchronize()
+    if not torch.isfinite(got).all().item():
+        raise AssertionError("paged attention chunk kernel: non-finite output")
+    return (got.float() - want.float()).abs().max().item(), unequal
+
+
+def phase_chunk(torch):
+    """The chunk kernel against its plain version within TOL, and against the
+    decode kernel with torch.equal: row (b, c) is the decode kernel's output
+    at length base[b] + c. A grid of small cases, then the verify step's own
+    shape. Returns the worst error against the plain version."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, nkv = len(CHUNK_BASES), 2
+    worst, cases, rows = 0.0, 0, 0
+    for hd in (64, 128):
+        for dtype_name in ("float32", "bfloat16"):
+            dtype = getattr(torch, dtype_name)
+            unequal, errs = [], []
+            for gqa in (1, 4, 8):
+                for ps, pps in ((16, 16), (128, 2)):
+                    _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nkv * gqa, nkv,
+                                                        hd, ps, pps, b * pps + 1, CHUNK_BASES)
+                    for c_len in CHUNK_LENS:
+                        q = torch.randn(b, c_len, nkv * gqa, hd, generator=gen,
+                                        device=dev).to(dtype)
+                        err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5)
+                        unequal += [(gqa, ps, c_len, c) for c in bad]
+                        errs.append(err)
+                        cases += 1
+                        rows += b * c_len
+            ok = not unequal and max(errs) <= TOL[dtype_name]
+            print(f"chunk kernel: hd={hd} {dtype_name}, gqa 1/4/8, pages of 16 and 128, chunks "
+                  f"{CHUNK_LENS}, {b} rows of base lengths {CHUNK_BASES}: max_abs_err against the "
+                  f"plain version {max(errs):.3e} (tol {TOL[dtype_name]:g}); rows unequal to the "
+                  f"decode kernel at length base + c: {len(unequal)} {unequal[:4]} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}")
+            worst = max(worst, max(errs))
+    c_len, nh, nkv, hd = SPEC_GAMMA + 1, 32, 4, 64
+    b = len(SERVED_CHUNK_BASES)
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, 128, 16, 256,
+                                            SERVED_CHUNK_BASES)
+        q = torch.randn(b, c_len, nh, hd, generator=gen, device=dev).to(dtype)
+        err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5)
+        ok = not bad and err <= TOL[dtype_name]
+        print(f"chunk kernel at the verify step's shape: B={b} C={c_len} nh={nh} nkv={nkv} "
+              f"hd={hd} {dtype_name}, pages of 128, 16 per row, base lengths "
+              f"{SERVED_CHUNK_BASES}: max_abs_err against the plain version {err:.3e} (tol "
+              f"{TOL[dtype_name]:g}); chunk positions unequal to the decode kernel: {bad} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"paged attention chunk kernel disagrees at the verify step's "
+                                 f"shape: {dtype_name}")
+        worst = max(worst, err)
+        cases += 1
+        rows += b * c_len
+    print(f"chunk kernel: {cases} cases, {rows} rows, every row bit-equal to the decode kernel")
+    return worst
+
+
+def phase_chunk_timing(torch, n_layers):
+    """The chunk kernel, its plain version and one decode launch per chunk
+    position on the same inputs, at the verify step's shape: B=8, bf16, the
+    slice's lengths, a chunk of gamma + 1 = 5. Turns: plain, kernel, decode
+    launches, decode launches, kernel, plain, each after the idle spin.
+    Bound: every K/V row a query of the chunk sees read once, q and the
+    output moved once, at 3.35 TB/s, against q.k and p.v at the bf16 peak."""
+    from grasp_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_chunk, paged_attention_chunk_reference)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(98)
+    lengths = [n + 32 for n in PROMPT_LENS]
+    c_len, nh, nkv, hd = SPEC_GAMMA + 1, 32, 4, 64
+    _, k, v, base, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
+                                        128, 16, 256, lengths, layers=n_layers)
+    q = torch.randn(8, c_len, nh, hd, generator=gen, device=dev).bfloat16()
+    singles = [(q[:, c].contiguous(), base + c) for c in range(c_len)]
+    scale = hd ** -0.5
+
+    def kern(li):
+        paged_attention_chunk(q, k[li], v[li], base, tables, scale)
+
+    def plain(li):
+        paged_attention_chunk_reference(q, k[li], v[li], base, tables, scale)
+
+    def decodes(li):
+        for q_c, lens_c in singles:
+            paged_attention(q_c, k[li], v[li], lens_c, tables, scale)
+
+    # the timed inputs themselves, held as phase_chunk holds its cases
+    err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, scale)
+    if bad or err > TOL["bfloat16"]:
+        raise AssertionError(f"paged attention chunk kernel disagrees on the timed inputs: "
+                             f"max_abs_err {err:.3e}, chunk positions unequal to the decode "
+                             f"kernel {bad}")
+    t = {}
+    for name, fn in (("plain", plain), ("kernel", kern), ("decodes", decodes),
+                     ("decodes", decodes), ("kernel", kern), ("plain", plain)):
+        t.setdefault(name, []).append(_time_ms(torch, fn, n_layers, 10, run_ahead=True))
+    mean = {name: sum(xs) / len(xs) for name, xs in t.items()}
+    print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, base lengths "
+          f"{lengths}), ms per call, two turns each: "
+          + ", ".join(f"{name} {xs[0]:.4f}/{xs[1]:.4f}" for name, xs in t.items())
+          + f"; {c_len} decode launches over one chunk launch: "
+            f"{mean['decodes'] / mean['kernel']:.2f}x")
+    kv_rows = sum(n + c_len - 1 for n in lengths)
+    pairs = sum(n + c for n in lengths for c in range(c_len))  # (query, slot) pairs per head
+    nbytes = (2 * kv_rows * nkv * hd * 2 + 2 * q.numel() * 2 + base.numel() * 4
+              + tables.numel() * 4)
+    return {"ms": mean["kernel"], "plain_ms": mean["plain"],
+            **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None}
 
 
 # (B, nh, nkv, S, hd, scale): the calibration shape of TinyLlama-1.1B, a ragged
@@ -265,15 +439,12 @@ def phase_flash(torch):
 
 def _event_ms(torch, fn, iters, run_ahead=False):
     """Mean ms per call by CUDA events. ``run_ahead``: for calls shorter than
-    the host takes to enqueue them (tens of microseconds), the card first spins
-    for about 20 ms (one idle kernel, which draws no power that would lower
-    the clocks), so that the host enqueues the whole loop meanwhile and the
-    events bracket device time alone."""
+    the host takes to enqueue them (tens of microseconds), see :func:`_spin`."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if run_ahead:
-        torch.cuda._sleep(int(0.02 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+        _spin(torch)
     start.record()
     for _ in range(iters):
         fn()
@@ -732,18 +903,23 @@ def _check_completion(status, data, prompt):
     return out
 
 
-def check_against_plain(torch, params, config, plan, served, dev):
+def check_against_plain(torch, params, config, plan, served, dev, quantized_kv=False):
     """Teacher-forced plain forward (no pages, no kernel) of prompt + served
     tokens: at every generated position the served token's logit must be
-    within GAP_TOL of the largest logit. Returns (max gap, argmax matches,
-    positions)."""
-    from grasp_tpu_torch.models.llama import forward
+    within GAP_TOL of the largest logit. ``quantized_kv``: the forward runs
+    through the int8 dense cache, so that its attention reads the quantized
+    K/V the int8 pools hold. Returns (max gap, argmax matches, positions)."""
+    from grasp_tpu_torch.models.llama import forward, init_kv_cache, prefill
 
     worst, match, total = 0.0, 0, 0
     with torch.no_grad():
         for prompt, out in served:
             ids = torch.tensor([list(prompt) + out[:-1]], device=dev)
-            logits = forward(params, ids, config=config, plan=plan)["logits"][0].float()
+            if quantized_kv:
+                cache = init_kv_cache(config, 1, ids.shape[1], device=dev, quantized=True)
+                logits = prefill(params, ids, cache, config=config, plan=plan)[0][0].float()
+            else:
+                logits = forward(params, ids, config=config, plan=plan)["logits"][0].float()
             if not torch.isfinite(logits).all():
                 raise AssertionError("non-finite logits in the plain forward")
             rows = logits[len(prompt) - 1:]
@@ -894,10 +1070,173 @@ def serve_variant(torch, dev, ckpt_root, label, extra=(), dma_round=False):
     return got
 
 
-def phase_slice(torch, card, dev):
-    """The serving slice, then the same checkpoint served with int4 weights,
-    int8 weights and the fused low-rank kernel. Returns the launches of the
-    paged kernel on the main path and of the int4 and fused kernels on theirs."""
+SPEC_PROMPT_LENS = (70, 130, 300, 600)
+SPEC_MAX_TOKENS = 32
+# mean share of positions at which the speculative and the plain engine's
+# greedy streams agree (the JAX package's own bound on hardware): a faulty
+# verify step collapses it to near 0 after the first accepted draft
+SPEC_AGREEMENT = 0.7
+
+
+def _concurrent_posts(port, bodies):
+    """POST the bodies at once, one thread each; returns (status, data) in order."""
+    results = [None] * len(bodies)
+
+    def worker(i):
+        results[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            raise AssertionError("a completion request did not finish")
+    return results
+
+
+def _reset_paged_counts(engine):
+    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
+
+    paged_attention.launches = paged_attention_chunk.launches = 0
+    engine.decode_steps, engine.decode_seconds = 0, 0.0
+    if hasattr(engine, "macro_steps"):
+        engine.macro_steps = 0
+        engine.last_stats.update(chunks=0, drafted=0, accepted=0)
+
+
+def _full_length(results, prompts, n_tokens, label):
+    outs = [_check_completion(s, d, p) for (s, d), p in zip(results, prompts)]
+    if any(len(o) != n_tokens for o in outs):
+        raise AssertionError(f"serve {label}: completions of {[len(o) for o in outs]} tokens, "
+                             f"want {n_tokens} each")
+    return outs
+
+
+def serve_speculative(torch, card, dev, ckpt_root):
+    """This slice's main path: ``--speculative int8 --gamma 4`` over fp pools.
+    Greedy requests together, then a sampled one. Returns the launches of the
+    chunk kernel and of the decode kernel in that run."""
+    import numpy as np
+
+    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
+    from grasp_tpu_torch.serving.paged import ServingEngine
+    from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
+
+    label = f"--speculative int8 --gamma {SPEC_GAMMA}"
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    with _served(torch, dev, ckpt_root,
+                 ["--speculative", "int8", "--gamma", str(SPEC_GAMMA)]) as (engine, port):
+        if not isinstance(engine, SpeculativeServingEngine):
+            raise AssertionError("the command line did not build the speculative engine")
+        config = engine.config
+        layers = config.num_hidden_layers
+        prompts = [rng.integers(3, config.vocab_size, size=n).tolist() for n in SPEC_PROMPT_LENS]
+        _check_completion(*_post(port, {"prompt": prompts[0][:65], "max_tokens": 8}),
+                          prompts[0][:65])  # warm-up, not counted
+        start_s = time.perf_counter() - t0
+
+        _reset_paged_counts(engine)
+        t1 = time.perf_counter()
+        outs = _full_length(_concurrent_posts(port, [
+            {"prompt": p, "max_tokens": SPEC_MAX_TOKENS} for p in prompts]),
+            prompts, SPEC_MAX_TOKENS, label)
+        wall = time.perf_counter() - t1
+        sampled = _full_length([_post(port, {
+            "prompt": prompts[1], "max_tokens": SPEC_MAX_TOKENS, "temperature": 0.8,
+            "top_k": 40, "top_p": 0.95, "seed": 5})], prompts[1:2], SPEC_MAX_TOKENS, label)[0]
+        steps, stats = engine.macro_steps, dict(engine.last_stats)
+        got = {"chunk": paged_attention_chunk.launches, "decode": paged_attention.launches}
+        want = {"chunk": layers * steps, "decode": layers * (SPEC_GAMMA + 1) * steps}
+        n_tok = sum(len(o) for o in outs) + len(sampled)
+        print(f"serve {label}: started in {start_s:.1f} s; {len(outs)} greedy completions "
+              f"together ({wall:.3f} s) and 1 sampled, {SPEC_MAX_TOKENS} tokens each; {steps} "
+              f"macro-steps in {engine.decode_seconds:.3f} s "
+              f"({engine.decode_seconds / max(steps, 1) * 1e3:.2f} ms each); launches {got}, "
+              f"derived from the macro-steps {want}; drafts accepted "
+              f"{stats['accepted']}/{stats['drafted']} = {engine.acceptance_rate:.3f}, "
+              f"{n_tok / max(stats['chunks'], 1):.2f} tokens per verify forward of a row; "
+              f"card {card}")
+        if (steps == 0 or got != want or engine.decode_steps != (SPEC_GAMMA + 1) * steps
+                or any(not 0 <= t < config.vocab_size for t in sampled)):
+            raise AssertionError(f"serve {label}: launch counts differ from the macro-steps")
+
+        gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
+                                                list(zip(prompts, outs)), dev)
+        print(f"serve {label}: greedy tokens vs plain teacher-forced forward of the target: "
+              f"argmax agrees at {match}/{total} positions, max logit gap {gap:.4f} "
+              f"(tol {GAP_TOL})")
+        if gap > GAP_TOL:
+            raise AssertionError(f"serve {label}: served tokens disagree with the plain forward")
+
+        # the same requests through the plain engine over the same weights
+        plain = ServingEngine(engine.params, config, engine.plan, device=dev, num_pages=256,
+                              page_size=128, max_batch=8, max_pages_per_seq=16)
+        rids = [plain.submit(p, SPEC_MAX_TOKENS) for p in prompts]
+        with torch.no_grad():
+            plain_outs = plain.run()
+        plain_outs = [plain_outs[r] for r in rids]
+        del plain
+        agree = [sum(a == b for a, b in zip(o, w)) / len(w) for o, w in zip(outs, plain_outs)]
+        same = sum(o == w for o, w in zip(outs, plain_outs))
+        mean = sum(agree) / len(agree)
+        print(f"serve {label}: against the plain engine on the same requests: {same}/{len(outs)} "
+              f"streams identical, share of agreeing positions {[round(a, 3) for a in agree]}, "
+              f"mean {mean:.3f} (bound {SPEC_AGREEMENT}; identity is reported, not required: the "
+              f"verify step's projections run at {8 * (SPEC_GAMMA + 1)} rows and the decode "
+              f"step's at 8)")
+        if [len(o) for o in plain_outs] != [len(o) for o in outs] or mean < SPEC_AGREEMENT:
+            raise AssertionError(f"serve {label}: streams stray from the plain engine's")
+    return got
+
+
+def serve_quantized_kv(torch, dev, ckpt_root, speculative):
+    """``--quantized_kv``, with or without speculation: int8 pools take the
+    gather route, so neither paged kernel may launch; tokens are held by a
+    teacher-forced forward through the int8 dense cache."""
+    import numpy as np
+
+    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
+
+    extra = ["--quantized_kv"]
+    if speculative:
+        extra += ["--speculative", "int8", "--gamma", str(SPEC_GAMMA)]
+    label = " ".join(extra)
+    rng = np.random.default_rng(29)
+    with _served(torch, dev, ckpt_root, extra) as (engine, port):
+        if not engine.pool.quantized or engine.pool.k_pages.dtype != torch.int8:
+            raise AssertionError(f"serve {label}: the pool is not int8")
+        config = engine.config
+        prompts = [rng.integers(3, config.vocab_size, size=n).tolist()
+                   for n in VARIANT_PROMPT_LENS]
+        _reset_paged_counts(engine)
+        outs = _full_length(_concurrent_posts(port, [
+            {"prompt": p, "max_tokens": VARIANT_MAX_TOKENS} for p in prompts]),
+            prompts, VARIANT_MAX_TOKENS, label)
+        launches = (paged_attention.launches, paged_attention_chunk.launches)
+        steps = engine.decode_steps
+        gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
+                                                list(zip(prompts, outs)), dev, quantized_kv=True)
+        spec = (f", {engine.macro_steps} macro-steps, drafts accepted "
+                f"{engine.last_stats['accepted']}/{engine.last_stats['drafted']}"
+                if speculative else "")
+        print(f"serve {label}: {len(outs)} completions of {VARIANT_MAX_TOKENS} tokens, {steps} "
+              f"decode steps in {engine.decode_seconds:.3f} s{spec}; decode and chunk kernel "
+              f"launches {launches} (want 0, 0); vs teacher-forced forward through the int8 "
+              f"dense cache: argmax agrees at {match}/{total} positions, max logit gap "
+              f"{gap:.4f} (tol {GAP_TOL})")
+        if steps == 0 or launches != (0, 0) or gap > GAP_TOL:
+            raise AssertionError(f"serve {label} failed")
+
+
+def phase_slice(torch, card, dev, spec_only=False):
+    """The serving slice, then the same checkpoint served with speculation
+    and int8 KV pages, with int4 weights, int8 weights and the fused low-rank
+    kernel. Returns the launches of the paged kernel on the main path, of
+    the chunk and decode kernels under speculation, and of the int4 and
+    fused kernels on theirs. ``spec_only``: the speculative and int8-KV parts
+    alone."""
     from grasp_tpu_torch.checkpoints import META_NAME, save_checkpoint
     from grasp_tpu_torch.models.convert import flatten_params
 
@@ -913,7 +1252,12 @@ def phase_slice(torch, card, dev):
         save_checkpoint(ckpt_root, params, config, plan)
         del params
         torch.cuda.empty_cache()
-        launches = _serve_main_path(torch, card, dev, ckpt_root, config, t0)
+        launches = None if spec_only else _serve_main_path(torch, card, dev, ckpt_root, config, t0)
+        spec_launches = serve_speculative(torch, card, dev, ckpt_root)
+        serve_quantized_kv(torch, dev, ckpt_root, speculative=False)
+        serve_quantized_kv(torch, dev, ckpt_root, speculative=True)
+        if spec_only:
+            return launches, spec_launches, None
         variants = {"int4": serve_variant(torch, dev, ckpt_root, "--quantize int4",
                                           ["--quantize", "int4"], dma_round=True),
                     "int8": serve_variant(torch, dev, ckpt_root, "--quantize int8",
@@ -927,7 +1271,7 @@ def phase_slice(torch, card, dev):
         variants["fused"] = serve_variant(torch, dev, ckpt_root, "use_pallas_lowrank")
         if variants["fused"]["fused"] == 0 or variants["int4"]["grid"] == 0:
             raise AssertionError("a serving variant never reached its kernel")
-        return launches, variants
+        return launches, spec_launches, variants
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -1255,7 +1599,7 @@ def drive_quantizer(torch, dev):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["flash", "kernels", "serve", "compress"], default=None,
+    parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress"], default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -1285,6 +1629,11 @@ def main(argv=None) -> int:
         return 0
     paged_err = phase_kernel(torch)
     paged = phase_kernel_timing(torch, 22)
+    chunk_err = phase_chunk(torch)
+    chunk = phase_chunk_timing(torch, 22)
+    if args.only == "spec":
+        print(chunk, phase_slice(torch, card, dev, spec_only=True))
+        return 0
     if args.only == "serve":
         print(phase_slice(torch, card, dev))
         print(drive_quantizer(torch, dev))
@@ -1294,7 +1643,7 @@ def main(argv=None) -> int:
     lowrank_err, int4_err, quant_err = phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch)
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
-    paged_launches, served = phase_slice(torch, card, dev)
+    paged_launches, spec_launches, served = phase_slice(torch, card, dev)
     flash_launches, fused_compress_launches = phase_compress(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
@@ -1308,6 +1657,12 @@ def main(argv=None) -> int:
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
          "launches": paged_launches, "max_abs_err": paged_err, **paged},
+        # library_ms: no single PyTorch call reads a page table; the timing line
+        # above has one decode launch per chunk position beside it
+        {"name": "paged_attention_chunk", "route": "cuda",
+         "source": "grasp_tpu_torch/csrc/paged_attention.cu",
+         "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
+         "launches": spec_launches["chunk"], "max_abs_err": chunk_err, **chunk},
         {"name": "flash_attention_fwd", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
          "launches": flash_launches["fwd"], "max_abs_err": flash_err["fwd"], **flash["fwd"]},

@@ -11,10 +11,13 @@ from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
 ``params.pt``; grasp_tpu checkpoints convert with
 ``scripts/convert_grasp_tpu_checkpoint.py``) or a named architecture preset
 with random weights made from ``--seed``; ``--quantize int8|int4`` serves a
-quantized copy of the weights. A checkpoint whose model config has
+quantized copy of the weights, ``--quantized_kv`` keeps the KV pages in int8,
+and ``--speculative int8 --gamma N`` drafts N tokens a step with an int8 copy
+of the weights and verifies them with the served weights in one forward
+(greedy outputs are the plain engine's). A checkpoint whose model config has
 ``use_pallas_lowrank`` runs its low-rank projections through the fused kernel
-at 256 rows or more (prefill). HF checkpoint import, int8 KV, the prefix
-cache, chunked prefill and speculative decoding are not ported yet.
+at 256 rows or more (prefill). HF checkpoint import, the prefix cache and
+chunked prefill are not ported yet.
 """
 
 from __future__ import annotations
@@ -200,6 +203,12 @@ def _serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
     p.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int4"],
                    help="weight quantization for the serving copy")
+    p.add_argument("--quantized_kv", action="store_true",
+                   help="int8 KV pages (half the decode KV traffic)")
+    p.add_argument("--speculative", type=str, default="none", choices=["none", "int8"],
+                   help="int8: self-draft speculation (an int8-quantized copy drafts, the "
+                        "served weights verify; greedy outputs identical)")
+    p.add_argument("--gamma", type=int, default=4, help="speculation draft length")
     p.add_argument("--stop_token_ids", type=str, default=None,
                    help="comma-separated extra stop token ids beyond the tokenizer's eos")
     p.add_argument("--max_batch", type=int, default=8)
@@ -217,7 +226,7 @@ def serve_main(argv=None, block: bool = True):
     args = _serve_parser().parse_args(argv)
     setup_logger(args.log_file)
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
-    from grasp_tpu_torch.serving.paged import ServingEngine
+    from grasp_tpu_torch.ops.quant import quantize_model_weights
     from grasp_tpu_torch.serving.server import serve
 
     device = torch.device(args.device)
@@ -225,9 +234,10 @@ def serve_main(argv=None, block: bool = True):
                                                  dtype=args.dtype, seed=args.seed)
     if args.tokenizer_path:
         tokenizer = load_tokenizer(args.tokenizer_path)
+    # the draft is quantized from the weights as loaded, before --quantize
+    # consumes them
+    draft = quantize_model_weights(params, bits=8) if args.speculative == "int8" else None
     if args.quantize != "none":
-        from grasp_tpu_torch.ops.quant import quantize_model_weights
-
         # consume: the source tree is dropped layer by layer, so the peak
         # holds one tree and one layer, not both trees
         params = quantize_model_weights(params, bits=8 if args.quantize == "int8" else 4,
@@ -236,9 +246,18 @@ def serve_main(argv=None, block: bool = True):
     if args.stop_token_ids:
         extra = [int(t) for t in args.stop_token_ids.split(",") if t.strip()]
         eos = ([int(eos)] if eos is not None else []) + extra
-    engine = ServingEngine(params, config, plan, device=device, num_pages=args.num_pages,
-                           page_size=args.page_size, max_batch=args.max_batch,
-                           max_pages_per_seq=args.max_pages_per_seq, eos_token_id=eos)
+    kw = dict(device=device, num_pages=args.num_pages, page_size=args.page_size,
+              max_batch=args.max_batch, max_pages_per_seq=args.max_pages_per_seq,
+              eos_token_id=eos, quantized_kv=args.quantized_kv)
+    if draft is not None:
+        from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
+
+        engine = SpeculativeServingEngine(params, config, draft, config, plan=plan,
+                                          draft_plan=plan, gamma=args.gamma, **kw)
+    else:
+        from grasp_tpu_torch.serving.paged import ServingEngine
+
+        engine = ServingEngine(params, config, plan, **kw)
     handles = serve(engine, host=args.host, port=args.port, tokenizer=tokenizer,
                     model_id=args.model_name or args.model_path, block=block)
     return 0 if block else handles

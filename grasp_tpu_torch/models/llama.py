@@ -16,9 +16,9 @@ Ported: the LLaMA/TinyLlama/Qwen2-style families (bias optional, rope scaling
 int4 projection weights (ops/quant.py), the fused low-rank kernel behind
 ``config.use_pallas_lowrank`` (ops/lowrank.py; the field keeps the JAX
 package's name so that checkpoints carry over), and the flash-attention route
-of the full-sequence forward (ops/flash_attention.py). Softcapping, sliding
-windows, MoE, Gemma norms, the ``hybrid`` kind and int8 KV raise
-NotImplementedError.
+of the full-sequence forward (ops/flash_attention.py), and the int8 KV cache
+(``init_kv_cache(quantized=True)``). Softcapping, sliding windows, MoE, Gemma
+norms and the ``hybrid`` kind raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from torch import nn
 from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.ops.flash_attention import flash_attention
 from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
-from grasp_tpu_torch.ops.quant import quant_matmul, quant_matmul_int4
+from grasp_tpu_torch.ops.quant import _absmax_scale, quant_matmul, quant_matmul_int4
 
 Params = Dict[str, Any]
 
@@ -286,6 +286,31 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, v.to(q.dtype))
 
 
+def _attention_q8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
+                  v8: torch.Tensor, v_scale: torch.Tensor, mask: Optional[torch.Tensor],
+                  num_kv_groups: int, scale: Optional[float] = None) -> torch.Tensor:
+    """Attention directly over the int8 KV cache, without a dequantized copy.
+
+    The per-key scale commutes out of the score contraction
+    (q.(k8 s) = (q.k8) s) and the per-value scale folds into the softmax
+    weights (sum_t p_t (v8_t s_t) = sum_t (p_t s_t) v8_t). k8/v8: int8
+    [B, nkv, T, hd]; k_scale/v_scale: fp32 [B, nkv, T, 1]."""
+    if num_kv_groups > 1:
+        k8 = k8.repeat_interleave(num_kv_groups, dim=1)
+        v8 = v8.repeat_interleave(num_kv_groups, dim=1)
+        k_scale = k_scale.repeat_interleave(num_kv_groups, dim=1)
+        v_scale = v_scale.repeat_interleave(num_kv_groups, dim=1)
+    if scale is None:
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.matmul(q.float(), k8.float().transpose(-1, -2))
+    scores = scores * (k_scale[..., 0][:, :, None, :] * scale)
+    if mask is not None:
+        scores = scores + mask
+    probs = torch.softmax(scores, dim=-1)
+    weights = (probs * v_scale[..., 0][:, :, None, :]).to(q.dtype)
+    return torch.matmul(weights, v8.to(q.dtype))
+
+
 def attention_scale(config: ModelConfig) -> float:
     """Score scale: query_pre_attn_scalar**-0.5 if set, else head_dim**-0.5."""
     if config.query_pre_attn_scalar:
@@ -336,14 +361,21 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
     v = proj_apply(x, ap["v_proj"], kinds["v_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
     q, k = apply_rope(q, k, cos, sin)
 
+    quantized = kv is not None and "k_scale" in kv
     if kv is not None:
-        if "k_scale" in kv:
-            raise NotImplementedError("grasp_tpu_torch does not support an int8 KV cache yet")
-        kv["k"][:, :, cache_index:cache_index + s] = k.to(kv["k"].dtype)
-        kv["v"][:, :, cache_index:cache_index + s] = v.to(kv["v"].dtype)
+        span = slice(cache_index, cache_index + s)
+        if quantized:  # int8 cache (init_kv_cache quantized=True)
+            (kv["k"][:, :, span], kv["k_scale"][:, :, span]) = _quantize_kv(k)
+            (kv["v"][:, :, span], kv["v_scale"][:, :, span]) = _quantize_kv(v)
+        else:
+            kv["k"][:, :, span] = k.to(kv["k"].dtype)
+            kv["v"][:, :, span] = v.to(kv["v"].dtype)
         k, v = kv["k"], kv["v"]
 
-    if _takes_flash_route(config, q, kv is None and flash_ok):
+    if quantized:
+        attn = _attention_q8(q, k, kv["k_scale"], v, kv["v_scale"], mask, nh // nkv,
+                             scale=attention_scale(config))
+    elif _takes_flash_route(config, q, kv is None and flash_ok):
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), nh // nkv,
                                attention_scale(config))
     else:
@@ -446,14 +478,33 @@ def hf_causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
 def init_kv_cache(config: ModelConfig, batch: int, max_len: int, *, device,
                   dtype: Optional[torch.dtype] = None,
                   quantized: bool = False) -> List[Dict[str, torch.Tensor]]:
-    """Dense per-layer KV cache, k/v [batch, nkv, max_len, hd]."""
-    if quantized:
-        raise NotImplementedError("grasp_tpu_torch does not support an int8 KV cache yet")
-    dtype = dtype or torch_dtype(config.dtype)
+    """Dense per-layer KV cache, k/v [batch, nkv, max_len, hd].
+    ``quantized``: k/v are int8 with one fp32 absmax scale per (batch, head,
+    position), ``k_scale``/``v_scale`` [batch, nkv, max_len, 1]; attention
+    then runs on the int8 values (:func:`_attention_q8`)."""
     shape = (batch, config.num_key_value_heads, max_len, config.head_dim_)
+    if quantized:
+        def plane(last, dt, fill):
+            return torch.full(shape[:-1] + (last,), fill, dtype=dt, device=device)
+        return [{"k": plane(shape[-1], torch.int8, 0), "k_scale": plane(1, torch.float32, 1.0),
+                 "v": plane(shape[-1], torch.int8, 0), "v_scale": plane(1, torch.float32, 1.0)}
+                for _ in range(config.num_hidden_layers)]
+    dtype = dtype or torch_dtype(config.dtype)
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(config.num_hidden_layers)]
+
+
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric absmax int8 over head_dim, one scale per (batch, head,
+    position): (int8 values, fp32 scale [..., 1]). The scale is absmax times
+    the fp32 reciprocal of 127: what the JAX package's jitted forward computes
+    (XLA turns its division by a constant into that product), and every cache
+    write there is jitted."""
+    xf = x.float()
+    scale = _absmax_scale(xf.abs().amax(dim=-1, keepdim=True), 127.0, reciprocal=True)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def _forward_with_cache(params: Params, input_ids: torch.Tensor,

@@ -33,6 +33,10 @@ _U64 = ctypes.c_ulonglong
 SIGNATURES = {
     "grasp_paged_attention_decode": (
         _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q k_pages v_pages base_lengths tables out | batch chunk nh nkv num_pages page_size
+    # pages_per_seq head_dim dtype | scale stream
+    "grasp_paged_attention_chunk": (
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     # q k v o lse | batch nh nkv S head_dim dtype | scale stream
     "grasp_flash_attention_fwd": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),

@@ -1,1 +1,2 @@
-"""Paged continuous-batching engine and HTTP front end of the port."""
+"""Paged continuous-batching engines (plain and speculative) and the HTTP
+front end of the port."""

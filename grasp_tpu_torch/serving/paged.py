@@ -9,13 +9,15 @@ pages, and every decode step advances all live rows at once.
 
 Decode attention reads the pages in place through the page table with the
 CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention` (its plain version
-on CPU tensors). The pools are updated in place; the JAX engine donated them
-to its jitted step instead.
+on CPU tensors). int8 pools (``quantized_kv``: int8 pages with one fp32 scale
+per page slot and head) take the gather route on every device, as in the JAX
+engine, whose kernels read fp pages only. The pools are updated in place; the
+JAX engine donated them to its jitted step instead.
 
-Ported: fp pools, int8 and int4 weights (through ``proj_apply``), greedy and
-temperature/top-k/top-p sampling, eos stops, cancel. The prefix cache,
-chunked prefill, int8 KV, penalties, logit bias,
-logprobs and guided decoding raise NotImplementedError.
+Ported: fp and int8 pools, int8 and int4 weights (through ``proj_apply``),
+greedy and temperature/top-k/top-p sampling, eos stops, cancel. The prefix
+cache, chunked prefill, penalties, logit bias, logprobs and guided decoding
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from grasp_tpu_torch.models.llama import (
     ModelPlan,
     Params,
     _lm_logits,
+    _quantize_kv,
     apply_rope,
     attention_scale,
     attn_mlp_residual,
@@ -46,26 +49,37 @@ from grasp_tpu_torch.models.llama import (
     rope_cos_sin,
     torch_dtype,
 )
-from grasp_tpu_torch.ops.paged_attention import check_kernel_shape, paged_attention
+from grasp_tpu_torch.ops.paged_attention import (
+    check_kernel_shape,
+    paged_attention,
+    paged_attention_q8_gather,
+)
 
 
 class PagePool:
     """Global KV page pool (device) + host-side refcounting allocator.
     Page 0 is the reserved null page that unallocated table slots and dead
-    rows point at."""
+    rows point at. ``quantized``: int8 pages with fp32 absmax scales per
+    (page slot, head), ``k_scales``/``v_scales`` [L, nkv, P, ps, 1] (the int8
+    KV scheme of models/llama.py); otherwise both are None."""
 
     def __init__(self, config: ModelConfig, num_pages: int, page_size: int = 128, *,
-                 device, dtype: Optional[torch.dtype] = None):
+                 device, dtype: Optional[torch.dtype] = None, quantized: bool = False):
         self.config = config
         self.num_pages = num_pages
         self.page_size = page_size
-        dtype = dtype or torch_dtype(config.dtype)
+        self.quantized = quantized
+        dtype = torch.int8 if quantized else (dtype or torch_dtype(config.dtype))
         # [L, nkv, P, ps, hd]: each layer's slice is the kernel's
         # [num_kv_heads, total_pages, page_size, head_dim]
         shape = (config.num_hidden_layers, config.num_key_value_heads, num_pages,
                  page_size, config.head_dim_)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=device)
+        self.k_scales = self.v_scales = None
+        if quantized:
+            self.k_scales = torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device)
+            self.v_scales = torch.ones(shape[:-1] + (1,), dtype=torch.float32, device=device)
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._ref = [0] * num_pages
 
@@ -95,14 +109,17 @@ class PagePool:
 def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
     """Build the one-token decode over the page pool.
 
-    (params, toks [B], k_pages, v_pages, tables [B, P] i32, pos [B], live [B])
-    -> logits [B, V]. pos[b] = tokens already in sequence b's cache (the new
-    token's slot). The new token's K/V are written into the pools in place
-    before attention; dead rows (live=0) write slot 0 of the null page 0 and
-    attend over length 1."""
+    (params, toks [B], k_pages, v_pages, tables [B, P] i32, pos [B], live [B],
+    k_scales=None, v_scales=None) -> logits [B, V]. pos[b] = tokens already in
+    sequence b's cache (the new token's slot). The new token's K/V are written
+    into the pools in place before attention; dead rows (live=0) write slot 0
+    of the null page 0 and attend over length 1. With the scale pools the
+    pages are int8: the token's K/V are quantized per head and attention takes
+    the gather route. The pools are arguments, so one body serves a second
+    pool (the draft's, in speculative serving)."""
     nh = config.num_attention_heads
 
-    def fn(params, toks, k_pages, v_pages, tables, pos, live):
+    def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
         L, nkv, _, page_size, hd = k_pages.shape
         b = toks.shape[0]
         cos, sin = rope_cos_sin(pos[:, None], hd, config.rope_theta,
@@ -133,11 +150,18 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
 
             # torch applies the integer index first, so unlike numpy/JAX the
             # [B] dim of (phys, offset) stays in place: the target is [nkv, B, hd]
-            k_pages[li][:, phys, offset] = k[:, :, 0, :].transpose(0, 1).to(k_pages.dtype)
-            v_pages[li][:, phys, offset] = v[:, :, 0, :].transpose(0, 1).to(v_pages.dtype)
-
-            attn = paged_attention(q[:, :, 0, :].to(h.dtype).contiguous(), k_pages[li],
-                                   v_pages[li], lengths, tables, scale)  # [B, nh, hd]
+            kw, vw = k[:, :, 0, :].transpose(0, 1), v[:, :, 0, :].transpose(0, 1)
+            q1 = q[:, :, 0, :].to(h.dtype).contiguous()  # [B, nh, hd]
+            if k_scales is not None:
+                (k_pages[li][:, phys, offset], k_scales[li][:, phys, offset]) = _quantize_kv(kw)
+                (v_pages[li][:, phys, offset], v_scales[li][:, phys, offset]) = _quantize_kv(vw)
+                attn = paged_attention_q8_gather(
+                    q1[:, None], k_pages[li], v_pages[li], k_scales[li], v_scales[li],
+                    lengths, tables, scale)[:, 0]
+            else:
+                k_pages[li][:, phys, offset] = kw.to(k_pages.dtype)
+                v_pages[li][:, phys, offset] = vw.to(v_pages.dtype)
+                attn = paged_attention(q1, k_pages[li], v_pages[li], lengths, tables, scale)
             attn = proj_apply(attn.reshape(b, 1, nh * hd), ap["o_proj"], kinds["o_proj"])
             h = attn_mlp_residual(h, attn, lp, kinds, config)
 
@@ -150,22 +174,32 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
 _MAX_TOP_K = 64  # cap on a request's top_k (sizes the batched top-k)
 
 
+def sampled_rows(reqs: List[Optional["_Request"]]) -> List[int]:
+    """Rows of a batch that hold a request which samples (not greedy)."""
+    return [i for i, r in enumerate(reqs) if r is not None and not r.greedy]
+
+
+def sampling_settings(reqs: List[Optional["_Request"]], sampled: List[int], device):
+    """Per-row (temperatures, top-k, top-p) of a batch as tensors on
+    ``device``; rows outside ``sampled`` keep the identity settings."""
+    b = len(reqs)
+    temps, ks, top_ps = torch.ones(b), torch.zeros(b, dtype=torch.long), torch.ones(b)
+    for i in sampled:
+        temps[i] = max(reqs[i].temperature, 1e-6)
+        ks[i] = reqs[i].top_k
+        top_ps[i] = reqs[i].top_p
+    return temps.to(device), ks.to(device), top_ps.to(device)
+
+
 def sample_tokens(logits: torch.Tensor, reqs: List[Optional["_Request"]]) -> torch.Tensor:
     """Per-row next tokens (row i <- logits[i]): argmax for greedy rows and
     rows without a request; otherwise HF-semantics temperature / top-k /
     top-p sampling, one draw from the request's generator."""
     toks = torch.argmax(logits, dim=-1)
-    sampled = [i for i, r in enumerate(reqs) if r is not None and not r.greedy]
+    sampled = sampled_rows(reqs)
     if sampled:
-        b = logits.shape[0]
-        temps, ks, top_ps = torch.ones(b), torch.zeros(b, dtype=torch.long), torch.ones(b)
-        for i in sampled:
-            temps[i] = max(reqs[i].temperature, 1e-6)
-            ks[i] = reqs[i].top_k
-            top_ps[i] = reqs[i].top_p
-        dev = logits.device
-        filt = topk_topp_filter(logits.float() / temps.to(dev)[:, None], ks.to(dev),
-                                top_ps.to(dev), _MAX_TOP_K)
+        temps, ks, top_ps = sampling_settings(reqs, sampled, logits.device)
+        filt = topk_topp_filter(logits.float() / temps[:, None], ks, top_ps, _MAX_TOP_K)
         probs = torch.softmax(filt, dim=-1)
         for i in sampled:
             toks[i] = torch.multinomial(probs[i], 1, generator=reqs[i].generator)[0]
@@ -197,15 +231,20 @@ class _Request:
         return self.temperature == 0.0 or self.top_k == 1
 
 
-def _build_scatter(k_pages: torch.Tensor, v_pages: torch.Tensor, cache, phys: torch.Tensor,
-                   page_size: int) -> None:
-    """Write a prefilled dense cache ([1, nkv, n*ps, hd] per layer) into the
-    pages ``phys`` (n of them) of every layer, in place."""
+def _build_scatter(pool: PagePool, cache, phys: torch.Tensor) -> None:
+    """Write a prefilled dense cache ([1, nkv, n*ps, hd] per layer; with
+    ``k_scale``/``v_scale`` planes for an int8 pool, whose int8 values and
+    scales land verbatim) into the pages ``phys`` (n of them) of every layer
+    of ``pool``, in place."""
     n = phys.shape[0]
+    planes = [(pool.k_pages, "k"), (pool.v_pages, "v")]
+    if pool.quantized:
+        planes += [(pool.k_scales, "k_scale"), (pool.v_scales, "v_scale")]
     for li, kv in enumerate(cache):
-        for pages, arr in ((k_pages, kv["k"]), (v_pages, kv["v"])):
-            a = arr[0]
-            pages[li][:, phys] = a.reshape(a.shape[0], n, page_size, a.shape[-1]).to(pages.dtype)
+        for pages, name in planes:
+            a = kv[name][0]
+            pages[li][:, phys] = a.reshape(a.shape[0], n, pool.page_size,
+                                           a.shape[-1]).to(pages.dtype)
 
 
 _UNSUPPORTED_SUBMIT = {
@@ -229,7 +268,7 @@ class ServingEngine:
                  max_pages_per_seq: int = 8, eos_token_id=None, quantized_kv: bool = False,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None):
         check_supported(config)
-        for name, on in (("quantized_kv", quantized_kv), ("prefix_cache", prefix_cache),
+        for name, on in (("prefix_cache", prefix_cache),
                          ("prefill_chunk", prefill_chunk is not None)):
             if on:
                 raise NotImplementedError(f"grasp_tpu_torch serving does not support {name} yet")
@@ -237,10 +276,11 @@ class ServingEngine:
         self.config = config
         self.plan = plan or default_plan(config)
         self.device = torch.device(device)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not quantized_kv:  # int8 pools gather
             check_kernel_shape(config.num_attention_heads, config.num_key_value_heads,
                                config.head_dim_)
-        self.pool = PagePool(config, num_pages, page_size, device=self.device)
+        self.pool = PagePool(config, num_pages, page_size, device=self.device,
+                             quantized=quantized_kv)
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
         if eos_token_id is None:
@@ -277,7 +317,7 @@ class ServingEngine:
         flat = np.asarray(prompt_ids).reshape(-1)
         if flat.size and (flat.min() < 0 or flat.max() >= self.config.vocab_size):
             raise ValueError(f"prompt token ids must be in [0, {self.config.vocab_size})")
-        need = -(-(len(flat) + max_new_tokens) // self.pool.page_size)
+        need = self._pages_needed(len(flat), max_new_tokens)
         if need > self.max_pages_per_seq:
             raise ValueError(
                 f"request needs {need} pages > max_pages_per_seq={self.max_pages_per_seq}")
@@ -326,55 +366,61 @@ class ServingEngine:
         return results
 
     # -- internals ----------------------------------------------------------
+    def _pages_needed(self, prompt_len: int, max_new: int) -> int:
+        """Pages a request holds from admission to retirement."""
+        return -(-(prompt_len + max_new) // self.pool.page_size)
+
     def _pick_tokens(self, logits: torch.Tensor, reqs: List[Optional[_Request]]) -> np.ndarray:
         """Per-row next tokens for ``reqs`` (row i <- logits[i]), on the host."""
         return sample_tokens(logits, reqs).cpu().numpy().astype(np.int32)
 
-    def _admit(self, req: _Request, row: int) -> None:
-        """Allocate pages, prefill the prompt (padded to whole pages) into a
-        temporary dense cache, scatter it into the pages, activate the row
-        and pick its first token from the last prompt position."""
-        ps = self.pool.page_size
+    def _prefill_into(self, pool: PagePool, params: Params, config: ModelConfig,
+                      plan: ModelPlan, req: _Request) -> torch.Tensor:
+        """Prefill ``req``'s prompt (padded to whole pages) with one model
+        into a temporary dense cache and scatter it into the request's pages
+        of ``pool``. An int8 pool prefills over an int8 cache, so that the
+        prompt's attention reads the quantized K/V its decode will read and
+        the pool receives those values and scales verbatim. Returns the
+        prompt's logits [1, s_pad, V]."""
+        ps = pool.page_size
         s = len(req.prompt)
         s_pad = -(-max(s, 1) // ps) * ps
-        req.pages = self.pool.alloc(-(-(s + req.max_new) // ps))
-        if not req.greedy:
-            req.generator = torch.Generator(device=self.device).manual_seed(req.seed)
-
-        cache = init_kv_cache(self.config, 1, s_pad, device=self.device,
-                              dtype=self.pool.k_pages.dtype)
+        cache = init_kv_cache(config, 1, s_pad, device=self.device,
+                              dtype=pool.k_pages.dtype, quantized=pool.quantized)
         ids = np.zeros((1, s_pad), np.int64)
         ids[0, :s] = req.prompt
-        logits, cache = prefill(self.params, torch.from_numpy(ids).to(self.device), cache,
-                                config=self.config, plan=self.plan)
+        logits, cache = prefill(params, torch.from_numpy(ids).to(self.device), cache,
+                                config=config, plan=plan)
         phys = torch.tensor(req.pages[:s_pad // ps], dtype=torch.long, device=self.device)
-        _build_scatter(self.pool.k_pages, self.pool.v_pages, cache, phys, ps)
+        _build_scatter(pool, cache, phys)
+        return logits
+
+    def _admit(self, req: _Request, row: int) -> None:
+        """Allocate pages, prefill the prompt into them, activate the row and
+        pick its first token from the last prompt position."""
+        s = len(req.prompt)
+        req.pages = self.pool.alloc(self._pages_needed(s, req.max_new))
+        if not req.greedy:
+            req.generator = torch.Generator(device=self.device).manual_seed(req.seed)
+        logits = self._prefill_into(self.pool, self.params, self.config, self.plan, req)
 
         req.pos = s
         req.row = row
         self._live[row] = req
         self._next_tok[row] = int(self._pick_tokens(logits[:, s - 1], [req])[0])
 
-    def step(self) -> None:
+    def _admit_pending(self) -> None:
+        """Admit pending requests into free rows while pages suffice."""
         for row in range(self.max_batch):
             if self._live[row] is None and self._pending:
                 nxt = self._pending[0]
-                need = -(-(len(nxt.prompt) + nxt.max_new) // self.pool.page_size)
-                if need > self.pool.free_pages:
+                if self._pages_needed(len(nxt.prompt), nxt.max_new) > self.pool.free_pages:
                     break  # wait for pages to free up
                 self._admit(self._pending.pop(0), row)
 
-        # emit the token computed last step (or by prefill), check stops
-        for r in list(self._live):
-            if r is None:
-                continue
-            tok = int(self._next_tok[r.row])
-            if tok in self._eos:
-                r.finish = "eos"
-                self._retire(r)  # the stop token is not emitted
-            else:
-                r.out.append(tok)
-
+    def _batch_state(self):
+        """(tables [max_batch, pages_per_seq], pos, live) of the live rows,
+        int32 numpy."""
         tables = np.zeros((self.max_batch, self.max_pages_per_seq), np.int32)
         pos = np.zeros(self.max_batch, np.int32)
         live = np.zeros(self.max_batch, np.int32)
@@ -384,6 +430,18 @@ class ServingEngine:
             tables[r.row, :len(r.pages)] = r.pages
             pos[r.row] = r.pos
             live[r.row] = 1
+        return tables, pos, live
+
+    def step(self) -> None:
+        self._admit_pending()
+
+        # emit the token computed last step (or by prefill), check stops
+        for r in list(self._live):
+            if r is None:
+                continue
+            self._emit(r, int(self._next_tok[r.row]))
+
+        tables, pos, live = self._batch_state()
         if not live.any():
             return
 
@@ -392,7 +450,8 @@ class ServingEngine:
         logits = self._decode(
             self.params, torch.from_numpy(self._next_tok.astype(np.int64)).to(dev),
             self.pool.k_pages, self.pool.v_pages, torch.from_numpy(tables).to(dev),
-            torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev))
+            torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev),
+            self.pool.k_scales, self.pool.v_scales)
         nxt = self._pick_tokens(logits, self._live)
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += 1
@@ -403,6 +462,16 @@ class ServingEngine:
             self._next_tok[r.row] = nxt[r.row]
             if len(r.out) >= r.max_new:
                 self._retire(r)
+
+    def _emit(self, req: _Request, tok: int) -> bool:
+        """Append ``tok`` to the request's output, or retire the request on a
+        stop token, which is not emitted. True while the request goes on."""
+        if tok in self._eos:
+            req.finish = "eos"
+            self._retire(req)
+            return False
+        req.out.append(tok)
+        return True
 
     def _retire(self, req: _Request) -> None:
         self.pool.free(req.pages)

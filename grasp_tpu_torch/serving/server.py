@@ -1,5 +1,5 @@
-"""HTTP front end: OpenAI-style completions over the paged engine
-(counterpart of grasp_tpu/serving/server.py).
+"""HTTP front end: OpenAI-style completions over the paged engine, plain or
+speculative (counterpart of grasp_tpu/serving/server.py).
 
 - ``POST /v1/completions``: prompt as a string (needs a tokenizer), a list of
   token ids, or a batch of either; ``max_tokens``, ``temperature``,
@@ -42,7 +42,8 @@ class _Delivery:
 
 
 class GraspServer:
-    """Scheduler + request registry around one :class:`ServingEngine`.
+    """Scheduler + request registry around one :class:`ServingEngine` (or
+    its speculative subclass, whose steps emit several tokens a row).
     ``start()`` launches the scheduler thread; ``close()`` stops it after the
     current step."""
 

@@ -140,9 +140,7 @@ def test_unported_paths_raise(models):
     with pytest.raises(NotImplementedError):  # MoE quantization waits for models/moe.py
         quantize_model_weights({"layers": [dict(tp["layers"][0], moe={"experts": {}})]})
     with pytest.raises(NotImplementedError):
-        tl.init_kv_cache(config, 1, 8, device="cpu", quantized=True)
-    with pytest.raises(NotImplementedError):
-        ServingEngine(tp, config, device="cpu", quantized_kv=True)
+        ServingEngine(tp, config, device="cpu", prefix_cache=True)
     with pytest.raises(NotImplementedError):
         tl.rope_cos_sin(torch.arange(4), 64, 1e4, scaling={
             "rope_type": "longrope", "short_factor": [1.0], "long_factor": [1.0],

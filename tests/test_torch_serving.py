@@ -127,7 +127,7 @@ def test_submit_validates_and_rejects_unported_options(compressed):
                 {"guided_regex": "a+"}):
         with pytest.raises(NotImplementedError):
             eng.submit([1, 2], 2, **opt)
-    for opt in ({"quantized_kv": True}, {"prefix_cache": True}, {"prefill_chunk": 8}):
+    for opt in ({"prefix_cache": True}, {"prefill_chunk": 8}):
         with pytest.raises(NotImplementedError):
             _engine(config, tp, plan, **opt)
     rid = eng.submit([1, 2, 3], 3)
