@@ -75,6 +75,7 @@ import functools
 import http.client
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -103,7 +104,10 @@ def card_line() -> str:
 
 
 def phase_build():
-    from grasp_tpu_torch.ops._build import build, load_library
+    """Build and load the kernels, print the compiler's register and spill
+    report, and show from the compiled code (cuobjdump -sass) that every
+    tensor-core kernel holds HMMA instructions."""
+    from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
     so = build()
@@ -115,6 +119,23 @@ def phase_build():
         for line in log.read_text().splitlines():
             if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
                 print(f"  ptxas: {line.strip()}")
+    sass = subprocess.run([os.path.join(os.path.dirname(find_nvcc()), "cuobjdump"), "-sass",
+                           str(so)], capture_output=True, text=True, check=True).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            # a mangled name such as ..._ZN...18flash_fwd_mma_kernelILi64EEEv...: kernel<64>
+            found = re.search(r"(flash_fwd_mma_kernel|lowrank_fused_mma_kernel)ILi(\d+)E", line)
+            name = f"{found.group(1)}<{found.group(2)}>" if found else None
+            if name:
+                hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    print("sass: HMMA instructions in the tensor-core kernels: "
+          + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
+    families = {n.split("<")[0] for n in hmma}
+    if families != {"flash_fwd_mma_kernel", "lowrank_fused_mma_kernel"} or min(hmma.values()) == 0:
+        raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
 
 def _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, ps, pps, num_pages, lengths,
@@ -209,18 +230,16 @@ def phase_kernel_timing(torch, n_layers):
     k1 = _time_ms(torch, kern, n_layers, 20)
     k2 = _time_ms(torch, kern, n_layers, 20)
     p2 = _time_ms(torch, plain, n_layers, 20)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"kernel timing (B=8 nh=32 nkv=4 hd=64 bf16, lengths {lengths}): "
-          f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms")
     # least time for this call: the live K and V rows, q and the output moved
     # once at 3.35 TB/s, against q.k and p.v (2 flops each per element) at the
     # bf16 tensor-core peak
     live = sum(lengths)
     nbytes = 2 * live * 4 * 64 * 2 + 2 * 8 * 32 * 64 * 2 + lens.numel() * 4 + tables.numel() * 4
-    ops_ms = 4 * live * 32 * 64 / 989e12 * 1e3
-    bytes_ms = nbytes / 3.35e12 * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(ops_ms, bytes_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations", "library_ms": None}
+    rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **_bound(nbytes, 4 * live * 32 * 64),
+           "library_ms": None}
+    print(f"kernel timing (B=8 nh=32 nkv=4 hd=64 bf16, lengths {lengths}): "
+          f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms" + _shares(rec))
+    return rec
 
 
 # base lengths of the chunk kernel's cases: 1, both sides of the tile edges
@@ -359,17 +378,18 @@ def phase_chunk_timing(torch, n_layers):
                      ("decodes", decodes), ("kernel", kern), ("plain", plain)):
         t.setdefault(name, []).append(_time_ms(torch, fn, n_layers, 10, run_ahead=True))
     mean = {name: sum(xs) / len(xs) for name, xs in t.items()}
-    print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, base lengths "
-          f"{lengths}), ms per call, two turns each: "
-          + ", ".join(f"{name} {xs[0]:.4f}/{xs[1]:.4f}" for name, xs in t.items())
-          + f"; {c_len} decode launches over one chunk launch: "
-            f"{mean['decodes'] / mean['kernel']:.2f}x")
     kv_rows = sum(n + c_len - 1 for n in lengths)
     pairs = sum(n + c for n in lengths for c in range(c_len))  # (query, slot) pairs per head
     nbytes = (2 * kv_rows * nkv * hd * 2 + 2 * q.numel() * 2 + base.numel() * 4
               + tables.numel() * 4)
-    return {"ms": mean["kernel"], "plain_ms": mean["plain"],
-            **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None}
+    rec = {"ms": mean["kernel"], "plain_ms": mean["plain"],
+           **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None}
+    print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, base lengths "
+          f"{lengths}), ms per call, two turns each: "
+          + ", ".join(f"{name} {xs[0]:.4f}/{xs[1]:.4f}" for name, xs in t.items())
+          + f"; {c_len} decode launches over one chunk launch: "
+            f"{mean['decodes'] / mean['kernel']:.2f}x" + _shares(rec))
+    return rec
 
 
 # (B, nh, nkv, S, hd, scale): the calibration shape of TinyLlama-1.1B, a ragged
@@ -526,8 +546,6 @@ def phase_flash_timing(torch):
         for name, fn in turns[turn].items():
             t.setdefault((turn, name), []).append(_event_ms(torch, fn, 10))
     mean = {key: sum(xs) / len(xs) for key, xs in t.items()}
-    print("flash timing (B=1 nh=32 nkv=4 S=2047 hd=64 bf16), ms per call, two turns each: "
-          + ", ".join(f"{turn} {name} {xs[0]:.4f}/{xs[1]:.4f}" for (turn, name), xs in t.items()))
 
     pairs = b * nh * s * (s + 1) / 2          # live (query, key) pairs
     qo_bytes, kv_bytes = b * nh * s * hd * 2, b * nkv * s * hd * 2
@@ -543,6 +561,9 @@ def phase_flash_timing(torch):
         out[name] = {"ms": mean["kernel", name], "plain_ms": mean["plain", name],
                      "library_ms": mean["library", name], "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+        print(f"flash timing {name} (B=1 nh=32 nkv=4 S=2047 hd=64 bf16), ms per call, two "
+              "turns each: " + ", ".join(f"{turn} {t[turn, name][0]:.4f}/{t[turn, name][1]:.4f}"
+                                         for turn in turns) + _shares(out[name]))
     return out
 
 
@@ -611,6 +632,16 @@ def _bound(nbytes, flops):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def _shares(rec):
+    """A timing line's tail: the kernel's share of its bound and its time
+    over the library call's."""
+    text = (f"; bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, the kernel at "
+            f"{rec['bound_ms'] / rec['ms']:.2%} of it")
+    if rec["library_ms"] is None:
+        return text + ", no library call"
+    return text + f", {rec['ms'] / rec['library_ms']:.2f}x the library call's time"
+
+
 def phase_lowrank_timing(torch):
     """Kernel, plain version and the library call (two torch.matmul) in bf16
     at the up_proj of a calibration row and at a 512-token prefill's q_proj.
@@ -634,7 +665,7 @@ def phase_lowrank_timing(torch):
                **_bound(2 * (m * k + k * r + r * n + m * n), 2 * m * r * (k + n))}
         print(f"lowrank timing (m={m} k={k} r={r} n={n} bf16), ms per call, two turns each: "
               + ", ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}" for name, v in raw.items())
-              + f"; bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}")
+              + _shares(rec))
         out = out or rec
     return out
 
@@ -737,15 +768,15 @@ def phase_int4_timing(torch):
         g = weights[0][1].shape[0]
         bound = _bound(in_f * out_f // 2 + g * out_f * 4 + 2 * m * (in_f + out_f),
                        2 * m * in_f * out_f)
+        shared = {"plain_ms": mean["plain"], "library_ms": mean["library"], **bound}
+        recs = {"grid": {"ms": mean["kernel"], **shared}, "dma": {"ms": dma["kernel"], **shared}}
         print(f"int4 timing (m={m} in={in_f} out={out_f} bf16, {copies} weight copies in turn), ms "
               f"per call: grid {raw['kernel'][0]:.4f}/{raw['kernel'][1]:.4f}, dma "
               f"{dma['kernel']:.4f}, plain {raw['plain'][0]:.4f}/{raw['plain'][1]:.4f}, library "
               f"matmul on a dequantized weight {raw['library'][0]:.4f}/{raw['library'][1]:.4f} "
-              f"(dequantizing it {dequant_ms:.4f}); bound {bound['bound_ms']:.5f} ms by "
-              f"{bound['bound_by']}")
-        if out is None:
-            shared = {"plain_ms": mean["plain"], "library_ms": mean["library"], **bound}
-            out = {"grid": {"ms": mean["kernel"], **shared}, "dma": {"ms": dma["kernel"], **shared}}
+              f"(dequantizing it {dequant_ms:.4f}); grid" + _shares(recs["grid"])
+              + "; dma" + _shares(recs["dma"]))
+        out = out or recs
         del weights, dense
     return out
 
@@ -820,7 +851,7 @@ def phase_quantizer_timing(torch):
            **_bound(in_f * out_f * 3 + out_f * 4, 3 * in_f * out_f)}
     print(f"quantizer timing ({in_f}x{out_f} bf16), ms per call, two turns each: "
           + ", ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}" for name, v in raw.items())
-          + f"; bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}")
+          + _shares(rec))
     return rec
 
 
@@ -1663,7 +1694,8 @@ def main(argv=None) -> int:
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
          "launches": spec_launches["chunk"], "max_abs_err": chunk_err, **chunk},
-        {"name": "flash_attention_fwd", "route": "cuda", "source": flash_src,
+        # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
+        {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
          "launches": flash_launches["fwd"], "max_abs_err": flash_err["fwd"], **flash["fwd"]},
         {"name": "flash_attention_bwd_dkv", "route": "cuda", "source": flash_src,
@@ -1673,7 +1705,8 @@ def main(argv=None) -> int:
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
         # launches: prefill of the fused serving variant plus the flagged compression
-        {"name": "lowrank_fused", "route": "cuda",
+        # the bf16 body (the fp32 inputs of phase_lowrank take lowrank_fused_kernel)
+        {"name": "lowrank_fused_mma_kernel", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
          "launches": served["fused"]["fused"] + fused_compress_launches,

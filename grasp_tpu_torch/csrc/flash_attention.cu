@@ -28,17 +28,22 @@
 // the diagonal, so the group sum needs no atomics and is the same from run to
 // run. S is not padded: rows and columns >= S are masked in the kernel.
 //
-// Simple first: 256 threads, every product is fp32 FMAs on CUDA cores from
-// fp32 tiles in shared memory (bf16 inputs are widened on load), each thread
-// owning a 4 x 4 piece of the 64 x 64 score tile and a 4 x (hd / 16) piece of
-// the output tile. p and ds stay fp32 (the TPU kernel rounds p to the input
-// type before p . v). No tensor cores, no cp.async/TMA, no pipelining: the
-// kernels are far from the card's bf16 tensor-core rate, which is later work.
+// Two forward bodies, chosen by dtype:
+// - bf16 takes flash_fwd_mma_kernel: tensor-core products (mma.sync) on bf16
+//   tiles staged by cp.async, described above that kernel.
+// - fp32, and the backward kernels for both dtypes, keep the simple first
+//   design: 256 threads, every product is fp32 FMAs on CUDA cores from fp32
+//   tiles in shared memory (bf16 inputs are widened on load), each thread
+//   owning a 4 x 4 piece of the 64 x 64 score tile and a 4 x (hd / 16) piece
+//   of the output tile; p and ds stay fp32. No pipelining. fp32 stays off the
+//   tensor cores because its gate (1e-4) is below what TF32 keeps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace {
 
@@ -297,6 +302,241 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
+// forward, bf16, on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replaces grasp_tpu/ops/pallas_attention.py::_flash_fwd_impl (Pallas body
+// `_kernel`) for bf16 inputs.
+//
+// What bounds it: operations (17.2 GFLOP at the calibration shape, B 1, 32
+// over 4 heads, S 2047, hd 64, against 17 MB moved). The fp32-FMA body above
+// cannot pass the card's 67 TFLOP/s fp32 rate; this one runs every product on
+// the tensor cores (mma.sync m16n8k16, bf16 in, fp32 accumulate).
+//
+// Design (FlashAttention-2's shape on mma.sync):
+// - a block holds 64 query rows in 4 warps; each warp owns 16 rows and keeps
+//   their Q fragments in registers for the whole key loop (128 rows in 8
+//   warps were slower on an H100: at about 146 registers a thread one such
+//   block fills an SM's registers, where three of these fit);
+// - K and V come in 64-key tiles by 16-byte cp.async into two shared-memory
+//   stages, so tile j + 1 arrives while tile j is computed; rows are padded
+//   by 16 bytes, which makes every ldmatrix free of bank conflicts;
+// - S = Q K^T with K fragments by ldmatrix; the online softmax runs on the
+//   accumulator fragments (a row lives in the 4 lanes of a quad: two
+//   shuffles), in base 2 with scale * log2(e) folded in; only tiles that cross
+//   the diagonal or the end of the sequence are masked;
+// - P is rounded to bf16 in registers, as the TPU kernel rounds
+//   p.astype(v.dtype), and is the A operand of P V directly (the accumulator
+//   layout of two n-tiles is the A layout); V fragments by ldmatrix.trans;
+// - a warp skips the products of a tile whose keys all lie after its rows;
+// - the output goes through the warp's own rows of the Q tile and leaves in
+//   16-byte stores; lse is written in natural-log units (m ln 2 + ln l), +inf
+//   for a row that saw no key, as K1k and K1q read it.
+// Blocks run the longest query tiles first. Stopping at mma.sync: wgmma with
+// TMA and a producer warp (FlashAttention-3) is the next step.
+
+constexpr int kMmaWarps = 4;
+constexpr int kMmaTileM = kMmaWarps * 16;  // query rows a block
+constexpr int kMmaTileN = 64;              // keys per tile
+
+template <int HD>
+constexpr int fwd_mma_smem_bytes() {
+  return (kMmaTileM + 4 * kMmaTileN) * (HD + 8) * 2;
+}
+
+// rows [row0, row0 + R) of a [S, HD] bf16 matrix -> shared (row stride HD + 8);
+// rows >= S are zero-filled
+template <int R, int HD, int THREADS>
+__device__ __forceinline__ void cp_rows(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0,
+                                        int S, int tid) {
+  constexpr int kChunks = HD / 8;
+#pragma unroll
+  for (int i = tid; i < R * kChunks; i += THREADS) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const bool ok = row0 + r < S;
+    tc::cp_async16(dst + r * (HD + 8) + c, src + (int64_t)(ok ? row0 + r : 0) * HD + c, ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int nh, int nkv, int S, float scale_log2) {
+  constexpr int kThreadsM = kMmaWarps * 32;
+  constexpr int BM = kMmaTileM;
+  constexpr int BN = kMmaTileN;
+  constexpr int LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LD]
+  __nv_bfloat16* k_s = q_s + BM * LD;                                // [2][BN][LD]
+  __nv_bfloat16* v_s = k_s + 2 * BN * LD;                            // [2][BN][LD]
+
+  const int qi = gridDim.x - 1 - blockIdx.x;  // long rows first
+  const int bh = blockIdx.y;
+  const int b = bh / nh;
+  const int kvh = (bh % nh) / (nh / nkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q0 = qi * BM;
+  const int wrow0 = q0 + warp * 16;
+  const __nv_bfloat16* qh = q + (int64_t)bh * S * HD;
+  const __nv_bfloat16* kh = k + ((int64_t)b * nkv + kvh) * S * HD;
+  const __nv_bfloat16* vh = v + ((int64_t)b * nkv + kvh) * S * HD;
+  // key tiles holding a key at or before the block's last row
+  const int n_tiles = (min(q0 + BM, S) - 1) / BN + 1;
+
+  cp_rows<BM, HD, kThreadsM>(q_s, qh, q0, S, tid);
+  cp_rows<BN, HD, kThreadsM>(k_s, kh, 0, S, tid);
+  cp_rows<BN, HD, kThreadsM>(v_s, vh, 0, S, tid);
+  tc::cp_async_commit();
+
+  uint32_t qf[HD / 16][4];
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores (base 2)
+  float l[2] = {0.f, 0.f};
+  const int row_a = wrow0 + lane / 4;  // the lane's two rows: row_a, row_a + 8
+
+  for (int j = 0; j < n_tiles; ++j) {
+    tc::cp_async_wait<0>();  // tile j (and, at j = 0, Q) has landed
+    __syncthreads();         // ... for every thread; stage (j + 1) & 1 is free
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      cp_rows<BN, HD, kThreadsM>(k_s + st * BN * LD, kh, (j + 1) * BN, S, tid);
+      cp_rows<BN, HD, kThreadsM>(v_s + st * BN * LD, vh, (j + 1) * BN, S, tid);
+    }
+    tc::cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        tc::ldmatrix_x4(qf[kk], q_s + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+    }
+    const int kv0 = j * BN;
+    if (kv0 > wrow0 + 15) continue;  // every key of the tile is after the warp's rows
+    const __nv_bfloat16* ks = k_s + (j & 1) * BN * LD;
+    const __nv_bfloat16* vs = v_s + (j & 1) * BN * LD;
+
+    float s[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < BN / 16; ++n2) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4(kb, ks + (n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
+                                ((lane / 8) % 2) * 8);
+        tc::mma_bf16(s[2 * n2], qf[kk], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // online softmax over the tile, NaN-free for a row with no live key
+    const bool masked = kv0 + BN - 1 > wrow0 || kv0 + BN > S;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[i][e] * scale_log2;
+        if (masked) {
+          const int col = kv0 + i * 8 + (lane % 4) * 2 + (e & 1);
+          const int row = row_a + (e >> 1) * 8;
+          if (col > row || col >= S) x = -INFINITY;
+        }
+        s[i][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2], m_use[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m[h], mx[h]);
+      m_use[h] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[h] = exp2f(m[h] - m_use[h]);  // 0 while the row has seen no key
+      m[h] = m_new;
+    }
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[i][e] = exp2f(s[i][e] - m_use[e >> 1]);
+        sum[e >> 1] += s[i][e];
+      }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      l[h] = alpha[h] * l[h] + sum[h];
+    }
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      acc[i][0] *= alpha[0];
+      acc[i][1] *= alpha[0];
+      acc[i][2] *= alpha[1];
+      acc[i][3] *= alpha[1];
+    }
+
+    // O += P V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t pa[4] = {tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        uint32_t vb[4];
+        tc::ldmatrix_x4_trans(vb, vs + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                                      d2 * 16 + (lane / 16) * 8);
+        tc::mma_bf16(acc[2 * d2], pa, vb[0], vb[1]);
+        tc::mma_bf16(acc[2 * d2 + 1], pa, vb[2], vb[3]);
+      }
+    }
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
+    const int row = row_a + h * 8;
+    // natural-log units; a row that saw no key keeps lse = +inf (p = 0 in the backward)
+    if (lane % 4 == 0 && row < S)
+      lse[(int64_t)bh * S + row] = l[h] > 0.f ? m[h] * 0.69314718055994531f + logf(l[h]) : INFINITY;
+  }
+  // the warp's own 16 rows of the Q tile hold its output rows, then 16-byte stores
+  __nv_bfloat16* stage = q_s + warp * 16 * LD;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int c = i * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(stage + (lane / 4) * LD + c) =
+        tc::pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8) * LD + c) =
+        tc::pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
+  }
+  __syncwarp();
+  __nv_bfloat16* oh = o + (int64_t)bh * S * HD;
+#pragma unroll
+  for (int i = lane; i < 16 * (HD / 8); i += 32) {
+    const int r = i / (HD / 8);
+    const int c = (i % (HD / 8)) * 8;
+    if (wrow0 + r < S)
+      *reinterpret_cast<uint4*>(oh + (int64_t)(wrow0 + r) * HD + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward: shared recomputation of p and ds for one (query tile, key tile)
 // ---------------------------------------------------------------------------
 
@@ -459,17 +699,40 @@ bool bad_shape(int batch, int nh, int nkv, int S) {
          (int64_t)batch * nh > 65535;
 }
 
-template <typename T, int HD>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int batch, int nh,
-               int nkv, int S, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, HD>;
+// The launch plan (block rows, dynamic shared memory) comes from
+// ops/flash_attention.py::flash_fwd_plan; a plan this file does not build is
+// refused rather than launched with other sizes.
+template <int HD>
+int launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                   int nh, int nkv, int S, int block_m, int smem_bytes, float scale,
+                   cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<float, HD>;
   constexpr int smem = fwd_smem_bytes<HD>();
+  if (block_m != kTile || smem_bytes != smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, batch * nh);
-  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                           static_cast<const T*>(v), static_cast<T*>(o),
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const float*>(q),
+                                           static_cast<const float*>(k),
+                                           static_cast<const float*>(v), static_cast<float*>(o),
                                            static_cast<float*>(lse), nh, nkv, S, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse, int batch,
+                    int nh, int nkv, int S, int block_m, int smem_bytes, float scale,
+                    cudaStream_t stream) {
+  auto kernel = flash_fwd_mma_kernel<HD>;
+  constexpr int smem = fwd_mma_smem_bytes<HD>();
+  if (block_m != kMmaTileM || smem_bytes != smem) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kMmaTileM - 1) / kMmaTileM, batch * nh);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), nh, nkv, S, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -518,12 +781,23 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   if (dtype == 1 && head_dim == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue
 
+// The forward's body by dtype: fp32 flash_fwd_kernel (CUDA cores), bf16
+// flash_fwd_mma_kernel (tensor cores); block_m and smem_bytes are the launch
+// plan of ops/flash_attention.py.
 extern "C" int grasp_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                          void* lse, int batch, int nh, int nkv, int S,
-                                         int head_dim, int dtype, float scale, void* stream) {
+                                         int head_dim, int dtype, int block_m, int smem_bytes,
+                                         float scale, void* stream) {
   if (bad_shape(batch, nh, nkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GRASP_DISPATCH(launch_fwd, q, k, v, o, lse, batch, nh, nkv, S, scale, s);
+  const auto args = [&](auto launch) {
+    return launch(q, k, v, o, lse, batch, nh, nkv, S, block_m, smem_bytes, scale, s);
+  };
+  if (dtype == 0 && head_dim == 64) return args(launch_fwd_f32<64>);
+  if (dtype == 0 && head_dim == 128) return args(launch_fwd_f32<128>);
+  if (dtype == 1 && head_dim == 64) return args(launch_fwd_bf16<64>);
+  if (dtype == 1 && head_dim == 128) return args(launch_fwd_bf16<128>);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int grasp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,

@@ -1,9 +1,9 @@
 """Build the CUDA kernels in ``grasp_tpu_torch/csrc`` and load them with ctypes.
 
-Every ``csrc/*.cu`` file compiles to an object file, one ``nvcc`` process per
-source and all started together, and the objects link into one shared library
-with a plain C interface (no PyTorch headers, so the build takes seconds, not
-minutes). The library lands in ``build/kernels/`` at the repository root,
+Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) compiles
+to an object file, one ``nvcc`` process per source and all started together,
+and the objects link into one shared library with a plain C interface (no
+PyTorch headers, so the build takes seconds, not minutes). The library lands in ``build/kernels/`` at the repository root,
 named by a hash of the sources and flags, so an edited kernel is rebuilt and a
 stale one is never loaded. The build happens at the first kernel launch, never
 at import: machines without a GPU import every module of the port.
@@ -37,17 +37,18 @@ SIGNATURES = {
     # pages_per_seq head_dim dtype | scale stream
     "grasp_paged_attention_chunk": (
         _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    # q k v o lse | batch nh nkv S head_dim dtype | scale stream
+    # q k v o lse | batch nh nkv S head_dim dtype block_m smem_bytes | scale stream
     "grasp_flash_attention_fwd": (
-        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     # q k v dout lse di dk dv | batch nh nkv S head_dim dtype | scale stream
     "grasp_flash_attention_bwd_dkv": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
     # q k v dout lse di dq | batch nh nkv S head_dim dtype | scale stream
     "grasp_flash_attention_bwd_dq": (
         _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
-    # x a b y | m k r n dtype | stream
-    "grasp_lowrank_fused": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # x a b y | m k r n dtype rank_pad splits tiles_per_split smem_bytes | stream
+    "grasp_lowrank_fused": (
+        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # x packed scale y partial | m in out groups gs dtype variant splits gpc | stream
     "grasp_int4_matmul": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
@@ -72,7 +73,7 @@ def find_nvcc() -> str:
 
 
 def library_path() -> Path:
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+    sources = sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())

@@ -2,7 +2,8 @@
 
 Counterpart of grasp_tpu/ops/pallas_attention.py. The kernels
 (csrc/flash_attention.cu: forward, dK/dV, dQ) stream K/V in tiles and never
-write an [S, S] matrix to device memory; the plain version materialises the
+write an [S, S] matrix to device memory; a bf16 forward runs on the tensor
+cores, everything else on CUDA cores in fp32; the plain version materialises the
 fp32 scores the way the JAX package's ``_xla_reference`` does.
 :func:`flash_attention` is a ``torch.autograd.Function`` for CUDA tensors and
 takes the plain version only for CPU tensors.
@@ -13,13 +14,42 @@ is a required argument here.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_HEADS = 65535  # batch * heads is one grid axis of the kernels
+_KEY_TILE = 64  # keys per tile in both forward bodies
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashFwdPlan:
+    """How the forward kernel is launched: ``block_m`` query rows a block,
+    ``grid`` = (query tiles, batch * heads), and the dynamic shared memory a
+    block takes."""
+    block_m: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def flash_fwd_plan(batch: int, nh: int, s: int, hd: int, dtype: torch.dtype) -> FlashFwdPlan:
+    """The forward's launch plan, a pure function of the shapes;
+    csrc/flash_attention.cu refuses any other. Both bodies take 64
+    query rows a block, longest first. fp32 (flash_fwd_kernel): 256 threads,
+    fp32 Q, K, V and P tiles with rows padded by 4. bf16
+    (flash_fwd_mma_kernel): 4 warps of 16 rows; a Q tile and two stages of K
+    and V tiles in bf16 with rows padded by 8. The SM count does not enter:
+    128 rows a block were slower on an H100 at the calibration shape, where
+    they too filled the card (PERF.md, Findings)."""
+    block_m = 64
+    if dtype == torch.float32:
+        smem = (3 * block_m * (hd + 4) + block_m * (_KEY_TILE + 4)) * 4
+    else:
+        smem = (block_m + 4 * _KEY_TILE) * (hd + 8) * 2
+    return FlashFwdPlan(block_m, (-(-s // block_m), batch * nh), smem)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,19 +104,24 @@ def _raise_on(rc: int, what: str) -> None:
         raise RuntimeError(f"flash attention {what} kernel launch failed: cudaError {rc}")
 
 
-def _forward_cuda(q, k, v, sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel. Returns (o, lse [B, nh, S] fp32)."""
+def _forward_cuda(q, k, v, sm_scale: float,
+                  plan: Optional[FlashFwdPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward kernel with ``plan`` (default: :func:`flash_fwd_plan`
+    for the card). Returns (o, lse [B, nh, S] fp32)."""
     from grasp_tpu_torch.ops._build import load_library
 
     lib = load_library()
     b, nh, s, hd = q.shape
+    if plan is None:
+        plan = flash_fwd_plan(b, nh, s, hd, q.dtype)
     o = torch.empty_like(q)
     lse = torch.empty((b, nh, s), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.grasp_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            b, nh, k.shape[1], s, hd, _DTYPE_CODES[q.dtype], float(sm_scale), stream)
+            b, nh, k.shape[1], s, hd, _DTYPE_CODES[q.dtype], plan.block_m, plan.smem_bytes,
+            float(sm_scale), stream)
     _raise_on(rc, "forward")
     flash_attention.launches["fwd"] += 1
     return o, lse

@@ -5,7 +5,8 @@ Kernels keep the JAX package's [in, out] layout, so ``y = x @ kernel``. The
 dense, full-SVD and two-product low-rank functions are plain matrix products,
 as they are plain XLA dots in JAX. :func:`fused_lowrank` is the fused low-rank
 kernel (csrc/lowrank_fused.cu): ``y = (x @ A) @ B`` with ``h = x @ A`` kept in
-shared memory instead of written to device memory and read back. Its backward
+shared memory instead of written to device memory and read back; bf16 runs on
+the tensor cores, fp32 on CUDA cores. Its backward
 is plain matrix products, as in the JAX package: the fusion is for inference
 and for the forward of calibration sweeps, while the factors still get correct
 gradients.
@@ -13,13 +14,72 @@ gradients.
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FUSED_RANK = 256  # accumulator columns of csrc/lowrank_fused.cu
 FUSED_MIN_ROWS = 256  # below this the two plain products stay (decode-sized calls)
+TILE_M, TILE_N = 64, 128  # rows a block, columns of an output tile (both bodies)
+MAX_CLUSTER = 8  # blocks of a thread-block cluster (portable size), bf16 body
+
+
+@dataclasses.dataclass(frozen=True)
+class LowrankPlan:
+    """How the fused kernel is launched: the rank padded to ``rank_pad``
+    columns of h, a row tile's output tiles dealt to ``splits`` blocks of
+    ``tiles_per_split`` each, ``grid`` = (row tiles, splits) of 256-thread
+    blocks, and the dynamic shared memory a block takes."""
+    rank_pad: int
+    splits: int
+    tiles_per_split: int
+    grid: Tuple[int, int]
+    smem_bytes: int
+
+
+def pick_splits(row_tiles: int, n_tiles: int, k: int, sms: int, cluster: bool = False) -> int:
+    """The number of blocks that share one row tile's output tiles: the
+    count that minimises waves x (depth of h's product a block + columns per
+    block), fewest splits on a tie. Without ``cluster`` (the fp32 body) every
+    block computes h over all of k. With it (the bf16 body) the splits are one
+    thread-block cluster of at most :data:`MAX_CLUSTER` that shares k's
+    32-deep slices between them."""
+    best, best_cost = 1, None
+    for s in range(1, (min(n_tiles, MAX_CLUSTER) if cluster else n_tiles) + 1):
+        per = -(-n_tiles // s)
+        if -(-n_tiles // per) != s:  # the same split as a smaller s
+            continue
+        depth = -(-k // (32 * s)) * 32 if cluster else k
+        cost = -(-(row_tiles * s) // sms) * (depth + per * TILE_N)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+def lowrank_plan(m: int, k: int, r: int, n: int, dtype: torch.dtype, sms: int) -> LowrankPlan:
+    """The fused kernel's launch plan, a pure function of the shapes and the
+    SM count; csrc/lowrank_fused.cu refuses any other. bf16
+    (lowrank_fused_mma_kernel): rank padded to a multiple of 32, four
+    pipeline stages (32-deep slices of x and A, or 64-deep slices of B), h and a y
+    staging tile, all bf16 with rows padded by 8; the splits of a row tile
+    are one cluster. fp32 (lowrank_fused_kernel):
+    rank padded to 32, 64, 128, 192 or 256, fp32 h and staging tiles."""
+    if not 0 < r <= MAX_FUSED_RANK:
+        raise NotImplementedError(
+            f"the fused low-rank kernel takes ranks 1 to {MAX_FUSED_RANK}, got {r}")
+    if dtype == torch.bfloat16:
+        rank_pad = 32 * -(-r // 32)
+        stage = max(TILE_M * 40 + 32 * (rank_pad + 8), 64 * (TILE_N + 8))
+        smem = 2 * (4 * stage + TILE_M * (rank_pad + 8) + TILE_M * (TILE_N + 8))
+    else:
+        rank_pad = next(c for c in (32, 64, 128, 192, 256) if r <= c)
+        smem = 4 * (TILE_M * (rank_pad + 4) + max(TILE_M * 33 + 32 * rank_pad, 32 * TILE_N))
+    row_tiles, n_tiles = -(-m // TILE_M), -(-n // TILE_N)
+    splits = pick_splits(row_tiles, n_tiles, k, sms, cluster=dtype == torch.bfloat16)
+    per = -(-n_tiles // splits)
+    return LowrankPlan(rank_pad, splits, per, (row_tiles, splits), smem)
 
 
 def dense_apply(x: torch.Tensor, kernel: torch.Tensor,
@@ -71,17 +131,24 @@ def _check_cuda_args(x, a, b) -> None:
         raise ValueError("the fused low-rank kernel needs non-empty x, a and b")
 
 
-def _forward_cuda(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _forward_cuda(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                  plan: Optional[LowrankPlan] = None) -> torch.Tensor:
+    """Launch the kernel with ``plan`` (default: :func:`lowrank_plan` for the
+    card)."""
     from grasp_tpu_torch.ops._build import load_library
 
     lib = load_library()
     m, k = x2d.shape
     r, n = b.shape
+    if plan is None:
+        plan = lowrank_plan(m, k, r, n, x2d.dtype,
+                            torch.cuda.get_device_properties(x2d.device).multi_processor_count)
     y = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
         rc = lib.grasp_lowrank_fused(x2d.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                     m, k, r, n, _DTYPE_CODES[x2d.dtype], stream)
+                                     m, k, r, n, _DTYPE_CODES[x2d.dtype], plan.rank_pad,
+                                     plan.splits, plan.tiles_per_split, plan.smem_bytes, stream)
     if rc != 0:
         raise RuntimeError(f"fused low-rank kernel launch failed: cudaError {rc}")
     fused_lowrank.launches += 1

@@ -33,7 +33,7 @@ sys.path.insert(0, ROOT)
 
 
 def _kind(name: str) -> str:
-    for kernel, kind in (("flash_fwd_kernel", "flash fwd (K1f)"),
+    for kernel, kind in (("flash_fwd", "flash fwd (K1f)"),  # both bodies
                          ("flash_dkv_kernel", "flash dK/dV (K1k)"),
                          ("flash_dq_kernel", "flash dQ (K1q)")):
         if kernel in name:
