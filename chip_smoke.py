@@ -19,9 +19,10 @@ Phases, each of which raises on failure (exit code != 0):
    launch per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at four
-   shapes in float32 and bfloat16, dK/dV bit-equal over two runs; then each
-   kernel, the plain version and scaled_dot_product_attention (a yardstick
-   the port never calls) timed at the calibration shape.
+   shapes in float32 and bfloat16, dQ, dK and dV bit-equal over two runs;
+   then each kernel, the plain version and scaled_dot_product_attention (a
+   yardstick the port never calls) timed at the calibration shape, and the
+   whole backward (di, dK/dV, dQ) against one SDPA backward.
 5. serving slice: a GRASP-compressed TinyLlama-1.1B at full width (22 layers,
    random weights from a seed, the last two layers' projections low-rank at
    ratio 0.9) saved as a port checkpoint and served by ``grasp_tpu_torch.cli``
@@ -103,6 +104,30 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
+def _kernel_name(line: str) -> str:
+    """kernel<args> from the mangled name in a line of ptxas's or cuobjdump's
+    output, e.g.
+    ..._ZN..20flash_dkv_mma_kernelILi64EEEv.. -> flash_dkv_mma_kernel<64>,
+    ..15flash_dq_kernelIfLi128EEEv.. -> flash_dq_kernel<f32,128>."""
+    found = re.search(r"_Z\w+", line)
+    if not found:
+        return "?"
+    sym, name, end = found.group(0), "?", 0
+    for d in re.finditer(r"\d+", sym):  # <length><identifier>, the last one naming a kernel
+        for i in range(d.start(), d.end()):  # the length may follow other digits
+            n = int(sym[i:d.end()])
+            ident = sym[d.end():d.end() + n]
+            if ident.endswith("_kernel") and len(ident) == n:
+                name, end = ident, d.end() + n
+    if not sym.startswith("I", end):
+        return name
+    args = [("bf16" if t.group(0).startswith("13") else "f32" if t.group(0) == "f"
+             else t.group(1) if t.group(1) else ("true" if t.group(2) == "1" else "false"))
+            for t in re.finditer(r"13__nv_bfloat16|Li(\d+)E|Lb(\d)E|f",
+                                 sym[end + 1:sym.find("EE", end) + 1])]
+    return f"{name}<{','.join(args)}>"
+
+
 def phase_build():
     """Build and load the kernels, print the compiler's register and spill
     report, and show from the compiled code (cuobjdump -sass) that every
@@ -116,25 +141,31 @@ def phase_build():
     print(f"build: {secs:.2f} s -> {os.path.relpath(so, ROOT)}")
     log = so.with_suffix(".log")
     if log.exists():
+        kernel = "?"
         for line in log.read_text().splitlines():
-            if "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
-                print(f"  ptxas: {line.strip()}")
+            if "Compiling entry function" in line:
+                kernel = _kernel_name(line)
+            elif "registers" in line or ("spill" in line and "0 bytes spill stores" not in line):
+                print(f"  ptxas: {kernel}: {line.replace('ptxas info    :', '').strip()}")
     sass = subprocess.run([os.path.join(os.path.dirname(find_nvcc()), "cuobjdump"), "-sass",
                            str(so)], capture_output=True, text=True, check=True).stdout
+    families = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
+                "lowrank_fused_mma_kernel")
     hmma, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            # a mangled name such as ..._ZN...18flash_fwd_mma_kernelILi64EEEv...: kernel<64>
-            found = re.search(r"(flash_fwd_mma_kernel|lowrank_fused_mma_kernel)ILi(\d+)E", line)
-            name = f"{found.group(1)}<{found.group(2)}>" if found else None
+            name = _kernel_name(line)
+            name = name if name.split("<")[0] in families else None
             if name:
                 hmma[name] = 0
         elif name and "HMMA" in line:
             hmma[name] += 1
     print("sass: HMMA instructions in the tensor-core kernels: "
           + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
-    families = {n.split("<")[0] for n in hmma}
-    if families != {"flash_fwd_mma_kernel", "lowrank_fused_mma_kernel"} or min(hmma.values()) == 0:
+    want = {f"{family}<{hd}>" for family in families[:3] for hd in (64, 128)}
+    want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
+    want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
+    if not want <= set(hmma) or min(hmma.values()) == 0:
         raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
 
@@ -439,14 +470,14 @@ def phase_flash(torch):
             rel = [e / max(w.float().abs().max().item(), floor)
                    for e, w in zip(errs[1:], want[1:])]
             finite = all(torch.isfinite(t).all().item() for t in got)
-            same = torch.equal(got[2], again[2]) and torch.equal(got[3], again[3])
+            same = all(torch.equal(g, a) for g, a in zip(got[1:], again[1:]))
             ok = (finite and same and errs[0] <= TOL[dtype_name]
                   and max(rel) <= FLASH_GRAD_RTOL)
             print(f"flash vs plain: B={b} nh={nh} nkv={nkv} S={s} hd={hd} scale={scale:.4f} "
                   f"{dtype_name}: fwd max_abs_err={errs[0]:.3e} (tol {TOL[dtype_name]:g}), grad "
                   f"max_abs_err dq={errs[1]:.3e} dk={errs[2]:.3e} dv={errs[3]:.3e}, over the "
                   f"plain gradient's max dq={rel[0]:.3e} dk={rel[1]:.3e} dv={rel[2]:.3e} (tol "
-                  f"{FLASH_GRAD_RTOL:g}), dK/dV bit-equal over two runs: {same} "
+                  f"{FLASH_GRAD_RTOL:g}), dQ, dK, dV bit-equal over two runs: {same} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"flash attention kernels disagree: S={s} hd={hd} "
@@ -478,10 +509,13 @@ def phase_flash_timing(torch):
     (scaled_dot_product_attention, a yardstick the port never calls) at the
     calibration shape B=1 nh=32 nkv=4 S=2047 hd=64 bf16, in turns plain,
     kernel, library, library, kernel, plain; means of each pair. For dK/dV
-    and dQ the plain version and the library call are autograd's gradient
-    with respect to (k, v) or to q of an already computed forward. The bound is
-    the larger of bytes moved over 3.35 TB/s and operations over 989 TFLOP/s
-    (causal: half of the S x S products)."""
+    and dQ the plain version is autograd's gradient with respect to (k, v) or
+    to q of an already computed forward. SDPA's backward computes dQ, dK and
+    dV in one pass whatever it is asked for, so the library figure of dK/dV,
+    of dQ and of the whole backward ("bwd": di, then K1k and K1q) is that one
+    backward with respect to (q, k, v). The bound is the larger of bytes
+    moved over 3.35 TB/s and operations over 989 TFLOP/s (causal: half of the
+    S x S products)."""
     import torch.nn.functional as F
 
     from grasp_tpu_torch.ops import flash_attention as fa
@@ -496,23 +530,24 @@ def phase_flash_timing(torch):
     dout = torch.randn(q.shape, generator=gen, device=dev).bfloat16()
     o, lse = fa._forward_cuda(q, k, v, scale)
     lib = load_library()
+    plan = fa.flash_bwd_plan(b, nh, nkv, s, hd, torch.bfloat16)
+    workspace = torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=dev)
     di = (o.float() * dout.float()).sum(-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptr = lambda *ts: [t.data_ptr() for t in ts]  # noqa: E731
-    dims = (b, nh, nkv, s, hd, 1, float(scale), stream)
 
-    def check(rc):
-        if rc != 0:
-            raise RuntimeError(f"kernel launch failed: cudaError {rc}")
+    def dkv(di_=di):
+        fa._launch_dkv(lib, q, k, v, dout, lse, di_, dk, dv, scale, plan, workspace)
 
-    kernels = {
-        "fwd": lambda: fa._forward_cuda(q, k, v, scale),
-        "dkv": lambda: check(lib.grasp_flash_attention_bwd_dkv(
-            *ptr(q, k, v, dout, lse, di, dk, dv), *dims)),
-        "dq": lambda: check(lib.grasp_flash_attention_bwd_dq(
-            *ptr(q, k, v, dout, lse, di, dq), *dims)),
-    }
+    def dq_(di_=di):
+        fa._launch_dq(lib, q, k, v, dout, lse, di_, dq, scale, plan)
+
+    def bwd():  # what the autograd function's backward runs, uncounted
+        di_ = (o.float() * dout.float()).sum(-1).contiguous()
+        dkv(di_)
+        dq_(di_)
+
+    kernels = {"fwd": lambda: fa._forward_cuda(q, k, v, scale), "dkv": dkv, "dq": dq_,
+               "bwd": bwd}
     qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
 
     def sdpa(q_, k_, v_, gqa=True):
@@ -523,16 +558,19 @@ def phase_flash_timing(torch):
             q_, k_.repeat_interleave(groups, dim=1), v_.repeat_interleave(groups, dim=1),
             is_causal=True, scale=scale)
 
-    # the plain version and the library call of each kernel's function: the
-    # forward, and autograd's gradient with respect to (k, v) or to q alone
-    def runners(attn):
+    # the forward, autograd's gradient with respect to (k, v) or to q alone,
+    # and the whole backward
+    def runners(attn, parts=True):
         def fwd():
             with torch.no_grad():
                 attn(q, k, v)
         o_graph = attn(qg, kg, vg)
-        return {"fwd": fwd,
-                "dkv": lambda: torch.autograd.grad(o_graph, (kg, vg), dout, retain_graph=True),
-                "dq": lambda: torch.autograd.grad(o_graph, (qg,), dout, retain_graph=True)}
+        out = {"fwd": fwd, "bwd": lambda: torch.autograd.grad(o_graph, (qg, kg, vg), dout,
+                                                              retain_graph=True)}
+        if parts:
+            out["dkv"] = lambda: torch.autograd.grad(o_graph, (kg, vg), dout, retain_graph=True)
+            out["dq"] = lambda: torch.autograd.grad(o_graph, (qg,), dout, retain_graph=True)
+        return out
 
     try:
         sdpa(q, k, v)
@@ -540,20 +578,26 @@ def phase_flash_timing(torch):
         sdpa = functools.partial(sdpa, gqa=False)
     turns = {"kernel": kernels,
              "plain": runners(lambda *ts: fa.flash_attention_reference(*ts, groups, scale)),
-             "library": runners(sdpa)}
+             "library": runners(sdpa, parts=False)}
     t = {}
     for turn in ("plain", "kernel", "library", "library", "kernel", "plain"):
         for name, fn in turns[turn].items():
             t.setdefault((turn, name), []).append(_event_ms(torch, fn, 10))
+    for name in ("dkv", "dq"):  # one SDPA backward gives all three gradients
+        t["library", name] = t["library", "bwd"]
     mean = {key: sum(xs) / len(xs) for key, xs in t.items()}
 
     pairs = b * nh * s * (s + 1) / 2          # live (query, key) pairs
     qo_bytes, kv_bytes = b * nh * s * hd * 2, b * nkv * s * hd * 2
     row_bytes = b * nh * s * 4                # lse or di, fp32
-    # (products of 2 * hd flops per pair, bytes read + written)
+    # (products of 2 * hd flops per pair, bytes read + written); the whole
+    # backward reads q, k, v, o, dO and lse and writes dQ, dK, dV
     work = {"fwd": (2, 2 * qo_bytes + 2 * kv_bytes + row_bytes),
             "dkv": (4, 2 * qo_bytes + 4 * kv_bytes + 2 * row_bytes),
-            "dq": (3, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes)}
+            "dq": (3, 3 * qo_bytes + 2 * kv_bytes + 2 * row_bytes),
+            "bwd": (5, 4 * qo_bytes + 4 * kv_bytes + row_bytes)}
+    library_is = {"fwd": "SDPA forward", "dkv": "the whole SDPA backward",
+                  "dq": "the whole SDPA backward", "bwd": "the whole SDPA backward"}
     out = {}
     for name, (products, nbytes) in work.items():
         ops_ms = products * 2 * hd * pairs / 989e12 * 1e3
@@ -563,14 +607,16 @@ def phase_flash_timing(torch):
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
         print(f"flash timing {name} (B=1 nh=32 nkv=4 S=2047 hd=64 bf16), ms per call, two "
               "turns each: " + ", ".join(f"{turn} {t[turn, name][0]:.4f}/{t[turn, name][1]:.4f}"
-                                         for turn in turns) + _shares(out[name]))
+                                         for turn in turns)
+              + f" (library: {library_is[name]})" + _shares(out[name]))
     return out
 
 
 # (m, k, r, n) of the fused low-rank kernel: q/o and k/v projections in a
-# 512-token prefill, up_proj over a calibration row, down_proj, a ragged case
+# 512-token prefill, up_proj over a calibration row, down_proj, a ragged case,
+# and up_proj at compression ratio 0.5 (rank 750: three rank chunks)
 LOWRANK_CASES = ((512, 2048, 102, 2048), (512, 2048, 22, 256), (2047, 2048, 150, 5632),
-                 (512, 5632, 150, 2048), (300, 64, 16, 48))
+                 (512, 5632, 150, 2048), (300, 64, 16, 48), (2047, 2048, 750, 5632))
 # max abs error over the plain output's (or gradient's) max abs
 LOWRANK_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
 
@@ -582,7 +628,8 @@ def _rel_err(got, want):
 def phase_lowrank(torch):
     """The fused low-rank kernel against its plain version: the output, and
     the gradients of sum(y * g) through the autograd function against
-    autograd through the plain version. Returns the worst absolute error."""
+    autograd through the plain version; a rank above 256 runs as one launch
+    per rank chunk. Returns the worst absolute error."""
     from grasp_tpu_torch.ops.lowrank import fused_lowrank, fused_lowrank_plain
 
     dev = torch.device("cuda", 0)
@@ -595,7 +642,9 @@ def phase_lowrank(torch):
             a = (torch.randn(k, r, generator=gen, device=dev) * k ** -0.5).to(dtype).requires_grad_()
             b = (torch.randn(r, n, generator=gen, device=dev) * r ** -0.5).to(dtype).requires_grad_()
             g = torch.randn(m, n, generator=gen, device=dev).to(dtype)
+            before = fused_lowrank.launches
             got = fused_lowrank(x, a, b)
+            launched = fused_lowrank.launches - before
             want = fused_lowrank_plain(x, a, b)
             got_g = torch.autograd.grad(got, (x, a, b), g)
             want_g = torch.autograd.grad(want, (x, a, b), g)
@@ -605,11 +654,12 @@ def phase_lowrank(torch):
             grad_rel = [_rel_err(gg, wg) for gg, wg in zip(got_g, want_g)]
             tol = LOWRANK_RTOL[dtype_name]
             finite = all(torch.isfinite(t).all().item() for t in (got, *got_g))
-            ok = finite and got.dtype == dtype and rel <= tol and max(grad_rel) <= 2 * tol
+            ok = (finite and got.dtype == dtype and rel <= tol and max(grad_rel) <= 2 * tol
+                  and launched == -(-r // 256))
             print(f"lowrank vs plain: m={m} k={k} r={r} n={n} {dtype_name}: max_abs_err={err:.3e}, "
                   f"over the plain max {rel:.3e} (tol {tol:g}), gradients dx={grad_rel[0]:.3e} "
-                  f"da={grad_rel[1]:.3e} db={grad_rel[2]:.3e} (tol {2 * tol:g}) "
-                  f"{'ok' if ok else 'FAIL'}")
+                  f"da={grad_rel[1]:.3e} db={grad_rel[2]:.3e} (tol {2 * tol:g}), launches "
+                  f"{launched} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"fused low-rank kernel disagrees: {(m, k, r, n)} {dtype_name}")
             worst = max(worst, err)
@@ -1698,10 +1748,12 @@ def main(argv=None) -> int:
         {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
          "launches": flash_launches["fwd"], "max_abs_err": flash_err["fwd"], **flash["fwd"]},
-        {"name": "flash_attention_bwd_dkv", "route": "cuda", "source": flash_src,
+        # the bf16 backward's bodies: a launch is flash_dkv_mma_kernel and its
+        # group sum flash_dkv_reduce_kernel; library_ms is the whole SDPA backward
+        {"name": "flash_dkv_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:305",
          "launches": flash_launches["dkv"], "max_abs_err": flash_err["dkv"], **flash["dkv"]},
-        {"name": "flash_attention_bwd_dq", "route": "cuda", "source": flash_src,
+        {"name": "flash_dq_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
         # launches: prefill of the fused serving variant plus the flagged compression

@@ -1,10 +1,14 @@
 // Causal flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels,
 // head_dim 64 and 128, float32 and bfloat16.
 //
-// Replaces the three TPU kernels of grasp_tpu/ops/pallas_attention.py:
-//   flash_fwd_kernel  <- _flash_fwd_impl (Pallas body `_kernel`)
-//   flash_dkv_kernel  <- _flash_bwd_impl, first pallas_call (`_dkv_kernel`)
-//   flash_dq_kernel   <- _flash_bwd_impl, second pallas_call (`_dq_kernel`)
+// Replaces the three TPU kernels of grasp_tpu/ops/pallas_attention.py (fp32
+// body, bf16 body):
+//   flash_fwd_kernel, flash_fwd_mma_kernel <- _flash_fwd_impl (Pallas body
+//     `_kernel`)
+//   flash_dkv_kernel, flash_dkv_mma_kernel + flash_dkv_reduce_kernel <-
+//     _flash_bwd_impl, first pallas_call (`_dkv_kernel`)
+//   flash_dq_kernel, flash_dq_mma_kernel <- _flash_bwd_impl, second
+//     pallas_call (`_dq_kernel`)
 //
 // What they compute: q [B, nh, S, hd], k/v [B, nkv, S, hd], query head h reads
 // kv head h / (nh / nkv). Scores s = (q . k) * scale, keys after the query's
@@ -21,22 +25,23 @@
 //
 // Design. The TPU kernels walk a sequential last grid axis and carry the
 // softmax state (or the dK/dV, dQ sums) in scratch from step to step; CUDA
-// blocks run in no order, so that axis is a loop inside the block. Forward and
-// dQ: one block per (batch * head, 64 query rows) loops over the 64-key tiles
-// at or below the diagonal. dK/dV: one block per (batch * kv head, 64 keys)
-// loops over the q heads of its group and over the query tiles at or above
-// the diagonal, so the group sum needs no atomics and is the same from run to
-// run. S is not padded: rows and columns >= S are masked in the kernel.
-//
-// Two forward bodies, chosen by dtype:
-// - bf16 takes flash_fwd_mma_kernel: tensor-core products (mma.sync) on bf16
-//   tiles staged by cp.async, described above that kernel.
-// - fp32, and the backward kernels for both dtypes, keep the simple first
-//   design: 256 threads, every product is fp32 FMAs on CUDA cores from fp32
-//   tiles in shared memory (bf16 inputs are widened on load), each thread
-//   owning a 4 x 4 piece of the 64 x 64 score tile and a 4 x (hd / 16) piece
-//   of the output tile; p and ds stay fp32. No pipelining. fp32 stays off the
-//   tensor cores because its gate (1e-4) is below what TF32 keeps.
+// blocks run in no order, so that axis is a loop inside the block. S is not
+// padded: rows and columns >= S are masked in the kernel. Two sets of bodies,
+// chosen by dtype:
+// - bf16 takes the tensor-core kernels (mma.sync on bf16 tiles staged by
+//   cp.async), described above each: flash_fwd_mma_kernel, and for the
+//   backward flash_dq_mma_kernel and flash_dkv_mma_kernel, whose fp32 partials
+//   of every q head flash_dkv_reduce_kernel adds up per kv group.
+// - fp32 keeps the simple first design: 256 threads, every product is fp32
+//   FMAs on CUDA cores from fp32 tiles in shared memory, each thread owning a
+//   4 x 4 piece of the 64 x 64 score tile and a 4 x (hd / 16) piece of the
+//   output tile; p and ds stay fp32; no pipelining. Forward and dQ: one block
+//   per (batch * head, 64 query rows) loops over the 64-key tiles at or below
+//   the diagonal. dK/dV: one block per (batch * kv head, 64 keys) loops over
+//   the q heads of its group and the query tiles at or above the diagonal, so
+//   the group sum needs no atomics and is the same from run to run. fp32
+//   stays off the tensor cores because its gate (1e-4) is below what TF32
+//   keeps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -691,6 +696,432 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
+// backward, bf16, on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// Replace grasp_tpu/ops/pallas_attention.py::_flash_bwd_impl (its two
+// pallas_calls, `_dq_kernel` and `_dkv_kernel`) for bf16 inputs.
+//
+// What bounds them: operations. At the calibration shape (B 1, 32 over 4
+// heads, S 2047, hd 64) dQ runs three products over the causal half (S, dP,
+// dQ: 25.8 GFLOP) and dK/dV four (S, dP, dV, dK: 34.3 GFLOP) against about
+// 20 MB moved. The CUDA-core bodies above stay under the card's 67 TFLOP/s
+// fp32 rate; these run every product on the tensor cores (mma.sync m16n8k16,
+// bf16 in, fp32 accumulate) with K1f's skeleton: 4 warps of 16 rows, operand
+// tiles by 16-byte cp.async into two shared-memory stages with rows padded by
+// 16 bytes, only diagonal and ragged tiles masked, a warp skipping tiles that
+// its rows do not reach. p = exp2(s * scale * log2(e) - lse * log2(e)) from
+// the forward's natural-log lse.
+//
+// dQ (flash_dq_mma_kernel): one block per (64 query rows, batch * q head),
+// longest rows first. Each warp keeps its Q and dO fragments in registers for
+// the whole key loop; K and V arrive in tiles of 64 keys at hd 64 (32 at hd
+// 128, where the accumulators of 128 columns leave no registers for a wider
+// tile). S = Q K^T and dP = dO V^T on the tensor cores; ds = p (dp - di)
+// scale is rounded to bf16 in registers, as the TPU kernel rounds
+// ds.astype(k.dtype), and is the A operand of dQ += dS K directly (the
+// accumulator layout of two n-tiles is the A layout); K fragments by
+// ldmatrix.trans.
+//
+// dK/dV (flash_dkv_mma_kernel): the transposed tile, keys as rows. One block
+// per (64 keys, batch * q head): 1024 blocks at the calibration shape where
+// one block per kv head gave 128 blocks for 132 SMs, each running up to 8 q
+// heads x 32 query tiles (the diagonal alone cost 2x). Each warp owns 16 keys
+// and keeps their K and V fragments in registers at hd 64 (at hd 128 it reads
+// them from the resident tile each step, for registers). Q and dO tiles, with
+// their lse and di rows, come through the two stages, 64 queries a step (32 at
+// hd 128). S^T = K Q^T and dP^T = V dO^T run on the tensor cores; P^T and dS^T
+// are rounded to bf16 in registers and are the A operands of dV += P^T dO and
+// dK += dS^T Q. The TPU kernel multiplies fp32 p and ds there (an fp32
+// operand promotes its products); rounding them to bf16 is FlashAttention-2's
+// arithmetic, a difference from the TPU kernel held to the gradient gate of
+// 2e-2 of the plain gradient's max. Blocks start with the longest key tiles
+// (those nearest the sequence start see the most queries). Each block writes
+// its q head's fp32 partial dK and dV to a workspace ([2][B * nh][S][hd], from
+// the wrapper); flash_dkv_reduce_kernel then adds each group's partials in q
+// head order and rounds once to bf16. No atomics: dK and dV are the same bits
+// from run to run, as with the group sum inside one block before.
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// query rows (dQ) or keys (dK/dV) a block: 4 warps of 16
+constexpr int kBwdBlock = kMmaWarps * 16;
+// keys a dQ step, queries a dK/dV step
+template <int HD>
+__host__ __device__ constexpr int bwd_step() { return HD == 64 ? 64 : 32; }
+
+template <int HD>
+constexpr int dq_mma_smem_bytes() {
+  return (2 * kBwdBlock + 4 * bwd_step<HD>()) * (HD + 8) * 2;
+}
+template <int HD>
+constexpr int dkv_mma_smem_bytes() {
+  return (2 * kBwdBlock + 4 * bwd_step<HD>()) * (HD + 8) * 2 + 4 * bwd_step<HD>() * 4;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ di,
+                    __nv_bfloat16* __restrict__ dq, int nh, int nkv, int S, float scale) {
+  constexpr int kThreadsM = kMmaWarps * 32;
+  constexpr int BM = kBwdBlock;
+  constexpr int BN = bwd_step<HD>();
+  constexpr int LD = HD + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][LD]
+  __nv_bfloat16* do_s = q_s + BM * LD;                               // [BM][LD]
+  __nv_bfloat16* k_s = do_s + BM * LD;                               // [2][BN][LD]
+  __nv_bfloat16* v_s = k_s + 2 * BN * LD;                            // [2][BN][LD]
+
+  const int bh = blockIdx.x;
+  const int qi = gridDim.y - 1 - blockIdx.y;  // long rows first
+  const int b = bh / nh;
+  const int kvh = (bh % nh) / (nh / nkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int q0 = qi * BM;
+  const int wrow0 = q0 + warp * 16;
+  const __nv_bfloat16* kh = k + ((int64_t)b * nkv + kvh) * S * HD;
+  const __nv_bfloat16* vh = v + ((int64_t)b * nkv + kvh) * S * HD;
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (min(q0 + BM, S) - 1) / BN + 1;
+
+  cp_rows<BM, HD, kThreadsM>(q_s, q + (int64_t)bh * S * HD, q0, S, tid);
+  cp_rows<BM, HD, kThreadsM>(do_s, dout + (int64_t)bh * S * HD, q0, S, tid);
+  cp_rows<BN, HD, kThreadsM>(k_s, kh, 0, S, tid);
+  cp_rows<BN, HD, kThreadsM>(v_s, vh, 0, S, tid);
+  tc::cp_async_commit();
+
+  const int row_a = wrow0 + lane / 4;  // the lane's two rows: row_a, row_a + 8
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_a + h * 8;
+    // a row past the end gets p = 0 (its dO is zero-filled too)
+    lse2[h] = row < S ? lse[(int64_t)bh * S + row] * kLog2e : INFINITY;
+    di_r[h] = row < S ? di[(int64_t)bh * S + row] : 0.f;
+  }
+  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  float acc[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    tc::cp_async_wait<0>();  // tile j (and, at j = 0, Q and dO) has landed
+    __syncthreads();         // ... for every thread; stage (j + 1) & 1 is free
+    if (j + 1 < n_tiles) {
+      const int st = (j + 1) & 1;
+      cp_rows<BN, HD, kThreadsM>(k_s + st * BN * LD, kh, (j + 1) * BN, S, tid);
+      cp_rows<BN, HD, kThreadsM>(v_s + st * BN * LD, vh, (j + 1) * BN, S, tid);
+    }
+    tc::cp_async_commit();
+    if (j == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int at = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+        tc::ldmatrix_x4(qf[kk], q_s + at);
+        tc::ldmatrix_x4(df[kk], do_s + at);
+      }
+    }
+    const int kv0 = j * BN;
+    if (kv0 > wrow0 + 15) continue;  // every key of the tile is after the warp's rows
+    const __nv_bfloat16* ks = k_s + (j & 1) * BN * LD;
+    const __nv_bfloat16* vs = v_s + (j & 1) * BN * LD;
+
+    // S = Q K^T and dP = dO V^T, 16 rows x BN keys a warp
+    float s[BN / 8][4], dp[BN / 8][4];
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int n2 = 0; n2 < BN / 16; ++n2) {
+        const int at = (n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t kb[4], vb[4];
+        tc::ldmatrix_x4(kb, ks + at);
+        tc::mma_bf16(s[2 * n2], qf[kk], kb[0], kb[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qf[kk], kb[2], kb[3]);
+        tc::ldmatrix_x4(vb, vs + at);
+        tc::mma_bf16(dp[2 * n2], df[kk], vb[0], vb[1]);
+        tc::mma_bf16(dp[2 * n2 + 1], df[kk], vb[2], vb[3]);
+      }
+    }
+
+    // ds = p (dp - di) scale in place of s; p = 0 under the mask
+    const bool masked = kv0 + BN - 1 > wrow0 || kv0 + BN > S;
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[i][e] * scale_log2 - lse2[e >> 1]);
+        if (masked) {
+          const int col = kv0 + i * 8 + (lane % 4) * 2 + (e & 1);
+          if (col > row_a + (e >> 1) * 8 || col >= S) p = 0.f;
+        }
+        s[i][e] = p * (dp[i][e] - di_r[e >> 1]) * scale;
+      }
+
+    // dQ += dS K, dS rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint32_t da[4] = {tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                              tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                              tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                              tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        uint32_t kb[4];
+        tc::ldmatrix_x4_trans(kb, ks + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+                                      d2 * 16 + (lane / 16) * 8);
+        tc::mma_bf16(acc[2 * d2], da, kb[0], kb[1]);
+        tc::mma_bf16(acc[2 * d2 + 1], da, kb[2], kb[3]);
+      }
+    }
+  }
+
+  // the warp's own 16 rows of the Q tile hold its dQ rows, then 16-byte stores
+  __nv_bfloat16* stage = q_s + warp * 16 * LD;
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i) {
+    const int c = i * 8 + (lane % 4) * 2;
+    *reinterpret_cast<uint32_t*>(stage + (lane / 4) * LD + c) = tc::pack_bf16(acc[i][0], acc[i][1]);
+    *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8) * LD + c) =
+        tc::pack_bf16(acc[i][2], acc[i][3]);
+  }
+  __syncwarp();
+  __nv_bfloat16* dqh = dq + (int64_t)bh * S * HD;
+#pragma unroll
+  for (int i = lane; i < 16 * (HD / 8); i += 32) {
+    const int r = i / (HD / 8);
+    const int c = (i % (HD / 8)) * 8;
+    if (wrow0 + r < S)
+      *reinterpret_cast<uint4*>(dqh + (int64_t)(wrow0 + r) * HD + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kMmaWarps * 32)
+flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ di,
+                     float* __restrict__ dk_part, float* __restrict__ dv_part, int nh, int nkv,
+                     int S, float scale) {
+  constexpr int kThreadsM = kMmaWarps * 32;
+  constexpr int BN = kBwdBlock;      // keys a block
+  constexpr int BQ = bwd_step<HD>();  // queries a step
+  constexpr int LD = HD + 8;
+  constexpr bool kKvInRegisters = HD == 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][LD]
+  __nv_bfloat16* v_s = k_s + BN * LD;                                // [BN][LD]
+  __nv_bfloat16* q_s = v_s + BN * LD;                                // [2][BQ][LD]
+  __nv_bfloat16* do_s = q_s + 2 * BQ * LD;                           // [2][BQ][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + 2 * BQ * LD);       // [2][BQ]
+  float* di_s = lse_s + 2 * BQ;                                      // [2][BQ]
+
+  const int bh = blockIdx.x;  // batch * nh + q head
+  const int kj = blockIdx.y;  // key tile; the first ones see the most queries
+  const int b = bh / nh;
+  const int kvh = (bh % nh) / (nh / nkv);
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int k0 = kj * BN;
+  const int wkey0 = k0 + warp * 16;
+  const __nv_bfloat16* qh = q + (int64_t)bh * S * HD;
+  const __nv_bfloat16* doh = dout + (int64_t)bh * S * HD;
+  const float* lseh = lse + (int64_t)bh * S;
+  const float* dih = di + (int64_t)bh * S;
+  const float scale_log2 = scale * kLog2e;
+  const int t_first = k0 / BQ;  // query tiles before this one end before the block's keys
+  const int n_steps = (S + BQ - 1) / BQ - t_first;
+
+  // query tile t into stage st: Q, dO, and their lse and di rows (4-byte copies:
+  // a head's rows start at bh * S floats, which need not be 16-byte aligned)
+  const auto load_q_tile = [&](int t, int st) {
+    const int row0 = t * BQ;
+    cp_rows<BQ, HD, kThreadsM>(q_s + st * BQ * LD, qh, row0, S, tid);
+    cp_rows<BQ, HD, kThreadsM>(do_s + st * BQ * LD, doh, row0, S, tid);
+    for (int i = tid; i < 2 * BQ; i += kThreadsM) {
+      const int r = i % BQ;
+      const bool ok = row0 + r < S;
+      const float* src = (i < BQ ? lseh : dih) + (ok ? row0 + r : 0);
+      tc::cp_async4((i < BQ ? lse_s : di_s) + st * BQ + r, src, ok);
+    }
+  };
+
+  const __nv_bfloat16* kbase = k + ((int64_t)b * nkv + kvh) * S * HD;
+  const __nv_bfloat16* vbase = v + ((int64_t)b * nkv + kvh) * S * HD;
+  cp_rows<BN, HD, kThreadsM>(k_s, kbase, k0, S, tid);
+  cp_rows<BN, HD, kThreadsM>(v_s, vbase, k0, S, tid);
+  load_q_tile(t_first, 0);
+  tc::cp_async_commit();
+
+  uint32_t kf[kKvInRegisters ? HD / 16 : 1][4], vf[kKvInRegisters ? HD / 16 : 1][4];
+  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+#pragma unroll
+  for (int i = 0; i < HD / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
+  const int key_a = wkey0 + lane / 4;  // the lane's two keys: key_a, key_a + 8
+  const int frag_at = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // + kk * 16
+
+  for (int t = 0; t < n_steps; ++t) {
+    tc::cp_async_wait<0>();  // step t (and, at t = 0, K and V) has landed
+    __syncthreads();         // ... for every thread; stage (t + 1) & 1 is free
+    if (t + 1 < n_steps) load_q_tile(t_first + t + 1, (t + 1) & 1);
+    tc::cp_async_commit();
+    if constexpr (kKvInRegisters) {
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          tc::ldmatrix_x4(kf[kk], k_s + frag_at + kk * 16);
+          tc::ldmatrix_x4(vf[kk], v_s + frag_at + kk * 16);
+        }
+      }
+    }
+    const int q0 = (t_first + t) * BQ;
+    if (q0 + BQ - 1 < wkey0) continue;  // every query of the tile is before the warp's keys
+    const int st = t & 1;
+    const __nv_bfloat16* qs = q_s + st * BQ * LD;
+    const __nv_bfloat16* dos = do_s + st * BQ * LD;
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x BQ queries a warp
+    float sT[BQ / 8][4], dpT[BQ / 8][4];
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sT[i][e] = dpT[i][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      if constexpr (kKvInRegisters) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ka[e] = kf[kk][e];
+          va[e] = vf[kk][e];
+        }
+      } else {
+        tc::ldmatrix_x4(ka, k_s + frag_at + kk * 16);
+        tc::ldmatrix_x4(va, v_s + frag_at + kk * 16);
+      }
+#pragma unroll
+      for (int n2 = 0; n2 < BQ / 16; ++n2) {
+        const int at = (n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t qb[4], db[4];
+        tc::ldmatrix_x4(qb, qs + at);
+        tc::mma_bf16(sT[2 * n2], ka, qb[0], qb[1]);
+        tc::mma_bf16(sT[2 * n2 + 1], ka, qb[2], qb[3]);
+        tc::ldmatrix_x4(db, dos + at);
+        tc::mma_bf16(dpT[2 * n2], va, db[0], db[1]);
+        tc::mma_bf16(dpT[2 * n2 + 1], va, db[2], db[3]);
+      }
+    }
+
+    // P^T in place of S^T, dS^T in place of dP^T; masked: a key after the
+    // query, or a query past the end
+    const bool masked = wkey0 + 15 > q0 || q0 + BQ > S;
+    const float* lses = lse_s + st * BQ;
+    const float* dis = di_s + st * BQ;
+#pragma unroll
+    for (int i = 0; i < BQ / 8; ++i) {
+      const int c = i * 8 + (lane % 4) * 2;  // the lane's two queries of n-tile i: c, c + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(lses + c);
+      const float2 dr = *reinterpret_cast<const float2*>(dis + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lq = (e & 1) ? l2.y : l2.x;
+        const float di_q = (e & 1) ? dr.y : dr.x;
+        float p = exp2f(sT[i][e] * scale_log2 - lq * kLog2e);
+        if (masked) {
+          const int col = q0 + c + (e & 1);
+          if (key_a + (e >> 1) * 8 > col || col >= S) p = 0.f;
+        }
+        sT[i][e] = p;
+        dpT[i][e] = p * (dpT[i][e] - di_q) * scale;
+      }
+    }
+
+    // dV += P^T dO and dK += dS^T Q, P^T and dS^T rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      const uint32_t pa[4] = {tc::pack_bf16(sT[2 * kk][0], sT[2 * kk][1]),
+                              tc::pack_bf16(sT[2 * kk][2], sT[2 * kk][3]),
+                              tc::pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]),
+                              tc::pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3])};
+      const uint32_t da[4] = {tc::pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]),
+                              tc::pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]),
+                              tc::pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
+                              tc::pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
+#pragma unroll
+      for (int d2 = 0; d2 < HD / 16; ++d2) {
+        const int at = (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + d2 * 16 + (lane / 16) * 8;
+        uint32_t ob[4], qb[4];
+        tc::ldmatrix_x4_trans(ob, dos + at);
+        tc::mma_bf16(dv_acc[2 * d2], pa, ob[0], ob[1]);
+        tc::mma_bf16(dv_acc[2 * d2 + 1], pa, ob[2], ob[3]);
+        tc::ldmatrix_x4_trans(qb, qs + at);
+        tc::mma_bf16(dk_acc[2 * d2], da, qb[0], qb[1]);
+        tc::mma_bf16(dk_acc[2 * d2 + 1], da, qb[2], qb[3]);
+      }
+    }
+  }
+  tc::cp_async_wait<0>();
+
+  // this q head's fp32 partials of the block's keys
+  float* dkp = dk_part + (int64_t)bh * S * HD;
+  float* dvp = dv_part + (int64_t)bh * S * HD;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key_a + h * 8;
+    if (key >= S) continue;
+#pragma unroll
+    for (int i = 0; i < HD / 8; ++i) {
+      const int64_t at = (int64_t)key * HD + i * 8 + (lane % 4) * 2;
+      *reinterpret_cast<float2*>(dkp + at) = make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
+      *reinterpret_cast<float2*>(dvp + at) = make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
+    }
+  }
+}
+
+constexpr int kReduceThreads = 256;
+
+// dK, dV [B, nkv, S, HD] = bf16 of the sum of the group's partials
+// [B * nh, S, HD], added in q head order; 4 values a thread
+__global__ void __launch_bounds__(kReduceThreads)
+flash_dkv_reduce_kernel(const float* __restrict__ dk_part, const float* __restrict__ dv_part,
+                        __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int nh,
+                        int nkv, int64_t head_elems, int64_t total4) {
+  const int groups = nh / nkv;
+  for (int64_t i = (int64_t)blockIdx.x * kReduceThreads + threadIdx.x; i < total4;
+       i += (int64_t)gridDim.x * kReduceThreads) {
+    const int64_t e = i * 4;
+    const int64_t bkv = e / head_elems;  // batch * nkv + kv head
+    const int64_t b = bkv / nkv;
+    const int64_t first = ((b * nh + (bkv % nkv) * groups) * head_elems) + e % head_elems;
+    float4 sk = *reinterpret_cast<const float4*>(dk_part + first);
+    float4 sv = *reinterpret_cast<const float4*>(dv_part + first);
+    for (int g = 1; g < groups; ++g) {
+      const float4 pk = *reinterpret_cast<const float4*>(dk_part + first + g * head_elems);
+      const float4 pv = *reinterpret_cast<const float4*>(dv_part + first + g * head_elems);
+      sk.x += pk.x; sk.y += pk.y; sk.z += pk.z; sk.w += pk.w;
+      sv.x += pv.x; sv.y += pv.y; sv.z += pv.z; sv.w += pv.w;
+    }
+    *reinterpret_cast<uint2*>(dk + e) = make_uint2(tc::pack_bf16(sk.x, sk.y), tc::pack_bf16(sk.z, sk.w));
+    *reinterpret_cast<uint2*>(dv + e) = make_uint2(tc::pack_bf16(sv.x, sv.y), tc::pack_bf16(sv.z, sv.w));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -736,49 +1167,106 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* 
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* di, void* dk, void* dv, int batch, int nh, int nkv, int S, float scale,
-               cudaStream_t stream) {
-  auto kernel = flash_dkv_kernel<T, HD>;
+// The backward's launch plan (tile sizes, dynamic shared memory, the
+// group-sum pass's blocks) comes from ops/flash_attention.py::flash_bwd_plan;
+// a plan this file does not build is refused.
+template <int HD>
+int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* di, void* dk, void* dv, void* workspace, int batch, int nh,
+                   int nkv, int S, int block_n, int block_m, int smem_bytes, int reduce_blocks,
+                   float scale, cudaStream_t stream) {
+  auto kernel = flash_dkv_kernel<float, HD>;
   constexpr int smem = dkv_smem_bytes<HD>();
+  if (block_n != kTile || block_m != kTile || smem_bytes != smem || reduce_blocks != 0)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, batch * nkv);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<T*>(dk), static_cast<T*>(dv), nh, nkv, S, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(dk), static_cast<float*>(dv), nh, nkv, S,
+      scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* di, void* dq, int batch, int nh, int nkv, int S, float scale,
-              cudaStream_t stream) {
-  auto kernel = flash_dq_kernel<T, HD>;
+// two launches: the partials of every (key tile, q head), then the group sum
+template <int HD>
+int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                    const void* di, void* dk, void* dv, void* workspace, int batch, int nh,
+                    int nkv, int S, int block_n, int block_m, int smem_bytes, int reduce_blocks,
+                    float scale, cudaStream_t stream) {
+  auto kernel = flash_dkv_mma_kernel<HD>;
+  constexpr int smem = dkv_mma_smem_bytes<HD>();
+  if (block_n != kBwdBlock || block_m != bwd_step<HD>() || smem_bytes != smem ||
+      reduce_blocks <= 0 || workspace == nullptr)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t head_elems = (int64_t)S * HD;
+  float* dk_part = static_cast<float*>(workspace);
+  float* dv_part = dk_part + (int64_t)batch * nh * head_elems;
+  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di), dk_part, dv_part, nh, nkv, S,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_dkv_reduce_kernel<<<reduce_blocks, kReduceThreads, 0, stream>>>(
+      dk_part, dv_part, static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), nh, nkv,
+      head_elems, (int64_t)batch * nkv * head_elems / 4);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                  const void* di, void* dq, int batch, int nh, int nkv, int S, int block_m,
+                  int block_n, int smem_bytes, float scale, cudaStream_t stream) {
+  auto kernel = flash_dq_kernel<float, HD>;
   constexpr int smem = dq_smem_bytes<HD>();
+  if (block_m != kTile || block_n != kTile || smem_bytes != smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, batch * nh);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse), static_cast<const float*>(di),
-      static_cast<T*>(dq), nh, nkv, S, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(di), static_cast<float*>(dq), nh, nkv, S, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int HD>
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+                   const void* di, void* dq, int batch, int nh, int nkv, int S, int block_m,
+                   int block_n, int smem_bytes, float scale, cudaStream_t stream) {
+  auto kernel = flash_dq_mma_kernel<HD>;
+  constexpr int smem = dq_mma_smem_bytes<HD>();
+  if (block_m != kBwdBlock || block_n != bwd_step<HD>() || smem_bytes != smem)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock);
+  kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(di),
+      static_cast<__nv_bfloat16*>(dq), nh, nkv, S, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Each returns 0 or a cudaError_t code; an
-// unsupported head_dim, dtype or head layout returns cudaErrorInvalidValue.
-// All tensors are contiguous: q, o, dout, dq [B, nh, S, hd]; k, v, dk, dv
-// [B, nkv, S, hd]; lse, di [B, nh, S] float32.
-#define GRASP_DISPATCH(FN, ...)                                             \
-  if (dtype == 0 && head_dim == 64) return FN<float, 64>(__VA_ARGS__);      \
-  if (dtype == 0 && head_dim == 128) return FN<float, 128>(__VA_ARGS__);    \
-  if (dtype == 1 && head_dim == 64) return FN<__nv_bfloat16, 64>(__VA_ARGS__);   \
-  if (dtype == 1 && head_dim == 128) return FN<__nv_bfloat16, 128>(__VA_ARGS__); \
+// unsupported head_dim, dtype, head layout or launch plan returns
+// cudaErrorInvalidValue. All tensors are contiguous: q, o, dout, dq [B, nh, S,
+// hd]; k, v, dk, dv [B, nkv, S, hd]; lse, di [B, nh, S] float32.
+#define GRASP_DISPATCH(F32, BF16, ...)                              \
+  if (dtype == 0 && head_dim == 64) return F32<64>(__VA_ARGS__);    \
+  if (dtype == 0 && head_dim == 128) return F32<128>(__VA_ARGS__);  \
+  if (dtype == 1 && head_dim == 64) return BF16<64>(__VA_ARGS__);   \
+  if (dtype == 1 && head_dim == 128) return BF16<128>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue
 
 // The forward's body by dtype: fp32 flash_fwd_kernel (CUDA cores), bf16
@@ -790,31 +1278,35 @@ extern "C" int grasp_flash_attention_fwd(const void* q, const void* k, const voi
                                          float scale, void* stream) {
   if (bad_shape(batch, nh, nkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto args = [&](auto launch) {
-    return launch(q, k, v, o, lse, batch, nh, nkv, S, block_m, smem_bytes, scale, s);
-  };
-  if (dtype == 0 && head_dim == 64) return args(launch_fwd_f32<64>);
-  if (dtype == 0 && head_dim == 128) return args(launch_fwd_f32<128>);
-  if (dtype == 1 && head_dim == 64) return args(launch_fwd_bf16<64>);
-  if (dtype == 1 && head_dim == 128) return args(launch_fwd_bf16<128>);
-  return (int)cudaErrorInvalidValue;
+  GRASP_DISPATCH(launch_fwd_f32, launch_fwd_bf16, q, k, v, o, lse, batch, nh, nkv, S, block_m,
+                 smem_bytes, scale, s);
 }
 
+// dK/dV by dtype: fp32 flash_dkv_kernel (one launch, the group summed inside
+// a block; workspace unused, reduce_blocks 0), bf16 flash_dkv_mma_kernel into
+// the fp32 workspace [2][B * nh][S][hd] and flash_dkv_reduce_kernel over
+// reduce_blocks blocks. block_n keys a block, block_m queries a step.
 extern "C" int grasp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse, const void* di,
-                                             void* dk, void* dv, int batch, int nh, int nkv,
-                                             int S, int head_dim, int dtype, float scale,
-                                             void* stream) {
+                                             void* dk, void* dv, void* workspace, int batch,
+                                             int nh, int nkv, int S, int head_dim, int dtype,
+                                             int block_n, int block_m, int smem_bytes,
+                                             int reduce_blocks, float scale, void* stream) {
   if (bad_shape(batch, nh, nkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GRASP_DISPATCH(launch_dkv, q, k, v, dout, lse, di, dk, dv, batch, nh, nkv, S, scale, s);
+  GRASP_DISPATCH(launch_dkv_f32, launch_dkv_bf16, q, k, v, dout, lse, di, dk, dv, workspace,
+                 batch, nh, nkv, S, block_n, block_m, smem_bytes, reduce_blocks, scale, s);
 }
 
+// dQ by dtype: fp32 flash_dq_kernel, bf16 flash_dq_mma_kernel. block_m
+// query rows a block, block_n keys a step.
 extern "C" int grasp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                             const void* dout, const void* lse, const void* di,
                                             void* dq, int batch, int nh, int nkv, int S,
-                                            int head_dim, int dtype, float scale, void* stream) {
+                                            int head_dim, int dtype, int block_m, int block_n,
+                                            int smem_bytes, float scale, void* stream) {
   if (bad_shape(batch, nh, nkv, S)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  GRASP_DISPATCH(launch_dq, q, k, v, dout, lse, di, dq, batch, nh, nkv, S, scale, s);
+  GRASP_DISPATCH(launch_dq_f32, launch_dq_bf16, q, k, v, dout, lse, di, dq, batch, nh, nkv, S,
+                 block_m, block_n, smem_bytes, scale, s);
 }

@@ -7,8 +7,12 @@
 // h = x @ A accumulated in fp32 and rounded to x's dtype (as the TPU kernel
 // casts its scratch before the second product), y = h @ B accumulated in
 // fp32 and written in x's dtype. h never reaches device memory. m, k, r, n
-// are arbitrary (ragged edges are masked, nothing is padded in memory); the
-// rank is at most 256.
+// are arbitrary (ragged edges are masked, nothing is padded in memory). One
+// launch takes at most 256 ranks; wider ranks run as chunks of A's columns
+// and B's rows, one launch each, whose fp32 products add up in chunk order
+// before y is rounded once (as the TPU kernel's one fp32 product over all
+// ranks is rounded once); h is rounded per chunk, element by element, as the
+// TPU kernel rounds all of h.
 //
 // fp32 body. x, A, B and y are each moved once (a few megabytes) for
 // 2 m r (k + n) flops. The TPU grid ran the output tiles of one
@@ -83,7 +87,8 @@ constexpr size_t shared_bytes() {
 template <typename T, int RC>
 __global__ void __launch_bounds__(kThreads)
 lowrank_fused_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* __restrict__ b,
-                     T* __restrict__ y, int m, int k, int r, int n, int tiles_per_split) {
+                     T* y, const float* y_in, int m, int k, int r, int lda, int n,
+                     int tiles_per_split) {
   constexpr int RP = RC * 16;
   constexpr int HS = RP + kHPad;
   extern __shared__ __align__(16) float smem[];
@@ -111,7 +116,7 @@ lowrank_fused_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* 
     }
     for (int idx = threadIdx.x; idx < kBK * RP; idx += kThreads) {
       const int kk = k0 + idx / RP, c = idx % RP;
-      as[idx] = kk < k && c < r ? to_float(a[(int64_t)kk * r + c]) : 0.f;
+      as[idx] = kk < k && c < r ? to_float(a[(int64_t)kk * lda + c]) : 0.f;
     }
     __syncthreads();
     const int depth = min(kBK, k - k0);
@@ -172,7 +177,11 @@ lowrank_fused_kernel(const T* __restrict__ x, const T* __restrict__ a, const T* 
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = n0 + tx + 16 * j;
-        if (c < n) y[(int64_t)row * n + c] = from_float<T>(out[i][j]);
+        if (c < n) {
+          const int64_t at = (int64_t)row * n + c;
+          // y_in: the sum of earlier rank chunks (may be y itself)
+          y[at] = from_float<T>(y_in != nullptr ? out[i][j] + y_in[at] : out[i][j]);
+        }
       }
     }
   }
@@ -290,19 +299,22 @@ __device__ __forceinline__ void stage_tile(__nv_bfloat16* dst, int dld, const __
   }
 }
 
-// the widest copy that a row-major matrix with this row length and base allows
-__device__ __forceinline__ int copy_vec(const void* p, int cols) {
+// the widest copy that a row-major matrix with this row length, row stride
+// and base allows
+__device__ __forceinline__ int copy_vec(const void* p, int cols, int ld) {
   const uintptr_t at = reinterpret_cast<uintptr_t>(p);
-  if (cols % 8 == 0 && at % 16 == 0) return 8;
-  if (cols % 2 == 0 && at % 4 == 0) return 2;
+  if (cols % 8 == 0 && ld % 8 == 0 && at % 16 == 0) return 8;
+  if (cols % 2 == 0 && ld % 2 == 0 && at % 4 == 0) return 2;
   return 1;
 }
 
-template <int RC>
+// CHAIN: a rank chunk of a wider call (y_in, out_f32), taken only at RC 8; the
+// other instances keep the plain epilogue and its registers
+template <int RC, bool CHAIN>
 __global__ void __launch_bounds__(kTcThreads, RC <= 5 ? 2 : 1)
 lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ a,
-                         const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ y,
-                         int m, int k, int r, int n, int tiles_per_split) {
+                         const __nv_bfloat16* __restrict__ b, void* y, const float* y_in,
+                         int out_f32, int m, int k, int r, int lda, int n, int tiles_per_split) {
   using L = TcLayout<RC>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [kStages][kStage]
@@ -331,8 +343,12 @@ lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
   const int turn = blockIdx.x;
   // the output tile of phase-two step st
   const auto tile_of = [&](int st) { return t0 + (st / L::kRankSteps + turn) % tiles; };
-  const int vx = copy_vec(x, k), va = copy_vec(a, r), vb = copy_vec(b, n);
-  const bool y_vec = copy_vec(y, n) == 8;
+  // A's row stride: r outside rank chunks, so that those instances keep one
+  // register for both (at 128 registers a thread one more spills)
+  const int a_ld = CHAIN ? lda : r;
+  const int vx = copy_vec(x, k, k), va = copy_vec(a, r, a_ld), vb = copy_vec(b, n, n);
+  const bool y_vec = copy_vec(y, n, n) == 8;
+  __nv_bfloat16* __restrict__ yb = static_cast<__nv_bfloat16*>(y);
 
   // one slice into stage st % kStages: of x and A in phase one, of B in phase two
   const auto load_step = [&](int st, bool phase_one) {
@@ -340,7 +356,7 @@ lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
     if (phase_one && st < steps1) {
       const int k0 = (s0 + (st + turn) % steps1) * kTcBK1;
       stage_tile<kTcBM, kTcBK1>(dst, L::XLD, x, k, row0, m, k0, k, vx, tid);
-      stage_tile<kTcBK1, L::RP>(dst + kTcBM * L::XLD, L::ALD, a, r, k0, k, 0, r, va, tid);
+      stage_tile<kTcBK1, L::RP>(dst + kTcBM * L::XLD, L::ALD, a, a_ld, k0, k, 0, r, va, tid);
     } else if (!phase_one && st < steps2) {
       stage_tile<kTcBK2, kTcBN>(dst, L::BLD, b, n, (st % L::kRankSteps) * kTcBK2, r,
                                tile_of(st) * kTcBN, n, vb, tid);
@@ -458,6 +474,34 @@ lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
       }
     }
     if (kc != L::kRankSteps - 1) continue;
+    if constexpr (CHAIN) {
+      // rank chunks: add the fp32 sum of the earlier chunks (y_in); all but
+      // the last chunk write that sum in fp32 (out_f32, y may be y_in)
+      float* yf = static_cast<float*>(y);
+      const int n0 = tile_of(st) * kTcBN;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + wm * 32 + mt * 16 + lane / 4 + (e >> 1) * 8;
+            const int col = n0 + wn * 32 + nt * 8 + (lane % 4) * 2 + (e & 1);
+            if (row >= m || col >= n) continue;
+            const int64_t at = (int64_t)row * n + col;
+            if (y_in != nullptr) acc[mt][nt][e] += y_in[at];
+            if (out_f32) yf[at] = acc[mt][nt][e];
+          }
+      if (out_f32) {
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+        continue;
+      }
+    }
     // the tile is done: round to bf16, stage, 16-byte stores
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt)
@@ -478,13 +522,13 @@ lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
       for (int i = tid; i < kTcBM * (kTcBN / 8); i += kTcThreads) {
         const int rr = i / (kTcBN / 8), c = (i % (kTcBN / 8)) * 8;
         if (row0 + rr < m && n0 + c < n)
-          *reinterpret_cast<uint4*>(y + (int64_t)(row0 + rr) * n + n0 + c) =
+          *reinterpret_cast<uint4*>(yb + (int64_t)(row0 + rr) * n + n0 + c) =
               *reinterpret_cast<const uint4*>(ys + rr * L::YLD + c);
       }
     } else {
       for (int i = tid; i < kTcBM * kTcBN; i += kTcThreads) {
         const int rr = i / kTcBN, c = i % kTcBN;
-        if (row0 + rr < m && n0 + c < n) y[(int64_t)(row0 + rr) * n + n0 + c] = ys[rr * L::YLD + c];
+        if (row0 + rr < m && n0 + c < n) yb[(int64_t)(row0 + rr) * n + n0 + c] = ys[rr * L::YLD + c];
       }
     }
   }
@@ -492,8 +536,9 @@ lowrank_fused_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat1
 }
 
 template <int RC>
-int launch_f32(const void* x, const void* a, const void* b, void* y, int m, int k, int r, int n,
-               int rank_pad, int splits, int per, int smem_bytes, cudaStream_t stream) {
+int launch_f32(const void* x, const void* a, const void* b, void* y, const float* y_in, int m,
+               int k, int r, int lda, int n, int rank_pad, int splits, int per, int smem_bytes,
+               cudaStream_t stream) {
   constexpr size_t smem = shared_bytes<RC>();
   if (rank_pad != RC * 16 || smem_bytes != (int)smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(lowrank_fused_kernel<float, RC>,
@@ -502,16 +547,17 @@ int launch_f32(const void* x, const void* a, const void* b, void* y, int m, int 
   const dim3 grid((m + kBM - 1) / kBM, splits);
   lowrank_fused_kernel<float, RC><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(y), m, k, r, n, per);
+      static_cast<float*>(y), y_in, m, k, r, lda, n, per);
   return (int)cudaGetLastError();
 }
 
-template <int RC>
-int launch_bf16(const void* x, const void* a, const void* b, void* y, int m, int k, int r, int n,
-                int splits, int per, int smem_bytes, cudaStream_t stream) {
+template <int RC, bool CHAIN>
+int launch_bf16(const void* x, const void* a, const void* b, void* y, const float* y_in,
+                int out_f32, int m, int k, int r, int lda, int n, int splits, int per,
+                int smem_bytes, cudaStream_t stream) {
   constexpr int smem = TcLayout<RC>::kBytes;
   if (smem_bytes != smem || splits > kMaxCluster) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(lowrank_fused_mma_kernel<RC>,
+  cudaError_t err = cudaFuncSetAttribute(lowrank_fused_mma_kernel<RC, CHAIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   // the splits of a row tile are one cluster
@@ -527,31 +573,43 @@ int launch_bf16(const void* x, const void* a, const void* b, void* y, int m, int
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lowrank_fused_mma_kernel<RC>,
+  err = cudaLaunchKernelEx(&cfg, lowrank_fused_mma_kernel<RC, CHAIN>,
                            static_cast<const __nv_bfloat16*>(x),
                            static_cast<const __nv_bfloat16*>(a),
-                           static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(y),
-                           m, k, r, n, per);
+                           static_cast<const __nv_bfloat16*>(b), y, y_in, out_f32, m, k, r, lda,
+                           n, per);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(const void* x, const void* a, const void* b, void* y, int m, int k, int r, int n,
-                  int rank_pad, int splits, int per, int smem_bytes, cudaStream_t s) {
+int dispatch_bf16(const void* x, const void* a, const void* b, void* y, const float* y_in,
+                  int out_f32, int m, int k, int r, int lda, int n, int rank_pad, int splits,
+                  int per, int smem_bytes, cudaStream_t s) {
+  if (y_in != nullptr || out_f32) {  // a chunk of a rank above 256: padded to 256
+    if (rank_pad != 32 * 8) return (int)cudaErrorInvalidValue;
+    return launch_bf16<8, true>(x, a, b, y, y_in, out_f32, m, k, r, lda, n, splits, per,
+                                smem_bytes, s);
+  }
+  if (lda != r) return (int)cudaErrorInvalidValue;  // only a chunk reads a column slice
   switch (rank_pad) {
-#define GRASP_RC(RC) \
-  case 32 * RC: return launch_bf16<RC>(x, a, b, y, m, k, r, n, splits, per, smem_bytes, s);
+#define GRASP_RC(RC)                                                                          \
+  case 32 * RC:                                                                               \
+    return launch_bf16<RC, false>(x, a, b, y, y_in, out_f32, m, k, r, lda, n, splits, per,     \
+                                  smem_bytes, s);
     GRASP_RC(1) GRASP_RC(2) GRASP_RC(3) GRASP_RC(4) GRASP_RC(5) GRASP_RC(6) GRASP_RC(7) GRASP_RC(8)
 #undef GRASP_RC
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch_f32(const void* x, const void* a, const void* b, void* y, int m, int k, int r, int n,
-                 int rank_pad, int splits, int per, int smem_bytes, cudaStream_t s) {
+int dispatch_f32(const void* x, const void* a, const void* b, void* y, const float* y_in, int m,
+                 int k, int r, int lda, int n, int rank_pad, int splits, int per, int smem_bytes,
+                 cudaStream_t s) {
   switch (rank_pad) {
-#define GRASP_RC(RC) \
-  case 16 * RC: return launch_f32<RC>(x, a, b, y, m, k, r, n, rank_pad, splits, per, smem_bytes, s);
+#define GRASP_RC(RC)                                                                          \
+  case 16 * RC:                                                                               \
+    return launch_f32<RC>(x, a, b, y, y_in, m, k, r, lda, n, rank_pad, splits, per, smem_bytes, \
+                          s);
     GRASP_RC(2) GRASP_RC(4) GRASP_RC(8) GRASP_RC(12) GRASP_RC(16)
 #undef GRASP_RC
     default: return (int)cudaErrorInvalidValue;
@@ -560,24 +618,34 @@ int dispatch_f32(const void* x, const void* a, const void* b, void* y, int m, in
 
 }  // namespace
 
-// x [m, k], a [k, r], b [r, n] -> y [m, n], contiguous, dtype 0 = float32
-// (lowrank_fused_kernel), 1 = bfloat16 (lowrank_fused_mma_kernel). rank_pad,
-// splits, tiles_per_split and smem_bytes are the plan of
-// ops/lowrank.py::lowrank_plan. Returns 0 or a cudaError_t code; r > 256, or
-// a plan that does not cover every output tile exactly once, is invalid.
-extern "C" int grasp_lowrank_fused(const void* x, const void* a, const void* b, void* y, int m,
-                                   int k, int r, int n, int dtype, int rank_pad, int splits,
+// x [m, k], a [k, r] with row stride lda (a column slice of a wider A), b [r,
+// n] -> y [m, n], contiguous, dtype 0 = float32 (lowrank_fused_kernel), 1 =
+// bfloat16 (lowrank_fused_mma_kernel). rank_pad, splits, tiles_per_split and
+// smem_bytes are the plan of ops/lowrank.py::lowrank_plan. Ranks above 256
+// run as chunks of at most 256, one launch each, chained through an fp32 sum:
+// y_in (may be null) holds the sum of the earlier chunks and is added before
+// the output is written; out_f32 (bf16 only) writes that fp32 sum to y in
+// place of the bf16 output. A chained bf16 chunk takes the plan of 256 ranks;
+// an unchained bf16 call needs lda == r. Returns 0 or a cudaError_t code;
+// r > 256, or a plan that does not cover every output tile exactly once, is
+// invalid.
+extern "C" int grasp_lowrank_fused(const void* x, const void* a, const void* b, void* y,
+                                   const void* y_in, int m, int k, int r, int lda, int n,
+                                   int dtype, int out_f32, int rank_pad, int splits,
                                    int tiles_per_split, int smem_bytes, void* stream) {
-  if (m <= 0 || k <= 0 || r <= 0 || n <= 0 || r > kMaxRank || rank_pad < r || splits <= 0 ||
-      splits > 65535 || tiles_per_split <= 0)
+  if (m <= 0 || k <= 0 || r <= 0 || n <= 0 || r > kMaxRank || lda < r || rank_pad < r ||
+      splits <= 0 || splits > 65535 || tiles_per_split <= 0 || (out_f32 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (n + kBN - 1) / kBN;  // both bodies have 128-column tiles
   if ((int64_t)splits * tiles_per_split < n_tiles || (splits - 1) * tiles_per_split >= n_tiles)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* acc = static_cast<const float*>(y_in);
   if (dtype == 0)
-    return dispatch_f32(x, a, b, y, m, k, r, n, rank_pad, splits, tiles_per_split, smem_bytes, s);
+    return dispatch_f32(x, a, b, y, acc, m, k, r, lda, n, rank_pad, splits, tiles_per_split,
+                        smem_bytes, s);
   if (dtype == 1)
-    return dispatch_bf16(x, a, b, y, m, k, r, n, rank_pad, splits, tiles_per_split, smem_bytes, s);
+    return dispatch_bf16(x, a, b, y, acc, out_f32, m, k, r, lda, n, rank_pad, splits,
+                         tiles_per_split, smem_bytes, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -86,20 +86,19 @@ def get_calibration_batches(dataset_name: str, tokenizer, num_samples: int = 128
 
 class TokenFileBatches:
     """Re-iterable pre-shifted calibration batches from a binary token file
-    (a flat int32 stream, the format grasp_tpu.native.write_token_file
-    writes), memory-mapped. The chunk order is a numpy permutation of
-    ``seed``: the same distribution as the JAX package's native batch server,
-    not its exact stream."""
+    (a flat int32 stream, the format ``grasp_tpu_torch.native.write_token_file``
+    writes), served by the port's native batch server
+    (:class:`grasp_tpu_torch.native.BatchServer`): for the same file and seed
+    the same batches in the same order as the JAX package's native server."""
 
     def __init__(self, token_file: str, seq_len: int, batch_size: int, seed: int = 42,
                  shuffle: bool = True):
-        self._tokens = np.memmap(token_file, dtype=np.int32, mode="r")
+        from grasp_tpu_torch.native import BatchServer, TokenStore
+
+        self._server = BatchServer(TokenStore(token_file), seq_len, batch_size, seed=seed,
+                                   shuffle=shuffle)
         self.seq_len, self.batch_size, self.seed, self.shuffle = seq_len, batch_size, seed, shuffle
-        self._n_chunks = len(self._tokens) // seq_len
-        self.num_batches = self._n_chunks // batch_size
-        if self.num_batches == 0:
-            raise ValueError(f"not enough tokens ({len(self._tokens)}) for one batch of "
-                             f"{batch_size} x {seq_len}")
+        self.num_batches = len(self._server)
 
     def __len__(self) -> int:
         return self.num_batches
@@ -108,13 +107,7 @@ class TokenFileBatches:
         return list(self)[i]
 
     def __iter__(self) -> Iterator[Batch]:
-        order = np.arange(self._n_chunks)
-        if self.shuffle:
-            order = np.random.default_rng(self.seed).permutation(self._n_chunks)
-        for b in range(self.num_batches):
-            rows = [np.asarray(self._tokens[c * self.seq_len: (c + 1) * self.seq_len])
-                    for c in order[b * self.batch_size: (b + 1) * self.batch_size]]
-            yield _pre_shifted(np.stack(rows))
+        return iter(self._server)
 
 
 def calibration_batches_from_token_file(token_file: str, seq_len: int = 2048,

@@ -40,15 +40,18 @@ SIGNATURES = {
     # q k v o lse | batch nh nkv S head_dim dtype block_m smem_bytes | scale stream
     "grasp_flash_attention_fwd": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
-    # q k v dout lse di dk dv | batch nh nkv S head_dim dtype | scale stream
+    # q k v dout lse di dk dv workspace | batch nh nkv S head_dim dtype block_n block_m
+    # smem_bytes reduce_blocks | scale stream
     "grasp_flash_attention_bwd_dkv": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
-    # q k v dout lse di dq | batch nh nkv S head_dim dtype | scale stream
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # q k v dout lse di dq | batch nh nkv S head_dim dtype block_m block_n smem_bytes | scale
+    # stream
     "grasp_flash_attention_bwd_dq": (
-        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P]),
-    # x a b y | m k r n dtype rank_pad splits tiles_per_split smem_bytes | stream
+        _I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+    # x a b y y_in | m k r lda n dtype out_f32 rank_pad splits tiles_per_split smem_bytes |
+    # stream
     "grasp_lowrank_fused": (
-        _I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # x packed scale y partial | m in out groups gs dtype variant splits gpc | stream
     "grasp_int4_matmul": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -2,9 +2,9 @@
 
 Counterpart of grasp_tpu/ops/pallas_attention.py. The kernels
 (csrc/flash_attention.cu: forward, dK/dV, dQ) stream K/V in tiles and never
-write an [S, S] matrix to device memory; a bf16 forward runs on the tensor
-cores, everything else on CUDA cores in fp32; the plain version materialises the
-fp32 scores the way the JAX package's ``_xla_reference`` does.
+write an [S, S] matrix to device memory; bf16 runs on the tensor cores, fp32 on
+CUDA cores; the plain version materialises the fp32 scores the way the JAX
+package's ``_xla_reference`` does.
 :func:`flash_attention` is a ``torch.autograd.Function`` for CUDA tensors and
 takes the plain version only for CPU tensors.
 
@@ -50,6 +50,68 @@ def flash_fwd_plan(batch: int, nh: int, s: int, hd: int, dtype: torch.dtype) -> 
     else:
         smem = (block_m + 4 * _KEY_TILE) * (hd + 8) * 2
     return FlashFwdPlan(block_m, (-(-s // block_m), batch * nh), smem)
+
+
+@dataclasses.dataclass(frozen=True)
+class FlashBwdPlan:
+    """How the two backward kernels are launched. dQ: ``dq_block_m`` query
+    rows a block, ``dq_block_n`` keys a step, ``dq_grid``, ``dq_threads``,
+    ``dq_smem_bytes``. dK/dV: ``dkv_block_n`` keys a block, ``dkv_block_m``
+    queries a step, ``dkv_grid``, ``dkv_threads``, ``dkv_smem_bytes``; then
+    ``reduce_blocks`` blocks of ``reduce_threads`` that add each group's
+    partials (0: the group is summed inside a block), from a workspace of
+    ``workspace_bytes``. Grids are (x, y) as launched."""
+    dq_block_m: int
+    dq_block_n: int
+    dq_grid: Tuple[int, int]
+    dq_threads: int
+    dq_smem_bytes: int
+    dkv_block_n: int
+    dkv_block_m: int
+    dkv_grid: Tuple[int, int]
+    dkv_threads: int
+    dkv_smem_bytes: int
+    reduce_blocks: int
+    reduce_threads: int
+    workspace_bytes: int
+
+
+def flash_bwd_plan(batch: int, nh: int, nkv: int, s: int, hd: int,
+                   dtype: torch.dtype) -> FlashBwdPlan:
+    """The backward's launch plan, a pure function of the shapes;
+    csrc/flash_attention.cu refuses any other. The SM count does not enter.
+
+    bf16 (flash_dq_mma_kernel, flash_dkv_mma_kernel; 4 warps of 16 rows):
+    dQ takes 64 query rows a block over (batch * heads, query tiles), key
+    steps of 64 at hd 64 and 32 at hd 128 (the registers of 128 dQ columns
+    leave no room for a wider step); dK/dV takes 64 keys a block for one q
+    head over (batch * heads, key tiles), query steps of the same widths,
+    fp32 partials of every q head in a workspace of 2 x B * nh * S * hd
+    floats, and a second pass that adds each group's partials, 4 values a
+    thread. Shared memory: the resident tiles (Q and dO, or K and V) and two
+    stages of the streamed ones, bf16 rows padded by 8, and for dK/dV the
+    lse and di rows of both stages.
+    fp32 (flash_dq_kernel, flash_dkv_kernel; 256 threads): 64-row tiles in
+    fp32, the dK/dV block over (key tiles, batch * kv heads) summing its
+    group itself."""
+    tiles = -(-s // 64)
+    if dtype == torch.float32:
+        return FlashBwdPlan(
+            dq_block_m=64, dq_block_n=64, dq_grid=(tiles, batch * nh), dq_threads=256,
+            dq_smem_bytes=(4 * 64 * (hd + 4) + 64 * 68) * 4,
+            dkv_block_n=64, dkv_block_m=64, dkv_grid=(tiles, batch * nkv), dkv_threads=256,
+            dkv_smem_bytes=(4 * 64 * (hd + 4) + 2 * 64 * 68) * 4,
+            reduce_blocks=0, reduce_threads=0, workspace_bytes=0)
+    step = 64 if hd == 64 else 32
+    tiles_bytes = (2 * 64 + 4 * step) * (hd + 8) * 2
+    total4 = batch * nkv * s * hd // 4
+    return FlashBwdPlan(
+        dq_block_m=64, dq_block_n=step, dq_grid=(batch * nh, tiles), dq_threads=128,
+        dq_smem_bytes=tiles_bytes,
+        dkv_block_n=64, dkv_block_m=step, dkv_grid=(batch * nh, tiles), dkv_threads=128,
+        dkv_smem_bytes=tiles_bytes + 4 * step * 4,
+        reduce_blocks=-(-total4 // 256), reduce_threads=256,
+        workspace_bytes=2 * batch * nh * s * hd * 4)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -127,31 +189,52 @@ def _forward_cuda(q, k, v, sm_scale: float,
     return o, lse
 
 
-def _backward_cuda(q, k, v, o, lse, dout, sm_scale: float):
-    """di = sum(o * dO) in plain torch, then the dK/dV and dQ kernels."""
+def _launch_dkv(lib, q, k, v, dout, lse, di, dk, dv, sm_scale: float, plan: FlashBwdPlan,
+                workspace: Optional[torch.Tensor]) -> None:
+    """The dK/dV kernel (and, for bf16, its group-sum pass) on the current
+    stream; counts nothing."""
+    b, nh, s, hd = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.grasp_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), None if workspace is None else workspace.data_ptr(),
+        b, nh, k.shape[1], s, hd, _DTYPE_CODES[q.dtype], plan.dkv_block_n, plan.dkv_block_m,
+        plan.dkv_smem_bytes, plan.reduce_blocks, float(sm_scale), stream)
+    _raise_on(rc, "dK/dV")
+
+
+def _launch_dq(lib, q, k, v, dout, lse, di, dq, sm_scale: float, plan: FlashBwdPlan) -> None:
+    """The dQ kernel on the current stream; counts nothing."""
+    b, nh, s, hd = q.shape
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = lib.grasp_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        dq.data_ptr(), b, nh, k.shape[1], s, hd, _DTYPE_CODES[q.dtype], plan.dq_block_m,
+        plan.dq_block_n, plan.dq_smem_bytes, float(sm_scale), stream)
+    _raise_on(rc, "dQ")
+
+
+def _backward_cuda(q, k, v, o, lse, dout, sm_scale: float, plan: Optional[FlashBwdPlan] = None):
+    """di = sum(o * dO) in plain torch, as the JAX package leaves it to XLA,
+    then the dK/dV and dQ kernels with ``plan`` (default:
+    :func:`flash_bwd_plan`)."""
     from grasp_tpu_torch.ops._build import load_library
 
     lib = load_library()
     b, nh, s, hd = q.shape
-    nkv = k.shape[1]
+    if plan is None:
+        plan = flash_bwd_plan(b, nh, k.shape[1], s, hd, q.dtype)
     dout = dout.contiguous()
     if dout.dtype != q.dtype or dout.data_ptr() % 16:
         raise ValueError("the output gradient must have q's dtype and 16-byte alignment")
     di = (o.float() * dout.float()).sum(dim=-1).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    code = _DTYPE_CODES[q.dtype]
+    workspace = (torch.empty(plan.workspace_bytes // 4, dtype=torch.float32, device=q.device)
+                 if plan.workspace_bytes else None)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.grasp_flash_attention_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, nh, nkv, s, hd, code,
-            float(sm_scale), stream)
-        _raise_on(rc, "dK/dV")
+        _launch_dkv(lib, q, k, v, dout, lse, di, dk, dv, sm_scale, plan, workspace)
         flash_attention.launches["dkv"] += 1
-        rc = lib.grasp_flash_attention_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            di.data_ptr(), dq.data_ptr(), b, nh, nkv, s, hd, code, float(sm_scale), stream)
-        _raise_on(rc, "dQ")
+        _launch_dq(lib, q, k, v, dout, lse, di, dq, sm_scale, plan)
         flash_attention.launches["dq"] += 1
     return dq, dk, dv
 

@@ -6,7 +6,9 @@ dense, full-SVD and two-product low-rank functions are plain matrix products,
 as they are plain XLA dots in JAX. :func:`fused_lowrank` is the fused low-rank
 kernel (csrc/lowrank_fused.cu): ``y = (x @ A) @ B`` with ``h = x @ A`` kept in
 shared memory instead of written to device memory and read back; bf16 runs on
-the tensor cores, fp32 on CUDA cores. Its backward
+the tensor cores, fp32 on CUDA cores. A rank above 256 runs as chunks of at
+most 256 ranks, one launch each, chained through an fp32 sum of y that is
+rounded once. Its backward
 is plain matrix products, as in the JAX package: the fusion is for inference
 and for the forward of calibration sweeps, while the factors still get correct
 gradients.
@@ -15,12 +17,12 @@ gradients.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_FUSED_RANK = 256  # accumulator columns of csrc/lowrank_fused.cu
+MAX_FUSED_RANK = 256  # ranks of one launch of csrc/lowrank_fused.cu (a chunk)
 FUSED_MIN_ROWS = 256  # below this the two plain products stay (decode-sized calls)
 TILE_M, TILE_N = 64, 128  # rows a block, columns of an output tile (both bodies)
 MAX_CLUSTER = 8  # blocks of a thread-block cluster (portable size), bf16 body
@@ -58,9 +60,27 @@ def pick_splits(row_tiles: int, n_tiles: int, k: int, sms: int, cluster: bool = 
     return best
 
 
+def rank_chunks(r: int) -> List[Tuple[int, int]]:
+    """The rank columns [c0, c1) of each launch: chunks of
+    :data:`MAX_FUSED_RANK`, the last one holding the rest."""
+    return [(c0, min(c0 + MAX_FUSED_RANK, r)) for c0 in range(0, r, MAX_FUSED_RANK)]
+
+
+def lowrank_plans(m: int, k: int, r: int, n: int, dtype: torch.dtype,
+                  sms: int) -> List[LowrankPlan]:
+    """One launch plan per rank chunk of :func:`rank_chunks`: the plan of
+    ``r`` for one chunk; for more, every chunk takes the plan of 256 ranks
+    (the last one's padded columns are zero-filled), so that the chained
+    epilogue is compiled into one instance of the kernel and the others
+    keep their registers."""
+    if r <= 0:
+        raise ValueError(f"the fused low-rank kernel needs a rank of 1 or more, got {r}")
+    return [lowrank_plan(m, k, min(r, MAX_FUSED_RANK), n, dtype, sms)] * len(rank_chunks(r))
+
+
 def lowrank_plan(m: int, k: int, r: int, n: int, dtype: torch.dtype, sms: int) -> LowrankPlan:
-    """The fused kernel's launch plan, a pure function of the shapes and the
-    SM count; csrc/lowrank_fused.cu refuses any other. bf16
+    """One launch's plan (``r`` at most 256, a rank chunk), a pure function
+    of the shapes and the SM count; csrc/lowrank_fused.cu refuses any other. bf16
     (lowrank_fused_mma_kernel): rank padded to a multiple of 32, four
     pipeline stages (32-deep slices of x and A, or 64-deep slices of B), h and a y
     staging tile, all bf16 with rows padded by 8; the splits of a row tile
@@ -124,34 +144,43 @@ def _check_cuda_args(x, a, b) -> None:
     if x.dim() < 1 or a.dim() != 2 or b.dim() != 2 or x.shape[-1] != a.shape[0] \
             or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad shapes x {tuple(x.shape)}, a {tuple(a.shape)}, b {tuple(b.shape)}")
-    if a.shape[1] > MAX_FUSED_RANK:
-        raise NotImplementedError(
-            f"the fused low-rank kernel takes ranks up to {MAX_FUSED_RANK}, got {a.shape[1]}")
     if min(x.numel(), a.numel(), b.numel()) == 0:
         raise ValueError("the fused low-rank kernel needs non-empty x, a and b")
 
 
 def _forward_cuda(x2d: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                   plan: Optional[LowrankPlan] = None) -> torch.Tensor:
-    """Launch the kernel with ``plan`` (default: :func:`lowrank_plan` for the
-    card)."""
+    """Launch the kernel once per rank chunk with the plans of
+    :func:`lowrank_plans` for the card (``plan``: the plan of a call of a
+    single chunk). A chunk adds the fp32 sum of the chunks before it; for
+    bf16 all but the last write that sum to an fp32 buffer, and the last
+    rounds it to y once; fp32 chains the sum through y itself."""
     from grasp_tpu_torch.ops._build import load_library
 
     lib = load_library()
     m, k = x2d.shape
     r, n = b.shape
-    if plan is None:
-        plan = lowrank_plan(m, k, r, n, x2d.dtype,
-                            torch.cuda.get_device_properties(x2d.device).multi_processor_count)
+    chunks = rank_chunks(r)
+    if plan is not None and len(chunks) != 1:
+        raise ValueError("a plan is given for a call of one rank chunk only")
+    plans = [plan] if plan is not None else lowrank_plans(
+        m, k, r, n, x2d.dtype, torch.cuda.get_device_properties(x2d.device).multi_processor_count)
     y = torch.empty((m, n), dtype=x2d.dtype, device=x2d.device)
+    bf16_chain = x2d.dtype == torch.bfloat16 and len(chunks) > 1
+    acc = torch.empty((m, n), dtype=torch.float32, device=x2d.device) if bf16_chain else y
+    size = a.element_size()
     with torch.cuda.device(x2d.device):
         stream = torch.cuda.current_stream(x2d.device).cuda_stream
-        rc = lib.grasp_lowrank_fused(x2d.data_ptr(), a.data_ptr(), b.data_ptr(), y.data_ptr(),
-                                     m, k, r, n, _DTYPE_CODES[x2d.dtype], plan.rank_pad,
-                                     plan.splits, plan.tiles_per_split, plan.smem_bytes, stream)
-    if rc != 0:
-        raise RuntimeError(f"fused low-rank kernel launch failed: cudaError {rc}")
-    fused_lowrank.launches += 1
+        for i, ((c0, c1), p) in enumerate(zip(chunks, plans)):
+            out = acc if bf16_chain and i < len(chunks) - 1 else y
+            rc = lib.grasp_lowrank_fused(
+                x2d.data_ptr(), a.data_ptr() + c0 * size, b.data_ptr() + c0 * n * size,
+                out.data_ptr(), acc.data_ptr() if i else None, m, k, c1 - c0, r, n,
+                _DTYPE_CODES[x2d.dtype], int(out is not y), p.rank_pad, p.splits,
+                p.tiles_per_split, p.smem_bytes, stream)
+            if rc != 0:
+                raise RuntimeError(f"fused low-rank kernel launch failed: cudaError {rc}")
+            fused_lowrank.launches += 1
     return y
 
 
@@ -185,12 +214,13 @@ class _FusedLowrank(torch.autograd.Function):
 
 def fused_lowrank(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """y = (x @ a) @ b with the intermediate kept on the chip. x [..., k],
-    a [k, r], b [r, n], one dtype (fp32 or bf16), contiguous, r <= 256.
+    a [k, r], b [r, n], one dtype (fp32 or bf16), contiguous; a rank above
+    256 takes one launch per chunk of :func:`rank_chunks`.
 
     CPU tensors take :func:`fused_lowrank_plain` (differentiated by
     autograd). CUDA tensors launch the kernel on the current stream, or
     raise; there is no fallback. The backward is plain matrix products.
-    ``fused_lowrank.launches`` counts kernel launches."""
+    ``fused_lowrank.launches`` counts kernel launches (one per rank chunk)."""
     if x.device.type == "cpu":
         return fused_lowrank_plain(x, a, b)
     if x.device.type != "cuda":
@@ -208,7 +238,7 @@ def lowrank_apply(x: torch.Tensor, in_kernel: torch.Tensor, out_kernel: torch.Te
     (+ bias); in_kernel [in, r], out_kernel [r, out] with sigma fused in.
 
     use_fused=True sends calls of 256 rows or more on CUDA tensors through
-    :func:`fused_lowrank` (a rank above its bound raises); decode-sized calls
+    :func:`fused_lowrank` (any rank); decode-sized calls
     and CPU tensors keep the two plain products, where the flag is inert."""
     rows = x.numel() // max(x.shape[-1], 1)
     if use_fused and rows >= FUSED_MIN_ROWS and x.device.type == "cuda":

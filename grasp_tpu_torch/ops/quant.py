@@ -72,9 +72,17 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor,
 
 def quant_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """y = x @ (q * scale), int8 per output channel: q [in, out] int8, scale
-    [1, out] fp32. The scale commutes out of the contraction: (x @ q) * scale
-    in fp32, then cast to x's dtype."""
-    y = torch.matmul(x, q.to(x.dtype)).float()
+    [1, out] fp32. The scale commutes out of the contraction: (x @ q) in
+    fp32, times the scale, rounded once to x's dtype, as the JAX package's
+    dot with an fp32 result. On CUDA a bf16 or fp16 x multiplies q in x's
+    dtype into an fp32 result (cuBLAS's ``mm`` with ``out_dtype``); on the
+    CPU, where PyTorch has no such ``mm``, the operands are fp32 (x and the
+    int8 values are exact there)."""
+    if x.device.type == "cuda" and x.dtype in (torch.bfloat16, torch.float16):
+        y = torch.mm(x.reshape(-1, x.shape[-1]), q.to(x.dtype), out_dtype=torch.float32)
+        y = y.reshape(*x.shape[:-1], q.shape[-1])
+    else:
+        y = torch.matmul(x.float(), q.float())
     return (y * scale.float()).to(x.dtype)
 
 

@@ -33,9 +33,9 @@ sys.path.insert(0, ROOT)
 
 
 def _kind(name: str) -> str:
-    for kernel, kind in (("flash_fwd", "flash fwd (K1f)"),  # both bodies
-                         ("flash_dkv_kernel", "flash dK/dV (K1k)"),
-                         ("flash_dq_kernel", "flash dQ (K1q)")):
+    # both bodies of each; dK/dV's bf16 group sum counts as K1k
+    for kernel, kind in (("flash_fwd", "flash fwd (K1f)"), ("flash_dkv", "flash dK/dV (K1k)"),
+                         ("flash_dq", "flash dQ (K1q)")):
         if kernel in name:
             return kind
     low = name.lower()

@@ -20,6 +20,7 @@ from grasp_tpu_torch.cli import load_model, serve_main
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.models.convert import flatten_params
 from torch_parity import port_config, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

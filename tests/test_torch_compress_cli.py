@@ -18,7 +18,6 @@ import torch
 from grasp_tpu import configs as jconfigs
 from grasp_tpu.data import loader as jloader
 from grasp_tpu.data.tokenizer import ByteTokenizer as JByteTokenizer
-from grasp_tpu.native import write_token_file
 from grasp_tpu_torch import checkpoints as tckpt
 from grasp_tpu_torch import configs as tconfigs
 from grasp_tpu_torch.cli import compress_main, serve_main
@@ -26,7 +25,9 @@ from grasp_tpu_torch.data import loader as tloader
 from grasp_tpu_torch.data.tokenizer import ByteTokenizer, load_tokenizer
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.models.convert import params_from_numpy, params_to_numpy
+from grasp_tpu_torch.native import write_token_file
 from grasp_tpu_torch.ops.saliency import preserve_rank
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -95,8 +96,9 @@ def test_calibration_loader_matches_jax(tmp_path):
         tloader.get_calibration_batches("wikitext2", tok, data_root=str(tmp_path))
     with pytest.raises(NotImplementedError):
         tloader.get_calibration_batches("pile", tok)
-    # token file: unshuffled batches equal the JAX package's; shuffled ones are
-    # a permutation of them (the native server's stream is its own)
+    # token file (written by the port): unshuffled batches equal the JAX
+    # package's; shuffled ones are a permutation of them (and, tests/
+    # test_torch_native.py, the JAX native server's own stream)
     tokens = np.random.default_rng(0).integers(0, 259, 16 * 11 + 5)
     path = str(tmp_path / "tokens.bin")
     write_token_file(path, tokens)

@@ -22,7 +22,7 @@ from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 from grasp_tpu_torch.ops.lowrank import (
     MAX_FUSED_RANK, fused_lowrank, fused_lowrank_plain, lowrank_apply)
 from grasp_tpu_torch.ops.quant import (
-    quant_matmul_int4, quantize_int4, quantize_int8, quantize_int8_stochastic,
+    quant_matmul, quant_matmul_int4, quantize_int4, quantize_int8, quantize_int8_stochastic,
     quantize_model_weights)
 from grasp_tpu_torch.serving.paged import ServingEngine
 
@@ -66,10 +66,14 @@ def test_fused_lowrank_matches_plain_counts_launches_and_rejects_bad_input(dev):
                         <= 2 * tol * wg.float().abs().max().item()), case
     x, a, b = (torch.randn(s, generator=gen, device=dev) for s in ((300, 64), (64, 16), (16, 48)))
     counted = fused_lowrank.launches
-    wide = torch.zeros(64, MAX_FUSED_RANK + 1, device=dev), torch.zeros(MAX_FUSED_RANK + 1, 48,
-                                                                        device=dev)
-    with pytest.raises(NotImplementedError, match=str(MAX_FUSED_RANK)):
-        lowrank_apply(x, *wide, use_fused=True)  # over the bound: raises, no two-matmul detour
+    wide = (torch.randn(64, MAX_FUSED_RANK + 1, generator=gen, device=dev) * 0.1,
+            torch.randn(MAX_FUSED_RANK + 1, 48, generator=gen, device=dev) * 0.1)
+    # over one launch's ranks: two chunks through the kernel, no two-matmul detour
+    got = lowrank_apply(x, *wide, use_fused=True)
+    want = fused_lowrank_plain(x, *wide)
+    assert fused_lowrank.launches == counted + 2
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    counted = fused_lowrank.launches
     with pytest.raises(ValueError):
         fused_lowrank(x.t().contiguous().t(), a, b)
     with pytest.raises(TypeError):
@@ -133,6 +137,25 @@ def test_int4_kernels_match_plain_count_launches_and_reject_bad_input(dev):
     assert int4_matmul.launches == counted
     quant_matmul_int4(torch.zeros(64, 256, device=dev), packed, scale)
     assert int4_matmul.launches["grid"] == counted["grid"] + 1
+
+
+def test_int8_quant_matmul_rounds_once_after_the_fp32_product(dev):
+    """bf16 on the card: q multiplied in bf16 into an fp32 result (mm with
+    out_dtype), times the scale, rounded once, as the CPU path's fp32 product
+    and the JAX package's dot: every output within one bf16 ulp of the CPU
+    result and all but a few (sums in another order) bit-equal."""
+    gen = torch.Generator().manual_seed(11)
+    w = torch.randn(2048, 512, generator=gen) * 0.02
+    q, scale = quantize_int8(w)
+    for lead in ((8,), (2, 3)):
+        x = torch.randn(*lead, 2048, generator=gen).bfloat16()
+        want = quant_matmul(x, q, scale).float()
+        got = quant_matmul(x.to(dev), q.to(dev), scale.to(dev))
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        got = got.float().cpu()
+        ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp(min=2.0 ** -100))) - 7)
+        assert bool(((got - want).abs() <= ulp).all())
+        assert (got != want).float().mean().item() <= 0.005
 
 
 def test_stochastic_quantizer_kernel(dev):

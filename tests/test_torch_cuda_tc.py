@@ -1,7 +1,8 @@
-"""The bf16 tensor-core bodies of the flash-attention forward
-(flash_fwd_mma_kernel) and the fused low-rank kernel (lowrank_fused_mma_kernel)
-against their plain versions, on the card; fp32 inputs still take the CUDA-core
-bodies and their 1e-4 gates.
+"""The bf16 tensor-core bodies of the flash-attention forward and backward
+(flash_fwd_mma_kernel, flash_dkv_mma_kernel with its group sum,
+flash_dq_mma_kernel) and the fused low-rank kernel (lowrank_fused_mma_kernel,
+also in rank chunks above 256) against their plain versions, on the card; fp32
+inputs still take the CUDA-core bodies and their 1e-4 gates.
 
 Needs an NVIDIA GPU and no JAX; from the repository root:
 
@@ -71,8 +72,8 @@ def test_flash_mma_forward_and_lse_match_plain(dev):
 
 def test_flash_mma_forward_is_bit_equal_run_to_run_and_feeds_the_backward(dev):
     """Two forwards give the same bits; the gradients of sum(o ** 2) through
-    the unchanged dK/dV and dQ kernels, which read the new lse, stay within
-    2e-2 of the plain gradient's max."""
+    the dK/dV and dQ kernels, which read its lse, stay within 2e-2 of the
+    plain gradient's max."""
     for b, nh, nkv, s, hd in ((1, 32, 4, 2047, 64), (2, 8, 2, 129, 64), (1, 8, 1, 300, 128)):
         q, k, v = (t.requires_grad_() for t in _qkv(dev, torch.bfloat16, b, nh, nkv, s, hd, s))
         scale = hd ** -0.5
@@ -87,6 +88,43 @@ def test_flash_mma_forward_is_bit_equal_run_to_run_and_feeds_the_backward(dev):
             assert torch.isfinite(g).all()
             err = (g.float() - w.float()).abs().max().item()
             assert err <= FLASH_GRAD_RTOL * w.float().abs().max().item(), (b, nh, nkv, s, hd)
+
+
+def test_flash_mma_backward_matches_plain_and_is_bit_equal_run_to_run(dev):
+    """bf16 gradients of sum(o ** 2) through flash_dkv_mma_kernel (with its
+    group sum) and flash_dq_mma_kernel at every length across the tile edges,
+    hd 64 and 128, gqa 1, 4, 8, batches of 1 and 2, a scale other than
+    hd ** -0.5: each within 2e-2 of the plain gradient's max, finite, the same
+    bits over two backward passes, and one launch of each counted a pass.
+    fp32 keeps the CUDA-core bodies at 1e-4 of the plain gradient's max."""
+    cases = [(s, hd, groups, torch.bfloat16)
+             for s, hd, groups in itertools.product(FLASH_LENGTHS, (64, 128), (1, 4, 8))]
+    cases += [(s, hd, 4, torch.float32) for s in (1, 65, 1000) for hd in (64, 128)]
+    for seed, (s, hd, groups, dtype) in enumerate(cases):
+        q, k, v = (t.requires_grad_()
+                   for t in _qkv(dev, dtype, 1 + seed % 2, 8, 8 // groups, s, hd, seed))
+        scale = 0.3 / hd ** 0.5
+        o = fa.flash_attention(q, k, v, groups, scale)
+        dout = torch.randn(o.shape, generator=torch.Generator(device=dev).manual_seed(seed),
+                           device=dev).to(dtype)
+        before = dict(fa.flash_attention.launches)
+        first = torch.autograd.grad(o, (q, k, v), dout, retain_graph=True)
+        again = torch.autograd.grad(o, (q, k, v), dout)
+        want = torch.autograd.grad(fa.flash_attention_reference(q, k, v, groups, scale),
+                                   (q, k, v), dout)
+        torch.cuda.synchronize()
+        case = f"S={s} hd={hd} groups={groups} {dtype}"
+        after = fa.flash_attention.launches
+        assert (after["dkv"] - before["dkv"], after["dq"] - before["dq"]) == (2, 2), case
+        rtol = FLASH_GRAD_RTOL if dtype == torch.bfloat16 else 1e-4
+        # a gradient that is exactly 0 (one key: ds = 0) is held against the
+        # case's largest, as chip_smoke.py does
+        floor = 1e-3 * max(w.float().abs().max().item() for w in want)
+        for g, a, w in zip(first, again, want):
+            assert g.dtype == dtype and torch.isfinite(g).all(), case
+            assert torch.equal(g, a), case
+            err = (g.float() - w.float()).abs().max().item()
+            assert err <= rtol * max(w.float().abs().max().item(), floor), case
 
 
 def test_flash_fp32_keeps_the_cuda_core_body_and_its_gate(dev):
@@ -124,6 +162,27 @@ def test_lowrank_mma_matches_plain(dev):
         assert err <= LOWRANK_RTOL[torch.bfloat16] * want.float().abs().max().item(), case
 
 
+def test_lowrank_ranks_above_256_run_in_chunks(dev):
+    """A rank above 256 (TinyLlama's up_proj keeps 750 at ratio 0.5) takes one
+    launch per chunk of 256 ranks, chained through an fp32 sum of y rounded
+    once: within the 1e-2 gate of the plain output's max in bf16 (1e-4 in
+    fp32), bit-equal run to run."""
+    for seed, (m, k, r, n) in enumerate(((2047, 2048, 750, 5632), (300, 64, 257, 48),
+                                         (256, 100, 513, 130), (512, 5632, 300, 2048))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, a, b = _lowrank_inputs(dev, dtype, m, k, r, n, seed)
+            before = lr.fused_lowrank.launches
+            got = lr.fused_lowrank(x, a, b)
+            assert lr.fused_lowrank.launches - before == len(lr.rank_chunks(r)) > 1
+            want = lr.fused_lowrank_plain(x, a, b)
+            torch.cuda.synchronize()
+            case = (m, k, r, n, dtype)
+            assert got.dtype == dtype and got.shape == (m, n) and torch.isfinite(got).all(), case
+            err = (got.float() - want.float()).abs().max().item()
+            assert err <= LOWRANK_RTOL[dtype] * want.float().abs().max().item(), case
+            assert torch.equal(got, lr.fused_lowrank(x, a, b)), case
+
+
 def test_lowrank_mma_is_bit_equal_run_to_run(dev):
     for m, k, r, n in ((2047, 2048, 150, 5632), (512, 2048, 102, 2048), (300, 64, 16, 48)):
         x, a, b = _lowrank_inputs(dev, torch.bfloat16, m, k, r, n, m)
@@ -150,6 +209,20 @@ def test_kernels_refuse_a_plan_they_do_not_build(dev):
         with pytest.raises(RuntimeError):
             fa._forward_cuda(q, k, v, 0.125, bad)
     assert fa.flash_attention.launches == before
+    o, lse = fa._forward_cuda(q, k, v, 0.125)
+    before = dict(fa.flash_attention.launches)
+    plan = fa.flash_bwd_plan(1, 4, 4, 100, 64, torch.bfloat16)
+    for bad in (dataclasses.replace(plan, dkv_smem_bytes=plan.dkv_smem_bytes + 16),
+                dataclasses.replace(plan, dkv_block_m=32),
+                dataclasses.replace(plan, reduce_blocks=0),
+                dataclasses.replace(plan, workspace_bytes=0)):  # no workspace
+        with pytest.raises(RuntimeError):
+            fa._backward_cuda(q, k, v, o, lse, torch.ones_like(o), 0.125, bad)
+    assert fa.flash_attention.launches == before
+    with pytest.raises(RuntimeError):  # dK/dV runs, then dQ refuses its plan
+        fa._backward_cuda(q, k, v, o, lse, torch.ones_like(o), 0.125,
+                          dataclasses.replace(plan, dq_block_n=32))
+    assert fa.flash_attention.launches["dq"] == before["dq"]
     x, a, b = _lowrank_inputs(dev, torch.bfloat16, 300, 64, 16, 2048, 0)
     plan = lr.lowrank_plan(300, 64, 16, 2048, torch.bfloat16, 132)
     counted = lr.fused_lowrank.launches

@@ -24,6 +24,7 @@ from grasp_tpu_torch.configs import GraspConfig
 from grasp_tpu_torch.core.engine import GraspEngine, module_name, parse_module_name
 from grasp_tpu_torch.models import llama as tl
 from torch_parity import calibration_batches, port_config, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _pair(seed=0, **overrides):
@@ -114,8 +115,8 @@ RUNS = {
 def test_run_matches_jax(case):
     """The slice as a whole: GraspEngine.run in both packages."""
     kw = dict(num_prune_layers=2, **RUNS[case])
-    jeng, teng = _pair(seed=1, num_hidden_layers=4)
-    batches = calibration_batches(jeng.config)
+    jeng, teng = _pair(seed=1)
+    batches = calibration_batches(jeng.config, n=2, seq=12)
     jsum = jeng.run(_jnp_batches(batches), JGraspConfig(**kw))
     tsum = teng.run(batches, GraspConfig(**kw))
     assert tsum["redundant_layers"] == jsum["redundant_layers"]

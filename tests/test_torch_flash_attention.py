@@ -23,6 +23,7 @@ from grasp_tpu.ops import pallas_attention as jpa
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.ops import flash_attention as tfa
 from torch_parity import port_config, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _inputs(b, nh, nkv, s, hd, seed=0):

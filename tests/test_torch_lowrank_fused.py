@@ -28,6 +28,7 @@ from grasp_tpu_torch.core.engine import GraspEngine
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.ops import lowrank as tlowrank
 from torch_parity import calibration_batches, grasp_compressed, port_config, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-5
 # (leading dims of x, k, r, n): the last is ragged in every dim
@@ -101,8 +102,8 @@ def test_lowrank_apply_routes_by_flag_rows_and_device():
 def test_kernel_argument_checks():
     x, a, b = torch.zeros(300, 64), torch.zeros(64, 16), torch.zeros(16, 48)
     tlowrank._check_cuda_args(x, a, b)
-    with pytest.raises(NotImplementedError, match="256"):
-        tlowrank._check_cuda_args(x, torch.zeros(64, 257), torch.zeros(257, 48))
+    for r in (257, 300, 750):  # any rank: wider than 256 runs in rank chunks
+        tlowrank._check_cuda_args(x, torch.zeros(64, r), torch.zeros(r, 48))
     with pytest.raises(TypeError):
         tlowrank._check_cuda_args(x, a.bfloat16(), b)
     with pytest.raises(TypeError):

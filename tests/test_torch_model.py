@@ -20,6 +20,7 @@ from grasp_tpu_torch.models.convert import (
 from grasp_tpu_torch.ops.quant import quantize_model_weights
 from grasp_tpu_torch.serving.paged import ServingEngine
 from torch_parity import grasp_compressed, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 

@@ -16,6 +16,7 @@ from grasp_tpu_torch.models.convert import flatten_params
 from grasp_tpu_torch.ops import lowrank as tlowrank
 from grasp_tpu_torch.ops.saliency import preserve_rank as t_preserve_rank
 from torch_parity import small_config
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = 1e-4
 

@@ -24,6 +24,7 @@ from grasp_tpu_torch.ops import quant as tq
 from grasp_tpu_torch.ops.int4_matmul import dma_chunking, int4_matmul, int4_matmul_plain
 from grasp_tpu_torch.serving.paged import ServingEngine
 from torch_parity import grasp_compressed, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")
@@ -90,6 +91,26 @@ def test_quant_matmuls_match_jax():
         np.testing.assert_allclose(plain.numpy(), want, rtol=2e-5, atol=2e-4)
     with pytest.raises(ValueError):  # activation narrower than the packed weight allows
         tq.quant_matmul_int4(torch.zeros(1, 100), to_port(p), to_port(s4))
+
+
+def test_quant_matmul_bf16_rounds_once_after_the_fp32_product():
+    """bf16 activations: (x @ q) in fp32, times the scale, rounded to bf16
+    once, as the JAX package's jitted dot with an fp32 result. Every output
+    within one bf16 ulp of JAX's, and all but a few of them (sums taken in
+    another order that cross a rounding edge) bit-equal; rounding the bf16
+    product before the scale moved about a quarter of them."""
+    rng = np.random.default_rng(11)
+    w = rng.standard_normal((2048, 512)).astype(np.float32) * 0.02
+    x = jnp.asarray(rng.standard_normal((8, 2048)), jnp.float32).astype(jnp.bfloat16)
+    q, s = jq.quantize_int8(jnp.asarray(w))
+    want = np.asarray(jax.jit(jq.quant_matmul)(x, q, s).astype(jnp.float32))
+    got = tq.quant_matmul(torch.from_numpy(np.array(x.astype(jnp.float32))).bfloat16(),
+                          to_port(q), to_port(s))
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(want), 2.0 ** -100))) - 7)
+    assert (np.abs(got - want) <= ulp).all()
+    assert (got != want).mean() <= 0.005
 
 
 @pytest.mark.parametrize("shape,m", [((256, 384), 1), ((512, 130), 3), ((384, 256), 8)])

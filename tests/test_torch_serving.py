@@ -21,6 +21,7 @@ from grasp_tpu_torch.eval.generate import topk_topp_filter as t_filter
 from grasp_tpu_torch.serving.paged import ServingEngine
 from grasp_tpu_torch.serving.server import serve
 from torch_parity import grasp_compressed, small_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

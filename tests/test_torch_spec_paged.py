@@ -29,6 +29,7 @@ from grasp_tpu_torch.serving.spec_paged import (
     _draft_multi_fn,
 )
 from torch_parity import port_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 POOL = dict(num_pages=96, page_size=16, max_batch=4, max_pages_per_seq=8)
 

@@ -22,6 +22,7 @@ from grasp_tpu.serving import SpeculativeGenerator as JaxSpec
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.serving.speculative import SpeculativeGenerator, speculative_accept
 from torch_parity import port_config, to_port
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -4,6 +4,8 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from grasp_tpu.configs import GraspConfig, ModelConfig
 from grasp_tpu.core.engine import GraspEngine
@@ -46,3 +48,15 @@ def grasp_compressed(config: ModelConfig):
 
 def to_port(jax_params, device="cpu", dtype=None):
     return params_from_numpy(jax.tree.map(np.asarray, jax_params), device, dtype)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """PyTorch on one intra-op thread for the module that imports this
+    fixture, restored afterwards. The parity models are tiny, so more threads
+    buy nothing; next to the other test workers of a loaded CPU they cost
+    several times the module's time in contention."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
