@@ -33,11 +33,14 @@ Phases, each of which raises on failure (exit code != 0):
 6. low-rank, int4 and quantizer kernels: the fused low-rank kernel against
    its plain version at five shapes in float32 and bfloat16, with the
    gradients through its autograd function; the int4 matmul kernels (grid
-   and double-buffered) at m = 1, 8, 64 for the model's four weight shapes
-   and a ragged one, against the plain version and each other; the
-   stochastic int8 quantizer by structure, distribution and seed. Each is
-   timed against its plain version, its bound and, where one exists, the
-   library call (two matmuls; a matmul on the dequantized weight).
+   and double-buffered): their nibble expansion against unpack_int4 for every
+   byte value, then both at m = 1, 8, 64 for the model's four weight shapes,
+   at m = 1 and 8 for the other served products (k/v, the low-rank factors)
+   and at a ragged shape, against the plain version and each other (bf16:
+   bit-equal to each other and run to run); the stochastic int8 quantizer by
+   structure, distribution and seed. Each is timed against its plain
+   version, its bound and, where one exists, the library call (two matmuls; a
+   matmul on the dequantized weight), int4 at m = 1 and 8 for five shapes.
 7. quantized and fused serving: the serving checkpoint again through
    ``grasp_tpu_torch.cli`` with ``--quantize int4`` (then once more with
    ``GRASP_INT4_KERNEL=dma``), with ``--quantize int8``, and with
@@ -131,7 +134,8 @@ def _kernel_name(line: str) -> str:
 def phase_build():
     """Build and load the kernels, print the compiler's register and spill
     report, and show from the compiled code (cuobjdump -sass) that every
-    tensor-core kernel holds HMMA instructions."""
+    tensor-core kernel (flash forward, dQ, dK/dV; fused low-rank; both bf16
+    int4 kernels at 1, 2, 4 and 8 n-tiles) holds HMMA instructions."""
     from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
@@ -150,7 +154,7 @@ def phase_build():
     sass = subprocess.run([os.path.join(os.path.dirname(find_nvcc()), "cuobjdump"), "-sass",
                            str(so)], capture_output=True, text=True, check=True).stdout
     families = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
-                "lowrank_fused_mma_kernel")
+                "lowrank_fused_mma_kernel", "int4_grid_mma_kernel", "int4_dma_mma_kernel")
     hmma, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -165,6 +169,7 @@ def phase_build():
     want = {f"{family}<{hd}>" for family in families[:3] for hd in (64, 128)}
     want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
     want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
+    want |= {f"{family}<{nt}>" for family in families[4:] for nt in (1, 2, 4, 8)}
     if not want <= set(hmma) or min(hmma.values()) == 0:
         raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
@@ -212,11 +217,13 @@ def phase_kernel(torch):
     return worst
 
 
-def _spin(torch):
-    """Keep the card busy for about 20 ms with one idle kernel (it draws no
-    power that would lower the clocks), so that the host enqueues a whole
-    timed loop meanwhile and the events bracket device time alone."""
-    torch.cuda._sleep(int(0.02 * torch.cuda.get_device_properties(0).clock_rate * 1e3))
+def _spin(torch, calls=0):
+    """Keep the card busy with one idle kernel (it draws no power that would
+    lower the clocks) for 20 ms, or 100 us for each of ``calls`` timed calls
+    if that is longer, so that the host enqueues a whole timed loop meanwhile
+    and the events bracket device time alone."""
+    secs = max(0.02, 1e-4 * calls)
+    torch.cuda._sleep(int(secs * torch.cuda.get_device_properties(0).clock_rate * 1e3))
 
 
 def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
@@ -495,7 +502,7 @@ def _event_ms(torch, fn, iters, run_ahead=False):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if run_ahead:
-        _spin(torch)
+        _spin(torch, iters)
     start.record()
     for _ in range(iters):
         fn()
@@ -722,9 +729,18 @@ def phase_lowrank_timing(torch):
 
 # (in, out) of the model's int4 weights: q/o, gate/up, down, lm_head
 INT4_SHAPES = ((2048, 2048), (2048, 5632), (5632, 2048), (2048, 32000))
-# |kernel - plain| <= atol + rtol * |plain| (the JAX package's gates: fp32 is
-# a change of summation order; bf16 rounds the output once)
-INT4_TOL = {"float32": (2e-5, 2e-4), "bfloat16": (1e-2, 0.5)}
+# the other int4 products quantized serving runs: k/v, and the low-rank
+# factors of ranks 22, 102, 150 (in-factors, then rank 150's out-factors: 150
+# rows pad to two groups of 128; ranks 22 and 102 make groups of 22 and 102,
+# which take the dense route)
+INT4_SERVED = ((2048, 256), (2048, 22), (2048, 102), (2048, 150), (5632, 150), (150, 5632),
+               (150, 2048))
+# |kernel - plain| <= atol + atol_rel * max|plain| + rtol * |plain|. fp32: a
+# change of summation order (the JAX package's gate). bf16: both sides read
+# the same bf16 x and every expanded nibble is exact in bf16, so they differ
+# in the order of fp32 sums and in one bf16 rounding (rtol 1e-2 covers one
+# ulp); 1e-3 of the case's largest output catches a dropped group or row.
+INT4_TOL = {"float32": (2e-5, 2e-4, 0.0), "bfloat16": (1e-2, 0.0, 1e-3)}
 
 
 def _int4_weight(torch, gen, dev, in_f, out_f):
@@ -733,19 +749,39 @@ def _int4_weight(torch, gen, dev, in_f, out_f):
     return quantize_int4(torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02)
 
 
+def _int4_expansion(torch, dev):
+    """The bf16 kernels' byte -> bf16x2 expansion against unpack_int4 for
+    every byte value at every byte position of a 32-bit word."""
+    from grasp_tpu_torch.ops.int4_matmul import int4_expand_bytes
+
+    i = torch.arange(256, dtype=torch.int32)
+    b = ((i[:, None] + 64 * torch.arange(4)[None]) % 256).reshape(-1)
+    b = torch.where(b > 127, b - 256, b).to(torch.int8)  # every value at each position
+    got = int4_expand_bytes(b.to(dev)).cpu()
+    want = int4_expand_bytes(b)
+    ok = torch.equal(got.view(torch.int16), want.view(torch.int16))
+    print(f"int4 expansion: 256 byte values x 4 positions bit-equal to unpack_int4: {ok}")
+    if not ok:
+        raise AssertionError("the int4 nibble expansion disagrees with unpack_int4")
+
+
 def phase_int4(torch):
-    """Both int4 matmul kernels against the plain version and each other.
+    """Both int4 matmul kernels against the plain version and each other,
+    after the nibble expansion alone. bf16 where the dma kernel applies: the
+    two variants bit-equal, and each bit-equal to itself run to run.
     Returns the worst absolute error per variant."""
     from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 
     dev = torch.device("cuda", 0)
+    _int4_expansion(torch, dev)
     gen = torch.Generator(device=dev).manual_seed(31)
     worst = {"grid": 0.0, "dma": 0.0}
-    cases = [(shape, m) for shape in INT4_SHAPES for m in (1, 8, 64)] + [((512, 130), 3)]
+    cases = ([(shape, m) for shape in INT4_SHAPES for m in (1, 8, 64)] + [((512, 130), 3)]
+             + [(shape, m) for shape in INT4_SERVED for m in (1, 8)])
     for (in_f, out_f), m in cases:
         packed, scale = _int4_weight(torch, gen, dev, in_f, out_f)
         for dtype_name in ("float32", "bfloat16"):
-            rtol, atol = INT4_TOL[dtype_name]
+            rtol, atol, atol_rel = INT4_TOL[dtype_name]
             x = torch.randn(m, in_f, generator=gen, device=dev).to(getattr(torch, dtype_name))
             want = int4_matmul_plain(x, packed, scale)
             before = dict(int4_matmul.launches)
@@ -753,23 +789,30 @@ def phase_int4(torch):
             torch.cuda.synchronize()
             # out % 128 != 0: the double-buffered variant hands over to the grid kernel
             ran = {v: int4_matmul.launches[v] - before[v] for v in got}
-            want_ran = {"grid": 1, "dma": 1} if out_f % 128 == 0 else {"grid": 2, "dma": 0}
+            eligible = out_f % 128 == 0
+            want_ran = {"grid": 1, "dma": 1} if eligible else {"grid": 2, "dma": 0}
+            bound = atol + atol_rel * want.float().abs().max().item() + rtol * want.float().abs()
             errs, ok = {}, ran == want_ran
             for v, y in got.items():
                 diff = (y.float() - want.float()).abs()
                 errs[v] = diff.max().item()
                 ok = ok and y.dtype == x.dtype and torch.isfinite(y).all().item() and bool(
-                    (diff <= atol + rtol * want.float().abs()).all().item())
+                    (diff <= bound).all().item())
             between = (got["grid"].float() - got["dma"].float()).abs()
-            ok = ok and bool((between <= atol + rtol * want.float().abs()).all().item())
+            ok = ok and bool((between <= bound).all().item())
+            same = torch.equal(got["grid"], got["dma"])
+            rerun = all(torch.equal(int4_matmul(x, packed, scale, kernel=v), got[v]) for v in got)
+            if dtype_name == "bfloat16" and eligible:  # one body, one plan, no atomics
+                ok = ok and same and rerun
             print(f"int4 vs plain: in={in_f} out={out_f} m={m} {dtype_name}: max_abs_err grid="
-                  f"{errs['grid']:.3e} dma={errs['dma']:.3e} (rtol {rtol:g}, atol {atol:g}), grid "
-                  f"against dma {between.max().item():.3e}, bit-equal: "
-                  f"{torch.equal(got['grid'], got['dma'])}, launches {ran} {'ok' if ok else 'FAIL'}")
+                  f"{errs['grid']:.3e} dma={errs['dma']:.3e} (rtol {rtol:g}, atol {atol:g} + "
+                  f"{atol_rel:g} x max|plain|), grid against dma {between.max().item():.3e}, "
+                  f"bit-equal: {same}, run to run: {rerun}, launches {ran} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"int4 matmul kernels disagree: {(in_f, out_f)} m={m} "
                                      f"{dtype_name}")
-            if out_f % 128 == 0:
+            if eligible:
                 worst["dma"] = max(worst["dma"], errs["dma"])
             worst["grid"] = max(worst["grid"], errs["grid"])
     return worst
@@ -777,22 +820,22 @@ def phase_int4(torch):
 
 def phase_int4_timing(torch):
     """Both kernels, the plain version and the library call (torch.matmul on
-    the dequantized bf16 weight; the dequantization is timed apart) at the
-    decode shape m=8 bf16 for each of the model's weight shapes. Every timed
-    call takes the next of enough weight copies to exceed the 50 MB L2, as a
-    decode step walks 22 layers of weights. Bound: packed weight, scales, x
-    and y moved once against 2 m in out flops at the bf16 peak. The record
-    is the gate/up shape's."""
+    the dequantized bf16 weight; the dequantization is timed apart) in bf16
+    at m = 1 and m = 8 for each of the model's weight shapes and k/v's
+    (2048, 256). Every timed call takes the next of enough weight copies to
+    exceed the 50 MB L2, as a decode step walks 22 layers of weights. Bound:
+    packed weight, scales, x and y moved once against 2 m in out flops at the
+    bf16 peak. The record is the gate/up shape's at m = 8."""
     from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
     from grasp_tpu_torch.ops.quant import unpack_int4
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(32)
-    m, out = 8, None
-    for in_f, out_f in (INT4_SHAPES[1], INT4_SHAPES[0], INT4_SHAPES[2], INT4_SHAPES[3]):
+    out = None
+    for in_f, out_f in (INT4_SHAPES[1], INT4_SHAPES[0], INT4_SHAPES[2], INT4_SHAPES[3],
+                        INT4_SERVED[0]):
         copies = max(2, -(-64 * 2 ** 20 // (in_f * out_f // 2)))
         weights = [_int4_weight(torch, gen, dev, in_f, out_f) for _ in range(copies)]
-        x = torch.randn(m, in_f, generator=gen, device=dev).bfloat16()
 
         def dequant(packed, scale):
             w = unpack_int4(packed).float().reshape(scale.shape[0], -1, out_f)
@@ -807,26 +850,31 @@ def phase_int4_timing(torch):
                 return fn(pool[turn["i"] % len(pool)])
             return run
 
-        mean, raw = _turns_ms(torch, {
-            "kernel": cycle(lambda w: int4_matmul(x, *w, kernel="grid"), weights),
-            "plain": cycle(lambda w: int4_matmul_plain(x, *w), weights),
-            "library": cycle(lambda w: torch.matmul(x, w), dense)}, iters=2 * copies)
-        dma, _ = _turns_ms(torch, {"kernel": cycle(lambda w: int4_matmul(x, *w, kernel="dma"),
-                                                   weights)}, iters=2 * copies)
         dequant_ms = _event_ms(torch, cycle(lambda w: dequant(*w), weights), copies,
                                run_ahead=True)
-        g = weights[0][1].shape[0]
-        bound = _bound(in_f * out_f // 2 + g * out_f * 4 + 2 * m * (in_f + out_f),
-                       2 * m * in_f * out_f)
-        shared = {"plain_ms": mean["plain"], "library_ms": mean["library"], **bound}
-        recs = {"grid": {"ms": mean["kernel"], **shared}, "dma": {"ms": dma["kernel"], **shared}}
-        print(f"int4 timing (m={m} in={in_f} out={out_f} bf16, {copies} weight copies in turn), ms "
-              f"per call: grid {raw['kernel'][0]:.4f}/{raw['kernel'][1]:.4f}, dma "
-              f"{dma['kernel']:.4f}, plain {raw['plain'][0]:.4f}/{raw['plain'][1]:.4f}, library "
-              f"matmul on a dequantized weight {raw['library'][0]:.4f}/{raw['library'][1]:.4f} "
-              f"(dequantizing it {dequant_ms:.4f}); grid" + _shares(recs["grid"])
-              + "; dma" + _shares(recs["dma"]))
-        out = out or recs
+        for m in (8, 1):
+            x = torch.randn(m, in_f, generator=gen, device=dev).bfloat16()
+            mean, raw = _turns_ms(torch, {
+                "kernel": cycle(lambda w: int4_matmul(x, *w, kernel="grid"), weights),
+                "plain": cycle(lambda w: int4_matmul_plain(x, *w), weights),
+                "library": cycle(lambda w: torch.matmul(x, w), dense)}, iters=2 * copies)
+            dma, dma_raw = _turns_ms(torch, {
+                "kernel": cycle(lambda w: int4_matmul(x, *w, kernel="dma"), weights)},
+                iters=2 * copies)
+            g = weights[0][1].shape[0]
+            bound = _bound(in_f * out_f // 2 + g * out_f * 4 + 2 * m * (in_f + out_f),
+                           2 * m * in_f * out_f)
+            shared = {"plain_ms": mean["plain"], "library_ms": mean["library"], **bound}
+            recs = {"grid": {"ms": mean["kernel"], **shared},
+                    "dma": {"ms": dma["kernel"], **shared}}
+            print(f"int4 timing (m={m} in={in_f} out={out_f} bf16, {copies} weight copies in "
+                  f"turn), ms per call: grid {raw['kernel'][0]:.5f}/{raw['kernel'][1]:.5f}, dma "
+                  f"{dma_raw['kernel'][0]:.5f}/{dma_raw['kernel'][1]:.5f}, plain "
+                  f"{raw['plain'][0]:.4f}/{raw['plain'][1]:.4f}, library matmul on a dequantized "
+                  f"weight {raw['library'][0]:.5f}/{raw['library'][1]:.5f} (dequantizing it "
+                  f"{dequant_ms:.4f}); grid" + _shares(recs["grid"]) + "; dma"
+                  + _shares(recs["dma"]))
+            out = out or recs
         del weights, dense
     return out
 

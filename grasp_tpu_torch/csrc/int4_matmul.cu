@@ -16,48 +16,84 @@
 // Rows in..in_pad of the weight were zero-padded at quantize time, so x
 // beyond `in` reads as zero.
 //
-// What bounds it: bytes. The packed weight is the only large operand and each
-// of its bytes is used for 2 * m multiply-adds, so every design choice is
-// about streaming `packed` once, in wide coalesced loads, with enough blocks
-// in flight. One block owns 128 columns and a run of whole groups; with 8 to
-// 250 column tiles the contraction is also split across blocks (grid.y) until
-// about two blocks per SM exist. Partial sums go to an fp32 scratch
-// [splits, m, out] and a second kernel adds them in split order and casts, so
-// results are bit-equal from run to run (no atomics).
+// What bounds it: bytes, in principle. The packed weight is the only large
+// operand and each of its bytes is used for 2 * m multiply-adds (at most 128
+// at m = 64, far below the ~295 operations a byte at which an H100's bf16
+// tensor cores become the limit). So the design streams `packed` once and
+// makes the arithmetic on each byte cheap: an earlier design expanded every
+// nibble with an I2F once per warp (eight times per byte at m <= 8) and was
+// bound by those conversions. At decode's sizes (0.3 to 33 MB a call) what
+// is left is mostly fixed cost a call: the launch, the first round trip to
+// device memory, the cluster's split sum (scripts/int4_breakdown_torch.py
+// times each).
 //
-// Inside a block (256 threads): a tile of 64 packed rows x 128 columns (128
-// contraction rows, 8 KB) and the matching slice of x (as fp32) sit in shared
-// memory. Thread (tm, tc) owns columns 4 * tc .. 4 * tc + 3 and rows tm,
-// tm + 8, ...: it reads one 32-bit word (4 columns of one packed row),
-// sign-extends the 8 nibbles with arithmetic shifts and feeds them to its
-// rows; a warp shares one x row, so x reads are broadcasts.
+// bf16 x: int4_grid_mma_kernel (K5) and int4_dma_mma_kernel (K5d).
+// - A block (4 warps) owns 128 output columns and a run of whole groups. The
+//   products run on the tensor cores, mma.sync m16n8k16 bf16 -> fp32, with
+//   the WEIGHT as the A operand (16 output columns x 16 contraction rows) and
+//   x^T as the B operand (16 contraction rows x 8 rows of x): m <= 8 is one
+//   n-tile, m <= 64 at most eight (NT = 1, 2, 4, 8).
+// - An A register holds contraction rows (2t, 2t + 1) of one column: exactly
+//   one packed byte. A byte becomes one bf16x2 register with a byte permute,
+//   one lop3 and one bf16x2 subtraction (expand_byte); every value in [-8, 7]
+//   is exact in bf16, so the products are exact and only the order of the
+//   fp32 sums differs from the plain version. Each byte is expanded once per
+//   block: warp w owns columns 32w .. 32w + 31.
+// - Column order inside a warp's two m16 tiles: one 32-bit shared load of
+//   columns 4g .. 4g + 3 (lane 4g + t) feeds rows g and g + 8 of both tiles
+//   (byte 0: tile 0 row g, 1: tile 0 row g + 8, 2: tile 1 row g, 3: tile 1
+//   row g + 8). The epilogue writes each accumulator to its own column.
+// - Shared memory is a ring of `stages` tiles of 128 contraction rows: 64
+//   packed rows of 128 bytes, their 16-byte chunks permuted as the tensor
+//   copy's 128-byte swizzle does (swz), so that a warp's word loads meet at
+//   most two to a bank; the x slice, 8 NT rows of 128 bf16 (row stride 272
+//   bytes, so ldmatrix is conflict-free), zero beyond m and beyond `in`; and,
+//   with a group's first tile, its 128 scales.
+// - K5 fills the ring with cp.async issued by all threads (the packed chunks
+//   written to their swizzled places). K5d is the counterpart of the TPU's
+//   make_async_copy + semaphores: one thread starts a 2-D tensor copy of the
+//   packed tile (64 rows x 128 bytes through Hopper's Tensor Memory
+//   Accelerator, the tensor map encoded on the host per call) and a bulk copy
+//   of the scales, both completed on the stage's mbarrier; its x slice still
+//   comes by cp.async. (One 1-D bulk copy a 128-byte row read up to 1.4x
+//   slower than K5 on an H100: the engine pays per request.) Both inline one body
+//   (mma_main) for expand + mma + scale + group sum and take the same plan,
+//   so their outputs are bit-equal.
+// - Split sum: where the plan splits a column tile's groups across blocks,
+//   those blocks are one thread-block cluster (at most 8). Each leaves its
+//   fp32 partial in its shared memory; after cluster.sync() block r adds, for
+//   its share of the tile's outputs, the partials of splits 0, 1, ... in that
+//   order (distributed shared memory) and writes y. One launch, no scratch in
+//   device memory, no atomics: the same bits from run to run.
+// - The plan (splits = cluster size, stages, shared bytes) is
+//   ops/int4_matmul.py::int4_plan, pure Python; a plan that does not match
+//   this file's layout is refused. Shared memory stays at or under 112 KB so
+//   that two blocks fit an SM and every cluster is resident at once.
 //
-// Two variants, the same function:
-//   grid: loads each tile with plain 16-byte loads, synchronises, computes.
-//   dma:  the counterpart of the TPU's manual double buffering. The packed
-//         rows of a chunk of whole groups are copied with cp.async into one of
-//         two shared-memory buffers while the previous chunk is expanded and
-//         multiplied; the fp32 accumulator carries across chunks. Shared
-//         memory, not the TPU's megabyte of VMEM, bounds the chunk: the caller
-//         picks it (ops/int4_matmul.py: 16 KB per buffer and block, two groups
-//         of 128 rows at 128 columns). Needs out % 128 == 0, as the TPU
-//         variant did.
-// The two sum the groups in the same order within a block but may split the
-// contraction differently across blocks, so they agree to fp32 rounding, not
-// bit for bit.
-//
-// Simple first: the products are fp32 FMAs on CUDA cores (at m = 64 that, not
-// the byte stream, is the limit), only the warps that own a row compute (one
-// of eight at m = 1), no tensor cores, no TMA.
+// fp32 x keeps the CUDA-core bodies (int4_grid_kernel, int4_dma_kernel,
+// int4_reduce_kernel): tensor cores would round x to bf16 or TF32, and the fp32
+// gate is 2e-5. There a block of 256 threads owns 128 columns; thread (tm, tc)
+// expands the nibbles of its 4 columns for rows tm, tm + 8, ... with fp32
+// FMAs on CUDA cores; splits write an fp32 scratch [splits, m, out] that a
+// second kernel adds in split order. The fp32 dma variant double-buffers
+// chunks of whole groups with cp.async and may split differently from the
+// grid variant, so the two agree to fp32 rounding, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
+
+#include "tensor_core.cuh"
+
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCols = 128;          // columns per block
+constexpr int kCols = 128;          // columns per block (both bodies)
 constexpr int kRowGroups = 8;       // kThreads / 32: x rows are dealt round-robin to warps
 constexpr int kSub = 128;           // contraction rows per shared-memory tile
 constexpr int kSubBytes = kSub / 2 * kCols;  // 8192 bytes of packed weight per tile
@@ -65,16 +101,15 @@ constexpr int kMaxRows = 64;
 constexpr size_t kMaxSharedBytes = 232448;   // what one block may ask for on sm_90
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+
+// ---------------------------------------------------------------------------
+// fp32 bodies (CUDA cores)
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
   const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem);
@@ -321,55 +356,563 @@ int launch_dma(const void* x, const void* packed, const void* scale, void* y, vo
   return reduce<T>(partial, y, m, out_f, splits, stream);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 bodies: tensor cores, one cluster per split column tile
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;         // 4 warps x 32 columns (one thread a column of scales)
+constexpr int kTileRows = 128;           // contraction rows per ring stage
+constexpr int kTilePRows = kTileRows / 2;  // packed rows per stage
+constexpr int kXLd = kTileRows + 8;      // x row stride in shared memory, bf16
+constexpr int kPartLd = kCols + 4;       // fp32 partial row stride
+constexpr int kMaxCluster = 8;
+constexpr int kMaxStages = 8;
+
+// a ring stage: packed rows, then the x slice, then (read at a group's first
+// tile) the group's 128 scales
+__host__ __device__ constexpr int mma_x_offset() { return kTilePRows * kCols; }
+__host__ __device__ constexpr int mma_scale_offset(int nt) {
+  return mma_x_offset() + 8 * nt * kXLd * 2;
+}
+// rounded up to 1024 bytes: the packed rows of every stage start on 1024
+// bytes, as the tensor copy's 128-byte swizzle needs
+__host__ __device__ constexpr int mma_stage_bytes(int nt) {
+  return (mma_scale_offset(nt) + kCols * 4 + 1023) / 1024 * 1024;
+}
+constexpr int kSmemAlign = 1024;  // dynamic shared memory is rounded up to this in the kernel
+
+// Byte offset of (packed row p, column byte c) of a tile in shared memory:
+// rows of 128 bytes whose 16-byte chunks are permuted by XOR with p % 8 (the
+// tensor copy's 128-byte swizzle), so that a warp's word loads spread over
+// the banks (two lanes a bank at most).
+__device__ __forceinline__ int swz(int p, int c) {
+  return p * kCols + ((((c >> 4) ^ p) & 7) << 4) + (c & 15);
+}
+
+int n_tiles_of(int m) { return m <= 8 ? 1 : m <= 16 ? 2 : m <= 32 ? 4 : 8; }
+
+// Byte B of w as bf16x2 {low nibble, high nibble}, signed (w4 = w >> 4).
+// The permute puts the byte's low nibble in bits 0-3 and its high nibble in
+// bits 16-19; with bit 3 of each flipped and 0x43 above, each half is the
+// bf16 128 + (n ^ 8) exactly, and 128 + (n ^ 8) - 136 is the signed nibble
+// n (two's complement of 4 bits: n ^ 8 - 8), exact in bf16.
+template <int B>
+__device__ __forceinline__ uint32_t expand_byte(uint32_t w, uint32_t w4) {
+  constexpr uint32_t sel = B | (B << 4) | ((4 + B) << 8) | ((4 + B) << 12);
+  uint32_t r = (__byte_perm(w, w4, sel) & 0x000F000Fu) ^ 0x43084308u;
+  const uint32_t bias = 0x43084308u;  // bf16x2 {136, 136}
+  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&r),
+                             *reinterpret_cast<const __nv_bfloat162*>(&bias));
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four packed bytes (four columns of one packed row) -> four bf16x2 registers
+__device__ __forceinline__ void expand_word(uint32_t w, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                            uint32_t& r3) {
+  const uint32_t w4 = w >> 4;
+  r0 = expand_byte<0>(w, w4);
+  r1 = expand_byte<1>(w, w4);
+  r2 = expand_byte<2>(w, w4);
+  r3 = expand_byte<3>(w, w4);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   tc::smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(tc::smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` contiguous bytes global -> shared through the bulk-copy engine,
+// completed on `bar` (both addresses 16-byte aligned, bytes a multiple of 16)
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(tc::smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(tc::smem_addr(bar))
+      : "memory");
+}
+
+// a box of the 2-D tensor `map` at (column c0, row c1) -> shared memory, completed on `bar`
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%2, %3}], [%4];\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(tc::smem_addr(bar))
+      : "memory");
+}
+
+// orders this thread's earlier shared-memory accesses before later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wait until at most n committed cp.async groups are in flight (n < kMaxStages)
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: tc::cp_async_wait<0>(); break;
+    case 1: tc::cp_async_wait<1>(); break;
+    case 2: tc::cp_async_wait<2>(); break;
+    case 3: tc::cp_async_wait<3>(); break;
+    case 4: tc::cp_async_wait<4>(); break;
+    case 5: tc::cp_async_wait<5>(); break;
+    default: tc::cp_async_wait<6>(); break;
+  }
+}
+
+// acc += this warp's 32 columns of the tile's weight (A) times x^T (B), 8
+// k16 steps. A warp has no other work to hide latency behind (two or three
+// warps a scheduler), so the tile's 16 packed words are read first and the B
+// fragments of a pair of steps (one ldmatrix.x4 per n-tile) one pair ahead.
+// Independent accumulator chains: at NT <= 2 a warp's products form 2 NT
+// chains of dependent mma.sync; even and odd k16 steps go to two sets, added
+// when the group ends (the order of the fp32 sums inside a group is free).
+template <int NT>
+constexpr int kChains = NT <= 2 ? 2 : 1;
+
+template <int NT>
+__device__ __forceinline__ void tile_mma(const uint8_t* ps, const __nv_bfloat16* xs, int warp,
+                                         int lane, float (&acc)[kChains<NT>][2][NT][4]) {
+  constexpr int kSteps = kTileRows / 16;
+  // step s reads packed rows 8s + t (lo) and 8s + 4 + t (hi), columns 4g ..
+  // 4g + 3 of the warp's 32: a row's place in the swizzle does not depend on s
+  const int t = lane & 3, c = warp * 32 + 4 * (lane >> 2);
+  const uint8_t* plo = ps + swz(t, c);
+  const uint8_t* phi = ps + swz(t + 4, c);
+  uint32_t words[kSteps][2];
+#pragma unroll
+  for (int st = 0; st < kSteps; ++st) {
+    words[st][0] = *reinterpret_cast<const uint32_t*>(plo + 8 * st * kCols);
+    words[st][1] = *reinterpret_cast<const uint32_t*>(phi + 8 * st * kCols);
+  }
+  const __nv_bfloat16* xl = xs + (lane & 7) * kXLd + (lane >> 3) * 8;
+  uint32_t bfr[2][NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) tc::ldmatrix_x4(bfr[0][j], xl + j * 8 * kXLd);
+#pragma unroll
+  for (int pair = 0; pair < kSteps / 2; ++pair) {
+    const int cur = pair & 1;
+    if (pair + 1 < kSteps / 2) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        tc::ldmatrix_x4(bfr[cur ^ 1][j], xl + j * 8 * kXLd + (pair + 1) * 32);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t a[2][4];
+      expand_word(words[2 * pair + h][0], a[0][0], a[0][1], a[1][0], a[1][1]);
+      expand_word(words[2 * pair + h][1], a[0][2], a[0][3], a[1][2], a[1][3]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+          tc::mma_bf16(acc[h % kChains<NT>][mt][j], a[mt], bfr[cur][j][2 * h],
+                       bfr[cur][j][2 * h + 1]);
+    }
+  }
+}
+
+// The body of both bf16 kernels. Block (blockIdx.x, blockIdx.y) owns columns
+// col0 .. col0 + 127 and groups [g0, g1) of split blockIdx.y, which is its
+// rank in the cluster of gridDim.y blocks. Dynamic shared memory: `stages`
+// ring stages of mma_stage_bytes(NT); the fp32 partial takes the ring's place
+// once it is drained.
+template <int NT, bool kDma>
+__device__ __forceinline__ void mma_main(const __nv_bfloat16* __restrict__ x,
+                                         const int8_t* __restrict__ packed,
+                                         const float* __restrict__ scale,
+                                         __nv_bfloat16* __restrict__ y, int m, int in_f, int out_f,
+                                         int groups, int gs, int gps, int stages, int vec_x,
+                                         int vec_p, int vec_s, const CUtensorMap* tmap) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + (kSmemAlign - tc::smem_addr(smem_raw) % kSmemAlign) % kSmemAlign;
+  __shared__ __align__(8) uint64_t bars[kMaxStages];  // K5d: one mbarrier a stage
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kStage = mma_stage_bytes(NT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int col0 = blockIdx.x * kCols;
+  const int g0 = blockIdx.y * gps, g1 = min(g0 + gps, groups);
+  const int tpg = gs / kTileRows;  // ring tiles per group
+  const int n = (g1 - g0) * tpg;
+  const int kbase = g0 * gs;
+
+  if (kDma) {
+    if (tid == 0) {
+      for (int s = 0; s < stages; ++s) mbar_init(&bars[s], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // The next tile of this block into the next stage. Stage, group and row
+  // positions are counters: a division by a runtime value costs a few dozen
+  // instructions, and the loop is short enough for them to show.
+  int in_slot = 0, in_tile = 0, k0 = kbase;  // in_tile: the tile's place in its group
+  const float* srow = scale + (int64_t)g0 * out_f + col0;
+  auto issue = [&]() {
+    unsigned char* st = smem + in_slot * kStage;
+    uint8_t* sp = reinterpret_cast<uint8_t*>(st);
+    __nv_bfloat16* sx = reinterpret_cast<__nv_bfloat16*>(st + mma_x_offset());
+    float* ss = reinterpret_cast<float*>(st + mma_scale_offset(NT));
+    const bool first = in_tile == 0;  // the group's scales come with its first tile
+    if (vec_x) {  // in % 8 == 0, 16-byte aligned: a piece is wholly inside or outside
+      for (int idx = tid; idx < 8 * NT * (kTileRows / 8); idx += kMmaThreads) {
+        const int r = idx / (kTileRows / 8), kk = (idx % (kTileRows / 8)) * 8;
+        const bool valid = r < m && k0 + kk < in_f;
+        tc::cp_async16(sx + r * kXLd + kk, valid ? x + (int64_t)r * in_f + k0 + kk : x, valid);
+      }
+    } else {
+      for (int idx = tid; idx < 8 * NT * kTileRows; idx += kMmaThreads) {
+        const int r = idx / kTileRows, kk = idx % kTileRows;
+        sx[r * kXLd + kk] = r < m && k0 + kk < in_f ? x[(int64_t)r * in_f + k0 + kk]
+                                                    : __float2bfloat16(0.f);
+      }
+    }
+    const int8_t* src = packed + (int64_t)(k0 / 2) * out_f + col0;
+    if (kDma) {  // out % 128 == 0, packed and scale 16-byte aligned (checked by the entry point)
+      // one tensor copy of the 64 x 128-byte box (swizzled as swz() reads it)
+      // and one bulk copy of the group's scales, on the stage's mbarrier
+      if (tid == 0) {
+        uint64_t* bar = &bars[in_slot];
+        mbar_expect_tx(bar, kTilePRows * kCols + (first ? kCols * 4 : 0));
+        tensor_copy(sp, tmap, col0, k0 / 2, bar);
+        if (first) bulk_copy(ss, srow, kCols * 4, bar);
+      }
+    } else {
+      if (first && vec_s) {  // out % 4 == 0, aligned: 16-byte pieces of 4 scales
+        if (tid < kCols / 4) {
+          const bool valid = col0 + 4 * tid < out_f;
+          tc::cp_async16(ss + 4 * tid, valid ? srow + 4 * tid : scale, valid);
+        }
+      } else if (first) {
+        ss[tid] = col0 + tid < out_f ? srow[tid] : 0.f;  // kMmaThreads == kCols
+      }
+      if (vec_p) {  // out % 16 == 0, aligned
+        for (int idx = tid; idx < kTilePRows * (kCols / 16); idx += kMmaThreads) {
+          const int p = idx / (kCols / 16), c = (idx % (kCols / 16)) * 16;
+          const bool valid = col0 + c < out_f;
+          tc::cp_async16(sp + swz(p, c), valid ? src + (int64_t)p * out_f + c : packed, valid);
+        }
+      } else {
+        for (int idx = tid; idx < kTilePRows * kCols; idx += kMmaThreads) {
+          const int p = idx / kCols, c = idx % kCols;
+          sp[swz(p, c)] = col0 + c < out_f ? (uint8_t)src[(int64_t)p * out_f + c] : (uint8_t)0;
+        }
+      }
+    }
+    tc::cp_async_commit();
+    k0 += kTileRows;
+    if (++in_tile == tpg) in_tile = 0, srow += out_f;
+    if (++in_slot == stages) in_slot = 0;
+  };
+
+  for (int i = 0; i < stages - 1; ++i) {
+    if (i < n) issue();
+    else tc::cp_async_commit();  // empty groups keep the count of the waits below
+  }
+
+  float tot[2][NT][4], acc[kChains<NT>][2][NT][4];
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        tot[t][j][e] = 0.f;
+#pragma unroll
+        for (int c = 0; c < kChains<NT>; ++c) acc[c][t][j][e] = 0.f;
+      }
+  // this lane's columns: tile t, accumulator row g -> 4g + 2t, row g + 8 -> 4g + 2t + 1
+  const int lcol = warp * 32 + 4 * (lane >> 2);
+  float sc[4];
+  int slot = 0, tile = 0;  // tile i's stage and its place in its group
+  uint32_t phase = 0;      // parity of the stage's mbarrier for this use
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_upto(stages - 2);  // tile i's cp.async group has landed
+    if (kDma) mbar_wait(&bars[slot], phase);
+    __syncthreads();  // tile i is visible; stage (i - 1) % stages has been consumed
+    if (i + stages - 1 < n) issue();
+    else tc::cp_async_commit();
+    const unsigned char* st = smem + slot * kStage;
+    if (tile == 0) {
+      const float4 s4 = *reinterpret_cast<const float4*>(st + mma_scale_offset(NT) + 4 * lcol);
+      sc[0] = s4.x, sc[1] = s4.y, sc[2] = s4.z, sc[3] = s4.w;
+    }
+    tile_mma<NT>(reinterpret_cast<const uint8_t*>(st),
+                 reinterpret_cast<const __nv_bfloat16*>(st + mma_x_offset()), warp, lane, acc);
+    if (++tile == tpg) {  // the group is complete: its scale, then the sum over groups
+      tile = 0;
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d[e] = acc[0][t][j][e];
+#pragma unroll
+            for (int c = 1; c < kChains<NT>; ++c) d[e] += acc[c][t][j][e];
+#pragma unroll
+            for (int c = 0; c < kChains<NT>; ++c) acc[c][t][j][e] = 0.f;
+          }
+          tot[t][j][0] += d[0] * sc[2 * t];
+          tot[t][j][1] += d[1] * sc[2 * t];
+          tot[t][j][2] += d[2] * sc[2 * t + 1];
+          tot[t][j][3] += d[3] * sc[2 * t + 1];
+        }
+    }
+    if (kDma) fence_proxy_async();  // this thread's reads of the stage before its next refill
+    if (++slot == stages) slot = 0, phase ^= 1;
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();  // the ring is drained: the partial takes its place
+
+  // Split sum: each block leaves its partial [8 NT][128] fp32 (natural column
+  // order) in its shared memory; after a cluster barrier block r adds, for
+  // its share of the tile's outputs, the partials of splits 0, 1, ... in that
+  // order (distributed shared memory, every load in flight before the first
+  // add) and writes y; a second barrier keeps every block's shared memory
+  // alive until the others have read it. (Pushing each partial into its
+  // owner's shared memory instead, with one barrier, read slower.) Lane
+  // (g, t) holds x rows 8j + 2t (registers 0, 2) and 8j + 2t + 1 (1, 3).
+  float* part = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int t = 0; t < 2; ++t)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int row = j * 8 + 2 * (lane & 3), col = lcol + 2 * t;
+      *reinterpret_cast<float2*>(part + row * kPartLd + col) =
+          make_float2(tot[t][j][0], tot[t][j][2]);
+      *reinterpret_cast<float2*>(part + (row + 1) * kPartLd + col) =
+          make_float2(tot[t][j][1], tot[t][j][3]);
+    }
+  cluster.sync();  // every split's partial is in place
+  const int splits = gridDim.y, rank = blockIdx.y;
+  const int total = m * kCols, lo = rank * total / splits, hi = (rank + 1) * total / splits;
+  for (int e = lo + tid; e < hi; e += kMmaThreads) {
+    const int row = e / kCols, c = e % kCols;
+    if (col0 + c >= out_f) continue;
+    float v[kMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      v[s] = s < splits ? cluster.map_shared_rank(part, s)[row * kPartLd + c] : 0.f;
+    float sum = v[0];
+#pragma unroll
+    for (int s = 1; s < kMaxCluster; ++s)
+      if (s < splits) sum += v[s];
+    y[(int64_t)row * out_f + col0 + c] = __float2bfloat16(sum);
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+int4_grid_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                     const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int m,
+                     int in_f, int out_f, int groups, int gs, int gps, int stages, int vec_x,
+                     int vec_p, int vec_s, const __grid_constant__ CUtensorMap tmap) {
+  mma_main<NT, false>(x, packed, scale, y, m, in_f, out_f, groups, gs, gps, stages, vec_x, vec_p,
+                      vec_s, &tmap);
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads)
+int4_dma_mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ packed,
+                    const float* __restrict__ scale, __nv_bfloat16* __restrict__ y, int m,
+                    int in_f, int out_f, int groups, int gs, int gps, int stages, int vec_x,
+                    int vec_p, int vec_s, const __grid_constant__ CUtensorMap tmap) {
+  mma_main<NT, true>(x, packed, scale, y, m, in_f, out_f, groups, gs, gps, stages, vec_x, vec_p,
+                     vec_s, &tmap);
+}
+
+// cuTensorMapEncodeTiled, looked up once through the CUDA runtime's
+// entry-point query (no link against libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+template <int NT>
+int launch_mma(const void* x, const void* packed, const void* scale, void* y, int m, int in_f,
+               int out_f, int groups, int gs, int variant, int splits, int stages,
+               int smem_bytes, cudaStream_t stream) {
+  auto kernel = variant == 1 ? int4_dma_mma_kernel<NT> : int4_grid_mma_kernel<NT>;
+  if (smem_bytes != stages * mma_stage_bytes(NT) + kSmemAlign) return (int)cudaErrorInvalidValue;
+  CUtensorMap tmap = {};  // the dma kernel's view of `packed`: boxes of 64 rows x 128 bytes
+  if (variant == 1) {
+    const EncodeTiled encode = tensor_map_encoder();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {(cuuint64_t)out_f, (cuuint64_t)groups * gs / 2};
+    const cuuint64_t strides[1] = {(cuuint64_t)out_f};
+    const cuuint32_t box[2] = {kCols, kTilePRows}, one[2] = {1, 1};
+    const CUresult rc = encode(&tmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(packed),
+                               dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (rc != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int gps = (groups + splits - 1) / splits;
+  const int vec_x = in_f % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int vec_p = out_f % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  const int vec_s = out_f % 4 == 0 && reinterpret_cast<uintptr_t>(scale) % 16 == 0;
+  cudaLaunchAttribute cluster;  // the splits of a column tile are one cluster
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = splits;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((out_f + kCols - 1) / kCols, splits);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = smem_bytes;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x),
+                           static_cast<const int8_t*>(packed), static_cast<const float*>(scale),
+                           static_cast<__nv_bfloat16*>(y), m, in_f, out_f, groups, gs, gps, stages,
+                           vec_x, vec_p, vec_s, tmap);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// n bytes (n % 4 == 0) -> n bf16x2 through expand_word, four bytes a thread
+__global__ void int4_expand_kernel(const uint32_t* __restrict__ in, uint32_t* __restrict__ out,
+                                   int words) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < words) expand_word(in[i], out[4 * i], out[4 * i + 1], out[4 * i + 2], out[4 * i + 3]);
+}
+
+int dispatch_mma(const void* x, const void* packed, const void* scale, void* y, int m, int in_f,
+                 int out_f, int groups, int gs, int variant, int splits, int stages,
+                 int smem_bytes, cudaStream_t s) {
+  const int gps = (groups + splits - 1) / splits;
+  if (splits > kMaxCluster || (splits - 1) * gps >= groups || stages < 2 ||
+      stages > kMaxStages || (size_t)smem_bytes > kMaxSharedBytes)
+    return (int)cudaErrorInvalidValue;  // a split without groups, or a plan of another layout
+  if (variant == 1 && (out_f % kCols != 0 || reinterpret_cast<uintptr_t>(packed) % 16 != 0 ||
+                       reinterpret_cast<uintptr_t>(scale) % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  switch (n_tiles_of(m)) {
+#define GRASP_NT(NT)                                                                          \
+  case NT:                                                                                    \
+    return launch_mma<NT>(x, packed, scale, y, m, in_f, out_f, groups, gs, variant, splits,   \
+                          stages, smem_bytes, s);
+    GRASP_NT(1) GRASP_NT(2) GRASP_NT(4) GRASP_NT(8)
+#undef GRASP_NT
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// variant 0 = grid, 1 = dma. dtype 0 = float32, 1 = bfloat16. `splits` blocks
-// share each column tile's contraction (whole groups for the grid variant,
-// whole chunks of `gpc` groups for the dma variant: groups must be a multiple
-// of gpc and two chunks must fit shared memory); with splits > 1, `partial` is an fp32
-// scratch of splits * m * out_f elements. Returns 0 or a cudaError_t code.
+// variant 0 = grid, 1 = dma. dtype 0 = float32, 1 = bfloat16. The plan is
+// ops/int4_matmul.py::int4_plan's.
+// - bf16: `splits` blocks (one cluster, at most 8) share each column tile's
+//   groups, ceil(groups / splits) each, none empty; `stages` (2 to 8) ring
+//   stages of smem_bytes / stages bytes each, which must be this file's
+//   stage size for m's n-tiles; gpc must be 0 and partial null (the splits
+//   add up inside the kernel). dma needs out % 128 == 0 and packed 16-byte
+//   aligned.
+// - fp32: `splits` blocks share each column tile's contraction (whole groups
+//   for the grid variant, whole chunks of `gpc` groups for the dma variant:
+//   groups must be a multiple of gpc and two chunks must fit shared memory);
+//   with splits > 1, `partial` is an fp32 scratch of splits * m * out_f
+//   elements. stages and smem_bytes must be 0.
+// Returns 0 or a cudaError_t code.
 extern "C" int grasp_int4_matmul(const void* x, const void* packed, const void* scale, void* y,
                                  void* partial, int m, int in_f, int out_f, int groups, int gs,
-                                 int dtype, int variant, int splits, int gpc, void* stream) {
+                                 int dtype, int variant, int splits, int gpc, int stages,
+                                 int smem_bytes, void* stream) {
   if (m <= 0 || m > kMaxRows || in_f <= 0 || out_f <= 0 || groups <= 0 || gs <= 0 ||
-      gs % kSub != 0 || in_f > groups * gs || splits <= 0 || (dtype != 0 && dtype != 1))
+      gs % kSub != 0 || in_f > groups * gs || splits <= 0 || (variant != 0 && variant != 1))
     return (int)cudaErrorInvalidValue;
-  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (partial != nullptr || gpc != 0) return (int)cudaErrorInvalidValue;
+    return dispatch_mma(x, packed, scale, y, m, in_f, out_f, groups, gs, variant, splits, stages,
+                        smem_bytes, s);
+  }
+  if (dtype != 0 || stages != 0 || smem_bytes != 0) return (int)cudaErrorInvalidValue;
+  if (splits > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   const int mt = rows_per_thread(m);
   if (variant == 0) {
     if (splits > groups) return (int)cudaErrorInvalidValue;
-#define GRASP_GRID(T, MT)                                                                   \
-  return launch_grid<T, MT>(x, packed, scale, y, partial, m, in_f, out_f, groups, gs, splits, s)
-#define GRASP_GRID_T(T)       \
-  if (mt == 1) GRASP_GRID(T, 1); \
-  if (mt == 2) GRASP_GRID(T, 2); \
-  if (mt == 4) GRASP_GRID(T, 4); \
-  GRASP_GRID(T, 8)
-    if (dtype == 0) { GRASP_GRID_T(float); }
-    GRASP_GRID_T(__nv_bfloat16);
-#undef GRASP_GRID_T
+    switch (mt) {
+#define GRASP_GRID(MT)                                                                        \
+  case MT:                                                                                    \
+    return launch_grid<float, MT>(x, packed, scale, y, partial, m, in_f, out_f, groups, gs,  \
+                                  splits, s);
+      GRASP_GRID(1) GRASP_GRID(2) GRASP_GRID(4) GRASP_GRID(8)
 #undef GRASP_GRID
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
-  if (variant == 1) {
-    if (out_f % kCols != 0 || gpc <= 0 || groups % gpc != 0 ||
-        sizeof(float) * kMaxRows * kSub + (size_t)gpc * gs * kCols > kMaxSharedBytes ||
-        reinterpret_cast<uintptr_t>(packed) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
-    const int n_chunks = groups / gpc;
-    if (splits > n_chunks) return (int)cudaErrorInvalidValue;
-#define GRASP_DMA(T, MT)                                                                      \
-  return launch_dma<T, MT>(x, packed, scale, y, partial, m, in_f, out_f, gs, gpc, n_chunks, \
-                           splits, s)
-#define GRASP_DMA_T(T)       \
-  if (mt == 1) GRASP_DMA(T, 1); \
-  if (mt == 2) GRASP_DMA(T, 2); \
-  if (mt == 4) GRASP_DMA(T, 4); \
-  GRASP_DMA(T, 8)
-    if (dtype == 0) { GRASP_DMA_T(float); }
-    GRASP_DMA_T(__nv_bfloat16);
-#undef GRASP_DMA_T
+  if (out_f % kCols != 0 || gpc <= 0 || groups % gpc != 0 ||
+      sizeof(float) * kMaxRows * kSub + (size_t)gpc * gs * kCols > kMaxSharedBytes ||
+      reinterpret_cast<uintptr_t>(packed) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = groups / gpc;
+  if (splits > n_chunks) return (int)cudaErrorInvalidValue;
+  switch (mt) {
+#define GRASP_DMA(MT)                                                                         \
+  case MT:                                                                                    \
+    return launch_dma<float, MT>(x, packed, scale, y, partial, m, in_f, out_f, gs, gpc,      \
+                                 n_chunks, splits, s);
+    GRASP_DMA(1) GRASP_DMA(2) GRASP_DMA(4) GRASP_DMA(8)
 #undef GRASP_DMA
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaErrorInvalidValue;
+}
+
+// The bf16 kernels' nibble expansion alone: `in` holds 4 * words packed
+// bytes, `out` receives one bf16x2 {low nibble, high nibble} per byte. For a
+// check of expand_byte over every byte value at every position of a word.
+extern "C" int grasp_int4_expand(const void* in, void* out, int words, void* stream) {
+  if (words <= 0) return (int)cudaErrorInvalidValue;
+  int4_expand_kernel<<<(words + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), words);
+  return (int)cudaGetLastError();
 }

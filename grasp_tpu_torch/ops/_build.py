@@ -52,9 +52,12 @@ SIGNATURES = {
     # stream
     "grasp_lowrank_fused": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
-    # x packed scale y partial | m in out groups gs dtype variant splits gpc | stream
+    # x packed scale y partial | m in out groups gs dtype variant splits gpc stages
+    # smem_bytes | stream
     "grasp_int4_matmul": (
-        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+        _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # bytes bf16x2 | words | stream
+    "grasp_int4_expand": (_I, [_P, _P, _I, _P]),
     # w q scale | in out dtype | seed stream
     "grasp_quantize_int8_stochastic": (_I, [_P, _P, _P, _I, _I, _I, _U64, _P]),
 }

@@ -49,7 +49,7 @@ def _kind(name: str) -> str:
         return "paged_attention (K3)"
     if "paged_chunk_kernel" in name:
         return "paged_attention_chunk (K4)"
-    if "int4_" in name:  # the grid or dma kernel and the reduction of its splits
+    if "int4_" in name:  # the grid or dma kernel (fp32: and the reduction of its splits)
         return "int4_matmul (K5)"
     low = name.lower()
     if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma", "cublas", "nvjet")):
