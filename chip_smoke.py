@@ -9,14 +9,16 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: compiles grasp_tpu_torch/csrc/*.cu with nvcc (sm_90a) into build/.
 3. paged kernel: the paged-attention decode kernel against its plain PyTorch
    version on the same inputs, at TinyLlama's decode shape and at head_dim
-   128, in float32 and bfloat16, within stated tolerances; then both timed
-   with CUDA events at the decode shape. Then the chunk kernel of
-   speculative verification against its plain version and, row by row with
-   torch.equal, against the decode kernel at each row's own length (head_dim
-   64 and 128, float32 and bfloat16, groups of 1, 4 and 8, chunks of 1, 2, 5
-   and 9, pages of 16 and 128 slots, lengths across tile and page edges, a
-   dead row); and timed against its plain version and against one decode
-   launch per chunk position.
+   128, then at groups of 1 to 16 with lengths on both sides of every edge of
+   the launch plan's ranges, in float32 and bfloat16, within stated
+   tolerances and torch.equal to itself run to run; then both timed with
+   CUDA events at the decode shape. Then the chunk kernel of speculative
+   verification against its plain version and, row by row with torch.equal,
+   against the decode kernel at each row's own length (head_dim 64 and 128,
+   float32 and bfloat16, groups of 1, 4 and 8, chunks of 1, 2, 5 and 9, pages
+   of 16 and 128 slots, lengths across tile, page and range edges, a dead
+   row); and timed against its plain version and against one decode launch
+   per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at four
    shapes in float32 and bfloat16, dQ, dK and dV bit-equal over two runs;
@@ -77,6 +79,7 @@ import argparse
 import contextlib
 import functools
 import http.client
+import itertools
 import json
 import os
 import re
@@ -135,7 +138,8 @@ def phase_build():
     """Build and load the kernels, print the compiler's register and spill
     report, and show from the compiled code (cuobjdump -sass) that every
     tensor-core kernel (flash forward, dQ, dK/dV; fused low-rank; both bf16
-    int4 kernels at 1, 2, 4 and 8 n-tiles) holds HMMA instructions."""
+    int4 kernels at 1, 2, 4 and 8 n-tiles; bf16 paged decode and chunk at
+    head_dim 64 and 128) holds HMMA instructions."""
     from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
@@ -154,7 +158,8 @@ def phase_build():
     sass = subprocess.run([os.path.join(os.path.dirname(find_nvcc()), "cuobjdump"), "-sass",
                            str(so)], capture_output=True, text=True, check=True).stdout
     families = ("flash_fwd_mma_kernel", "flash_dq_mma_kernel", "flash_dkv_mma_kernel",
-                "lowrank_fused_mma_kernel", "int4_grid_mma_kernel", "int4_dma_mma_kernel")
+                "lowrank_fused_mma_kernel", "int4_grid_mma_kernel", "int4_dma_mma_kernel",
+                "paged_decode_mma_kernel", "paged_chunk_mma_kernel")
     hmma, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -169,7 +174,8 @@ def phase_build():
     want = {f"{family}<{hd}>" for family in families[:3] for hd in (64, 128)}
     want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
     want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
-    want |= {f"{family}<{nt}>" for family in families[4:] for nt in (1, 2, 4, 8)}
+    want |= {f"{family}<{nt}>" for family in families[4:6] for nt in (1, 2, 4, 8)}
+    want |= {f"{family}<{hd}>" for family in families[6:] for hd in (64, 128)}
     if not want <= set(hmma) or min(hmma.values()) == 0:
         raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
@@ -191,30 +197,57 @@ def _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, ps, pps, num_pages, leng
     return q, k, v, lens, tables.contiguous()
 
 
+def _split_edge_lengths(split_slots, capacity):
+    """Lengths on both sides of every range edge of the split plan, two
+    ranges and the full table."""
+    out = {1, 2 * split_slots, capacity}
+    for edge in range(split_slots, capacity + 1, split_slots):
+        out |= {edge - 1, edge, edge + 1}
+    return sorted(n for n in out if 1 <= n <= capacity)
+
+
 def phase_kernel(torch):
-    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+    """The decode kernel against its plain version within TOL: TinyLlama's
+    decode shape and head_dim 128 with lengths across tile and page edges and
+    a dead row; then groups of 1, 4, 8 and 16 at head_dim 64 (1, 4, 8 at 128)
+    with lengths on both sides of every edge of the plan's ranges. Every call
+    runs twice and must be torch.equal to itself. Returns the worst error."""
+    from grasp_tpu_torch.ops.paged_attention import (
+        paged_attention, paged_attention_reference, paged_plan)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1234)
     lengths = [1, 127, 128, 129, 2048, 0, 1000, 2047]  # 0: dead row on null page 0
-    worst = 0.0
-    for hd, nh, nkv in ((64, 32, 4), (128, 32, 8)):
+    cases = [(hd, nh, nkv, lengths) for hd, nh, nkv in ((64, 32, 4), (128, 32, 8))]
+    for hd, gqas in ((64, (1, 4, 8, 16)), (128, (1, 4, 8))):
+        for gqa in gqas:
+            split = paged_plan(128, 16, hd, gqa, torch.bfloat16).split_slots
+            cases.append((hd, 2 * gqa, 2, _split_edge_lengths(split, 2048)))
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for hd, nh, nkv, lens_case in cases:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
-            q, k, v, lens, tables = _pages_case(torch, gen, dev, dtype, 8, nh, nkv, hd,
-                                                128, 16, 256, lengths)
+            q, k, v, lens, tables = _pages_case(torch, gen, dev, dtype, len(lens_case), nh, nkv,
+                                                hd, 128, 16, 16 * len(lens_case) + 1, lens_case)
             scale = hd ** -0.5
             got = paged_attention(q, k[0], v[0], lens, tables, scale)
+            again = paged_attention(q, k[0], v[0], lens, tables, scale)
             want = paged_attention_reference(q, k[0], v[0], lens, tables, scale)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
-            ok = torch.isfinite(got).all().item() and err <= TOL[dtype_name]
-            print(f"kernel vs plain: hd={hd} nh={nh} nkv={nkv} {dtype_name}: "
-                  f"max_abs_err={err:.3e} (tol {TOL[dtype_name]:g}) {'ok' if ok else 'FAIL'}")
+            same = torch.equal(got, again)
+            ok = torch.isfinite(got).all().item() and err <= TOL[dtype_name] and same
+            print(f"kernel vs plain: hd={hd} nh={nh} nkv={nkv} {dtype_name}, {len(lens_case)} "
+                  f"rows of lengths {lens_case[0]}..{max(lens_case)}: max_abs_err={err:.3e} "
+                  f"(tol {TOL[dtype_name]:g}), equal run to run: {same} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"paged attention kernel disagrees: hd={hd} {dtype_name}")
-            worst = max(worst, err)
-    return worst
+                raise AssertionError(f"paged attention kernel disagrees: hd={hd} nh={nh} "
+                                     f"nkv={nkv} {dtype_name}")
+            worst[dtype_name] = max(worst[dtype_name], err)
+    print(f"kernel vs plain, worst: float32 {worst['float32']:.3e}, bfloat16 "
+          f"{worst['bfloat16']:.3e}")
+    return max(worst.values())
 
 
 def _spin(torch, calls=0):
@@ -235,7 +268,7 @@ def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if run_ahead:
-        _spin(torch)
+        _spin(torch, iters * n_layers)
     start.record()
     for _ in range(iters):
         for li in range(n_layers):
@@ -248,7 +281,8 @@ def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
 def phase_kernel_timing(torch, n_layers):
     """Kernel and plain version at TinyLlama's decode shape: B=8, bf16,
     lengths of the slice's prompts 32 tokens into decoding. Turns: plain,
-    kernel, kernel, plain; reports the mean of each pair."""
+    kernel, kernel, plain, each after the idle spin; reports the mean of each
+    pair."""
     from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
 
     dev = torch.device("cuda", 0)
@@ -264,10 +298,10 @@ def phase_kernel_timing(torch, n_layers):
     def plain(li):
         paged_attention_reference(q, k[li], v[li], lens, tables, scale)
 
-    p1 = _time_ms(torch, plain, n_layers, 20)
-    k1 = _time_ms(torch, kern, n_layers, 20)
-    k2 = _time_ms(torch, kern, n_layers, 20)
-    p2 = _time_ms(torch, plain, n_layers, 20)
+    p1 = _time_ms(torch, plain, n_layers, 20, run_ahead=True)
+    k1 = _time_ms(torch, kern, n_layers, 20, run_ahead=True)
+    k2 = _time_ms(torch, kern, n_layers, 20, run_ahead=True)
+    p2 = _time_ms(torch, plain, n_layers, 20, run_ahead=True)
     # least time for this call: the live K and V rows, q and the output moved
     # once at 3.35 TB/s, against q.k and p.v (2 flops each per element) at the
     # bf16 tensor-core peak
@@ -281,11 +315,12 @@ def phase_kernel_timing(torch, n_layers):
 
 
 # base lengths of the chunk kernel's cases: 1, both sides of the tile edges
-# (32 slots at head_dim 128, 64 at 64) and of the page edges (16, 128), such
-# that chunks end inside a tile, on its edge and beyond it; 0 marks a dead row
+# (32 slots at head_dim 128, 64 at 64), of the page edges (16, 128) and of the
+# plan's range edges (64-slot ranges on these 256-slot tables), such that
+# chunks end inside a tile, on its edge and beyond it; 0 marks a dead row
 # (null page, base length 1). Pools are random throughout, so every slot beyond
 # a row's length holds stale finite values.
-CHUNK_BASES = (1, 14, 16, 30, 33, 62, 64, 120, 127, 128, 200, 0)
+CHUNK_BASES = (1, 14, 16, 30, 33, 62, 64, 120, 127, 128, 189, 200, 247, 0)
 CHUNK_LENS = (1, 2, 5, 9)
 SPEC_GAMMA = 4
 
@@ -295,6 +330,8 @@ SPEC_GAMMA = 4
 # shortest served context to 1532, one on a page edge, a dead row, and one
 # whose last query fills all 16 pages (2044 + 4 = 2048 slots)
 SERVED_CHUNK_BASES = (70, 127, 128, 632, 1532, 0, 2044, 1000)
+# the same shape with every chunk across an edge of the plan's 256-slot ranges
+SPLIT_EDGE_CHUNK_BASES = (252, 254, 255, 256, 508, 1020, 1788, 2043)
 
 
 def _chunk_compare(torch, q, k, v, base, tables, scale):
@@ -352,17 +389,18 @@ def phase_chunk(torch):
                 raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}")
             worst = max(worst, max(errs))
     c_len, nh, nkv, hd = SPEC_GAMMA + 1, 32, 4, 64
-    b = len(SERVED_CHUNK_BASES)
-    for dtype_name in ("float32", "bfloat16"):
+    for dtype_name, bases in itertools.product(("float32", "bfloat16"),
+                                               (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)):
         dtype = getattr(torch, dtype_name)
+        b = len(bases)
         _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, 128, 16, 256,
-                                            SERVED_CHUNK_BASES)
+                                            bases)
         q = torch.randn(b, c_len, nh, hd, generator=gen, device=dev).to(dtype)
         err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5)
         ok = not bad and err <= TOL[dtype_name]
         print(f"chunk kernel at the verify step's shape: B={b} C={c_len} nh={nh} nkv={nkv} "
               f"hd={hd} {dtype_name}, pages of 128, 16 per row, base lengths "
-              f"{SERVED_CHUNK_BASES}: max_abs_err against the plain version {err:.3e} (tol "
+              f"{bases}: max_abs_err against the plain version {err:.3e} (tol "
               f"{TOL[dtype_name]:g}); chunk positions unequal to the decode kernel: {bad} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:

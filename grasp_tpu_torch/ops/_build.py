@@ -31,12 +31,15 @@ _F = ctypes.c_float
 _U64 = ctypes.c_ulonglong
 # name -> (restype, argtypes) of every C entry point in csrc/
 SIGNATURES = {
+    # q k_pages v_pages lengths tables out | batch nh nkv num_pages page_size pages_per_seq
+    # head_dim dtype split_slots splits stages smem_bytes | scale stream
     "grasp_paged_attention_decode": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
     # q k_pages v_pages base_lengths tables out | batch chunk nh nkv num_pages page_size
-    # pages_per_seq head_dim dtype | scale stream
+    # pages_per_seq head_dim dtype split_slots splits stages smem_bytes | scale stream
     "grasp_paged_attention_chunk": (
-        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),
+        _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+             _P]),
     # q k v o lse | batch nh nkv S head_dim dtype block_m smem_bytes | scale stream
     "grasp_flash_attention_fwd": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),

@@ -11,24 +11,65 @@ attention, the way the JAX engine's gather path does
 - :func:`paged_attention_chunk` (``paged_attention_hd64_chunk``): C queries
   per sequence, the verify step of speculative serving; query c sees slots
   below ``base_lengths[b] + c``. On CUDA its row (b, c) is bit-equal to
-  :func:`paged_attention` at that length: both kernels inline one function.
+  :func:`paged_attention` at that length: both kernels inline one function
+  and take one plan.
 
-Each wrapper launches its kernel for CUDA tensors and takes the plain version
-only for CPU tensors.
+Both kernels cut each row's table into ranges of :func:`paged_plan`'s
+``split_slots`` slots, one block a range, and add the ranges up inside the
+launch (one thread-block cluster a row). Each wrapper launches its kernel for
+CUDA tensors and takes the plain version only for CPU tensors.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 
+MAX_CLUSTER = 8        # ranges of a row: one portable thread-block cluster
+SPLIT_ALIGN = 64       # a range is a whole number of 64-slot tiles
+MMA_TILE = 64          # slots per bf16 tile (16 for each of the 4 warps)
+MMA_ROWS = 16          # query rows of the bf16 kernel's m16 tile
+MAX_STAGES = 4
+MAX_SHARED_BYTES = 232448
+# four blocks an SM (each also costs the SM 1 KB it reserves, of 228 KB): the
+# verify kernel launches 5 clusters a row, and 3 stages at head_dim 64 read
+# as fast as 4 in decode (scripts/paged_breakdown_torch.py)
+SMEM_BUDGET = 228 * 1024 // 4 - 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedPlan:
+    """How a paged-attention call is launched: range ``s`` of a row holds
+    slots [s split_slots, (s + 1) split_slots) of its table, ``splits``
+    ranges (one cluster) cover the table. ``tile`` slots a step of the loop
+    within a range. bf16: ``stages`` cp.async ring stages and ``smem_bytes``
+    of dynamic shared memory; fp32 (static shared memory): both 0."""
+    split_slots: int
+    splits: int
+    tile: int
+    stages: int
+    smem_bytes: int
+
+
+def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int) -> int:
+    """Dynamic shared memory of the bf16 kernels (csrc/paged_attention.cu,
+    mma_smem_bytes): the ring of K and V tiles, the q tile, the block's
+    partial (m, l and the output of 16 rows), the range's page ids."""
+    range_pages = (split_slots - 1) // page_size + 2
+    return (stages * 2 * MMA_TILE * head_dim * 2 + MMA_ROWS * (head_dim + 8) * 2
+            + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4 + -(-range_pages * 4 // 16) * 16)
+
 
 def check_kernel_shape(nh: int, nkv: int, head_dim: int) -> None:
-    """Raise NotImplementedError for head layouts the CUDA kernel does not
-    take: head_dim 64 or 128, and at most 8 query rows per thread over 128
-    threads split into 128 // head_dim row groups (gqa <= 16 at 64, 8 at 128)."""
+    """Raise NotImplementedError for head layouts the CUDA kernels do not
+    take: head_dim 64 or 128, and a group the fp32 body holds at 8 query rows
+    per thread over 128 threads split into 128 // head_dim row groups
+    (gqa <= 16 at 64, 8 at 128; the bf16 body's m16 tile takes 16 at both)."""
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(
             f"the paged attention kernel supports head_dim {_HEAD_DIMS}, not {head_dim}")
@@ -37,6 +78,44 @@ def check_kernel_shape(nh: int, nkv: int, head_dim: int) -> None:
         raise NotImplementedError(
             f"{nh} query heads over {nkv} kv heads: the paged attention kernel needs "
             f"a whole group of at most {max_gqa} at head_dim {head_dim}")
+
+
+@functools.lru_cache(maxsize=None)
+def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
+               dtype: torch.dtype) -> PagedPlan:
+    """The launch plan of both kernels, a pure function of the table's shape,
+    head_dim, group size and dtype; csrc/paged_attention.cu refuses any other.
+
+    It never depends on the batch, the chunk or the lengths: a decode call
+    and a verify call on the same table must cut each row at the same edges,
+    or the verify step's rows would not be bit-equal to decode. The table's
+    capacity is cut into at most ``MAX_CLUSTER`` ranges of whole 64-slot
+    tiles (pages of 128 slots, 16 a row: 8 ranges of 256). bf16 keeps as many
+    tiles of a range in flight as fit ``SMEM_BUDGET``, at most
+    ``MAX_STAGES``. Cached: the decode step is bound by the host."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"paged attention kernel takes float32 or bfloat16, got {dtype}")
+    check_kernel_shape(gqa, 1, head_dim)
+    if page_size < 1 or pages_per_seq < 1:
+        raise ValueError(f"bad table: {pages_per_seq} pages of {page_size} slots")
+    capacity = page_size * pages_per_seq
+    split_slots = -(-capacity // MAX_CLUSTER)
+    split_slots = -(-split_slots // SPLIT_ALIGN) * SPLIT_ALIGN
+    splits = -(-capacity // split_slots)
+    if dtype == torch.float32:
+        return PagedPlan(split_slots, splits, 4096 // head_dim, 0, 0)
+    tiles = split_slots // MMA_TILE
+    stages = max(s for s in range(1, min(MAX_STAGES, tiles) + 1)
+                 if s == 1 or mma_smem_bytes(head_dim, s, split_slots, page_size) <= SMEM_BUDGET)
+    return PagedPlan(split_slots, splits, MMA_TILE, stages,
+                     mma_smem_bytes(head_dim, stages, split_slots, page_size))
+
+
+def _plan_for(q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor) -> PagedPlan:
+    """The plan of a call, from the table's shape, head_dim, group size and
+    dtype alone: q is [B, nh, hd] (decode) or [B, C, nh, hd] (verify)."""
+    return paged_plan(k_pages.shape[2], tables.shape[1], q.shape[-1],
+                      q.shape[-2] // k_pages.shape[0], q.dtype)
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
@@ -183,14 +262,15 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     lib = load_library()
     b, nh, hd = q.shape
     nkv, num_pages, ps, _ = k_pages.shape
+    plan = _plan_for(q, k_pages, tables)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.grasp_paged_attention_decode(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            b, nh, nkv, num_pages, ps, tables.shape[1], hd,
-            _DTYPE_CODES[q.dtype], float(scale), stream)
+            b, nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype],
+            plan.split_slots, plan.splits, plan.stages, plan.smem_bytes, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged attention kernel launch failed: cudaError {rc}")
     paged_attention.launches += 1
@@ -226,14 +306,15 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     lib = load_library()
     b, c_len, nh, hd = q.shape
     nkv, num_pages, ps, _ = k_pages.shape
+    plan = _plan_for(q, k_pages, tables)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.grasp_paged_attention_chunk(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             base_lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            b, c_len, nh, nkv, num_pages, ps, tables.shape[1], hd,
-            _DTYPE_CODES[q.dtype], float(scale), stream)
+            b, c_len, nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype],
+            plan.split_slots, plan.splits, plan.stages, plan.smem_bytes, float(scale), stream)
     if rc != 0:
         raise RuntimeError(f"paged attention chunk kernel launch failed: cudaError {rc}")
     paged_attention_chunk.launches += 1

@@ -45,9 +45,9 @@ sys.path.insert(0, ROOT)
 
 
 def _kind(name: str) -> str:
-    if "paged_decode_kernel" in name:
+    if "paged_decode" in name:  # paged_decode_kernel (fp32), paged_decode_mma_kernel (bf16)
         return "paged_attention (K3)"
-    if "paged_chunk_kernel" in name:
+    if "paged_chunk" in name:
         return "paged_attention_chunk (K4)"
     if "int4_" in name:  # the grid or dma kernel (fp32: and the reduction of its splits)
         return "int4_matmul (K5)"
