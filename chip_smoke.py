@@ -39,10 +39,13 @@ Phases, each of which raises on failure (exit code != 0):
    byte value, then both at m = 1, 8, 64 for the model's four weight shapes,
    at m = 1 and 8 for the other served products (k/v, the low-rank factors)
    and at a ragged shape, against the plain version and each other (bf16:
-   bit-equal to each other and run to run); the stochastic int8 quantizer by
-   structure, distribution and seed. Each is timed against its plain
-   version, its bound and, where one exists, the library call (two matmuls; a
-   matmul on the dequantized weight), int4 at m = 1 and 8 for five shapes.
+   bit-equal to each other and run to run); the stochastic int8 quantizer
+   bit for bit against its plain version (the same Philox stream) at the
+   driven shapes, both plan variants and odd shapes, and by structure,
+   distribution and seed. Each is timed against its plain version, its bound
+   and, where one exists, the library call (two matmuls; a matmul on the
+   dequantized weight), int4 at m = 1 and 8 for five shapes, the quantizer
+   over copies of w beyond the L2 at the gate/up and lm_head shapes.
 7. quantized and fused serving: the serving checkpoint again through
    ``grasp_tpu_torch.cli`` with ``--quantize int4`` (then once more with
    ``GRASP_INT4_KERNEL=dma``), with ``--quantize int8``, and with
@@ -917,78 +920,116 @@ def phase_int4_timing(torch):
     return out
 
 
+# the stochastic quantizer's shapes: drive_quantizer's (a TinyLlama-1.1B
+# layer's projection kernels and the lm_head), rows of 24576 (the plan's
+# second variant: w read twice) and odd ones (columns no multiple of a
+# 16-byte chunk: the kernel's scalar path)
+QUANT_DRIVEN = ((2048, 2048), (2048, 256), (2048, 256), (2048, 2048), (2048, 5632), (2048, 5632),
+                (5632, 2048), (2048, 32000))
+QUANT_SHAPES = tuple(dict.fromkeys(QUANT_DRIVEN)) + ((24576, 96), (24577, 5), (256, 128),
+                                                     (1000, 333), (3, 5))
+
+
 def phase_quantizer(torch):
-    """The stochastic int8 quantizer by structure and distribution: scales
-    equal to quantize_int8's, every q one of the two neighbours of w / scale,
-    |q scale - w| <= scale, the mean rounding error within 4 standard errors
-    of 0, the same seed bit-equal and another seed different. Returns the
-    worst |q scale - w| (the error a round-to-nearest quantizer halves)."""
+    """The stochastic int8 quantizer bit for bit against its plain version
+    (the same Philox stream in torch int64 arithmetic), q and scales, at
+    every shape of QUANT_SHAPES in float32 and bfloat16; and by structure and
+    distribution: scales equal to quantize_int8's, every q one of the two
+    neighbours of w / scale, |q scale - w| <= scale, the mean rounding error
+    within 4 standard errors of 0, the same seed bit-equal and another seed
+    different. Returns the largest difference of q or scale from the plain
+    version's (0: bit-equal) and prints the worst |q scale - w| (the error a
+    round-to-nearest quantizer halves)."""
     from grasp_tpu_torch.ops.quant import (
-        quantize_int8, quantize_int8_stochastic, quantize_int8_stochastic_plain)
+        quantize_int8, quantize_int8_stochastic, quantize_int8_stochastic_plain, quantize_plan)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(61)
-    worst = 0.0
-    for (in_f, out_f), dtype_name in (((2048, 5632), "bfloat16"), ((256, 128), "float32")):
-        w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).to(
-            getattr(torch, dtype_name))
-        w[:, 5] = 0
+    worst = diff = 0.0
+    for (in_f, out_f), dtype_name in itertools.product(QUANT_SHAPES, ("bfloat16", "float32")):
+        dtype = getattr(torch, dtype_name)
+        w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).to(dtype)
+        w[:, 1] = 0
         q, scale = quantize_int8_stochastic(w, seed=7)
         again, _ = quantize_int8_stochastic(w, seed=7)
         other, _ = quantize_int8_stochastic(w, seed=8)
-        plain_q, plain_scale = quantize_int8_stochastic_plain(
-            w, torch.Generator(device=dev).manual_seed(7))
+        plain_q, plain_scale = quantize_int8_stochastic_plain(w, seed=7)
         torch.cuda.synchronize()
         scaled = w.float() / scale
         low = torch.clamp(torch.floor(scaled), -127, 127)
         high = torch.clamp(torch.floor(scaled) + 1, -127, 127)
-        stats = {}
-        for name, qq in (("kernel", q), ("plain", plain_q)):
-            qf = qq.float()
-            stats[name] = {
-                "neighbours": bool(((qf == low) | (qf == high)).all().item()),
-                # |q scale - w| <= scale, with room for the product's own rounding
-                "err": ((qf * scale - w.float()).abs() - scale * (1 + 1e-5)).max().item(),
-                "mean": (qf - scaled).mean().item(),
-                "up": (qf == high).float().mean().item()}
+        qf = q.float()
+        neighbours = bool(((qf == low) | (qf == high)).all().item())
+        # |q scale - w| <= scale, with room for the product's own rounding
+        err = ((qf * scale - w.float()).abs() - scale * (1 + 1e-5)).max().item()
+        mean = (qf - scaled).mean().item()
         se = 0.5 / (in_f * out_f) ** 0.5  # a rounding error's variance is at most 1/4
-        same_scale = (torch.equal(scale, quantize_int8(w)[1]) and torch.equal(scale, plain_scale))
-        ok = (same_scale and q.dtype == torch.int8 and tuple(scale.shape) == (1, out_f)
-              and torch.equal(q, again) and not torch.equal(q, other)
-              and bool((q[:, 5] == 0).all().item())
-              and all(s["neighbours"] and s["err"] <= 0 and abs(s["mean"]) <= 4 * se
-                      for s in stats.values()))
-        print(f"quantizer: {in_f}x{out_f} {dtype_name}: scales equal quantize_int8's: {same_scale}; "
-              f"q in the two neighbours of w/scale: kernel {stats['kernel']['neighbours']} plain "
-              f"{stats['plain']['neighbours']}; mean of q - w/scale kernel "
-              f"{stats['kernel']['mean']:.3e} plain {stats['plain']['mean']:.3e} (4 standard "
-              f"errors: {4 * se:.3e}); rounded up: kernel {stats['kernel']['up']:.4f} plain "
-              f"{stats['plain']['up']:.4f}; same seed bit-equal {torch.equal(q, again)}, another "
-              f"seed equal {torch.equal(q, other)} {'ok' if ok else 'FAIL'}")
+        bits = torch.equal(q, plain_q) and torch.equal(scale, plain_scale)
+        same_scale = torch.equal(scale, quantize_int8(w)[1])
+        seeds = torch.equal(q, again) and (in_f * out_f <= 100 or not torch.equal(q, other))
+        ok = (bits and same_scale and seeds and q.dtype == torch.int8
+              and tuple(scale.shape) == (1, out_f) and bool((q[:, 1] == 0).all().item())
+              and neighbours and err <= 0 and abs(mean) <= 4 * se)
+        plan = quantize_plan(in_f, out_f, dtype)
+        print(f"quantizer: {in_f}x{out_f} {dtype_name} (cluster {plan.cluster} x "
+              f"{plan.rows_per_block} rows, {'one read' if plan.keep else 'two reads'}): q and "
+              f"scales bit-equal to the plain version: {bits}; scales equal quantize_int8's: "
+              f"{same_scale}; q in the two neighbours of w/scale: {neighbours}; mean of q - "
+              f"w/scale {mean:.3e} (4 standard errors: {4 * se:.3e}); rounded up "
+              f"{(qf == high).float().mean().item():.4f}; same seed bit-equal, another seed "
+              f"not: {seeds} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"stochastic quantizer: {in_f}x{out_f} {dtype_name}")
-        worst = max(worst, (q.float() * scale - w.float()).abs().max().item())
-    return worst
+        worst = max(worst, (qf * scale - w.float()).abs().max().item())
+        diff = max(diff, (qf - plain_q.float()).abs().max().item(),
+                   (scale - plain_scale).abs().max().item())
+    print(f"quantizer: worst |q scale - w| {worst:.3e}; largest difference from the plain "
+          f"version {diff:g}")
+    return diff
 
 
 def phase_quantizer_timing(torch):
-    """Kernel and plain version at a gate/up projection (2048 x 5632, bf16);
-    no single PyTorch call computes the function. Bound: w read once, q and
-    the scales written once."""
+    """Kernel and plain version in bf16 at a gate/up projection (2048 x 5632)
+    and at the lm_head (2048 x 32000), in turns plain, kernel, kernel, plain.
+    Every timed call takes the next of enough copies of w to exceed the 50 MB
+    L2, as the quantizer's caller meets each weight once, from device memory.
+    No single PyTorch call computes the function. Bound: w read once, q and
+    the scales written once, against 5 fp32 operations and 10 32-bit products
+    an element (Philox: 40 products a call of four elements) at the 67 TFLOP/s
+    of fp32 outside the tensor cores. The record is the gate/up shape's."""
     from grasp_tpu_torch.ops.quant import quantize_int8_stochastic, quantize_int8_stochastic_plain
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(62)
-    in_f, out_f = 2048, 5632
-    w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).bfloat16()
-    mean, raw = _turns_ms(torch, {"kernel": lambda: quantize_int8_stochastic(w, seed=1),
-                                  "plain": lambda: quantize_int8_stochastic_plain(w, gen)})
-    rec = {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": None,
-           **_bound(in_f * out_f * 3 + out_f * 4, 3 * in_f * out_f)}
-    print(f"quantizer timing ({in_f}x{out_f} bf16), ms per call, two turns each: "
-          + ", ".join(f"{name} {v[0]:.4f}/{v[1]:.4f}" for name, v in raw.items())
-          + _shares(rec))
-    return rec
+    out = None
+    for in_f, out_f in ((2048, 5632), (2048, 32000)):
+        copies = max(2, -(-64 * 2 ** 20 // (in_f * out_f * 2)))
+        weights = [(torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).bfloat16()
+                   for _ in range(copies)]
+        turn = {"i": 0}
+
+        def cycle(fn):
+            def run():
+                turn["i"] += 1
+                return fn(weights[turn["i"] % copies])
+            return run
+
+        mean, raw = _turns_ms(torch, {
+            "kernel": cycle(lambda w: quantize_int8_stochastic(w, seed=1)),
+            "plain": cycle(lambda w: quantize_int8_stochastic_plain(w, seed=1))},
+            iters=4 * copies)
+        n = in_f * out_f
+        bytes_ms, ops_ms = (3 * n + 4 * out_f) / 3.35e12 * 1e3, 15 * n / 67e12 * 1e3
+        rec = {"ms": mean["kernel"], "plain_ms": mean["plain"], "library_ms": None,
+               "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+        print(f"quantizer timing ({in_f}x{out_f} bf16, {copies} copies of w in turn), ms per "
+              f"call, two turns each: "
+              + ", ".join(f"{name} {v[0]:.5f}/{v[1]:.5f}" for name, v in raw.items())
+              + _shares(rec))
+        out = out or rec
+        del weights
+    return out
 
 
 def build_flagship(torch, dev):
@@ -1735,31 +1776,35 @@ def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
     quantized on the card for a copy that will be fine-tuned, and the
-    quantized kernels used: q scale must stay within one scale of w and the
-    int8 product within 2% of the dense one. No entry point of either package
-    calls it (in the JAX package only its test does), so this is its main
-    path. Returns its launches."""
-    from grasp_tpu_torch.ops.quant import quant_matmul, quantize_int8_stochastic
+    quantized kernels used: q and scales must equal the plain version's bit
+    for bit, q scale stay within one scale of w and the int8 product within
+    2% of the dense one. No entry point of either package calls it (in the
+    JAX package only its test does), so this is its main path. Returns its
+    launches."""
+    from grasp_tpu_torch.ops.quant import (
+        quant_matmul, quantize_int8_stochastic, quantize_int8_stochastic_plain)
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    shapes = [(2048, 2048), (2048, 256), (2048, 256), (2048, 2048), (2048, 5632), (2048, 5632),
-              (5632, 2048), (2048, 32000)]
     quantize_int8_stochastic.launches = 0
     worst = 0.0
-    for i, (in_f, out_f) in enumerate(shapes):
+    for i, (in_f, out_f) in enumerate(QUANT_DRIVEN):
         w = (torch.randn(in_f, out_f, generator=gen, device=dev) * 0.02).bfloat16()
         q, scale = quantize_int8_stochastic(w, seed=i)
+        plain_q, plain_scale = quantize_int8_stochastic_plain(w, seed=i)
         x = torch.randn(8, in_f, generator=gen, device=dev).bfloat16()
         got, want = quant_matmul(x, q, scale).float(), torch.matmul(x, w).float()
         rel = ((got - want).abs().max() / want.abs().max()).item()
         inside = bool(((q.float() * scale - w.float()).abs() <= scale * (1 + 1e-5)).all().item())
-        if not (inside and rel <= 0.02 and torch.isfinite(got).all().item()):
-            raise AssertionError(f"stochastic quantizer on {in_f}x{out_f}: product off by {rel}")
+        bits = torch.equal(q, plain_q) and torch.equal(scale, plain_scale)
+        if not (bits and inside and rel <= 0.02 and torch.isfinite(got).all().item()):
+            raise AssertionError(f"stochastic quantizer on {in_f}x{out_f}: bit-equal to the plain "
+                                 f"version {bits}, product off by {rel}")
         worst = max(worst, rel)
     launches = quantize_int8_stochastic.launches
-    print(f"quantizer driven over {len(shapes)} projection kernels: {launches} launches, int8 "
-          f"product within {worst:.4f} of the dense product's max (tol 0.02)")
-    if launches != len(shapes):
+    print(f"quantizer driven over {len(QUANT_DRIVEN)} projection kernels: {launches} launches, q "
+          f"and scales bit-equal to the plain version, int8 product within {worst:.4f} of the "
+          f"dense product's max (tol 0.02)")
+    if launches != len(QUANT_DRIVEN):
         raise AssertionError("the quantizer did not launch once per kernel")
     return launches
 

@@ -61,8 +61,9 @@ SIGNATURES = {
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # bytes bf16x2 | words | stream
     "grasp_int4_expand": (_I, [_P, _P, _I, _P]),
-    # w q scale | in out dtype | seed stream
-    "grasp_quantize_int8_stochastic": (_I, [_P, _P, _P, _I, _I, _I, _U64, _P]),
+    # w q scale | in out dtype cluster rows_per_block threads keep smem_bytes | seed stream
+    "grasp_quantize_int8_stochastic": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _U64,
+                                            _P]),
 }
 
 

@@ -16,12 +16,15 @@ are plain matrix products, as they are plain XLA dots in the JAX package.
 Decode-shaped int4 products (at most 64 rows, groups a multiple of 128) go to
 the hand-written kernel of :mod:`grasp_tpu_torch.ops.int4_matmul` on CUDA
 tensors. :func:`quantize_int8_stochastic` is the stochastic-rounding quantizer
-(csrc/quantize_int8.cu on CUDA tensors, its plain version on CPU tensors).
+(csrc/quantize_int8.cu on CUDA tensors, launched with :func:`quantize_plan`;
+its plain version, bit-equal to it, on CPU tensors).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+import dataclasses
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -235,40 +238,124 @@ def quantized_size_bytes(params: Dict[str, Any]) -> int:
 # Stochastic-rounding int8 quantizer
 # ---------------------------------------------------------------------------
 
+_MASK32 = 0xFFFFFFFF
+_PHILOX_MUL = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_WEYL = (0x9E3779B9, 0xBB67AE85)
 
-def quantize_int8_stochastic_plain(w: torch.Tensor, generator: Optional[torch.Generator] = None
+
+def _mulhilo32(a: int, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of a * b for a 32-bit constant ``a`` and int64
+    words ``b`` in [0, 2**32). b is split into 16-bit halves, so that no
+    product leaves int64 (a * b itself may reach 2**64)."""
+    b_hi, b_lo = b >> 16, b & 0xFFFF
+    p_hi = a * b_hi                                  # < 2**48
+    low = ((p_hi & 0xFFFF) << 16) + a * b_lo         # < 2**49
+    return (p_hi >> 16) + (low >> 32), low & _MASK32
+
+
+def philox4x32_10(counter: Sequence[torch.Tensor], key: Tuple[int, int]) -> List[torch.Tensor]:
+    """Philox4x32-10 (Salmon et al., Random123) in torch int64 arithmetic:
+    four 32-bit words from a 128-bit counter (four int64 tensors of words in
+    [0, 2**32)) and a 64-bit key (two 32-bit ints), as csrc/quantize_int8.cu
+    computes them."""
+    c0, c1, c2, c3 = counter
+    k0, k1 = key
+    for _ in range(10):
+        hi0, lo0 = _mulhilo32(_PHILOX_MUL[0], c0)
+        hi1, lo1 = _mulhilo32(_PHILOX_MUL[1], c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        k0, k1 = (k0 + _PHILOX_WEYL[0]) & _MASK32, (k1 + _PHILOX_WEYL[1]) & _MASK32
+    return [c0, c1, c2, c3]
+
+
+def stochastic_bits(n: int, seed: int, device: Optional[torch.device] = None) -> torch.Tensor:
+    """The kernel's random word of each of ``n`` elements (int64 in [0,
+    2**32)): Philox4x32-10 keyed by the 64-bit seed at the counter (quad lo,
+    quad hi, 0, 0), quad = element index // 4; element i takes word i % 4."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    quad = torch.arange(-(-n // 4), dtype=torch.int64, device=device)
+    zero = torch.zeros_like(quad)
+    words = philox4x32_10((quad & _MASK32, quad >> 32, zero, zero), (seed & _MASK32, seed >> 32))
+    return torch.stack(words, dim=1).reshape(-1)[:n]
+
+
+def quantize_int8_stochastic_plain(w: torch.Tensor, seed: int = 0
                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of :func:`quantize_int8_stochastic`: the scales
-    of :func:`quantize_int8`, q = clip(floor(w / scale + u), -127, 127) with
-    u uniform in [0, 1) on a 24-bit grid, drawn from ``generator``."""
+    """Plain PyTorch version of :func:`quantize_int8_stochastic`, bit for bit:
+    the scales of :func:`quantize_int8`, q = clip(floor(w / scale + u), -127,
+    127) with u = (bits >> 8) * 2**-24 from :func:`stochastic_bits`."""
     wf = w.float()
     scale = _absmax_scale(wf.abs().amax(dim=0, keepdim=True), 127.0, reciprocal=False)
-    bits = torch.randint(0, 1 << 24, wf.shape, generator=generator, device=w.device,
-                         dtype=torch.int32)
-    u = bits.float() * (1.0 / (1 << 24))
+    bits = stochastic_bits(wf.numel(), seed, w.device)
+    u = (bits >> 8).float().reshape(wf.shape) * (1.0 / (1 << 24))
     q = torch.clamp(torch.floor(wf / scale + u), -127, 127).to(torch.int8)
     return q, scale
 
 
-def quantize_int8_stochastic(w: torch.Tensor, seed: int = 0,
-                             generator: Optional[torch.Generator] = None
-                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+QUANT_STRIP_BYTES = 128   # a strip: 128 bytes of each row (64 bf16 or 32 fp32 columns)
+QUANT_ROW_STEP = 32       # rows 256 threads cover in one pass (8 chunks of 16 bytes a row)
+QUANT_MAX_CLUSTER = 8     # blocks of a strip: one portable cluster
+QUANT_FIXED_SMEM = (8 + 2) * 64 * 4 + 16  # maxima: the block's, those received; scales; mbarrier
+MAX_SHARED_BYTES = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizePlan:
+    """How one call of the quantizer kernel is launched: ``grid`` = (strips
+    of ``cols`` columns, ``cluster``); block j of a strip's cluster owns rows
+    [j rows_per_block, (j + 1) rows_per_block), with ``threads`` threads.
+    ``keep``: those rows stay in shared memory, so w is read from device
+    memory once; else the kernel reads it twice. ``smem_bytes``: dynamic
+    shared memory a block."""
+    cols: int
+    cluster: int
+    rows_per_block: int
+    threads: int
+    keep: bool
+    smem_bytes: int
+    grid: Tuple[int, int]
+
+
+@functools.lru_cache(maxsize=None)
+def quantize_plan(in_f: int, out_f: int, dtype: torch.dtype = torch.bfloat16) -> QuantizePlan:
+    """The launch plan of csrc/quantize_int8.cu for w [in_f, out_f], a pure
+    function of the shape and dtype; the kernel refuses any other. A strip's
+    rows go to as many blocks as a cluster holds, at least 32 rows each, and
+    a block has as many threads (256, 512, 1024) as keep a thread at 16 rows
+    or fewer: on an H100, 512 threads were faster than 256 at 704 rows a
+    block (in 5632) and slower at 256 rows (PERF.md, Findings;
+    scripts/quantizer_breakdown_torch.py)."""
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the quantizer kernel takes float32 or bfloat16, got {dtype}")
+    if in_f < 1 or out_f < 1 or in_f * out_f >= 2 ** 31:
+        raise ValueError(f"the quantizer kernel takes 1 to 2**31 - 1 elements, got {in_f}x{out_f}")
+    cols = QUANT_STRIP_BYTES // (torch.finfo(dtype).bits // 8)
+    cluster = min(QUANT_MAX_CLUSTER, -(-in_f // QUANT_ROW_STEP))
+    rows = -(-in_f // cluster)
+    cluster = -(-in_f // rows)  # no block without rows
+    tile = rows * QUANT_STRIP_BYTES
+    keep = QUANT_FIXED_SMEM + tile <= MAX_SHARED_BYTES
+    threads = next((t for t in (256, 512) if rows <= 2 * t), 1024)
+    return QuantizePlan(cols, cluster, rows, threads, keep,
+                        QUANT_FIXED_SMEM + (tile if keep else 0), (-(-out_f // cols), cluster))
+
+
+def quantize_int8_stochastic(w: torch.Tensor, seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Int8 quantization of w [in, out] with unbiased (stochastic) rounding:
     per-output-channel absmax scales like :func:`quantize_int8`, values
     rounded down or up with probability equal to the fractional part.
     Returns (int8 [in, out], fp32 [1, out]).
 
-    CUDA tensors launch the kernel (Philox4x32-10 keyed by ``seed``, counter =
-    element index: the same seed gives the same bits) or raise. CPU tensors
-    take :func:`quantize_int8_stochastic_plain` with ``generator`` (default: a
-    new one seeded with ``seed``); its stream differs from the kernel's.
-    ``quantize_int8_stochastic.launches`` counts kernel launches."""
+    The random bits are Philox4x32-10 keyed by ``seed`` at a counter of the
+    element index (:func:`stochastic_bits`): the same seed gives the same q.
+    CUDA tensors launch the kernel with :func:`quantize_plan`'s plan or raise;
+    CPU tensors take :func:`quantize_int8_stochastic_plain`, which gives the
+    kernel's bits. ``quantize_int8_stochastic.launches`` counts kernel
+    launches."""
     if w.dim() != 2:
         raise ValueError(f"w must be [in, out], got {tuple(w.shape)}")
     if w.device.type == "cpu":
-        if generator is None:
-            generator = torch.Generator().manual_seed(seed)
-        return quantize_int8_stochastic_plain(w, generator)
+        return quantize_int8_stochastic_plain(w, seed)
     if w.device.type != "cuda":
         raise ValueError(f"the quantizer runs on cpu or cuda, not {w.device}")
     if w.dtype not in _DTYPE_CODES:
@@ -280,6 +367,7 @@ def quantize_int8_stochastic(w: torch.Tensor, seed: int = 0,
         raise ValueError(f"the quantizer kernel takes 1 to 2**31 - 1 elements, got {in_f}x{out_f}")
     from grasp_tpu_torch.ops._build import load_library
 
+    plan = quantize_plan(in_f, out_f, w.dtype)
     lib = load_library()
     q = torch.empty((in_f, out_f), dtype=torch.int8, device=w.device)
     scale = torch.empty((1, out_f), dtype=torch.float32, device=w.device)
@@ -287,6 +375,7 @@ def quantize_int8_stochastic(w: torch.Tensor, seed: int = 0,
         stream = torch.cuda.current_stream(w.device).cuda_stream
         rc = lib.grasp_quantize_int8_stochastic(
             w.data_ptr(), q.data_ptr(), scale.data_ptr(), in_f, out_f, _DTYPE_CODES[w.dtype],
+            plan.cluster, plan.rows_per_block, plan.threads, int(plan.keep), plan.smem_bytes,
             int(seed) & 0xFFFFFFFFFFFFFFFF, stream)
     if rc != 0:
         raise RuntimeError(f"int8 quantizer kernel launch failed: cudaError {rc}")

@@ -23,7 +23,7 @@ from grasp_tpu_torch.ops.lowrank import (
     MAX_FUSED_RANK, fused_lowrank, fused_lowrank_plain, lowrank_apply)
 from grasp_tpu_torch.ops.quant import (
     quant_matmul, quant_matmul_int4, quantize_int4, quantize_int8, quantize_int8_stochastic,
-    quantize_model_weights)
+    quantize_int8_stochastic_plain, quantize_model_weights, quantize_plan)
 from grasp_tpu_torch.serving.paged import ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -180,26 +180,42 @@ def test_int8_quant_matmul_rounds_once_after_the_fp32_product(dev):
         assert (got != want).float().mean().item() <= 0.005
 
 
+# the shapes chip_smoke.py's drive_quantizer quantizes (a TinyLlama-1.1B
+# layer's projection kernels and the lm_head), in rows of 24576 (the plan's
+# second variant: w read twice), and odd ones (columns no multiple of a
+# 16-byte chunk: the kernel's scalar path)
+STOCHASTIC_SHAPES = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048), (2048, 32000),
+                     (24576, 96), (24577, 5), (256, 128), (1000, 333), (3, 5))
+
+
 def test_stochastic_quantizer_kernel(dev):
+    """Bit for bit against the plain version (the same Philox stream), at
+    every shape in both dtypes and both plan variants, plus the structure."""
     gen = torch.Generator(device=dev).manual_seed(2)
-    for shape, dtype in (((256, 128), torch.float32), ((1000, 333), torch.bfloat16),
-                         ((3, 5), torch.float32)):
-        w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
-        w[:, 1] = 0
-        before = quantize_int8_stochastic.launches
-        q, scale = quantize_int8_stochastic(w, seed=3)
-        assert quantize_int8_stochastic.launches == before + 1
-        assert q.dtype == torch.int8 and q.shape == w.shape and scale.shape == (1, shape[1])
-        assert torch.equal(scale, quantize_int8(w)[1])
-        scaled = w.float() / scale
-        low = torch.clamp(torch.floor(scaled), -127, 127)
-        high = torch.clamp(torch.floor(scaled) + 1, -127, 127)
-        assert ((q.float() == low) | (q.float() == high)).all()
-        assert (q[:, 1] == 0).all()
-        assert abs((q.float() - scaled).mean().item()) <= 4 * 0.5 / w.numel() ** 0.5
-        assert torch.equal(quantize_int8_stochastic(w, seed=3)[0], q)
-        if w.numel() > 100:
-            assert not torch.equal(quantize_int8_stochastic(w, seed=4)[0], q)
+    variants = set()
+    for shape in STOCHASTIC_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            w = (torch.randn(shape, generator=gen, device=dev) * 0.02).to(dtype)
+            w[:, 1] = 0
+            variants.add(quantize_plan(*shape, dtype).keep)
+            before = quantize_int8_stochastic.launches
+            q, scale = quantize_int8_stochastic(w, seed=3)
+            assert quantize_int8_stochastic.launches == before + 1
+            plain_q, plain_scale = quantize_int8_stochastic_plain(w, seed=3)
+            case = f"{shape} {dtype}"
+            assert torch.equal(q, plain_q) and torch.equal(scale, plain_scale), case
+            assert q.dtype == torch.int8 and q.shape == w.shape and scale.shape == (1, shape[1])
+            assert torch.equal(scale, quantize_int8(w)[1]), case
+            scaled = w.float() / scale
+            low = torch.clamp(torch.floor(scaled), -127, 127)
+            high = torch.clamp(torch.floor(scaled) + 1, -127, 127)
+            assert ((q.float() == low) | (q.float() == high)).all(), case
+            assert (q[:, 1] == 0).all(), case
+            assert abs((q.float() - scaled).mean().item()) <= 4 * 0.5 / w.numel() ** 0.5, case
+            assert torch.equal(quantize_int8_stochastic(w, seed=3)[0], q), case
+            if w.numel() > 100:
+                assert not torch.equal(quantize_int8_stochastic(w, seed=4)[0], q), case
+    assert variants == {True, False}
     counted = quantize_int8_stochastic.launches
     with pytest.raises(TypeError):
         quantize_int8_stochastic(w.half())

@@ -213,8 +213,7 @@ def test_stochastic_quantizer_plain_version_rounds_without_bias():
     again, _ = tq.quantize_int8_stochastic(w, seed=0)
     other, _ = tq.quantize_int8_stochastic(w, seed=1)
     assert torch.equal(again, q) and not torch.equal(other, q)
-    gen = torch.Generator().manual_seed(0)
-    assert torch.equal(tq.quantize_int8_stochastic_plain(w, gen)[0], q)
+    assert torch.equal(tq.quantize_int8_stochastic_plain(w, seed=0)[0], q)
     with pytest.raises(ValueError):
         tq.quantize_int8_stochastic(w[0])
     assert dma_chunking(16, 128) == (2, 8) and dma_chunking(44, 128) == (2, 22)
