@@ -67,9 +67,18 @@ Phases, each of which raises on failure (exit code != 0):
    parameter count, that the flash kernels ran as often as the sweeps imply,
    that the saved checkpoint loads and runs, and one round's gradients with
    the flash route and the plain route in bf16 against the plain route in
-   fp32. Then the same compression from a checkpoint whose model config has
-   ``use_pallas_lowrank``: the same layers and ranks, and the fused low-rank
-   kernel launched once per compiled projection per later forward.
+   fp32. The prefix split ("auto" resolves to "cache" on the card) starts
+   every sweep at the lowest target layer. Then ``--sweep parallel``: one
+   sweep for both layers, checked the same way. At the same width the
+   engine then holds: sequential runs under prefix off, recompute and cache
+   equal (indices and factors); a run killed after its second round and
+   resumed by a fresh engine equal to the uninterrupted one; the gram and
+   gram_device SVDs on the parallel path selecting as the device SVD does;
+   a full-depth sweep with remat against one without (gradients, peak
+   memory). Then the compression from a checkpoint whose model config has
+   ``use_pallas_lowrank``, sequential and parallel in chunks of one layer:
+   the same layers and ranks, and the fused low-rank kernel launched once per
+   compiled projection per later forward.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound); then the card's
@@ -81,6 +90,7 @@ one part while developing and prints no result lines.
 import argparse
 import contextlib
 import functools
+import gc
 import http.client
 import itertools
 import json
@@ -1566,6 +1576,12 @@ COMPRESS_ARGS = ["--model_name_or_path", "tinyllama-1.1b", "--dataset_name", "sy
 # version above, at 1e-4 in fp32)
 FLASH_SWEEP_RTOL = 2e-2
 FLASH_SWEEP_SLACK = 1.5
+# the prefix modes compute the same values; where the card's kernels would
+# break bit-equality, the compiled factors may differ by this much of their max
+PREFIX_FACTOR_RTOL = 1e-3
+# the share of a projection's selected indices that the gram SVDs must share
+# with the device SVD's
+GRAM_AGREEMENT = 0.98
 
 
 def _param_count(params):
@@ -1574,148 +1590,352 @@ def _param_count(params):
     return sum(t.numel() for t in flatten_params(params).values())
 
 
-def phase_compress(torch, card, dev):
-    """``grasp-compress-torch`` on the card, then checks of what it saved.
-    Returns the launch counts of the three flash kernels in that run."""
-    import dataclasses
+def _want_flash(n_layers, n_rows, sweep_layers, prefix_layer, prefix):
+    """K1f and K1k/K1q launches of a run: block influence runs every layer
+    for every row; each sweep (``sweep_layers``: the lowest target layer of
+    each, and the attention rounds' flag) runs its forward from the prefix
+    boundary, whose forward runs once a row ("cache") or in every sweep
+    ("recompute"), and its backward through the attention of every layer
+    whose input depends on a target: above the target layer, and the layer
+    itself for an attention round."""
+    start = prefix_layer if prefix != "off" else 0
+    prefix_fwd = {"off": 0, "cache": 1, "recompute": len(sweep_layers)}[prefix] * start
+    fwd = n_rows * (n_layers + prefix_fwd + len(sweep_layers) * (n_layers - start))
+    bwd = n_rows * sum(n_layers - lowest - (0 if attn else 1) for lowest, attn in sweep_layers)
+    return fwd, bwd
 
+
+def _check_checkpoint(torch, ckpt_root, dev, label, layers=None):
+    """The saved compression: two layers, every rank preserve_rank(in, out,
+    0.9), the plan, the factors' shapes, fewer parameters, a finite forward.
+    Returns (meta, config)."""
     import numpy as np
 
-    from grasp_tpu_torch import GraspConfig
     from grasp_tpu_torch.checkpoints import load_checkpoint
-    from grasp_tpu_torch.cli import compress_main, load_model
-    from grasp_tpu_torch.core.engine import GraspEngine, module_name, parse_module_name
+    from grasp_tpu_torch.core.engine import module_name, parse_module_name
+    from grasp_tpu_torch.models.llama import PROJ_ORDER, _proj_shapes, forward
+    from grasp_tpu_torch.ops.saliency import preserve_rank
+
+    params, config, plan, meta = load_checkpoint(ckpt_root, dev)
+    got_layers = meta["redundant_layers"]
+    n_layers = config.num_hidden_layers
+    if len(set(got_layers)) != 2 or not all(0 <= li < n_layers for li in got_layers):
+        raise AssertionError(f"{label}: block influence chose {got_layers}, not 2 layers")
+    if layers is not None and got_layers != layers:
+        raise AssertionError(f"{label}: layers {got_layers}, the sequential run chose {layers}")
+    shapes = _proj_shapes(config)
+    want_ranks = {module_name(li, proj): preserve_rank(*shapes[proj], 0.9)
+                  for li in got_layers for proj in PROJ_ORDER}
+    if meta["rank_dict"] != want_ranks:
+        raise AssertionError(f"{label}: rank_dict {meta['rank_dict']} != {want_ranks}")
+    for li, layer_plan in enumerate(plan):
+        want_kind = "lowrank" if li in got_layers else "dense"
+        if any(kind != want_kind for kind in layer_plan):
+            raise AssertionError(f"{label}: plan of layer {li} is {layer_plan}")
+    for name, rank in want_ranks.items():
+        li, group, proj = parse_module_name(name)
+        got = params["layers"][li][group][proj]
+        in_f, out_f = shapes[proj]
+        if (tuple(got["in_kernel"].shape), tuple(got["out_kernel"].shape)) != (
+                (in_f, rank), (rank, out_f)):
+            raise AssertionError(f"{label}: {name}: factors of the wrong shape")
+    dense_count = (sum(i * o for i, o in shapes.values()) * n_layers
+                   + (2 * n_layers + 1) * config.hidden_size
+                   + config.vocab_size * config.hidden_size
+                   * (1 if config.tie_word_embeddings else 2))
+    count = _param_count(params)
+    if not count < dense_count:
+        raise AssertionError(f"{label}: parameter count {count} did not fall below {dense_count}")
+    with torch.no_grad():
+        ids = torch.tensor(np.random.default_rng(5).integers(0, config.vocab_size, (1, 512)),
+                           device=dev)
+        logits = forward(params, ids, config=config, plan=plan)["logits"]
+    if tuple(logits.shape) != (1, 512, config.vocab_size) or not torch.isfinite(logits).all():
+        raise AssertionError(f"{label}: the saved checkpoint's forward is not finite")
+    print(f"{label}: layers {got_layers}, {len(want_ranks)} projections low-rank, ranks "
+          f"{sorted(set(want_ranks.values()))}, parameters {dense_count} -> {count}; the saved "
+          f"checkpoint loads and its forward is finite")
+    return meta, config
+
+
+def _compress_cli(torch, dev, ckpt_root, extra, label, card):
+    """grasp-compress-torch with COMPRESS_ARGS + extra; returns (meta, config,
+    flash launches, wall seconds)."""
+    from grasp_tpu_torch.cli import compress_main
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+
+    print(f"{label}: grasp-compress-torch {' '.join(COMPRESS_ARGS + extra)} --device {dev}")
+    for name in flash_attention.launches:
+        flash_attention.launches[name] = 0
+    t0 = time.perf_counter()
+    rc = compress_main(COMPRESS_ARGS + extra + ["--save_path", ckpt_root, "--device", str(dev)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(flash_attention.launches)
+    if rc != 0:
+        raise AssertionError(f"{label}: compress_main returned {rc}")
+    with open(os.path.join(ckpt_root, "grasp_meta.json")) as f:
+        summary = json.load(f)["extra"]["summary"]
+    print(f"{label}: {wall:.1f} s end to end (summary {summary['wall_clock_s']:.2f} s), stage "
+          f"seconds {summary['stage_times_s']}, prefix {summary['prefix']}; card {card}")
+    return launches, wall, summary
+
+
+def _hold_launches(label, launches, want):
+    print(f"{label}: flash launches fwd {launches['fwd']} (want {want[0]}), dkv "
+          f"{launches['dkv']} and dq {launches['dq']} (want {want[1]})")
+    if launches != {"fwd": want[0], "dkv": want[1], "dq": want[1]}:
+        raise AssertionError(f"{label}: the sweeps did not run the flash kernels as counted")
+
+
+def phase_compress(torch, card, dev):
+    """``grasp-compress-torch`` on the card, sequential and parallel, then
+    checks of what each saved and of the engine's run options at the same
+    width. Returns the launch counts of the three flash kernels in the two
+    runs and those of the fused low-rank kernel in its compressions."""
     from grasp_tpu_torch.data.loader import get_calibration_batches
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
-    from grasp_tpu_torch.models.convert import map_params
-    from grasp_tpu_torch.models.llama import ATTN_PROJS, PROJ_ORDER, _proj_shapes, forward
-    from grasp_tpu_torch.ops.flash_attention import flash_attention
-    from grasp_tpu_torch.ops.saliency import preserve_rank
 
     os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     ckpt_root = tempfile.mkdtemp(prefix="smoke_grasp_", dir=os.path.join(ROOT, "build"))
+    par_root = tempfile.mkdtemp(prefix="smoke_parallel_", dir=os.path.join(ROOT, "build"))
     try:
-        print(f"compress: grasp-compress-torch {' '.join(COMPRESS_ARGS)} --device {dev}")
-        for name in flash_attention.launches:
-            flash_attention.launches[name] = 0
-        t0 = time.perf_counter()
-        rc = compress_main(COMPRESS_ARGS + ["--save_path", ckpt_root, "--device", str(dev)])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(flash_attention.launches)
-        if rc != 0:
-            raise AssertionError(f"compress_main returned {rc}")
-
-        params, config, plan, meta = load_checkpoint(ckpt_root, dev)
+        launches, _, summary = _compress_cli(torch, dev, ckpt_root, [], "compress", card)
+        meta, config = _check_checkpoint(torch, ckpt_root, dev, "compress")
         layers = meta["redundant_layers"]
         n_layers = config.num_hidden_layers
-        if len(set(layers)) != 2 or not all(0 <= li < n_layers for li in layers):
-            raise AssertionError(f"block influence chose {layers}, not 2 distinct layers")
-        shapes = _proj_shapes(config)
-        want_ranks = {module_name(li, proj): preserve_rank(*shapes[proj], 0.9)
-                      for li in layers for proj in PROJ_ORDER}
-        if meta["rank_dict"] != want_ranks:
-            raise AssertionError(f"rank_dict {meta['rank_dict']} != {want_ranks}")
-        for li, layer_plan in enumerate(plan):
-            want_kind = "lowrank" if li in layers else "dense"
-            if any(kind != want_kind for kind in layer_plan):
-                raise AssertionError(f"plan of layer {li} is {layer_plan}, want all {want_kind}")
-        for name, rank in want_ranks.items():
-            li, group, proj = parse_module_name(name)
-            got = params["layers"][li][group][proj]
-            in_f, out_f = shapes[proj]
-            if (tuple(got["in_kernel"].shape), tuple(got["out_kernel"].shape)) != (
-                    (in_f, rank), (rank, out_f)):
-                raise AssertionError(f"{name}: factors of the wrong shape")
-        dense_count = (sum(i * o for i, o in shapes.values()) * n_layers
-                       + (2 * n_layers + 1) * config.hidden_size
-                       + config.vocab_size * config.hidden_size
-                       * (1 if config.tie_word_embeddings else 2))
-        count = _param_count(params)
-        if not count < dense_count:
-            raise AssertionError(f"parameter count {count} did not fall below {dense_count}")
+        n_rows = len(get_calibration_batches("synthetic", load_tokenizer(None), num_samples=16,
+                                             seq_len=2048, seed=42))
+        if summary["prefix"] != "cache":
+            raise AssertionError(f"prefix auto resolved to {summary['prefix']}, not cache")
+        rounds = [(li, attn) for li in sorted(layers, reverse=True) for attn in (False, True)]
+        want = _want_flash(n_layers, n_rows, rounds, min(layers), "cache")
+        print(f"compress: {n_rows} calibration rows of 2047 tokens, block influence, a prefix "
+              f"forward to layer {min(layers)} once a row, {len(rounds)} sweeps from it")
+        _hold_launches("compress", launches, want)
 
-        # every forward runs the forward kernel once per layer; a gradient sweep
-        # of an mlp round on layer L runs the backward kernels in the layers
-        # above L, of an attention round in layer L as well
-        n_batches = len(get_calibration_batches("synthetic", load_tokenizer(None),
-                                                num_samples=16, seq_len=2048, seed=42))
-        forwards = n_batches * (1 + 2 * len(layers))
-        want_fwd = n_layers * forwards
-        want_bwd = n_batches * sum((n_layers - 1 - li) + (n_layers - li) for li in layers)
-        stages = meta["extra"]["summary"]["stage_times_s"]
-        print(f"compress: layers {layers}, importances "
-              f"{[round(x, 4) for x in meta['layer_importances']]}")
-        print(f"compress: {len(want_ranks)} projections low-rank, ranks "
-              f"{sorted(set(want_ranks.values()))}, parameters {dense_count} -> {count}")
-        print(f"compress: {n_batches} calibration rows of 2047 tokens, {forwards} forwards; "
-              f"flash launches fwd {launches['fwd']} (want {n_layers} x {forwards} = "
-              f"{want_fwd}), dkv {launches['dkv']} and dq {launches['dq']} (want {want_bwd})")
-        print(f"compress: {wall:.1f} s end to end, stage seconds {stages}; card {card}")
-        if launches != {"fwd": want_fwd, "dkv": want_bwd, "dq": want_bwd}:
-            raise AssertionError("the sweeps did not run the flash kernels as counted")
+        par_launches, _, par_summary = _compress_cli(torch, dev, par_root,
+                                                     ["--sweep", "parallel"],
+                                                     "compress, parallel", card)
+        _check_checkpoint(torch, par_root, dev, "compress, parallel", layers)
+        if par_summary["prefix"] != "cache":
+            raise AssertionError(f"parallel: prefix auto resolved to {par_summary['prefix']}")
+        want = _want_flash(n_layers, n_rows, [(min(layers), True)], min(layers), "cache")
+        _hold_launches("compress, parallel", par_launches, want)
+        flash_launches = {k: launches[k] + par_launches[k] for k in launches}
 
-        with torch.no_grad():
-            ids = torch.tensor(np.random.default_rng(5).integers(0, config.vocab_size, (1, 512)),
-                               device=dev)
-            logits = forward(params, ids, config=config, plan=plan)["logits"]
-        if tuple(logits.shape) != (1, 512, config.vocab_size) or not torch.isfinite(logits).all():
-            raise AssertionError("the saved checkpoint's forward is not finite")
-        print("compress: the saved checkpoint loads and its forward is finite")
-        del params, logits
-
-        # one attention round on the uncompressed model, so that the backward
-        # kernels take part: the summed gradients of the flash route and of
-        # the plain route (GRASP_FLASH_SWEEP=0), both in bf16, against the
-        # plain route in fp32, and the indices each bf16 route selects
-        config, dense_params, _, tok = load_model("tinyllama-1.1b", device=dev, dtype="bfloat16",
-                                                  seed=42)
-        batches = get_calibration_batches("synthetic", tok, num_samples=16, seq_len=2048,
-                                          seed=42)[:2]
-        names = [module_name(min(layers), proj) for proj in ATTN_PROJS]
-        cfg = GraspConfig(compression_ratio=0.9)
-        fp32 = (map_params(dense_params, lambda t: t.float()),
-                dataclasses.replace(config, dtype="float32"))
-        engines, grads = {}, {}
-        for route, env, (p, c) in (("flash", "1", (dense_params, config)),
-                                   ("plain", "0", (dense_params, config)),
-                                   ("fp32", "0", fp32)):
-            os.environ["GRASP_FLASH_SWEEP"] = env
-            engines[route] = GraspEngine(p, c, device=dev)
-            engines[route]._maybe_enable_flash_sweep(batches)
-            grads[route] = engines[route].get_dense_gradients(names, batches)
-        del os.environ["GRASP_FLASH_SWEEP"], fp32
-        if [e.config.use_flash_attention for e in engines.values()] != [True, False, False]:
-            raise AssertionError("GRASP_FLASH_SWEEP did not select the route")
-
-        def worst_error(route, ref):
-            return max(((grads[route][n].float() - grads[ref][n].float()).abs().max()
-                        / grads[ref][n].float().abs().max()).item() for n in names)
-
-        err = {route: worst_error(route, "fp32") for route in ("flash", "plain")}
-        between = worst_error("flash", "plain")
-        svd_out = engines["flash"]._svd_of_dense(names)
-        overlap = {}
-        for route in ("flash", "plain"):
-            engines[route]._select_compile_many(names, dict(svd_out), grads[route], cfg)
-        for n in names:
-            kept = [set(engines[route].indices_dict[n].tolist()) for route in ("flash", "plain")]
-            overlap[n.split(".")[-1]] = f"{len(kept[0] & kept[1])}/{len(kept[1])}"
-        print(f"compress: layer {min(layers)} attention round over 2 rows, worst gradient error "
-              f"over the reference gradient's max: flash route (bf16) against the plain route in "
-              f"fp32 {err['flash']:.3e}, plain route (bf16) against it {err['plain']:.3e}, flash "
-              f"against plain (both bf16) {between:.3e}; tolerance for the flash route: the "
-              f"larger of {FLASH_SWEEP_RTOL:g} and {FLASH_SWEEP_SLACK:g} x the plain route's "
-              f"error; selected indices in common {overlap}")
-        if not err["flash"] <= max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * err["plain"]):
-            raise AssertionError("the flash route's gradients are further from the fp32 "
-                                 "reference than the plain route's")
-        del engines, grads, dense_params, svd_out
-        torch.cuda.empty_cache()
-        fused = compress_with_fused_lowrank(torch, card, dev, meta, n_batches)
-        return launches, fused
+        compress_flash_routes(torch, card, dev, layers)
+        compress_run_options(torch, card, dev, layers)
+        fused = compress_with_fused_lowrank(torch, card, dev, meta, n_rows)
+        return flash_launches, fused
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
+        shutil.rmtree(par_root, ignore_errors=True)
+
+
+def _smoke_model(dev):
+    """The CLI runs' dense model, their calibration batches and GraspConfig
+    fields (the engine's runs below use the layers the CLI chose)."""
+    from grasp_tpu_torch.cli import load_model
+    from grasp_tpu_torch.data.loader import get_calibration_batches
+
+    config, params, _, tok = load_model("tinyllama-1.1b", device=dev, dtype="bfloat16", seed=42)
+    batches = get_calibration_batches("synthetic", tok, num_samples=16, seq_len=2048, seed=42)
+    return config, params, batches
+
+
+def compress_flash_routes(torch, card, dev, layers):
+    """One attention round on the uncompressed model, so that the backward
+    kernels take part: the summed gradients of the flash route and of the
+    plain route (GRASP_FLASH_SWEEP=0), both in bf16, against the plain route
+    in fp32, and the indices each bf16 route selects."""
+    import dataclasses
+
+    from grasp_tpu_torch import GraspConfig
+    from grasp_tpu_torch.core.engine import GraspEngine, module_name
+    from grasp_tpu_torch.models.convert import map_params
+    from grasp_tpu_torch.models.llama import ATTN_PROJS
+
+    config, dense_params, batches = _smoke_model(dev)
+    batches = batches[:2]
+    names = [module_name(min(layers), proj) for proj in ATTN_PROJS]
+    cfg = GraspConfig(compression_ratio=0.9)
+    fp32 = (map_params(dense_params, lambda t: t.float()),
+            dataclasses.replace(config, dtype="float32"))
+    engines, grads = {}, {}
+    for route, env, (p, c) in (("flash", "1", (dense_params, config)),
+                               ("plain", "0", (dense_params, config)),
+                               ("fp32", "0", fp32)):
+        os.environ["GRASP_FLASH_SWEEP"] = env
+        engines[route] = GraspEngine(p, c, device=dev)
+        engines[route]._maybe_enable_flash_sweep(batches)
+        grads[route] = engines[route].get_dense_gradients(names, batches)
+    del os.environ["GRASP_FLASH_SWEEP"], fp32
+    if [e.config.use_flash_attention for e in engines.values()] != [True, False, False]:
+        raise AssertionError("GRASP_FLASH_SWEEP did not select the route")
+
+    def worst_error(route, ref):
+        return max(((grads[route][n].float() - grads[ref][n].float()).abs().max()
+                    / grads[ref][n].float().abs().max()).item() for n in names)
+
+    err = {route: worst_error(route, "fp32") for route in ("flash", "plain")}
+    between = worst_error("flash", "plain")
+    svd_out = engines["flash"]._svd_of_dense(names)
+    overlap = {}
+    for route in ("flash", "plain"):
+        engines[route]._select_compile_many(names, dict(svd_out), grads[route], cfg)
+    for n in names:
+        kept = [set(engines[route].indices_dict[n].tolist()) for route in ("flash", "plain")]
+        overlap[n.split(".")[-1]] = f"{len(kept[0] & kept[1])}/{len(kept[1])}"
+    print(f"compress: layer {min(layers)} attention round over 2 rows, worst gradient error "
+          f"over the reference gradient's max: flash route (bf16) against the plain route in "
+          f"fp32 {err['flash']:.3e}, plain route (bf16) against it {err['plain']:.3e}, flash "
+          f"against plain (both bf16) {between:.3e}; tolerance for the flash route: the "
+          f"larger of {FLASH_SWEEP_RTOL:g} and {FLASH_SWEEP_SLACK:g} x the plain route's "
+          f"error; selected indices in common {overlap}")
+    if not err["flash"] <= max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * err["plain"]):
+        raise AssertionError("the flash route's gradients are further from the fp32 "
+                             "reference than the plain route's")
+
+    # remat: a sweep through every layer (layer 0's attention) with and
+    # without recomputing each layer's activations in the backward
+    names0 = [module_name(0, proj) for proj in ATTN_PROJS]
+    remat_grads, peaks = {}, {}
+    for remat in (False, True):
+        engine = GraspEngine(dense_params, config, device=dev, remat=remat)
+        engine._maybe_enable_flash_sweep(batches)
+        # what an earlier sweep left in reference cycles must not be freed
+        # inside the measured one
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        remat_grads[remat] = engine.get_dense_gradients(names0, batches)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated(dev) - base
+    rel = max(((remat_grads[True][n].float() - remat_grads[False][n].float()).abs().max()
+               / remat_grads[False][n].float().abs().max()).item() for n in names0)
+    same = all(torch.equal(remat_grads[True][n], remat_grads[False][n]) for n in names0)
+    print(f"compress, remat: layer 0 attention sweep over 2 rows (backward through 22 layers, "
+          f"flash route): peak memory above the model {peaks[False] / 2**30:.3f} GiB without "
+          f"remat, {peaks[True] / 2**30:.3f} GiB with; gradients bit-equal {same}, worst "
+          f"difference over the max {rel:.3e} (tol {FLASH_SWEEP_RTOL:g}); card {card}")
+    if not rel <= FLASH_SWEEP_RTOL:
+        raise AssertionError("remat changed the sweep's gradients")
+    del engines, grads, dense_params, svd_out, remat_grads, engine
+    torch.cuda.empty_cache()
+
+
+def _factor_gap(torch, a_params, b_params, names):
+    """The largest difference of two runs' compiled factors over the
+    factor's max, 0.0 when every factor is torch.equal."""
+    from grasp_tpu_torch.core.engine import parse_module_name
+
+    worst = 0.0
+    for name in names:
+        li, group, proj = parse_module_name(name)
+        for key in ("in_kernel", "out_kernel"):
+            a = a_params["layers"][li][group][proj][key]
+            b = b_params["layers"][li][group][proj][key]
+            if not torch.equal(a, b):
+                worst = max(worst, ((a.float() - b.float()).abs().max()
+                                    / b.float().abs().max()).item())
+    return worst
+
+
+def compress_run_options(torch, card, dev, layers):
+    """The engine's run options at full width on the layers the CLI chose:
+    sequential runs under prefix off, recompute and cache; a run killed
+    after its second round and resumed by a fresh engine; the parallel path
+    under the device, gram and gram_device SVDs."""
+    from grasp_tpu_torch import GraspConfig
+    from grasp_tpu_torch.core.engine import GraspEngine
+    from grasp_tpu_torch.models.convert import flatten_params
+
+    config, params, batches = _smoke_model(dev)
+    base = dict(layers_id=layers, compression_ratio=0.9)
+    runs = {}
+    for prefix in ("off", "recompute", "cache"):
+        engine = GraspEngine(params, config, device=dev)
+        summary = engine.run(batches, GraspConfig(prefix=prefix, **base))
+        runs[prefix] = engine
+        print(f"compress, prefix {prefix}: {summary['wall_clock_s']:.2f} s, stage seconds "
+              f"{summary['stage_times_s']}, stage counts {engine.stage_counts}")
+    ref = runs["off"]
+    names = sorted(ref.rank_dict)
+    for prefix in ("recompute", "cache"):
+        got = runs[prefix]
+        same_sets = all(set(got.indices_log[n].tolist()) == set(ref.indices_log[n].tolist())
+                        for n in names)
+        gap = _factor_gap(torch, got.params, ref.params, names)
+        print(f"compress, prefix {prefix} against off: ranks equal {got.rank_dict == ref.rank_dict}"
+              f", index sets equal {same_sets}, compiled factors "
+              f"{'torch.equal' if gap == 0 else f'differ by {gap:.3e} of their max'}")
+        if got.rank_dict != ref.rank_dict or not same_sets or gap > PREFIX_FACTOR_RTOL:
+            raise AssertionError(f"prefix {prefix} changed the compression")
+
+    # resume: raise from _mark_round_done after the second round, then a
+    # fresh engine over the same directory; against the uninterrupted run
+    resume_dir = tempfile.mkdtemp(prefix="smoke_resume_", dir=os.path.join(ROOT, "build"))
+    try:
+        cfg = GraspConfig(prefix="cache", **base)
+        killed = GraspEngine(params, config, device=dev)
+        mark, calls = killed._mark_round_done, []
+
+        def crash_after_two(layer_id, block_type):
+            mark(layer_id, block_type)
+            calls.append((layer_id, block_type))
+            if len(calls) == 2:
+                raise RuntimeError("simulated crash")
+
+        killed._mark_round_done = crash_after_two
+        try:
+            killed.run(batches, cfg, resume_dir=resume_dir)
+            raise AssertionError("the killed run did not stop")
+        except RuntimeError as e:
+            if str(e) != "simulated crash":
+                raise
+        del killed
+        resumed = GraspEngine(params, config, device=dev)
+        summary = resumed.run(batches, cfg, resume_dir=resume_dir)
+        flat_a, flat_b = flatten_params(resumed.params), flatten_params(runs["cache"].params)
+        equal = flat_a.keys() == flat_b.keys() and all(
+            torch.equal(flat_a[k], flat_b[k]) for k in flat_a)
+        print(f"compress, resume: killed after rounds {calls}, resumed by a fresh engine "
+              f"({resumed.stage_counts.get('grad_sweep')} sweeps left, snapshots "
+              f"{summary['stage_times_s'].get('resume_snapshot')} s); params torch.equal to "
+              f"the uninterrupted run's: {equal}")
+        if not equal or resumed.plan != runs["cache"].plan or resumed.stage_counts["grad_sweep"] != 2:
+            raise AssertionError("the resumed run differs from the uninterrupted one")
+    finally:
+        shutil.rmtree(resume_dir, ignore_errors=True)
+    del runs, ref, resumed
+    torch.cuda.empty_cache()
+
+    # the gram SVDs on the parallel path against the device SVD
+    par = {}
+    for method in ("device", "gram", "gram_device"):
+        engine = GraspEngine(params, config, device=dev, svd_method=method)
+        summary = engine.run(batches, GraspConfig(sweep="parallel", **base))
+        par[method] = engine
+        print(f"compress, parallel, svd_method {method}: {summary['wall_clock_s']:.2f} s, stage "
+              f"seconds {summary['stage_times_s']}")
+    bad = []
+    for method in ("gram", "gram_device"):
+        got = par[method]
+        want = par["device"].indices_log
+        shares = {".".join(n.split(".")[2::2]): len(set(got.indices_log[n].tolist())
+                                                    & set(want[n].tolist())) / len(want[n])
+                  for n in names}
+        print(f"compress, parallel, {method} against device: ranks equal "
+              f"{got.rank_dict == par['device'].rank_dict}, share of selected indices in "
+              f"common {shares} (at least {GRAM_AGREEMENT})")
+        if got.rank_dict != par["device"].rank_dict or min(shares.values()) < GRAM_AGREEMENT:
+            bad.append(method)
+    if bad:
+        raise AssertionError(f"svd_method {bad} select unlike the device SVD")
+    del par, engine, params
+    torch.cuda.empty_cache()
 
 
 def compress_with_fused_lowrank(torch, card, dev, plain_meta, n_batches):
@@ -1723,11 +1943,16 @@ def compress_with_fused_lowrank(torch, card, dev, plain_meta, n_batches):
     config has ``use_pallas_lowrank``: every forward after a round has
     compiled projections runs the fused kernel once per compiled projection
     (calibration rows have 2047 tokens). Must choose the layers and ranks of
-    the run without the flag. Returns the fused kernel's launches."""
+    the run without the flag. Then the parallel sweep from the same
+    checkpoint, in chunks of one layer: the second chunk's sweep runs the
+    first chunk's compiled projections. Returns the fused kernel's launches."""
     import dataclasses
 
+    from grasp_tpu_torch import GraspConfig
     from grasp_tpu_torch.checkpoints import load_checkpoint, save_checkpoint
     from grasp_tpu_torch.cli import compress_main, load_model
+    from grasp_tpu_torch.core.engine import GraspEngine
+    from grasp_tpu_torch.data.loader import get_calibration_batches
     from grasp_tpu_torch.ops.lowrank import fused_lowrank
 
     src = tempfile.mkdtemp(prefix="smoke_dense_", dir=os.path.join(ROOT, "build"))
@@ -1766,7 +1991,28 @@ def compress_with_fused_lowrank(torch, card, dev, plain_meta, n_batches):
             raise AssertionError("the fused kernel changed the chosen layers or ranks")
         if not got_config.use_pallas_lowrank or launches == 0 or launches != want:
             raise AssertionError("the sweeps did not run the fused low-rank kernel as counted")
-        return launches
+
+        layers = meta["redundant_layers"]
+        fused_config, params, _, tok = load_model(src, device=dev)
+        batches = get_calibration_batches("synthetic", tok, num_samples=16, seq_len=2048,
+                                          seed=42)
+        engine = GraspEngine(params, fused_config, device=dev)
+        fused_lowrank.launches = 0
+        summary = engine.run(batches, GraspConfig(layers_id=layers, compression_ratio=0.9,
+                                                  sweep="parallel", sweep_chunk_layers=1))
+        torch.cuda.synchronize()
+        par_launches = fused_lowrank.launches
+        # chunks [[hi], [lo]]: the second sweep runs the first's 7 compiled projections
+        par_want = n_batches * 7 * (len(layers) - 1)
+        print(f"compress, use_pallas_lowrank, parallel in chunks of one layer: fused low-rank "
+              f"launches {par_launches} (want {n_batches} rows x 7 = {par_want}); "
+              f"{summary['wall_clock_s']:.2f} s, stage seconds {summary['stage_times_s']}")
+        if engine.rank_dict != plain_meta["rank_dict"] or par_launches != par_want:
+            raise AssertionError("the parallel sweep did not run the fused low-rank kernel "
+                                 "as counted")
+        del engine, params
+        torch.cuda.empty_cache()
+        return launches + par_launches
     finally:
         shutil.rmtree(src, ignore_errors=True)
         shutil.rmtree(dst, ignore_errors=True)

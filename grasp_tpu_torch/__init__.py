@@ -8,8 +8,9 @@ nothing of ``grasp_tpu``: ``configs`` (re-exported here) and
 modules.
 
 Ported so far: the compression pipeline (block influence, SVD, calibration
-gradient sweeps, rank selection, low-rank compilation; ``grasp-compress-torch``)
-with causal flash attention forward and backward in hand-written CUDA kernels
+gradient sweeps, rank selection, low-rank compilation; sequential or parallel
+sweeps, the prefix split, resume snapshots, remat, the gram SVDs;
+``grasp-compress-torch``) with causal flash attention forward and backward in hand-written CUDA kernels
 (``csrc/flash_attention.cu``), and serving a LLaMA-family model (dense and
 GRASP low-rank projections) over a paged KV cache with decode attention in a
 hand-written CUDA kernel (``csrc/paged_attention.cu``; ``grasp-serve-torch``).

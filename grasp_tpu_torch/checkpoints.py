@@ -29,16 +29,22 @@ def save_checkpoint(path: str, params: Any, config: ModelConfig, plan: ModelPlan
                     rank_dict: Optional[Dict[str, int]] = None,
                     redundant_layers: Optional[list] = None,
                     layer_importances: Optional[list] = None,
-                    extra: Optional[Dict[str, Any]] = None) -> str:
+                    extra: Optional[Dict[str, Any]] = None,
+                    params_file: str = PARAMS_FILE) -> str:
     """Save params + JSON metadata. The meta write is the commit point:
-    params go down first, then the meta is written to a temp file and
-    ``os.replace``d into place."""
+    params go down first (to ``params_file`` in ``path``), then the meta,
+    which names that file, is written to a temp file and ``os.replace``d
+    into place. A caller that alternates two ``params_file`` names never
+    touches the file the committed meta points at."""
     path = os.path.abspath(path)
     os.makedirs(path, exist_ok=True)
     flat = {k: v.detach().contiguous() for k, v in flatten_params(params).items()}
-    tmp_params = os.path.join(path, PARAMS_FILE + ".tmp")
-    torch.save(flat, tmp_params)
-    os.replace(tmp_params, os.path.join(path, PARAMS_FILE))
+    tmp_params = os.path.join(path, params_file + ".tmp")
+    with open(tmp_params, "wb") as f:
+        torch.save(flat, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp_params, os.path.join(path, params_file))
 
     meta = {
         "framework": FRAMEWORK,
@@ -47,7 +53,7 @@ def save_checkpoint(path: str, params: Any, config: ModelConfig, plan: ModelPlan
         "rank_dict": rank_dict or {},
         "redundant_layers": list(redundant_layers or []),
         "layer_importances": [float(x) for x in (layer_importances or [])],
-        "params_file": PARAMS_FILE,
+        "params_file": params_file,
         "extra": extra or {},
     }
     tmp = os.path.join(path, META_NAME + ".tmp")

@@ -2,9 +2,11 @@
 
 ``grasp-compress-torch``: the GRASP compression pipeline (block influence,
 SVD, calibration gradient sweeps, rank selection, low-rank compilation) on a
-port checkpoint or a named preset, saved as a port checkpoint. Recovery
-training, evaluation, HF export, meshes, resume and the parallel sweep are
-not ported yet and raise NotImplementedError.
+port checkpoint or a named preset, saved as a port checkpoint; sequential
+rounds or one parallel sweep (``--sweep``), resumable after a crash
+(``--compress_resume_dir``), ``--remat`` for the sweeps' memory and the gram
+SVD (``--svd_method gram``). Recovery training, evaluation, HF export and
+meshes are not ported yet and raise NotImplementedError.
 
 ``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine,
 from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
@@ -118,14 +120,20 @@ def _compress_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--sweep", type=str, choices=["sequential", "parallel"], default="sequential")
     p.add_argument("--grad_mode", type=str, choices=["dense", "svd"], default="dense")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each layer's activations in the sweeps' backward")
     p.add_argument("--svd_method", type=str, choices=["auto", "host", "device", "gram"],
                    default="auto", help="SVD backend: torch.linalg.svd on the device (auto, "
-                                        "device) or host LAPACK")
+                                        "device), host LAPACK, or gram (the Gram matrix on "
+                                        "the device, its eigendecomposition on the host)")
+    p.add_argument("--compress_resume_dir", type=str, default=None,
+                   help="crash-resume directory: the engine snapshots its state there after "
+                        "block influence and every round; a rerun with the same directory "
+                        "goes on at the first round not done")
     # parsed so that a grasp-compress command line carries over; each raises
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--export_hf_dir", type=str, default=None)
-    p.add_argument("--compress_resume_dir", type=str, default=None)
     p.add_argument("--recovery", action="store_true")
     p.add_argument("--evaluate", action="store_true")
     return p
@@ -136,9 +144,7 @@ def compress_main(argv=None) -> int:
     args = _compress_parser().parse_args(argv)
     setup_logger(args.log_file)
     unported = {"--recovery": args.recovery, "--evaluate": args.evaluate,
-                "--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1,
-                "--compress_resume_dir": args.compress_resume_dir,
-                "--sweep parallel": args.sweep == "parallel"}
+                "--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1}
     for flag, asked in unported.items():
         if asked:
             raise NotImplementedError(f"grasp-compress-torch does not support {flag} yet")
@@ -169,9 +175,11 @@ def compress_main(argv=None) -> int:
         verbose=args.verbose,
         sweep=args.sweep,
         grad_mode=args.grad_mode,
+        remat=args.remat,
     )
-    engine = GraspEngine(params, config, plan, svd_method=args.svd_method, device=device)
-    summary = engine.run(batches, cfg)
+    engine = GraspEngine(params, config, plan, svd_method=args.svd_method, device=device,
+                         remat=args.remat)
+    summary = engine.run(batches, cfg, resume_dir=args.compress_resume_dir)
     logger.info("summary: %s", json.dumps(summary))
 
     save_path = args.save_path

@@ -12,7 +12,9 @@ grasp_tpu_torch.models.llama) and runs the stages of the JAX engine eagerly:
                                    path: SVD, gradient sweep, select, compile
   - :meth:`dynamic_svd_selection`  saliency + top-k or adaptive rank selection
   - :meth:`compile_grasp_model`    truncate + fuse into low-rank or merged dense
-  - :meth:`run`                    the whole pipeline, sequential sweeps
+  - :meth:`run`                    the whole pipeline: sequential rounds or one
+                                   parallel sweep (in chunks of layers), the
+                                   prefix split, resume snapshots
 
 Gradients come from autograd over leaf copies of the trainable tensors; every
 other parameter is frozen, so the backward pass stops below the lowest
@@ -20,14 +22,24 @@ trainable layer by itself. Sums over batches are taken in the JAX engine's
 order and dtype. Calibration at 1024 tokens or more on a CUDA device runs
 attention through the flash-attention kernels (:meth:`_maybe_enable_flash_sweep`).
 
-Not ported yet (each raises NotImplementedError): ``sweep="parallel"``,
-``resume_dir``, a ``prefix`` other than "off" ("auto" resolves to "off"), the
-gram SVD methods, MoE layers, a device mesh.
+The prefix split (``GraspConfig.prefix``): no round ever changes a layer below
+the lowest target layer, so a dense sweep starts at that boundary from its
+activation, computed under ``no_grad`` every batch ("recompute") or once per
+batch and kept on the device ("cache"). The SVDs of a round or chunk run
+before its sweep; with ``svd_method="gram_device"`` selection runs after it
+on the gram basis without the larger singular factor
+(:meth:`_select_compile_one_ufree`).
+
+Not ported (ROADMAP.md, never ported): ``prefix="cache_host"`` and the
+bandwidth-driven choice of it, growing sweep chunks, base parking, compile
+prefetch, the fused one-dispatch sweeps, stacked gram groups; MoE layers and
+a device mesh raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import time
@@ -36,6 +48,7 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from grasp_tpu_torch.checkpoints import META_NAME, load_checkpoint, save_checkpoint
 from grasp_tpu_torch.configs import GraspConfig, ModelConfig
 from grasp_tpu_torch.models.convert import flatten_params, map_params
 from grasp_tpu_torch.models.llama import (
@@ -59,11 +72,14 @@ from grasp_tpu_torch.ops.saliency import (
     svd_saliency,
 )
 from grasp_tpu_torch.ops.svd import (
+    gram_basis,
     lowrank_factors,
     merge_svd,
     sigma_gradients,
     svd,
     truncate_svd,
+    ufree_sigma_saliency,
+    ufree_truncate,
 )
 
 logger = logging.getLogger("grasp_tpu_torch")
@@ -71,7 +87,14 @@ logger = logging.getLogger("grasp_tpu_torch")
 Batch = Dict[str, Any]
 SvdFactors = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
-_SVD_METHODS = ("auto", "device", "host")
+_SVD_METHODS = ("auto", "device", "host", "gram", "gram_device")
+_PREFIX_MODES = ("off", "recompute", "cache", "auto")
+RESUME_TAG = "grasp_compression_v1"
+# the JAX engine's budget for the selection's eigendecomposition workspace,
+# kept in the auto sweep-chunk size's reserve (_auto_sweep_chunk)
+_EIGH_ARENA_BUDGET = 1.7e9
+# device bytes the auto prefix mode leaves free beside the boundary cache
+_PREFIX_RESERVE = 6 * 2**30
 
 
 def _resolve_targets(defaults: List[str], targets) -> List[str]:
@@ -94,19 +117,23 @@ class GraspEngine:
     """Holds (params, plan, config) on one device and runs the compression stages."""
 
     def __init__(self, params: Params, config: ModelConfig, plan: Optional[ModelPlan] = None,
-                 svd_method: str = "auto", device: Union[str, torch.device] = "cuda"):
+                 svd_method: str = "auto", device: Union[str, torch.device] = "cuda",
+                 remat: bool = False):
+        """remat: recompute each layer's activations in the sweeps' backward
+        instead of keeping them (``GraspConfig.remat`` turns it on as well)."""
         if svd_method not in _SVD_METHODS:
-            if svd_method in ("gram", "gram_device"):
-                raise NotImplementedError(
-                    f"grasp_tpu_torch does not support svd_method {svd_method!r} yet")
             raise ValueError(f"unknown svd method {svd_method!r}")
         if config.num_local_experts > 0:
             raise NotImplementedError("grasp_tpu_torch does not compress MoE layers yet")
         self.device = torch.device(device)
         self.params = map_params(params, lambda t: t.detach().to(self.device))
         self.config = config
+        # the model's own config: self.config may gain the flash switch of
+        # the sweeps, which resume snapshots must not record
+        self._model_config = config
         self.plan = plan or default_plan(config)
         self.svd_method = svd_method
+        self.remat = remat
 
         self.redundant_layers: List[int] = []
         self.layer_importances: List[float] = []
@@ -122,6 +149,12 @@ class GraspEngine:
         self.rank_dict: Dict[str, int] = {}
         self.grasp_values_dict: Dict[str, Dict[str, list]] = {}
         self.grasp_layer_grads: Dict[str, torch.Tensor] = {}
+        self.prefix_mode = "off"  # the prefix mode the last dense pipeline resolved to
+
+        self._done_rounds: set = set()  # crash-resume bookkeeping (run())
+        self._resume_dir: Optional[str] = None
+        self._snap_slot: Optional[str] = None
+        self._set_prefix(0, "off")
 
     def _stage(self, name: str, t_start: float) -> None:
         if self.device.type == "cuda":
@@ -226,6 +259,7 @@ class GraspEngine:
         self.params = {**self.params, "layers": [self.params["layers"][i] for i in keep]}
         self.plan = tuple(self.plan[i] for i in keep)
         self.config = dataclasses.replace(self.config, num_hidden_layers=len(keep))
+        self._model_config = dataclasses.replace(self._model_config, num_hidden_layers=len(keep))
         return list(layers_to_remove)
 
     # ------------------------------------------------------------------
@@ -287,18 +321,75 @@ class GraspEngine:
     # Stage 3: gradient collection
     # ------------------------------------------------------------------
 
+    def _set_prefix(self, layer: int, mode: str) -> None:
+        """Split the dense sweeps at ``layer`` under ``mode`` ("off" splits
+        nothing); "cache" keeps each batch's boundary activation, keyed by
+        the batch's index, until the split is reset."""
+        self._prefix_layer = 0 if mode == "off" else layer
+        self._prefix_mode = mode
+        self._prefix_cache: Optional[Dict[int, torch.Tensor]] = (
+            {} if mode == "cache" and self._prefix_layer else None)
+
+    def _prefix_params(self) -> Params:
+        """The part of the params the prefix forward reads: the embedding and
+        the layers below the boundary. Tensors are shared, not copied."""
+        return {"embed_tokens": self.params["embed_tokens"],
+                "layers": list(self.params["layers"][: self._prefix_layer])}
+
+    def _prefix_hidden(self, i: int, batch: Dict[str, Optional[torch.Tensor]]) -> torch.Tensor:
+        """The boundary activation of batch ``i``: the input of layer
+        ``_prefix_layer``, from the cache or from a forward under no_grad
+        (timed as the ``prefix_fwd`` stage)."""
+        if self._prefix_cache is not None and i in self._prefix_cache:
+            return self._prefix_cache[i]
+        t_stage = time.time()
+        with torch.no_grad():
+            h0 = forward(self._prefix_params(), batch["input_ids"], config=self.config,
+                         plan=self.plan, attention_mask=batch.get("attention_mask"),
+                         stop_layer=self._prefix_layer)["hidden"]
+        self._stage("prefix_fwd", t_stage)
+        if self._prefix_cache is not None:
+            self._prefix_cache[i] = h0
+        return h0
+
+    def _choose_prefix_cache(self, calibration_batches: Sequence[Batch]) -> str:
+        """The prefix mode "auto" takes once the split saves 4 layers or
+        more: "recompute" off the card (the tests' memory stays flat), and on
+        the card "cache" when every batch's boundary activation fits in the
+        free device memory beside a reserve of 6 GiB, else "recompute"."""
+        if self.device.type != "cuda":
+            return "recompute"
+        rows = sum(int(np.shape(b["input_ids"])[0]) for b in calibration_batches)
+        seq = int(np.shape(calibration_batches[0]["input_ids"])[-1])
+        itemsize = torch_dtype(self.config.dtype).itemsize
+        need = rows * seq * self.config.hidden_size * itemsize
+        free, _ = torch.cuda.mem_get_info(self.device)
+        return "cache" if need < free - _PREFIX_RESERVE else "recompute"
+
+    def _resolve_prefix(self, mode: str, p_min: int, calibration_batches: Sequence[Batch]) -> str:
+        if mode == "auto":
+            mode = "off" if p_min < 4 else self._choose_prefix_cache(calibration_batches)
+            logger.info("prefix auto -> %s", mode)
+        self.prefix_mode = mode
+        return mode
+
     def _sweep(self, leaves: Dict[str, torch.Tensor], key: str,
-               calibration_batches: Iterable[Batch]) -> Dict[str, torch.Tensor]:
+               calibration_batches: Iterable[Batch], start_layer: int = 0
+               ) -> Dict[str, torch.Tensor]:
         """Sum over batches of dLoss/d(leaf): every leaf is a trainable copy
-        of one projection's ``key`` tensor, everything else is frozen."""
+        of one projection's ``key`` tensor, everything else is frozen. With
+        ``start_layer`` the forward starts from the prefix's boundary
+        activation (:meth:`_prefix_hidden`)."""
         params = self._with_leaves(leaves, key)
         names = list(leaves)
         totals = {n: torch.zeros_like(leaves[n]) for n in names}
         total_loss, nbatches = 0.0, 0
-        for batch in calibration_batches:
+        for i, batch in enumerate(calibration_batches):
             batch = self._place_batch(batch)
+            h0 = self._prefix_hidden(i, batch) if start_layer else None
             logits = forward(params, batch["input_ids"], config=self.config, plan=self.plan,
-                             attention_mask=batch.get("attention_mask"))["logits"]
+                             attention_mask=batch.get("attention_mask"), remat=self.remat,
+                             start_layer=start_layer, hidden_in=h0)["logits"]
             loss = hf_causal_lm_loss(logits, batch["labels"])
             grads = torch.autograd.grad(loss, [leaves[n] for n in names])
             for n, g in zip(names, grads):
@@ -324,13 +415,16 @@ class GraspEngine:
     def get_dense_gradients(self, names: List[str], calibration_batches: Iterable[Batch]
                             ) -> Dict[str, torch.Tensor]:
         """Sum over batches of dL/d(kernel) for the named dense projections,
-        in each kernel's dtype."""
+        in each kernel's dtype. The sweep starts at the prefix boundary when
+        every named layer lies at or above it."""
         for n in names:
             if "kernel" not in self._get_proj(n):
                 raise ValueError(f"{n} is not a dense projection")
+        split = {parse_module_name(n)[0] for n in names}
+        sl = self._prefix_layer if all(li >= self._prefix_layer for li in split) else 0
         t_stage = time.time()
         leaves = {n: self._get_proj(n)["kernel"].detach().requires_grad_() for n in names}
-        totals = self._sweep(leaves, "kernel", calibration_batches)
+        totals = self._sweep(leaves, "kernel", calibration_batches, start_layer=sl)
         self._stage("grad_sweep", t_stage)
         return totals
 
@@ -340,18 +434,68 @@ class GraspEngine:
 
     def compress_round(self, layer_id: int, block_type: str,
                        target_layer_types: Optional[Union[List[str], str]],
-                       calibration_batches: Sequence[Batch], cfg: GraspConfig) -> bool:
+                       calibration_batches: Sequence[Batch], cfg: GraspConfig,
+                       svd_after: bool = False) -> bool:
         """One (layer, block) compression round on the dense-gradient path:
         SVD of the round's dense kernels, one gradient sweep with respect to
-        them, then selection and compilation. Returns True when skipped."""
+        them, then selection and compilation. ``svd_after``: factor after
+        the sweep instead (:meth:`_select_compile_after_sweep`; the run
+        takes it for ``gram_device``). Returns True when skipped."""
         if target_layer_types is None:
             return True
         names = self._round_names(layer_id, block_type, target_layer_types)
         logger.info("compress round: layer %d %s (%d targets)", layer_id, block_type, len(names))
+        if svd_after:
+            grads = self.get_dense_gradients(names, calibration_batches)
+            self._select_compile_after_sweep(names, grads, cfg)
+            return False
         svd_out = self._svd_of_dense(names)
         grads = self.get_dense_gradients(names, calibration_batches)
         self._select_compile_many(names, svd_out, grads, cfg)
         return False
+
+    def _sweep_chunks(self, layer_names: List[Tuple[int, List[str]]], cfg: GraspConfig
+                      ) -> List[List[Tuple[int, List[str]]]]:
+        """The parallel path's layers cut into one sweep each chunk:
+        ``sweep_chunk_layers`` N layers a chunk, 0 one sweep, None as
+        :meth:`_auto_sweep_chunk` says. Chunks are end-aligned, the
+        remainder first ([1, 2, 2, 2] for 7 layers at N=2): the first chunk
+        sweeps next to the whole uncompressed model, every later one next to
+        compressed layers. Layer order is kept."""
+        n = cfg.sweep_chunk_layers
+        if n is None:
+            n = self._auto_sweep_chunk(layer_names)
+        if not n or n <= 0 or n >= len(layer_names):
+            return [layer_names]
+        out = []
+        i = len(layer_names)
+        while i > 0:
+            take = min(n, i)
+            out.append(layer_names[i - take:i])
+            i -= take
+        out.reverse()
+        return out
+
+    def _auto_sweep_chunk(self, layer_names: List[Tuple[int, List[str]]]) -> int:
+        """The most layers a sweep whose gradient accumulators (one
+        kernel-sized tensor a target) fit beside the live params and a
+        reserve for the sweep and the selection: the card's memory
+        (``torch.cuda.mem_get_info``) less the params less max(1 GiB, the
+        eigendecomposition budget) + 1.2 GiB. 0 (one sweep) when all fit,
+        and always off the card."""
+        if self.device.type != "cuda":
+            return 0
+        _, limit = torch.cuda.mem_get_info(self.device)
+        params_bytes = sum(t.numel() * t.element_size()
+                           for t in flatten_params(self.params).values())
+        reserve = max(2**30, _EIGH_ARENA_BUDGET) + 1.2 * 2**30
+        budget = limit - params_bytes - reserve
+        per_layer = max(sum(self._get_proj(n)["kernel"].numel()
+                            * self._get_proj(n)["kernel"].element_size() for n in nn)
+                        for _, nn in layer_names)
+        if budget >= per_layer * len(layer_names):
+            return 0
+        return max(1, int(budget // per_layer))
 
     def _select_compile_many(self, names: List[str], svd_out: Dict[str, SvdFactors],
                              grads: Dict[str, torch.Tensor], cfg: GraspConfig) -> None:
@@ -362,6 +506,28 @@ class GraspEngine:
             u, s, vh = svd_out.pop(n)
             # dL/dkernel [in, out] -> dL/dW [out, in]
             self._select_compile_one(n, u, s, vh, grads.pop(n).T, cfg, indices_dict)
+        self._record_selection(indices_dict, cfg, t_stage)
+
+    def _select_compile_after_sweep(self, names: List[str], grads: Dict[str, torch.Tensor],
+                                    cfg: GraspConfig) -> None:
+        """Select, truncate and compile ``names`` from summed dense gradients,
+        factoring one matrix at a time after the sweep: ``gram_device``
+        selects on the gram basis (:meth:`_select_compile_one_ufree`), every
+        other method through its full factors."""
+        t_stage = time.time()
+        indices_dict: Dict[str, np.ndarray] = {}
+        for n in names:
+            t_one = time.time()
+            if self.svd_method == "gram_device":
+                self._select_compile_one_ufree(n, grads.pop(n), cfg, indices_dict)
+            else:
+                u, s, vh = self._svd_of_dense([n]).pop(n)
+                self._select_compile_one(n, u, s, vh, grads.pop(n).T, cfg, indices_dict)
+            self._stage("svd_select_one", t_one)
+        self._record_selection(indices_dict, cfg, t_stage)
+
+    def _record_selection(self, indices_dict: Dict[str, np.ndarray], cfg: GraspConfig,
+                          t_stage: float) -> None:
         self.indices_dict = indices_dict
         self.indices_log.update(indices_dict)
         self._stage("select_compile", t_stage)
@@ -434,6 +600,29 @@ class GraspEngine:
         self._compile_truncated(n, ut, st, vht, self._get_proj(n)["kernel"].dtype,
                                 cfg.merge, cfg.sigma_fuse)
 
+    def _select_compile_one_ufree(self, n: str, grad_kernel: torch.Tensor, cfg: GraspConfig,
+                                  indices_dict: Dict[str, np.ndarray]) -> None:
+        """Select, truncate and compile one module on the gram basis of its
+        smaller side (ops.svd.gram_basis), never forming the larger singular
+        factor: the eigendecomposition (``sel_eigh``), the importances
+        (``sel_importance``) and the kept columns (``sel_truncate``).
+        grad_kernel: dL/d(kernel) in the [in, out] layout."""
+        kernel = self._get_proj(n)["kernel"]  # [in, out]
+        w = kernel.T
+        t_sub = time.time()
+        s, basis, side = gram_basis(w)
+        self._stage("sel_eigh", t_sub)
+        t_sub = time.time()
+        importance = ufree_sigma_saliency(w, grad_kernel.T, s, basis, side, cfg.metric)
+        indices = self._select_indices(n, importance, s, kernel.shape[-2], kernel.shape[-1],
+                                       cfg.compression_ratio, cfg.threshold_ratio)
+        indices_dict[n] = indices
+        self._stage("sel_importance", t_sub)
+        t_sub = time.time()
+        ut, st, vht = ufree_truncate(w, s, basis, side, indices)
+        self._compile_truncated(n, ut, st, vht, kernel.dtype, cfg.merge, cfg.sigma_fuse)
+        self._stage("sel_truncate", t_sub)
+
     # ------------------------------------------------------------------
     # Stage 4/5 on SVD modules (grad_mode="svd")
     # ------------------------------------------------------------------
@@ -477,6 +666,68 @@ class GraspEngine:
         self._stage("select_compile", t_stage)
 
     # ------------------------------------------------------------------
+    # Crash-resume snapshots
+    # ------------------------------------------------------------------
+
+    def _mark_round_done(self, layer_id, block_type) -> None:
+        self._done_rounds.add((layer_id, block_type))
+        if self._resume_dir:
+            self._snapshot_rounds(self._resume_dir)
+
+    def _snapshot_rounds(self, resume_dir: str) -> None:
+        """Write the engine's compression state (params, plan, ranks, layers,
+        the done rounds) as a port checkpoint tagged ``grasp_compression_v1``,
+        with the model's own config. Crash-safe: params alternate between two
+        files, so the file the committed meta names is never written; the
+        meta is committed last (checkpoints.save_checkpoint) and the file it
+        no longer names is removed only after that."""
+        t_stage = time.time()
+        cur = self._snap_slot
+        nxt = "params-b.pt" if cur == "params-a.pt" else "params-a.pt"
+        save_checkpoint(resume_dir, self.params, self._model_config, self.plan,
+                        rank_dict=self.rank_dict, redundant_layers=self.redundant_layers,
+                        layer_importances=self.layer_importances,
+                        extra={"resume": RESUME_TAG,
+                               "done_rounds": [list(r) for r in self._done_rounds]},
+                        params_file=nxt)
+        self._snap_slot = nxt
+        if cur and cur != nxt:  # a kill here leaves a file nobody names
+            try:
+                os.remove(os.path.join(resume_dir, cur))
+            except FileNotFoundError:
+                pass
+        self._stage("resume_snapshot", t_stage)
+
+    def _restore_rounds(self, resume_dir: str) -> bool:
+        """Restore a :meth:`_snapshot_rounds` snapshot if ``resume_dir`` holds
+        one: params, plan, ranks, layers and done rounds are replaced and
+        block influence is not recomputed. Returns whether it restored. The
+        caller passes the cfg and calibration batches of the first run:
+        rounds are known by (layer, block) only. Refuses a directory that
+        is not such a snapshot, or one of another model config."""
+        meta_path = os.path.join(resume_dir, META_NAME)
+        if not os.path.exists(meta_path):
+            return False
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta.get("extra", {}).get("resume") != RESUME_TAG:
+            raise ValueError(f"{resume_dir} is not a compression-resume snapshot")
+        params, config, plan, meta = load_checkpoint(resume_dir, self.device)
+        if config.to_json() != self._model_config.to_json():
+            raise ValueError("resume snapshot was written for a different model config")
+        self.params = params
+        self.plan = plan
+        self.rank_dict = dict(meta.get("rank_dict", {}))
+        self.redundant_layers = list(meta.get("redundant_layers", []))
+        self.layer_importances = list(meta.get("layer_importances", []))
+        self._done_rounds = {tuple(r) for r in meta["extra"].get("done_rounds", [])}
+        # the next snapshot must not write over the file just restored from
+        self._snap_slot = meta["params_file"]
+        logger.info("=======> Resumed compression from %s (%d rounds done)", resume_dir,
+                    len(self._done_rounds))
+        return True
+
+    # ------------------------------------------------------------------
     # Full pipeline
     # ------------------------------------------------------------------
 
@@ -485,29 +736,47 @@ class GraspEngine:
         """End-to-end compression in the reference's order: block influence,
         then per redundant layer (descending id) the MLP block and the
         attention block, each with its own calibration gradient sweep that
-        sees every earlier truncation."""
-        if resume_dir is not None:
-            raise NotImplementedError("grasp_tpu_torch does not support resume_dir yet")
-        if cfg.sweep != "sequential":
-            raise NotImplementedError(
-                f"grasp_tpu_torch does not support sweep={cfg.sweep!r} yet (use 'sequential')")
-        if cfg.prefix not in ("off", "auto"):  # "auto" resolves to "off" here
-            raise NotImplementedError(
-                f"grasp_tpu_torch does not support prefix={cfg.prefix!r} yet (use 'off')")
+        sees every earlier truncation (``sweep="sequential"``); or one sweep
+        for every target (``sweep="parallel"``, in chunks of
+        ``sweep_chunk_layers`` layers on the dense path), where a layer's
+        gradients do not see the other targets' truncations.
+
+        resume_dir: the engine snapshots its state there after block
+        influence and after every done round; a run over the same directory
+        (same cfg, same batches) restores it and goes on at the first round
+        not done, to the state of an uninterrupted run."""
         if cfg.grad_mode not in ("dense", "svd"):
             raise ValueError(f"unknown grad_mode {cfg.grad_mode!r}")
+        if cfg.sweep not in ("sequential", "parallel"):
+            raise ValueError(f"unknown sweep {cfg.sweep!r}")
+        if cfg.prefix == "cache_host":
+            raise NotImplementedError(
+                "grasp_tpu_torch does not support prefix='cache_host' (host parking of the "
+                "boundary activations); use 'cache' or 'recompute'")
+        if cfg.prefix not in _PREFIX_MODES:
+            raise ValueError(f"unknown prefix {cfg.prefix!r}")
         t0 = time.time()
+        self.remat = self.remat or cfg.remat
         self._maybe_enable_flash_sweep(calibration_batches)
+        self._done_rounds = set()
+        self._resume_dir, self._snap_slot = resume_dir, None
+        resumed = bool(resume_dir) and self._restore_rounds(resume_dir)
 
-        layers_id = cfg.layers_id
-        if layers_id is None:
-            importances, layers_id = self.compute_bi(
-                num_prune_layers=cfg.num_prune_layers,
-                calibration_batches=calibration_batches, angular=cfg.angular)
-            logger.info("Layer importance measure by BI:\n%s", importances)
-        if isinstance(layers_id, int):
-            layers_id = [layers_id]
+        if resumed:
+            layers_id = list(self.redundant_layers)
+        else:
+            layers_id = cfg.layers_id
+            if layers_id is None:
+                importances, layers_id = self.compute_bi(
+                    num_prune_layers=cfg.num_prune_layers,
+                    calibration_batches=calibration_batches, angular=cfg.angular)
+                logger.info("Layer importance measure by BI:\n%s", importances)
+            if isinstance(layers_id, int):
+                layers_id = [layers_id]
         self.redundant_layers = list(layers_id)
+        if resume_dir and not resumed:
+            self._snapshot_rounds(resume_dir)  # block influence done, no round yet
+        layers_id = sorted(layers_id, reverse=True)
 
         logger.info("=======> Start Compressing model with GRASP")
         # None targets = skip that block entirely (the reference's skip flag)
@@ -517,20 +786,25 @@ class GraspEngine:
             ("attention", None if cfg.attn_target_layer_types is None
              else tuple(cfg.attn_target_layer_types)),
         )
-        for layer_id in sorted(layers_id, reverse=True):
-            for block_type, targets in blocks:
-                if targets is None:
-                    logger.info("=======> Skip Compressing This Block")
-                elif cfg.grad_mode == "dense":
-                    self.compress_round(layer_id, block_type, targets, calibration_batches, cfg)
-                else:
-                    self.compress_block(layer_id, block_type, targets)
-                    grads = self.get_svdlayer_gradients(calibration_batches)
-                    indices = self.dynamic_svd_selection(
-                        grads, metric=cfg.metric, compression_ratio=cfg.compression_ratio,
-                        threshold_ratio=cfg.threshold_ratio, verbose=cfg.verbose)
-                    self.compile_grasp_model(indices, merge=cfg.merge,
-                                             sigma_fuse=cfg.sigma_fuse)
+        if cfg.grad_mode == "dense":
+            self._run_dense(layers_id, blocks, calibration_batches, cfg)
+        elif cfg.sweep == "parallel":
+            if ("all", "all") not in self._done_rounds:  # one resumable unit
+                skipped = [self.compress_block(layer_id, block_type, targets)
+                           for layer_id in layers_id for block_type, targets in blocks]
+                if not all(skipped):
+                    self._select_compile_svd(calibration_batches, cfg)
+                self._mark_round_done("all", "all")
+        else:
+            for layer_id in layers_id:
+                for block_type, targets in blocks:
+                    if (layer_id, block_type) in self._done_rounds:
+                        continue
+                    if self.compress_block(layer_id, block_type, targets):
+                        logger.info("=======> Skip Compressing This Block")
+                    else:
+                        self._select_compile_svd(calibration_batches, cfg)
+                    self._mark_round_done(layer_id, block_type)
 
         wall = time.time() - t0
         logger.info("=======> Done! (%.1fs)", wall)
@@ -540,4 +814,75 @@ class GraspEngine:
             "layer_importances": list(self.layer_importances),
             "wall_clock_s": wall,
             "stage_times_s": {k: round(v, 2) for k, v in self.stage_times.items()},
+            "prefix": self.prefix_mode,
         }
+
+    def _select_compile_svd(self, calibration_batches: Sequence[Batch], cfg: GraspConfig) -> None:
+        """grad_mode="svd": one sweep over every SVD module, selection, compilation."""
+        grads = self.get_svdlayer_gradients(calibration_batches)
+        indices = self.dynamic_svd_selection(
+            grads, metric=cfg.metric, compression_ratio=cfg.compression_ratio,
+            threshold_ratio=cfg.threshold_ratio, verbose=cfg.verbose)
+        self.compile_grasp_model(indices, merge=cfg.merge, sigma_fuse=cfg.sigma_fuse)
+
+    def _run_dense(self, layers_id: List[int], blocks, calibration_batches: Sequence[Batch],
+                   cfg: GraspConfig) -> None:
+        """The dense-gradient pipeline. Sequential: one round per (layer,
+        block) in the reference's order, each sweep seeing every earlier
+        truncation. Parallel: the targets of all layers in chunks
+        (:meth:`_sweep_chunks`), one sweep a chunk, then selection and
+        compilation of the chunk. Either way the sweeps start at the lowest
+        target layer under ``cfg.prefix``."""
+        after = self.svd_method == "gram_device"
+        if cfg.sweep == "parallel":
+            if ("all", "all") in self._done_rounds:
+                return
+            layer_names: List[Tuple[int, List[str]]] = []
+            for layer_id in layers_id:
+                nn = [n for block_type, targets in blocks if targets is not None
+                      for n in self._round_names(layer_id, block_type, targets)]
+                if nn:
+                    layer_names.append((layer_id, nn))
+            if not layer_names:
+                return
+            p_min = min(lid for lid, _ in layer_names)
+            self._set_prefix(p_min, self._resolve_prefix(cfg.prefix, p_min, calibration_batches))
+            try:
+                chunks = self._sweep_chunks(layer_names, cfg)
+                if len(chunks) > 1:
+                    logger.info("parallel sweep in %d chunks: %s", len(chunks),
+                                [[lid for lid, _ in c] for c in chunks])
+                for chunk in chunks:
+                    key = ("chunk", ".".join(str(lid) for lid, _ in chunk))
+                    if key in self._done_rounds:
+                        continue
+                    names = [n for _, nn in chunk for n in nn]
+                    if after:
+                        self._select_compile_after_sweep(
+                            names, self.get_dense_gradients(names, calibration_batches), cfg)
+                    else:
+                        svd_out = self._svd_of_dense(names)
+                        grads = self.get_dense_gradients(names, calibration_batches)
+                        self._select_compile_many(names, svd_out, grads, cfg)
+                    self._mark_round_done(*key)
+            finally:
+                self._set_prefix(0, "off")
+            self._mark_round_done("all", "all")
+            return
+
+        rounds = []
+        for layer_id in layers_id:
+            for block_type, targets in blocks:
+                if targets is None:
+                    logger.info("=======> Skip Compressing This Block")
+                elif (layer_id, block_type) not in self._done_rounds:
+                    rounds.append((layer_id, block_type, targets))
+        p_min = min((lid for lid, _, _ in rounds), default=0)
+        self._set_prefix(p_min, self._resolve_prefix(cfg.prefix, p_min, calibration_batches))
+        try:
+            for layer_id, block_type, targets in rounds:
+                self.compress_round(layer_id, block_type, targets, calibration_batches, cfg,
+                                    svd_after=after)
+                self._mark_round_done(layer_id, block_type)
+        finally:
+            self._set_prefix(0, "off")

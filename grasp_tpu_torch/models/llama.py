@@ -16,7 +16,9 @@ Ported: the LLaMA/TinyLlama/Qwen2-style families (bias optional, rope scaling
 int4 projection weights (ops/quant.py), the fused low-rank kernel behind
 ``config.use_pallas_lowrank`` (ops/lowrank.py; the field keeps the JAX
 package's name so that checkpoints carry over), and the flash-attention route
-of the full-sequence forward (ops/flash_attention.py), and the int8 KV cache
+of the full-sequence forward (ops/flash_attention.py), which also runs a
+range of layers (the compression engine's prefix split) and recomputes each
+layer in the backward on request (``remat``), and the int8 KV cache
 (``init_kv_cache(quantized=True)``). Softcapping, sliding windows, MoE, Gemma
 norms and the ``hybrid`` kind raise NotImplementedError.
 """
@@ -29,6 +31,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.ops.flash_attention import flash_attention
@@ -419,16 +422,31 @@ def _padding_bias(mask: torch.Tensor) -> torch.Tensor:
 def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
             plan: Optional[ModelPlan] = None, attention_mask: Optional[torch.Tensor] = None,
             positions: Optional[torch.Tensor] = None,
-            output_hidden_states: bool = False) -> Dict[str, Any]:
+            output_hidden_states: bool = False, remat: bool = False, start_layer: int = 0,
+            stop_layer: Optional[int] = None,
+            hidden_in: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Full-sequence forward. Returns {"logits": [B, S, V]} and, if asked,
-    "hidden_states": the L inputs of the decoder layers plus the final-norm
+    "hidden_states": the inputs of the decoder layers run plus the final-norm
     output (HF semantics). With ``config.use_flash_attention``, no
     ``attention_mask`` and CUDA tensors, attention runs in the flash kernels;
-    on the CPU the flag is inert."""
+    on the CPU the flag is inert.
+
+    start_layer/stop_layer/hidden_in run only layers [start_layer,
+    stop_layer): with ``stop_layer`` set the result is {"hidden": h}, the
+    input of layer ``stop_layer`` (no final norm, no logits); with
+    ``start_layer > 0``, ``hidden_in`` is that layer's input instead of the
+    embedding. ``remat`` recomputes each layer's activations in the backward
+    (``torch.utils.checkpoint``) instead of keeping them, as the JAX package's
+    ``jax.checkpoint``; it changes no value."""
     check_supported(config)
     plan = plan or default_plan(config)
     b, s = input_ids.shape
-    h = embed_lookup(params, input_ids, config)
+    if start_layer > 0:
+        if hidden_in is None:
+            raise ValueError("start_layer > 0 needs hidden_in")
+        h = hidden_in
+    else:
+        h = embed_lookup(params, input_ids, config)
     if positions is None:
         positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
     cos, sin = rope_cos_sin(positions, config.head_dim_, config.rope_theta,
@@ -438,12 +456,23 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
         mask = mask + _padding_bias(attention_mask)
 
     flash_ok = attention_mask is None  # softcap and windows are refused above
+    checkpointed = remat and torch.is_grad_enabled()
+    stop = config.num_hidden_layers if stop_layer is None else stop_layer
     hidden_states: List[torch.Tensor] = []
-    for li in range(config.num_hidden_layers):
+    for li in range(start_layer, stop):
         if output_hidden_states:
             hidden_states.append(h)
-        h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, mask, config,
-                              flash_ok=flash_ok)
+
+        def layer(lp, h_, layer_plan=plan[li]):
+            return _layer_forward(lp, layer_plan, h_, cos, sin, mask, config,
+                                  flash_ok=flash_ok)[0]
+
+        if checkpointed:
+            h = checkpoint(layer, params["layers"][li], h, use_reentrant=False)
+        else:
+            h = layer(params["layers"][li], h)
+    if stop_layer is not None:
+        return {"hidden": h}
     h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
     out: Dict[str, Any] = {"logits": _lm_logits(h, params)}
     if output_hidden_states:

@@ -68,13 +68,35 @@ def test_compress_main_on_the_cpu_writes_a_checkpoint_that_the_server_loads(tmp_
 
 
 @pytest.mark.parametrize("flags", [[["--recovery"], ["--evaluate"]], [["--export_hf_dir", "x"]],
-                                   [["--tp", "2"], ["--dp", "2"]],
-                                   [["--compress_resume_dir", "x"]], [["--sweep", "parallel"]]],
+                                   [["--tp", "2"], ["--dp", "2"]]],
                          ids=lambda f: f[0][0])
 def test_compress_main_refuses_what_is_not_ported(flags):
     for flag in flags:
         with pytest.raises(NotImplementedError, match=flag[0][:4]):
             compress_main(["--model_name_or_path", "tiny", "--device", "cpu"] + flag)
+
+
+def test_compress_main_runs_the_parallel_sweep_resumable_with_remat_and_gram(tmp_path):
+    """--sweep parallel, --compress_resume_dir, --remat and --svd_method gram
+    on the CPU: the checkpoint has every rank, and a second run over the same
+    resume directory restores the finished state without a sweep."""
+    args = ["--model_name_or_path", "tiny", "--dataset_name", "synthetic",
+            "--num_prune_layers", "2", "--compression_ratio", "0.5", "--num_samples", "4",
+            "--seq_len", "32", "--device", "cpu", "--sweep", "parallel", "--remat",
+            "--svd_method", "gram", "--compress_resume_dir", str(tmp_path / "resume")]
+    metas = []
+    for run in ("first", "again"):
+        assert compress_main(args + ["--save_path", str(tmp_path / run)]) == 0
+        params, config, plan, meta = tckpt.load_checkpoint(str(tmp_path / run), "cpu")
+        metas.append(meta)
+        assert plan == tl.plan_from_params(params, config)
+    assert metas[0]["rank_dict"] == metas[1]["rank_dict"] and len(metas[0]["rank_dict"]) == 14
+    assert metas[0]["redundant_layers"] == metas[1]["redundant_layers"]
+    assert "grad_sweep" in metas[0]["extra"]["summary"]["stage_times_s"]
+    assert "grad_sweep" not in metas[1]["extra"]["summary"]["stage_times_s"]
+    assert metas[1]["extra"]["grasp_config"]["remat"] is True
+    snapshot = json.load(open(tmp_path / "resume" / "grasp_meta.json"))
+    assert ["all", "all"] in snapshot["extra"]["done_rounds"]
 
 
 def test_calibration_loader_matches_jax(tmp_path):

@@ -20,6 +20,7 @@ from grasp_tpu.configs import GraspConfig as JGraspConfig
 from grasp_tpu.core.engine import GraspEngine as JEngine
 from grasp_tpu.models import init_params
 from grasp_tpu.models import llama as jl
+from grasp_tpu_torch.cli import compress_main
 from grasp_tpu_torch.configs import GraspConfig
 from grasp_tpu_torch.core.engine import GraspEngine, module_name, parse_module_name
 from grasp_tpu_torch.models import llama as tl
@@ -149,17 +150,15 @@ def test_run_matches_jax(case):
 def test_unported_options_raise_and_remove_layers():
     _, teng = _pair()
     batches = calibration_batches(teng.config, n=1)
-    for kw in (dict(sweep="parallel"), dict(prefix="cache"), dict(prefix="recompute")):
-        with pytest.raises(NotImplementedError):
-            teng.run(batches, GraspConfig(num_prune_layers=1, **kw))
-    with pytest.raises(NotImplementedError):
-        teng.run(batches, GraspConfig(num_prune_layers=1), resume_dir="somewhere")
-    for method in ("gram", "gram_device"):
-        with pytest.raises(NotImplementedError):
-            GraspEngine(teng.params, teng.config, svd_method=method, device="cpu")
+    with pytest.raises(NotImplementedError, match="cache_host"):
+        teng.run(batches, GraspConfig(num_prune_layers=1, prefix="cache_host"))
     with pytest.raises(NotImplementedError):
         GraspEngine(teng.params, dataclasses.replace(teng.config, num_local_experts=4),
                     device="cpu")
+    for flag in (["--recovery"], ["--evaluate"], ["--export_hf_dir", "x"], ["--dp", "2"],
+                 ["--tp", "2"]):
+        with pytest.raises(NotImplementedError, match=flag[0][:4]):
+            compress_main(["--model_name_or_path", "tiny", "--device", "cpu"] + flag)
     with pytest.raises(ValueError):
         teng.compress_round(0, "mlp", ["q_proj"], batches, GraspConfig())
     assert teng.compress_round(0, "mlp", None, batches, GraspConfig()) is True

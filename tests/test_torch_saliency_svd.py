@@ -92,10 +92,13 @@ def test_svd_methods(method):
 
 
 def test_svd_refuses_unported_and_unknown_methods():
-    w = torch.zeros(4, 4)
+    # every method of the JAX package is ported: the gram methods factor
+    # (held to grasp_tpu's in tests/test_torch_engine_options.py)
+    w = torch.from_numpy(_rng(3).standard_normal((6, 4)).astype(np.float32))
     for method in ("gram", "gram_device"):
-        with pytest.raises(NotImplementedError):
-            tsvd.svd(w, method=method)
+        u, s, vh = tsvd.svd(w, method=method)
+        assert (u.shape, s.shape, vh.shape) == ((6, 4), (4,), (4, 4))
+        np.testing.assert_allclose(((u * s) @ vh).numpy(), w.numpy(), atol=1e-4)
     with pytest.raises(ValueError):
         tsvd.svd(w, method="qdwh")
 
