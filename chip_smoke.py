@@ -79,12 +79,23 @@ Phases, each of which raises on failure (exit code != 0):
    ``use_pallas_lowrank``, sequential and parallel in chunks of one layer:
    the same layers and ranks, and the fused low-rank kernel launched once per
    compiled projection per later forward.
+10. evaluation slice (run inside 9, on the sequential run's checkpoint before
+   it is removed): ``grasp-evaluate-torch --eval_ppl synthetic`` on the
+   checkpoint as saved and with ``use_flash_attention`` and
+   ``use_pallas_lowrank`` in its config; ``windowed_perplexity`` over the same
+   8 windows of 2048 tokens plain, with the flash route and with both kernels,
+   each window's mean cross entropy against the plain run's; the zero/few-shot
+   harness over seed-made documents of five tasks with and without the
+   kernels; ``greedy_until`` and LongBench's ``get_pred`` over eight prompts of
+   300 to 1000 tokens, every token against a teacher-forced plain forward.
+   Every launch count is held to the dispatch rules (no flash launch on the
+   dense KV cache).
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound); then the card's
 line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|spec|compress`` runs
-one part while developing and prints no result lines.
+JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|spec|compress|evaluate``
+runs one part while developing and prints no result lines.
 """
 
 import argparse
@@ -94,6 +105,7 @@ import gc
 import http.client
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -1688,11 +1700,13 @@ def _hold_launches(label, launches, want):
         raise AssertionError(f"{label}: the sweeps did not run the flash kernels as counted")
 
 
-def phase_compress(torch, card, dev):
-    """``grasp-compress-torch`` on the card, sequential and parallel, then
-    checks of what each saved and of the engine's run options at the same
-    width. Returns the launch counts of the three flash kernels in the two
-    runs and those of the fused low-rank kernel in its compressions."""
+def phase_compress(torch, card, dev, evaluate_only=False):
+    """``grasp-compress-torch`` on the card, sequential (its checkpoint then
+    evaluated: phase_evaluate) and parallel, then checks of what each saved
+    and of the engine's run options at the same width. Returns the launch
+    counts of the three flash kernels in the two runs, those of the fused
+    low-rank kernel in its compressions, and the evaluation's.
+    ``evaluate_only``: the sequential run and its evaluation alone."""
     from grasp_tpu_torch.data.loader import get_calibration_batches
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
 
@@ -1702,6 +1716,9 @@ def phase_compress(torch, card, dev):
     try:
         launches, _, summary = _compress_cli(torch, dev, ckpt_root, [], "compress", card)
         meta, config = _check_checkpoint(torch, ckpt_root, dev, "compress")
+        evaluated = phase_evaluate(torch, card, dev, ckpt_root)
+        if evaluate_only:
+            return evaluated
         layers = meta["redundant_layers"]
         n_layers = config.num_hidden_layers
         n_rows = len(get_calibration_batches("synthetic", load_tokenizer(None), num_samples=16,
@@ -1727,7 +1744,7 @@ def phase_compress(torch, card, dev):
         compress_flash_routes(torch, card, dev, layers)
         compress_run_options(torch, card, dev, layers)
         fused = compress_with_fused_lowrank(torch, card, dev, meta, n_rows)
-        return flash_launches, fused
+        return flash_launches, fused, evaluated
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         shutil.rmtree(par_root, ignore_errors=True)
@@ -2018,6 +2035,351 @@ def compress_with_fused_lowrank(torch, card, dev, plain_meta, n_batches):
         shutil.rmtree(dst, ignore_errors=True)
 
 
+# the evaluation slice: the compressed TinyLlama-1.1B that phase_compress
+# saved, at full width and depth, bf16
+EVAL_WINDOWS = 8  # the synthetic corpus: 16,384 tokens in windows of 2048
+# a window's mean cross entropy (nats) under the flash (and fused) route
+# against the plain route, both in bf16: the routes differ in summation order
+# and where they round to bf16. Their logits on one window are held to an
+# fp32 forward of the same weights by the compression smoke's bf16 gate
+# (FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK x the plain bf16 route's error)
+EVAL_CE_TOL = 1e-2
+# a request's summed log-likelihood, flash against plain, relative
+EVAL_LL_RTOL = 1e-2
+EVAL_TASKS = ("boolq", "piqa", "hellaswag", "winogrande", "arc_easy")
+EVAL_DOCS = 24  # documents a task
+GEN_PROMPT_LENS = (300, 400, 500, 600, 700, 800, 900, 1000)
+GEN_TOKENS = 64
+
+
+def _eval_counts(reset=False):
+    """The flash forward's and the fused low-rank kernel's launch counts;
+    ``reset`` sets them to 0 first."""
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+
+    if reset:
+        for name in flash_attention.launches:
+            flash_attention.launches[name] = 0
+        fused_lowrank.launches = 0
+    return {"fwd": flash_attention.launches["fwd"], "dkv": flash_attention.launches["dkv"],
+            "dq": flash_attention.launches["dq"], "fused": fused_lowrank.launches}
+
+
+def _hold_eval_counts(label, got, fwd, fused):
+    print(f"{label}: flash forward launches {got['fwd']} (want {fwd}), fused low-rank "
+          f"{got['fused']} (want {fused}), flash backward {got['dkv']} + {got['dq']} (want 0)")
+    if got != {"fwd": fwd, "dkv": 0, "dq": 0, "fused": fused}:
+        raise AssertionError(f"{label}: the kernels did not run as the dispatch rules count")
+
+
+def _eval_docs(seed, n):
+    """Seed-made documents of the five tasks, shaped like their datasets."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ("water stone light river cloud salt iron tree glass paper metal wind fire earth "
+             "sound wave heat cold north south green blue small large").split()
+
+    def text(k):
+        return " ".join(rng.choice(words, k))
+
+    return {
+        "boolq": [{"passage": text(40), "question": text(6), "answer": bool(i % 2)}
+                  for i in range(n)],
+        "piqa": [{"goal": text(8), "sol1": text(12), "sol2": text(12), "label": i % 2}
+                 for i in range(n)],
+        "hellaswag": [{"activity_label": text(2), "ctx_a": text(15), "ctx_b": text(5),
+                       "endings": [text(10) for _ in range(4)], "label": i % 4}
+                      for i in range(n)],
+        "winogrande": [{"sentence": f"The {text(3)} broke because _ was {text(4)}.",
+                        "option1": text(2), "option2": text(2), "answer": str(1 + i % 2)}
+                       for i in range(n)],
+        "arc_easy": [{"question": text(12), "choices": {"text": [text(3) for _ in range(4)],
+                                                        "label": list("ABCD")},
+                      "answerKey": "ABCD"[i % 4]} for i in range(n)],
+    }
+
+
+def phase_evaluate(torch, card, dev, ckpt_root):
+    """The evaluation slice on the compressed checkpoint: perplexity through
+    ``grasp-evaluate-torch`` (plain config, then with ``use_flash_attention``
+    and ``use_pallas_lowrank``), the same corpus three ways through
+    ``windowed_perplexity``, the zero/few-shot harness with and without the
+    flash route, and generation through ``greedy_until`` and LongBench's
+    ``get_pred``. Returns the flash forward's and the fused kernel's
+    launches, each counted from 0 around its run."""
+    import dataclasses
+
+    from grasp_tpu_torch.checkpoints import META_NAME, load_checkpoint
+    from grasp_tpu_torch.cli import evaluate_main
+    from grasp_tpu_torch.data.loader import get_evaluation_corpus
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.eval.ppl import windowed_mean_ce, windowed_perplexity
+    from grasp_tpu_torch.models.convert import map_params
+    from grasp_tpu_torch.models.llama import forward
+
+    params, config, plan, _ = load_checkpoint(ckpt_root, dev)
+    n_layers = config.num_hidden_layers
+    n_lowrank = sum(kind == "lowrank" for layer in plan for kind in layer)
+    if config.use_flash_attention or config.use_pallas_lowrank or n_lowrank == 0:
+        raise AssertionError(f"evaluate: the checkpoint's config {config} is not the plain one")
+    configs = {"plain": config,
+               "flash": dataclasses.replace(config, use_flash_attention=True),
+               "flash+fused": dataclasses.replace(config, use_flash_attention=True,
+                                                  use_pallas_lowrank=True)}
+    launches = {"fwd": 0, "fused": 0}
+
+    def add(got):
+        launches["fwd"] += got["fwd"]
+        launches["fused"] += got["fused"]
+
+    # perplexity through the CLI: the checkpoint as saved, then with both flags
+    results = {}
+    meta_path = os.path.join(ckpt_root, META_NAME)
+    with open(meta_path) as f:
+        meta_text = f.read()
+    try:
+        for label in ("plain", "flash+fused"):
+            if label != "plain":
+                meta = json.loads(meta_text)
+                meta["model_config"].update(use_flash_attention=True, use_pallas_lowrank=True)
+                with open(meta_path, "w") as f:
+                    json.dump(meta, f)
+            out = os.path.join(ckpt_root, f"eval_{label}.json")
+            _eval_counts(reset=True)
+            t0 = time.perf_counter()
+            rc = evaluate_main(["--model_path", ckpt_root, "--eval_ppl", "synthetic",
+                                "--results_json", out, "--device", str(dev)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _eval_counts()
+            with open(out) as f:
+                results[label] = json.load(f)
+            print(f"evaluate: grasp-evaluate-torch --eval_ppl synthetic ({label} config): "
+                  f"{results[label]}, {wall:.1f} s with loading; card {card}")
+            if rc != 0 or set(results[label]) != {"synthetic"} or not math.isfinite(
+                    results[label]["synthetic"]):
+                raise AssertionError(f"evaluate: the CLI gave {rc}, {results[label]}")
+            flagged = label != "plain"
+            _hold_eval_counts(f"evaluate, CLI {label}", got, n_layers * EVAL_WINDOWS * flagged,
+                              n_lowrank * EVAL_WINDOWS * flagged)
+            add(got)
+    finally:
+        with open(meta_path, "w") as f:
+            f.write(meta_text)
+
+    # the same corpus three ways: each window's mean CE against the plain run's
+    corpus = get_evaluation_corpus("synthetic", load_tokenizer(None))
+    ces, ppls, ms = {}, {}, {}
+    for label, cfg in configs.items():
+        ces[label] = windowed_mean_ce(params, cfg, corpus, plan=plan)
+        _eval_counts(reset=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppls[label] = windowed_perplexity(params, cfg, corpus, plan=plan)
+        torch.cuda.synchronize()
+        ms[label] = (time.perf_counter() - t0) * 1e3 / EVAL_WINDOWS
+        got = _eval_counts()
+        _hold_eval_counts(f"evaluate, windowed_perplexity {label}", got,
+                          0 if label == "plain" else n_layers * EVAL_WINDOWS,
+                          n_lowrank * EVAL_WINDOWS if label == "flash+fused" else 0)
+        add(got)
+        if len(ces[label]) != EVAL_WINDOWS or not all(map(math.isfinite, ces[label])):
+            raise AssertionError(f"evaluate: {label}: window CEs {ces[label]}")
+    gaps = {label: float(max(abs(a - b) for a, b in zip(ces[label], ces["plain"])))
+            for label in configs}
+    cli_gap = abs(results["flash+fused"]["synthetic"] / results["plain"]["synthetic"] - 1)
+    with torch.no_grad():
+        window = torch.as_tensor(corpus[:2048], device=dev)[None]
+        ref = forward(map_params(params, lambda t: t.float()), window,
+                      config=dataclasses.replace(config, dtype="float32"),
+                      plan=plan)["logits"]
+        logit_err = {}
+        for label, cfg in configs.items():
+            logits = forward(params, window, config=cfg, plan=plan)["logits"].float()
+            logit_err[label] = ((logits - ref).abs().max() / ref.abs().max()).item()
+        del ref, logits
+    logit_tol = max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * logit_err["plain"])
+    print(f"evaluate: synthetic PPL plain {ppls['plain']:.4f}, flash {ppls['flash']:.4f}, "
+          f"flash+fused {ppls['flash+fused']:.4f}; window mean CE max |diff| against plain "
+          f"flash {gaps['flash']:.2e}, flash+fused {gaps['flash+fused']:.2e} (tol "
+          f"{EVAL_CE_TOL}); CLI PPL flagged against plain {cli_gap:.2e}; window 0's logits "
+          f"max |diff| from an fp32 forward over its max: plain {logit_err['plain']:.2e}, "
+          f"flash {logit_err['flash']:.2e}, flash+fused {logit_err['flash+fused']:.2e} (tol "
+          f"for the kernel routes {logit_tol:.2e})")
+    print(f"evaluate: PPL ms a window of 2048 tokens (B=1): plain {ms['plain']:.3f}, flash "
+          f"{ms['flash']:.3f}, flash+fused {ms['flash+fused']:.3f}; card {card}")
+    if (max(gaps.values()) > EVAL_CE_TOL or cli_gap > EVAL_CE_TOL
+            or max(logit_err["flash"], logit_err["flash+fused"]) > logit_tol):
+        raise AssertionError("evaluate: a kernel route's perplexity left the plain route's")
+
+    add(_evaluate_harness(torch, card, params, configs, plan, n_layers, n_lowrank))
+    add(_evaluate_generation(torch, card, dev, params, configs, plan, n_lowrank))
+    del params
+    torch.cuda.empty_cache()
+    print(f"evaluate: flash forward launches {launches['fwd']}, fused low-rank "
+          f"{launches['fused']} in the evaluation slice")
+    return launches
+
+
+def _evaluate_harness(torch, card, params, configs, plan, n_layers, n_lowrank):
+    """evaluate_tasks over seed-made documents of five tasks, zero-shot and
+    one-shot, with the flash and fused kernels and without: loglikelihood
+    sums within EVAL_LL_RTOL, the flash forward once a layer a scoring batch,
+    the fused kernel once a low-rank projection a batch of 256 rows or more."""
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.eval import harness
+
+    docs = _eval_docs(0, EVAL_DOCS)
+    docs.update({f"{t}:train": d for t, d in _eval_docs(1, EVAL_DOCS).items()})
+    recorded = {}
+    forward = harness.forward
+    try:
+        for label in ("flash+fused", "plain"):
+            batches = []
+
+            def counting_forward(params_, ids, **kw):
+                batches.append(tuple(ids.shape))
+                return forward(params_, ids, **kw)
+
+            harness.forward = counting_forward
+            lm = harness.EvalLM(params, configs[label], load_tokenizer(None), plan=plan)
+            scored = []
+            score = lm.loglikelihood
+
+            def recording(requests, score=score, scored=scored):
+                out = score(requests)
+                scored.extend(out)
+                return out
+
+            lm.loglikelihood = recording
+            _eval_counts(reset=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = [harness.evaluate_tasks(lm, list(EVAL_TASKS), docs_override=docs,
+                                          num_fewshot=shots) for shots in (0, 1)]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _eval_counts()
+            flagged = label != "plain"
+            big = sum(b * s >= 256 for b, s in batches)
+            print(f"evaluate: harness ({label}): {len(scored)} loglikelihood requests in "
+                  f"{len(batches)} batches of <= 8 rows, {wall:.3f} s = "
+                  f"{len(scored) / wall:.1f} requests a second; zero-shot "
+                  f"{ {t: round(v['acc'], 4) for t, v in res[0].items() if t != 'mean'} }, "
+                  f"one-shot mean {res[1]['mean']:.4f}; card {card}")
+            _hold_eval_counts(f"evaluate, harness {label}", got,
+                              n_layers * len(batches) * flagged, n_lowrank * big * flagged)
+            if len(scored) == 0 or not all(math.isfinite(ll) for ll, _ in scored):
+                raise AssertionError(f"evaluate: harness {label}: no finite scores")
+            recorded[label] = (scored, got)
+    finally:
+        harness.forward = forward
+    flagged, plain = recorded["flash+fused"][0], recorded["plain"][0]
+    worst = max(abs(a - b) / abs(b) for (a, _), (b, _) in zip(flagged, plain))
+    agree = sum(ga == gb for (_, ga), (_, gb) in zip(flagged, plain)) / len(plain)
+    print(f"evaluate: harness loglikelihood sums flash+fused against plain: max relative "
+          f"difference {worst:.2e} (tol {EVAL_LL_RTOL}) over {len(plain)} requests; is_greedy "
+          f"agrees on {agree:.4f} of them")
+    if len(flagged) != len(plain) or worst > EVAL_LL_RTOL:
+        raise AssertionError("evaluate: the harness's scores left the plain route's")
+    return recorded["flash+fused"][1]
+
+
+def _evaluate_generation(torch, card, dev, params, configs, plan, n_lowrank):
+    """greedy_until (64 new tokens a request) and LongBench's get_pred over
+    eight prompts of 300 to 1000 tokens, on the dense KV cache: every token
+    within GAP_TOL of a teacher-forced plain forward's largest logit, the
+    fused kernel once a low-rank projection a prefill and no flash launch."""
+    import numpy as np
+
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.eval import harness
+    from grasp_tpu_torch.eval.generate import Generator
+    from grasp_tpu_torch.eval.longbench import (
+        DATASET2MAXLEN, DATASET2PROMPT, eval_longbench, get_pred)
+
+    cfg, tok = configs["flash+fused"], load_tokenizer(None)
+
+    class Recording(Generator):
+        """Keeps every (prompt, new tokens) pair and counts prefills."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.served, self.prefills = [], 0
+
+        def greedy(self, prompt_ids, max_new_tokens, **kw):
+            out = super().greedy(prompt_ids, max_new_tokens, **kw)
+            self.served.append((np.asarray(prompt_ids).reshape(-1).tolist(), out))
+            self.prefills += 1
+            return out
+
+        def greedy_batch(self, prompts, max_new_tokens, **kw):
+            outs = super().greedy_batch(prompts, max_new_tokens, **kw)
+            self.served += [(np.asarray(p).reshape(-1).tolist(), o) for p, o in zip(prompts, outs)]
+            self.prefills += 1
+            return outs
+
+    class SmokeLM(harness.EvalLM):
+        max_gen_toks = GEN_TOKENS  # 256 in use
+
+    rng = np.random.default_rng(3)
+    contexts = ["".join(chr(c) for c in rng.integers(97, 123, n)) for n in GEN_PROMPT_LENS]
+    samples = [{"context": c, "answers": [c[-20:]], "all_classes": None, "length": len(c)}
+               for c in contexts]
+    gen = Recording(params, cfg, plan)
+    lm = SmokeLM(params, cfg, tok, plan=plan)
+    lm._generator = gen
+    if DATASET2MAXLEN["lcc"] != GEN_TOKENS:
+        raise AssertionError("lcc no longer generates 64 tokens")
+    _eval_counts(reset=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    texts = lm.greedy_until([(c, []) for c in contexts])
+    torch.cuda.synchronize()
+    until_s = time.perf_counter() - t0
+    n_until = sum(len(o) for _, o in gen.served)
+    rsts = get_pred(gen, tok, samples, 1024, GEN_TOKENS, DATASET2PROMPT["lcc"], "lcc",
+                    "tinyllama-1.1b")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as out_dir:
+        scores = eval_longbench(params, cfg, tok, "tinyllama-1.1b", ["lcc"], plan=plan,
+                                max_length=1024, output_dir=out_dir,
+                                samples_override={"lcc": samples})
+    torch.cuda.synchronize()
+    got = _eval_counts()
+    prefills = gen.prefills + 1  # eval_longbench's own generator: one batch of 8
+    print(f"evaluate: greedy_until over {len(contexts)} prompts of {GEN_PROMPT_LENS[0]} to "
+          f"{GEN_PROMPT_LENS[-1]} tokens: {n_until} new tokens in {until_s:.3f} s = "
+          f"{n_until / until_s:.1f} tokens a second (one batch of 8); LongBench lcc score "
+          f"{scores['lcc']} over {len(rsts)} predictions; card {card}")
+    _hold_eval_counts("evaluate, generation", got, 0, n_lowrank * prefills)
+    if len(texts) != len(contexts) or len(rsts) != len(samples) or len(gen.served) != 16:
+        raise AssertionError("evaluate: generation lost a request")
+
+    batch_served = list(gen.served)
+    singles, agree, total = [], 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for prompt, out in batch_served[:len(contexts)]:
+        single = gen.greedy(prompt, GEN_TOKENS, eos_token_id=tok.eos_token_id)
+        singles.append(single)
+        agree += sum(a == b for a, b in zip(single, out))
+        total += max(len(single), len(out))
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    gap, match, n_tok = check_against_plain(
+        torch, params, configs["plain"], plan, [(p, o) for p, o in gen.served if o], dev)
+    print(f"evaluate: greedy one prompt at a time {sum(map(len, singles))} tokens in "
+          f"{single_s:.3f} s = {sum(map(len, singles)) / single_s:.1f} tokens a second; "
+          f"greedy_batch and greedy agree on {agree}/{total} tokens; generated vs plain "
+          f"teacher-forced forward: argmax agrees at {match}/{n_tok} positions, max logit gap "
+          f"{gap:.4f} (tol {GAP_TOL}); card {card}")
+    if n_tok == 0 or gap > GAP_TOL:
+        raise AssertionError("evaluate: generated tokens disagree with the plain forward")
+    return got
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -2057,7 +2419,8 @@ def drive_quantizer(torch, dev):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress"], default=None,
+    parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
+                                           "evaluate"], default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -2085,6 +2448,9 @@ def main(argv=None) -> int:
     if args.only == "compress":
         print(phase_compress(torch, card, dev))
         return 0
+    if args.only == "evaluate":
+        print(phase_compress(torch, card, dev, evaluate_only=True))
+        return 0
     paged_err = phase_kernel(torch)
     paged = phase_kernel_timing(torch, 22)
     chunk_err = phase_chunk(torch)
@@ -2102,7 +2468,7 @@ def main(argv=None) -> int:
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
     paged_launches, spec_launches, served = phase_slice(torch, card, dev)
-    flash_launches, fused_compress_launches = phase_compress(torch, card, dev)
+    flash_launches, fused_compress_launches, evaluated = phase_compress(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu"))
@@ -2122,9 +2488,11 @@ def main(argv=None) -> int:
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
          "launches": spec_launches["chunk"], "max_abs_err": chunk_err, **chunk},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
+        # launches: the two compressions plus the evaluation slice
         {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
-         "launches": flash_launches["fwd"], "max_abs_err": flash_err["fwd"], **flash["fwd"]},
+         "launches": flash_launches["fwd"] + evaluated["fwd"], "max_abs_err": flash_err["fwd"],
+         **flash["fwd"]},
         # the bf16 backward's bodies: a launch is flash_dkv_mma_kernel and its
         # group sum flash_dkv_reduce_kernel; library_ms is the whole SDPA backward
         {"name": "flash_dkv_mma_kernel", "route": "cuda", "source": flash_src,
@@ -2133,12 +2501,13 @@ def main(argv=None) -> int:
         {"name": "flash_dq_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
-        # launches: prefill of the fused serving variant plus the flagged compression
-        # the bf16 body (the fp32 inputs of phase_lowrank take lowrank_fused_kernel)
+        # launches: prefill of the fused serving variant, the flagged compression
+        # and the evaluation slice; the bf16 body (the fp32 inputs of
+        # phase_lowrank take lowrank_fused_kernel)
         {"name": "lowrank_fused_mma_kernel", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
-         "launches": served["fused"]["fused"] + fused_compress_launches,
+         "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"],
          "max_abs_err": lowrank_err, **lowrank},
         {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:198",

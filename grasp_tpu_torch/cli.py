@@ -5,8 +5,13 @@ SVD, calibration gradient sweeps, rank selection, low-rank compilation) on a
 port checkpoint or a named preset, saved as a port checkpoint; sequential
 rounds or one parallel sweep (``--sweep``), resumable after a crash
 (``--compress_resume_dir``), ``--remat`` for the sweeps' memory and the gram
-SVD (``--svd_method gram``). Recovery training, evaluation, HF export and
-meshes are not ported yet and raise NotImplementedError.
+SVD (``--svd_method gram``); ``--evaluate`` evaluates the compressed model
+after the save (``--eval_ppl``, ``--eval_tasks``). Recovery training, HF
+export and meshes are not ported yet and raise NotImplementedError.
+
+``grasp-evaluate-torch``: perplexity (``--eval_ppl``), zero/few-shot tasks or
+LongBench (``--eval_tasks``) of a port checkpoint or a preset, written to
+``--results_json``.
 
 ``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine,
 from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
@@ -135,7 +140,17 @@ def _compress_parser() -> argparse.ArgumentParser:
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--export_hf_dir", type=str, default=None)
     p.add_argument("--recovery", action="store_true")
+    # evaluation of the compressed model
     p.add_argument("--evaluate", action="store_true")
+    p.add_argument("--eval_ppl", type=str, default="")
+    p.add_argument("--eval_tasks", type=str, default="")
+    p.add_argument("--task_specs", type=str, default=None,
+                   help="JSON file of declarative task specs (eval/task_spec.py) registered "
+                        "before evaluation")
+    p.add_argument("--num_fewshot", type=int, default=0)
+    p.add_argument("--limit", type=int, default=-1)
+    p.add_argument("--results_json", type=str, default=None,
+                   help="write the evaluation results dict to this JSON file")
     return p
 
 
@@ -143,8 +158,8 @@ def compress_main(argv=None) -> int:
     """``grasp-compress-torch``: compress a model and save the checkpoint."""
     args = _compress_parser().parse_args(argv)
     setup_logger(args.log_file)
-    unported = {"--recovery": args.recovery, "--evaluate": args.evaluate,
-                "--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1}
+    unported = {"--recovery": args.recovery, "--export_hf_dir": args.export_hf_dir,
+                "--dp/--tp": args.dp * args.tp > 1}
     for flag, asked in unported.items():
         if asked:
             raise NotImplementedError(f"grasp-compress-torch does not support {flag} yet")
@@ -193,6 +208,91 @@ def compress_main(argv=None) -> int:
                     layer_importances=engine.layer_importances,
                     extra={"grasp_config": vars(args), "summary": summary})
     logger.info("checkpoint saved to %s", save_path)
+    if args.evaluate:
+        _run_evaluation(engine.params, config, engine.plan, tokenizer, args)
+    return 0
+
+
+def _run_evaluation(params, config, plan, tokenizer, args) -> dict:
+    """Perplexity of each corpus in ``args.eval_ppl``, then LongBench
+    (``--eval_tasks longbench|small_longbench``) or the harness's tasks;
+    the results dict, also written to ``args.results_json``."""
+    results = {}
+    data_root = args.data_root
+    if args.eval_ppl:
+        from grasp_tpu_torch.data.loader import get_evaluation_corpus
+        from grasp_tpu_torch.eval.ppl import windowed_perplexity
+
+        for ds in args.eval_ppl.split(","):
+            corpus = get_evaluation_corpus(ds.strip(), tokenizer, data_root=data_root)
+            results[ds] = windowed_perplexity(params, config, corpus, plan=plan, limit=args.limit)
+            logger.info("%s ppl: %s", ds, results[ds])
+    if args.task_specs:
+        from grasp_tpu_torch.eval.task_spec import load_task_specs
+
+        logger.info("registered task specs: %s", load_task_specs(args.task_specs))
+    tasks = (args.eval_tasks or "").strip()
+    if tasks in ("longbench", "small_longbench"):
+        from grasp_tpu_torch.eval.longbench import (
+            FULL_LONGBENCH_DATASETS,
+            SMALL_LONGBENCH_DATASETS,
+            eval_longbench,
+        )
+
+        ds = FULL_LONGBENCH_DATASETS if tasks == "longbench" else SMALL_LONGBENCH_DATASETS
+        results.update(eval_longbench(params, config, tokenizer, args.model_name_or_path, ds,
+                                      plan=plan, data_root=data_root))
+    elif tasks:
+        from grasp_tpu_torch.eval.harness import EvalLM, evaluate_tasks
+
+        lm = EvalLM(params, config, tokenizer, plan=plan)
+        results.update(evaluate_tasks(lm, [t.strip() for t in tasks.split(",")],
+                                      num_fewshot=args.num_fewshot,
+                                      limit=None if args.limit == -1 else args.limit,
+                                      data_root=data_root))
+    logger.info("results: %s", json.dumps(results))
+    if args.results_json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.results_json)), exist_ok=True)
+        with open(args.results_json, "w") as f:
+            json.dump(results, f, indent=1)
+    return results
+
+
+def _evaluate_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="GRASP checkpoint evaluation (PyTorch/CUDA)")
+    p.add_argument("--model_path", type=str, required=True,
+                   help="grasp_tpu_torch checkpoint dir or preset name")
+    p.add_argument("--tokenizer_path", type=str, default=None)
+    p.add_argument("--model_name", type=str, default=None)
+    p.add_argument("--eval_ppl", type=str, default="wikitext2,ptb,c4")
+    p.add_argument("--eval_tasks", type=str, default="")
+    p.add_argument("--task_specs", type=str, default=None,
+                   help="JSON file of declarative task specs (eval/task_spec.py)")
+    p.add_argument("--num_fewshot", type=int, default=0)
+    p.add_argument("--limit", type=int, default=-1)
+    p.add_argument("--data_root", type=str, default=".")
+    p.add_argument("--log_file", type=str, default=None)
+    p.add_argument("--results_json", type=str, default=None,
+                   help="write the evaluation results dict to this JSON file")
+    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"],
+                   help="parameter dtype of a preset (a checkpoint keeps its own)")
+    p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
+    return p
+
+
+def evaluate_main(argv=None) -> int:
+    """``grasp-evaluate-torch``: evaluate a checkpoint or a preset."""
+    args = _evaluate_parser().parse_args(argv)
+    setup_logger(args.log_file)
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+
+    config, params, plan, tokenizer = load_model(args.model_path, device=torch.device(args.device),
+                                                 dtype=args.dtype, seed=args.seed)
+    if args.tokenizer_path:
+        tokenizer = load_tokenizer(args.tokenizer_path)
+    args.model_name_or_path = args.model_name or args.model_path
+    _run_evaluation(params, config, plan, tokenizer, args)
     return 0
 
 

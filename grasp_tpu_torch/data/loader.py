@@ -1,4 +1,4 @@
-"""Calibration data (counterpart of grasp_tpu/data/loader.py).
+"""Calibration and evaluation data (counterpart of grasp_tpu/data/loader.py).
 
 The same pipeline and the same numpy batch dicts as the JAX package:
 
@@ -8,16 +8,16 @@ The same pipeline and the same numpy batch dicts as the JAX package:
   - num_samples rows drawn with ``random.seed(seed); random.sample``;
   - datasets load from local disk (``datasets/<name>/<split>``), never from
     the network;
-  - a deterministic synthetic corpus ("synthetic") for tests and smoke runs.
-
-The evaluation corpora and the calibration mixtures are not ported yet.
+  - a deterministic synthetic corpus ("synthetic") for tests and smoke runs;
+  - the evaluation corpora (wikitext2 test, ptb and c4 validation) as one
+    token stream, the whole corpus joined with "\\n\\n" and tokenized once.
 """
 
 from __future__ import annotations
 
 import os
 import random
-from typing import Dict, Iterator, List
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -115,3 +115,51 @@ def calibration_batches_from_token_file(token_file: str, seq_len: int = 2048,
                                         shuffle: bool = True) -> TokenFileBatches:
     """Pre-shifted calibration batches streamed from a binary token file."""
     return TokenFileBatches(token_file, seq_len, batch_size, seed=seed, shuffle=shuffle)
+
+
+def get_test_batches(dataset_name: str, tokenizer, seq_len: int = 2048, batch_size: int = 4,
+                     data_root: str = ".", synthetic_tokens: int = 65536) -> List[np.ndarray]:
+    """[batch_size, seq_len] blocks of the evaluation corpus, unshuffled, for
+    throughput runs."""
+    ids = get_evaluation_corpus(dataset_name, tokenizer, data_root=data_root,
+                                synthetic_tokens=synthetic_tokens)
+    chunks = chunk_corpus(ids, seq_len)
+    return [chunks[i: i + batch_size] for i in range(0, len(chunks) - batch_size + 1, batch_size)]
+
+
+def get_mix_calibration_batches(dataset_names: List[str], tokenizer, num_samples: int = 128,
+                                dataset_proportion: Optional[List[float]] = None,
+                                seq_len: int = 2048, batch_size: int = 1, seed: int = 42,
+                                data_root: str = ".") -> List[Batch]:
+    """Calibration batches from several corpora, ``num_samples * proportion``
+    rows each (equal shares by default), unshuffled within a corpus and then
+    shuffled together by ``seed``. Only pretraining corpora mix, as in the
+    reference."""
+    if not dataset_proportion:
+        dataset_proportion = [1.0 / len(dataset_names)] * len(dataset_names)
+    batches: List[Batch] = []
+    for name, prop in zip(dataset_names, dataset_proportion):
+        batches.extend(get_calibration_batches(
+            name, tokenizer, num_samples=int(num_samples * prop), seq_len=seq_len,
+            batch_size=batch_size, seed=seed, data_root=data_root, shuffle=False))
+    order = np.random.default_rng(seed).permutation(len(batches))
+    return [batches[i] for i in order]
+
+
+def get_evaluation_corpus(dataset_name: str, tokenizer, data_root: str = ".",
+                          split: Optional[str] = None,
+                          synthetic_tokens: int = 16384) -> np.ndarray:
+    """The whole evaluation corpus as a 1-D int64 id array: wikitext2 test,
+    ptb validation, c4 validation (or ``split``), rows joined with "\\n\\n"
+    and tokenized once; "synthetic" is ``synthetic_tokens`` ids from seed 1."""
+    if dataset_name == "synthetic":
+        return _synthetic_corpus_ids(tokenizer, synthetic_tokens, seed=1)
+    default_split = {"wikitext2": "test", "ptb": "validation", "c4": "validation"}
+    for key, sp in default_split.items():
+        if key in dataset_name:
+            rows, field = _load_rows(dataset_name, split or sp, data_root)
+            enc = tokenizer("\n\n".join(rows[field]), return_tensors=None,
+                            add_special_tokens=True)
+            ids = np.asarray(enc["input_ids"], dtype=np.int64)
+            return ids[0] if ids.ndim > 1 else ids
+    raise NotImplementedError(f"dataset {dataset_name!r} not supported")

@@ -8,8 +8,8 @@ Fisher-Yates pass over ``std::mt19937_64(seed)``. The same source built by the
 same compiler gives the JAX package's stream for the same file and seed, so
 the calibration rows, and what a compression chooses from them, are the same.
 
-The library is built by g++ at first use into ``build/native/`` at the
-repository root, named by a hash of the source, and is never built at import.
+The library is built by g++ at first use into ``grasp_tpu_torch/build/native/``
+inside the package, named by a hash of the source, and is never built at import.
 There is no fallback: without g++ the first use raises, because any other
 shuffle would serve other rows.
 """
@@ -29,7 +29,7 @@ from typing import Dict, Iterator
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "tokenstore.cc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "native"
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 _P = ctypes.c_void_p

@@ -3,7 +3,8 @@
 Every ``csrc/*.cu`` file (with the ``*.cuh`` headers it includes) compiles
 to an object file, one ``nvcc`` process per source and all started together,
 and the objects link into one shared library with a plain C interface (no
-PyTorch headers, so the build takes seconds, not minutes). The library lands in ``build/kernels/`` at the repository root,
+PyTorch headers, so the build takes seconds, not minutes). The library lands
+in ``grasp_tpu_torch/build/kernels/``, inside the package beside its sources,
 named by a hash of the sources and flags, so an edited kernel is rebuilt and a
 stale one is never loaded. The build happens at the first kernel launch, never
 at import: machines without a GPU import every module of the port.
@@ -21,7 +22,7 @@ import tempfile
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

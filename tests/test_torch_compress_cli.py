@@ -67,7 +67,7 @@ def test_compress_main_on_the_cpu_writes_a_checkpoint_that_the_server_loads(tmp_
         gserver.close()
 
 
-@pytest.mark.parametrize("flags", [[["--recovery"], ["--evaluate"]], [["--export_hf_dir", "x"]],
+@pytest.mark.parametrize("flags", [[["--recovery"]], [["--export_hf_dir", "x"]],
                                    [["--tp", "2"], ["--dp", "2"]]],
                          ids=lambda f: f[0][0])
 def test_compress_main_refuses_what_is_not_ported(flags):
