@@ -90,12 +90,27 @@ Phases, each of which raises on failure (exit code != 0):
    300 to 1000 tokens, every token against a teacher-forced plain forward.
    Every launch count is held to the dispatch rules (no flash launch on the
    dense KV cache).
+11. recovery slice (run inside 9, after 10, on the same checkpoint):
+   ``grasp-compress-torch --recovery`` on 200 seed-made Alpaca rows at
+   ``--max_length 512`` (40 validation rows, 10 optimizer steps of 4
+   micro-batches of 4): its trainer checkpoints pruned to 2, the recovered
+   checkpoint (frozen leaves torch.equal to the compressed ones, every
+   trainable leaf moved, a finite perplexity); then ``recovery_train`` with
+   the fused low-rank kernel (and the flash switch, which the masked batches
+   keep off) against plain products, the first loss within TOL, timed in
+   turns (ms per optimizer step, trained tokens a second, peak memory),
+   under remat, killed after its first save and resumed from disk (losses
+   within 1e-5), and in fp32 at TinyLlama's width with 4 layers against the
+   same run on the CPU (losses within 1e-4). Every launch count is held: 14
+   fused launches a forward of 256 rows or more (a micro-batch, an
+   evaluation batch, and again a micro-batch under remat), no flash launch.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound); then the card's
 line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX and nothing of grasp_tpu. ``--only flash|kernels|serve|spec|compress|evaluate``
-runs one part while developing and prints no result lines.
+JAX and nothing of grasp_tpu. ``--only
+flash|kernels|serve|spec|compress|evaluate|recover`` runs one part while
+developing and prints no result lines.
 """
 
 import argparse
@@ -1700,13 +1715,14 @@ def _hold_launches(label, launches, want):
         raise AssertionError(f"{label}: the sweeps did not run the flash kernels as counted")
 
 
-def phase_compress(torch, card, dev, evaluate_only=False):
+def phase_compress(torch, card, dev, only=None):
     """``grasp-compress-torch`` on the card, sequential (its checkpoint then
-    evaluated: phase_evaluate) and parallel, then checks of what each saved
-    and of the engine's run options at the same width. Returns the launch
-    counts of the three flash kernels in the two runs, those of the fused
-    low-rank kernel in its compressions, and the evaluation's.
-    ``evaluate_only``: the sequential run and its evaluation alone."""
+    evaluated, phase_evaluate, and recovered, phase_recover) and parallel,
+    then checks of what each saved and of the engine's run options at the
+    same width. Returns the launch counts of the three flash kernels in the
+    two runs, those of the fused low-rank kernel in its compressions, the
+    evaluation's and the recovery's. ``only`` "evaluate" or "recover": the
+    sequential run and that slice alone."""
     from grasp_tpu_torch.data.loader import get_calibration_batches
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
 
@@ -1716,9 +1732,12 @@ def phase_compress(torch, card, dev, evaluate_only=False):
     try:
         launches, _, summary = _compress_cli(torch, dev, ckpt_root, [], "compress", card)
         meta, config = _check_checkpoint(torch, ckpt_root, dev, "compress")
+        if only == "recover":
+            return phase_recover(torch, card, dev, ckpt_root, launches)
         evaluated = phase_evaluate(torch, card, dev, ckpt_root)
-        if evaluate_only:
+        if only == "evaluate":
             return evaluated
+        recovered = phase_recover(torch, card, dev, ckpt_root, launches)
         layers = meta["redundant_layers"]
         n_layers = config.num_hidden_layers
         n_rows = len(get_calibration_batches("synthetic", load_tokenizer(None), num_samples=16,
@@ -1744,7 +1763,7 @@ def phase_compress(torch, card, dev, evaluate_only=False):
         compress_flash_routes(torch, card, dev, layers)
         compress_run_options(torch, card, dev, layers)
         fused = compress_with_fused_lowrank(torch, card, dev, meta, n_rows)
-        return flash_launches, fused, evaluated
+        return flash_launches, fused, evaluated, recovered
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         shutil.rmtree(par_root, ignore_errors=True)
@@ -2380,6 +2399,333 @@ def _evaluate_generation(torch, card, dev, params, configs, plan, n_lowrank):
     return got
 
 
+# the recovery slice (GRASP*): the compression's checkpoint fine-tuned on
+# seed-made Alpaca rows, read by the ByteTokenizer at --max_length 512: 40
+# validation rows (seed 42's split) and 40 micro-batches of 4, 10 optimizer
+# steps of 16 rows
+RECOVER_ROWS = 200
+RECOVER_ARGS = ["--recovery", "--max_length", "512", "--micro_batch_size", "4",
+                "--train_batch_size", "16", "--eval_every", "5", "--save_total_limit", "2"]
+# the CLI run's learning rate: bf16 weights keep an update below half their
+# ulp (2**-9 under 1.0), so at the default 3e-4 the norm weights (all 1.0)
+# would never move; every other run keeps the default
+RECOVER_CLI_LR = "1e-2"
+RECOVER_ACCUM = 4
+# a resumed run's losses against the uninterrupted run's (the tolerance of
+# tests/test_recover_resume.py)
+RESUME_RTOL = 1e-5
+# fp32 losses on the card (TF32 off) against the same run on CPU tensors, at
+# TinyLlama's width with 4 layers: the two compressed ones on top of two dense
+CPU_RTOL = 1e-4
+RECOVER_CPU_LAYERS = (0, 1, 20, 21)
+RECOVER_CPU_MICRO = 17  # micro-batches of 2 rows of 128 tokens, accumulation 2
+
+
+def _alpaca_rows(seed, n):
+    """Seed-made Alpaca-format rows (instruction, input, output); every third
+    row has an empty input (the no-input template)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    words = ("water stone light river cloud salt iron tree glass paper metal wind fire earth "
+             "sound wave heat cold north south green blue small large").split()
+
+    def text(k):
+        return " ".join(rng.choice(words, k))
+
+    return [{"instruction": text(int(rng.integers(4, 12))),
+             "input": text(int(rng.integers(3, 20))) if i % 3 else "",
+             "output": text(int(rng.integers(20, 60)))} for i in range(n)]
+
+
+def _trained_tokens(batches):
+    """Label positions that enter the loss (shifted, not -100)."""
+    return int(sum((b["labels"][:, 1:] != -100).sum() for b in batches))
+
+
+def _recover_run(torch, label, want_fused, *args, **kw):
+    """recovery_train with the launch counts held (no flash launch: the
+    batches carry a mask); returns (params, history, seconds, peak GiB)."""
+    from grasp_tpu_torch.train.recover import recovery_train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _eval_counts(reset=True)
+    t0 = time.perf_counter()
+    params, history = recovery_train(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _hold_eval_counts(f"recover, {label}", _eval_counts(), 0, want_fused)
+    losses = [v for _, v in history["train_loss"]]
+    if not losses or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"recover, {label}: losses {losses}")
+    return params, history, wall, peak
+
+
+def _recover_gradients(torch, params, configs, plan, layers, batch, n_lowrank):
+    """The first micro-batch's loss and the gradients of every trainable leaf
+    (both factors of each low-rank projection and both norms of the redundant
+    layers), through K2 (its forward; its backward is plain products) and
+    through plain products, both in bf16, held against plain products in fp32
+    by the compression smoke's rule: each leaf's max |diff| over the fp32
+    gradient's max, the worst leaf of K2 within the larger of FLASH_SWEEP_RTOL
+    and FLASH_SWEEP_SLACK x the plain bf16 route's worst."""
+    import dataclasses
+
+    from grasp_tpu_torch.models.convert import map_params
+    from grasp_tpu_torch.models.llama import forward, hf_causal_lm_loss
+    from grasp_tpu_torch.train.recover import _leaf_paths, _value_and_grad
+
+    dev = params["embed_tokens"]["weight"].device
+    ids, labels, mask = (torch.as_tensor(batch[k], device=dev)
+                         for k in ("input_ids", "labels", "attention_mask"))
+    paths = [p for p, _ in _leaf_paths(params)
+             if p.split(".")[:2] in [["layers", str(li)] for li in layers]]
+    routes = {"fp32": (map_params(params, lambda t: t.float()),
+                       dataclasses.replace(configs["plain"], dtype="float32")),
+              "plain": (params, configs["plain"]), "K2": (params, configs["K2"])}
+    got = {}
+    for label, (p, cfg) in routes.items():
+        _eval_counts(reset=True)
+        got[label] = _value_and_grad(
+            lambda tr, cfg=cfg: hf_causal_lm_loss(
+                forward(tr, ids, config=cfg, plan=plan, attention_mask=mask)["logits"], labels),
+            p, paths)
+        torch.cuda.synchronize()
+        _hold_eval_counts(f"recover, gradients {label}", _eval_counts(), 0,
+                          n_lowrank if label == "K2" else 0)
+    del routes
+    ref = got["fp32"][1]
+
+    def worst(label):
+        return max(((got[label][1][q].float() - ref[q]).abs().max()
+                    / ref[q].abs().max()).item() for q in paths)
+
+    err = {label: worst(label) for label in ("plain", "K2")}
+    tol = max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * err["plain"])
+    between = max(((got["K2"][1][q].float() - got["plain"][1][q].float()).abs().max()
+                   / got["plain"][1][q].float().abs().max()).item() for q in paths)
+    loss = {label: got[label][0].item() for label in got}
+    print(f"recover: first micro-batch {tuple(ids.shape)} on {dev}, loss fp32 {loss['fp32']:.6f}"
+          f", plain {loss['plain']:.6f}, K2 {loss['K2']:.6f}; {len(paths)} trainable leaves' "
+          f"gradients, worst max |diff| over the fp32 gradient's max: plain (bf16) "
+          f"{err['plain']:.3e}, K2 (bf16) {err['K2']:.3e} (tol {tol:.3e}, the larger of "
+          f"{FLASH_SWEEP_RTOL:g} and {FLASH_SWEEP_SLACK:g} x plain's), K2 against plain "
+          f"{between:.3e}")
+    if (not all(map(math.isfinite, loss.values())) or abs(loss["K2"] - loss["plain"])
+            > TOL["bfloat16"] or not err["K2"] <= tol):
+        raise AssertionError("recover: the gradients through K2 left plain products'")
+    del got, ref
+    torch.cuda.empty_cache()
+
+
+def phase_recover(torch, card, dev, ckpt_root, compress_launches):
+    """The recovery slice on the compression's checkpoint (TinyLlama-1.1B,
+    bf16, two layers low-rank): ``grasp-compress-torch --recovery`` (its
+    trainer checkpoints, the recovered checkpoint, frozen leaves equal and
+    trainable ones moved, the recovered model's perplexity), then
+    ``recovery_train`` with the fused low-rank kernel (K2) against plain
+    products (first loss within TOL; the first micro-batch's trainable
+    gradients against an fp32 reference), timed in turns, under remat, killed and
+    resumed from disk, and in fp32 on the card against the CPU. Every launch
+    count is held to the dispatch rules; returns K2's launches in bf16."""
+    import dataclasses
+
+    import numpy as np
+
+    from grasp_tpu_torch.checkpoints import load_checkpoint
+    from grasp_tpu_torch.cli import _compress_parser, compress_main, recovery_batches
+    from grasp_tpu_torch.data.loader import get_evaluation_corpus
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.eval.ppl import windowed_perplexity
+    from grasp_tpu_torch.models.convert import flatten_params, map_params
+    from grasp_tpu_torch.train.recover import latest_checkpoint, load_train_meta, recovery_train
+
+    root = tempfile.mkdtemp(prefix="smoke_recover_", dir=os.path.join(ROOT, "build"))
+    try:
+        rows = _alpaca_rows(7, RECOVER_ROWS)
+        data = os.path.join(root, "alpaca.json")
+        with open(data, "w") as f:
+            json.dump(rows, f)
+
+        # 1. the CLI: compress (the same compression as phase_compress's), recover
+        save = os.path.join(root, "ck")
+        cli = COMPRESS_ARGS + RECOVER_ARGS + ["--learning_rate", RECOVER_CLI_LR]
+        print(f"recover: grasp-compress-torch {' '.join(cli)} --data_path <{RECOVER_ROWS} "
+              f"seed-made rows> --device {dev}")
+        _eval_counts(reset=True)
+        t0 = time.perf_counter()
+        rc = compress_main(cli + ["--data_path", data, "--save_path", save, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = _eval_counts()
+        # the compression's sweeps launch the flash kernels as phase_compress's
+        # run did; the recovery adds none (masked batches) and, on the saved
+        # config, no fused low-rank launch
+        want = {"fwd": compress_launches["fwd"], "dkv": compress_launches["dkv"],
+                "dq": compress_launches["dq"], "fused": 0}
+        print(f"recover, CLI: {wall:.1f} s with the compression and every save; launches {got} "
+              f"(want {want}); card {card}")
+        if rc != 0 or got != want:
+            raise AssertionError("recover, CLI: failed or launched kernels off the rules")
+        trainer = os.path.join(save + "_trainer")
+        kept = sorted(os.listdir(trainer))
+        meta = load_train_meta(latest_checkpoint(trainer))
+        params, config, plan, ck_meta = load_checkpoint(save, dev)
+        recovered, _, _, rec_meta = load_checkpoint(save + "_recovered", dev)
+        history = rec_meta["extra"]["recovery_history"]
+        layers = ck_meta["redundant_layers"]
+        with open(os.path.join(ckpt_root, "grasp_meta.json")) as f:
+            if json.load(f)["rank_dict"] != ck_meta["rank_dict"]:
+                raise AssertionError("recover, CLI: another compression than phase_compress's")
+        moved, frozen_equal = [], []
+        base = flatten_params(params)
+        for key, leaf in flatten_params(recovered).items():
+            trained = key.split(".")[:2] in [["layers", str(li)] for li in layers]
+            (moved if trained else frozen_equal).append(
+                not torch.equal(leaf, base[key]) if trained else torch.equal(leaf, base[key]))
+        corpus = get_evaluation_corpus("synthetic", load_tokenizer(None))
+        ppl = windowed_perplexity(recovered, config, corpus, plan=plan)
+        losses = [v for _, v in history["train_loss"] + history["eval_loss"]]
+        print(f"recover, CLI: trainer checkpoints {kept} (optimizer step {meta['opt_step']}), "
+              f"history {history}; {sum(moved)} of {len(moved)} trainable leaves moved, "
+              f"{sum(frozen_equal)} of {len(frozen_equal)} frozen leaves torch.equal to the "
+              f"compressed checkpoint's; the recovered checkpoint's synthetic PPL {ppl:.2f}")
+        if (kept != ["step_20", "step_40"] or meta["opt_step"] != 10 or not moved
+                or not all(moved) or not all(frozen_equal) or not math.isfinite(ppl)
+                or not all(map(math.isfinite, losses)) or len(history["eval_loss"]) != 2):
+            raise AssertionError("recover, CLI: the recovery did not run as asked")
+        del params, recovered, base
+        shutil.rmtree(save, ignore_errors=True)
+        shutil.rmtree(save + "_recovered", ignore_errors=True)
+        shutil.rmtree(trainer, ignore_errors=True)
+
+        # 2. recovery_train on phase_compress's checkpoint, plain and through K2
+        params, config, plan, ck_meta = load_checkpoint(ckpt_root, dev)
+        layers = ck_meta["redundant_layers"]
+        n_lowrank = sum(kind == "lowrank" for layer in plan for kind in layer)
+        args = _compress_parser().parse_args(["--model_name_or_path", "x"] + RECOVER_ARGS)
+        train, val = recovery_batches(rows, load_tokenizer(None), args)
+        tokens = _trained_tokens(train)
+        configs = {"plain": config,
+                   "K2": dataclasses.replace(config, use_flash_attention=True,
+                                             use_pallas_lowrank=True)}
+        kw = dict(accum_steps=RECOVER_ACCUM, steps_per_epoch=len(train), log_every=1)
+        steps = len(train) // RECOVER_ACCUM
+        widths = sorted({b["input_ids"].shape[1] for b in train})
+        print(f"recover: {len(train)} micro-batches of 4 rows of {widths[0]} to {widths[-1]} "
+              f"tokens, {len(val)} validation batches, {steps} optimizer steps, {tokens} "
+              f"trained tokens; {n_lowrank} low-rank projections in layers {layers}")
+        fused = 0
+        curves = {}
+        for label, cfg in configs.items():
+            want_k2 = n_lowrank * (len(train) + 2 * len(val)) if label == "K2" else 0
+            _, history, _, _ = _recover_run(torch, f"{label} with evaluation", want_k2, params,
+                                            cfg, plan, layers, train, val, eval_every=5, **kw)
+            fused += want_k2
+            curves[label] = [v for _, v in history["train_loss"]]
+            print(f"recover, {label}: train losses {curves[label]}, eval {history['eval_loss']}")
+        first_gap = abs(curves["K2"][0] - curves["plain"][0])
+        print(f"recover: first loss (before any update) K2 {curves['K2'][0]:.6f}, plain "
+              f"{curves['plain'][0]:.6f}, |diff| {first_gap:.3e} (tol {TOL['bfloat16']})")
+        if len(curves["K2"]) != steps or first_gap > TOL["bfloat16"]:
+            raise AssertionError("recover: the fused kernel's first loss left plain products'")
+        _recover_gradients(torch, params, configs, plan, layers, train[0], n_lowrank)
+        fused += n_lowrank
+
+        # timed in turns, no evaluation
+        timed = {"plain": [], "K2": []}
+        uninterrupted = None
+        for label in ("plain", "K2", "K2", "plain"):
+            want_k2 = n_lowrank * len(train) if label == "K2" else 0
+            _, history, wall, peak = _recover_run(torch, f"{label}, timed", want_k2, params,
+                                                  configs[label], plan, layers, train, **kw)
+            fused += want_k2
+            timed[label].append((wall * 1e3 / steps, tokens / wall, peak))
+            if label == "K2" and uninterrupted is None:
+                uninterrupted = dict(history["train_loss"])
+        for label, runs in timed.items():
+            print(f"recover, {label}: ms per optimizer step "
+                  f"{', '.join(f'{r[0]:.2f}' for r in runs)}; trained tokens a second "
+                  f"{', '.join(f'{r[1]:.0f}' for r in runs)}; peak GiB "
+                  f"{', '.join(f'{r[2]:.3f}' for r in runs)}; card {card}")
+
+        # remat: each micro-batch recomputes the trainable layers' forward
+        short = train[:2 * RECOVER_ACCUM]
+        _, history, _, peak = _recover_run(torch, "K2 under remat", 2 * n_lowrank * len(short),
+                                           params, configs["K2"], plan, layers, short,
+                                           remat=True, **kw)
+        fused += 2 * n_lowrank * len(short)
+        remat_gap = max(abs(v - uninterrupted[s]) for s, v in history["train_loss"])
+        print(f"recover, remat: losses {[v for _, v in history['train_loss']]} against "
+              f"{[uninterrupted[s] for s, _ in history['train_loss']]} without, max |diff| "
+              f"{remat_gap:.3e} (tol {TOL['bfloat16']}); peak {peak:.3f} GiB")
+        if remat_gap > TOL["bfloat16"]:
+            raise AssertionError("recover: remat changed the losses")
+
+        # killed after its first save, resumed from disk
+        out = os.path.join(root, "trainer")
+        save_at = 4 * RECOVER_ACCUM  # optimizer step 4
+        fed = save_at + 1
+        _recover_run(torch, "K2 killed", n_lowrank * fed, params, configs["K2"], plan, layers,
+                     train[:fed], output_dir=out, eval_every=4, save_total_limit=1, **kw)
+        if not latest_checkpoint(out).endswith(f"step_{save_at}"):
+            raise AssertionError(f"recover, resume: saved {os.listdir(out)}")
+        _, history, _, _ = _recover_run(torch, "K2 resumed", n_lowrank * (len(train) - save_at),
+                                        params, configs["K2"], plan, layers, train,
+                                        output_dir=out, eval_every=4, save_total_limit=1,
+                                        resume_from_checkpoint=out, **kw)
+        fused += n_lowrank * (fed + len(train) - save_at)
+        resumed = dict(history["train_loss"])
+        after = [s for s in uninterrupted if s > save_at]
+        equal = all(resumed[s] == uninterrupted[s] for s in after)
+        worst = max(abs(resumed[s] / uninterrupted[s] - 1) for s in after)
+        print(f"recover, resume: killed after micro-step {fed} (saved at {save_at}), resumed "
+              f"from disk: losses after the save equal {equal}, max relative diff {worst:.3e} "
+              f"(tol {RESUME_RTOL}) over {len(after)} optimizer steps")
+        if sorted(resumed) != sorted(uninterrupted) or worst > RESUME_RTOL:
+            raise AssertionError("recover: the resumed run left the uninterrupted curve")
+        shutil.rmtree(out, ignore_errors=True)
+
+        # fp32 on the card (TF32 off) against the same run on CPU tensors
+        sub = {**params, "layers": [params["layers"][li] for li in RECOVER_CPU_LAYERS]}
+        f32 = map_params(sub, lambda t: t.float())
+        del params, sub
+        cfg32 = dataclasses.replace(config, num_hidden_layers=len(RECOVER_CPU_LAYERS),
+                                    dtype="float32", use_pallas_lowrank=True)
+        plan4 = tuple(plan[li] for li in RECOVER_CPU_LAYERS)
+        layers4 = [i for i, li in enumerate(RECOVER_CPU_LAYERS) if li in layers]
+        args32 = _compress_parser().parse_args(
+            ["--model_name_or_path", "x", "--max_length", "128", "--micro_batch_size", "2",
+             "--train_on_inputs"])
+        train32 = recovery_batches(rows, load_tokenizer(None), args32)[0][:RECOVER_CPU_MICRO]
+        kw32 = dict(accum_steps=2, steps_per_epoch=len(train32), log_every=1, warmup_steps=2)
+        n32 = sum(kind == "lowrank" for li in layers4 for kind in plan4[li])
+        _, card_hist, card_wall, _ = _recover_run(torch, "fp32 on the card", n32 * len(train32),
+                                                  f32, cfg32, plan4, layers4, train32, **kw32)
+        t0 = time.perf_counter()
+        _, cpu_hist = recovery_train(map_params(f32, lambda t: t.cpu()), cfg32, plan4, layers4,
+                                     train32, **kw32)
+        cpu_wall = time.perf_counter() - t0
+        got32 = np.array([v for _, v in card_hist["train_loss"]])
+        want32 = np.array([v for _, v in cpu_hist["train_loss"]])
+        rel = float(np.max(np.abs(got32 / want32 - 1))) if len(got32) == len(want32) else math.inf
+        print(f"recover, fp32 at TinyLlama width, layers {list(RECOVER_CPU_LAYERS)} "
+              f"(trainable {layers4}), {len(train32)} micro-batches of 2 x 128, "
+              f"{len(got32)} optimizer steps: card losses {got32.tolist()}, CPU "
+              f"{want32.tolist()}, max relative diff {rel:.3e} (tol {CPU_RTOL}); "
+              f"{card_wall:.1f} s on the card, {cpu_wall:.1f} s on the CPU")
+        if len(got32) < 8 or rel > CPU_RTOL:
+            raise AssertionError("recover: fp32 on the card left the CPU run")
+        del f32
+        torch.cuda.empty_cache()
+        print(f"recover: fused low-rank launches {fused} in bf16 in the recovery slice")
+        return {"fused": fused}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -2420,7 +2766,7 @@ def drive_quantizer(torch, dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
-                                           "evaluate"], default=None,
+                                           "evaluate", "recover"], default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -2448,8 +2794,8 @@ def main(argv=None) -> int:
     if args.only == "compress":
         print(phase_compress(torch, card, dev))
         return 0
-    if args.only == "evaluate":
-        print(phase_compress(torch, card, dev, evaluate_only=True))
+    if args.only in ("evaluate", "recover"):
+        print(phase_compress(torch, card, dev, only=args.only))
         return 0
     paged_err = phase_kernel(torch)
     paged = phase_kernel_timing(torch, 22)
@@ -2468,7 +2814,8 @@ def main(argv=None) -> int:
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
     paged_launches, spec_launches, served = phase_slice(torch, card, dev)
-    flash_launches, fused_compress_launches, evaluated = phase_compress(torch, card, dev)
+    flash_launches, fused_compress_launches, evaluated, recovered = phase_compress(
+        torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu"))
@@ -2501,13 +2848,14 @@ def main(argv=None) -> int:
         {"name": "flash_dq_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
-        # launches: prefill of the fused serving variant, the flagged compression
-        # and the evaluation slice; the bf16 body (the fp32 inputs of
-        # phase_lowrank take lowrank_fused_kernel)
+        # launches: prefill of the fused serving variant, the flagged compression,
+        # the evaluation slice and the recovery slice's bf16 runs; the bf16 body
+        # (the fp32 inputs of phase_lowrank take lowrank_fused_kernel)
         {"name": "lowrank_fused_mma_kernel", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
-         "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"],
+         "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"]
+         + recovered["fused"],
          "max_abs_err": lowrank_err, **lowrank},
         {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:198",

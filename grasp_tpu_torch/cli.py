@@ -5,9 +5,12 @@ SVD, calibration gradient sweeps, rank selection, low-rank compilation) on a
 port checkpoint or a named preset, saved as a port checkpoint; sequential
 rounds or one parallel sweep (``--sweep``), resumable after a crash
 (``--compress_resume_dir``), ``--remat`` for the sweeps' memory and the gram
-SVD (``--svd_method gram``); ``--evaluate`` evaluates the compressed model
-after the save (``--eval_ppl``, ``--eval_tasks``). Recovery training, HF
-export and meshes are not ported yet and raise NotImplementedError.
+SVD (``--svd_method gram``); ``--recovery`` then fine-tunes the redundant
+layers on a local Alpaca-format ``--data_path`` (GRASP*, train/recover.py:
+trainer state under ``<save_path>_trainer``, the result saved as
+``<save_path>_recovered``); ``--evaluate`` evaluates the compressed (or
+recovered) model after the save (``--eval_ppl``, ``--eval_tasks``). HF export
+and meshes are not ported yet and raise NotImplementedError.
 
 ``grasp-evaluate-torch``: perplexity (``--eval_ppl``), zero/few-shot tasks or
 LongBench (``--eval_tasks``) of a port checkpoint or a preset, written to
@@ -139,7 +142,26 @@ def _compress_parser() -> argparse.ArgumentParser:
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--export_hf_dir", type=str, default=None)
+    # recovery (GRASP*): the redundant layers fine-tuned after compression
     p.add_argument("--recovery", action="store_true")
+    p.add_argument("--data_path", type=str, default="yahma/alpaca-cleaned",
+                   help="Alpaca-format rows: a local .json/.jsonl file or a datasets "
+                        "save_to_disk directory (never downloaded)")
+    p.add_argument("--train_batch_size", type=int, default=32)
+    p.add_argument("--micro_batch_size", type=int, default=4)
+    p.add_argument("--num_epochs", type=int, default=1)
+    p.add_argument("--learning_rate", type=float, default=3e-4)
+    p.add_argument("--max_length", type=int, default=256)
+    p.add_argument("--val_set_size", type=int, default=2000)
+    p.add_argument("--train_on_inputs", action="store_true")
+    p.add_argument("--add_eos_token", action="store_true")
+    p.add_argument("--prompt_template_name", type=str, default="alpaca")
+    p.add_argument("--resume_from_checkpoint", type=str, default=None,
+                   help="trainer output dir (or a step_N dir inside one) to resume from")
+    p.add_argument("--eval_every", type=int, default=200,
+                   help="eval + save cadence in optimizer steps (reference "
+                        "alpaca_grasp.py:184-186)")
+    p.add_argument("--save_total_limit", type=int, default=3)
     # evaluation of the compressed model
     p.add_argument("--evaluate", action="store_true")
     p.add_argument("--eval_ppl", type=str, default="")
@@ -158,11 +180,13 @@ def compress_main(argv=None) -> int:
     """``grasp-compress-torch``: compress a model and save the checkpoint."""
     args = _compress_parser().parse_args(argv)
     setup_logger(args.log_file)
-    unported = {"--recovery": args.recovery, "--export_hf_dir": args.export_hf_dir,
-                "--dp/--tp": args.dp * args.tp > 1}
+    unported = {"--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1}
     for flag, asked in unported.items():
         if asked:
             raise NotImplementedError(f"grasp-compress-torch does not support {flag} yet")
+    # the recovery data is read before the compression, so that a missing file
+    # fails at once rather than after the sweeps
+    recovery_rows = _recovery_rows(args.data_path) if args.recovery else None
     from grasp_tpu_torch.checkpoints import save_checkpoint
     from grasp_tpu_torch.configs import GraspConfig
     from grasp_tpu_torch.core.engine import GraspEngine
@@ -208,9 +232,75 @@ def compress_main(argv=None) -> int:
                     layer_importances=engine.layer_importances,
                     extra={"grasp_config": vars(args), "summary": summary})
     logger.info("checkpoint saved to %s", save_path)
+    if args.recovery:
+        engine.params = _run_recovery(engine, config, tokenizer, args, save_path, recovery_rows)
     if args.evaluate:
         _run_evaluation(engine.params, config, engine.plan, tokenizer, args)
     return 0
+
+
+def _recovery_rows(data_path: str) -> list:
+    """Alpaca-format rows from a local .json/.jsonl file or a datasets
+    directory; there is no download."""
+    if data_path.endswith((".json", ".jsonl")):
+        with open(data_path) as f:
+            if data_path.endswith(".json"):
+                return json.load(f)
+            return [json.loads(line) for line in f]
+    if os.path.isdir(data_path):
+        from datasets import load_from_disk
+
+        return list(load_from_disk(data_path))
+    raise FileNotFoundError(f"recovery data {data_path!r} not found locally (no network)")
+
+
+def recovery_batches(rows: list, tokenizer, args):
+    """(train batches, validation batches or None) of ``--recovery``, as the
+    JAX CLI makes them: ``rows`` tokenized with the prompt template, split by
+    a fixed seed 42 (not ``--seed``) into validation (``min(val_set_size, n
+    // 5)`` rows) and training, micro-batches of ``micro_batch_size`` rows
+    right-padded to a multiple of 8 (an incomplete last one dropped)."""
+    import numpy as np
+
+    from grasp_tpu_torch.data.prompter import Prompter, collate_padded, tokenize_alpaca_example
+
+    prompter = Prompter(args.prompt_template_name)
+    examples = [tokenize_alpaca_example(r, tokenizer, prompter, max_length=args.max_length,
+                                        train_on_inputs=args.train_on_inputs,
+                                        add_eos_token=args.add_eos_token) for r in rows]
+    order = np.random.default_rng(42).permutation(len(examples))
+    val_n = min(args.val_set_size, len(examples) // 5)
+    mb = args.micro_batch_size
+
+    def batches(idx):
+        return [collate_padded([examples[i] for i in idx[s:s + mb]], pad_token_id=0)
+                for s in range(0, len(idx) - mb + 1, mb)]
+
+    return batches(order[val_n:]), batches(order[:val_n]) or None
+
+
+def _run_recovery(engine, config, tokenizer, args, save_path: str, rows: list):
+    """GRASP* recovery of the compressed model on ``rows`` (grasp_tpu/cli.py's
+    ``--recovery``): accumulation ``train_batch_size // micro_batch_size``,
+    trainer state under ``<save_path>_trainer``; saves
+    ``<save_path>_recovered`` with the history and returns its params."""
+    from grasp_tpu_torch.checkpoints import save_checkpoint
+    from grasp_tpu_torch.train.recover import recovery_train
+
+    train_batches, val_batches = recovery_batches(rows, tokenizer, args)
+    params, history = recovery_train(
+        engine.params, config, engine.plan, engine.redundant_layers, train_batches, val_batches,
+        num_epochs=args.num_epochs, learning_rate=args.learning_rate,
+        accum_steps=max(args.train_batch_size // args.micro_batch_size, 1),
+        remat=args.remat, eval_every=args.eval_every, output_dir=save_path + "_trainer",
+        save_total_limit=args.save_total_limit,
+        resume_from_checkpoint=args.resume_from_checkpoint)
+    save_checkpoint(save_path + "_recovered", params, config, engine.plan,
+                    rank_dict=engine.rank_dict, redundant_layers=engine.redundant_layers,
+                    layer_importances=engine.layer_importances,
+                    extra={"recovery_history": history})
+    logger.info("recovered checkpoint saved to %s_recovered", save_path)
+    return params
 
 
 def _run_evaluation(params, config, plan, tokenizer, args) -> dict:

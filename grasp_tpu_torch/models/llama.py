@@ -489,14 +489,24 @@ def hf_causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
     The calibration loader pre-shifts the labels one step and this shifts
     again: the "predict t+2" objective is a quirk of the reference that both
     packages keep."""
+    valid = labels[:, 1:] != ignore_index
+    return hf_causal_lm_loss_sum(logits, labels, ignore_index) / torch.clamp(valid.sum(), min=1)
+
+
+def hf_causal_lm_loss_sum(logits: torch.Tensor, labels: torch.Tensor,
+                          ignore_index: int = -100) -> torch.Tensor:
+    """Unreduced HF CausalLM loss: the fp32 cross-entropy *sum* over the
+    shifted valid positions, transformers' ``reduction="sum"`` path. It is
+    the numerator of the token-weighted accumulation loss, whose denominator
+    counts the *unshifted* labels of the whole group
+    (train.recover.make_accum_train_step)."""
     shift_logits = logits[:, :-1, :].float()
     shift_labels = labels[:, 1:]
     valid = shift_labels != ignore_index
     safe_labels = torch.where(valid, shift_labels, 0)
     logp = torch.log_softmax(shift_logits, dim=-1)
     nll = -torch.gather(logp, -1, safe_labels[..., None])[..., 0]
-    nll = torch.where(valid, nll, 0.0)
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, 0.0).sum()
 
 
 # ---------------------------------------------------------------------------

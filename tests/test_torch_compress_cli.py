@@ -67,13 +67,19 @@ def test_compress_main_on_the_cpu_writes_a_checkpoint_that_the_server_loads(tmp_
         gserver.close()
 
 
-@pytest.mark.parametrize("flags", [[["--recovery"]], [["--export_hf_dir", "x"]],
-                                   [["--tp", "2"], ["--dp", "2"]]],
+@pytest.mark.parametrize("flags", [[["--recovery", "--data_path", "no/such/alpaca"]],
+                                   [["--export_hf_dir", "x"]], [["--tp", "2"], ["--dp", "2"]]],
                          ids=lambda f: f[0][0])
 def test_compress_main_refuses_what_is_not_ported(flags):
+    """HF export and meshes raise NotImplementedError; --recovery runs, and
+    refuses recovery data that is not a local file or directory with the JAX
+    CLI's FileNotFoundError (before it compresses)."""
     for flag in flags:
-        with pytest.raises(NotImplementedError, match=flag[0][:4]):
-            compress_main(["--model_name_or_path", "tiny", "--device", "cpu"] + flag)
+        error, match = ((FileNotFoundError, "not found locally") if flag[0] == "--recovery"
+                        else (NotImplementedError, flag[0][:4]))
+        with pytest.raises(error, match=match):
+            compress_main(["--model_name_or_path", "tiny", "--device", "cpu",
+                           "--dataset_name", "synthetic"] + flag)
 
 
 def test_compress_main_runs_the_parallel_sweep_resumable_with_remat_and_gram(tmp_path):

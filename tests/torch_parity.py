@@ -60,3 +60,38 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+RECOVER_LAYERS = [1, 2]
+
+
+def recover_compressed():
+    """(config, jax params, plan): the compressed 4-layer tiny model of
+    tests/test_recover_subtree.py, layers 1 and 2 low-rank (the redundant
+    layers that recovery trains)."""
+    config = ModelConfig.tiny(num_hidden_layers=4)
+    engine = GraspEngine(init_params(jax.random.PRNGKey(0), config), config)
+    rng = np.random.default_rng(3)
+    batches = [{
+        "input_ids": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
+        "labels": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
+    }]
+    engine.run(batches, GraspConfig(num_prune_layers=2, compression_ratio=0.4,
+                                    layers_id=RECOVER_LAYERS))
+    return config, engine.params, engine.plan
+
+
+ALPACA_WORDS = ("water stone light river cloud salt iron tree glass paper metal wind fire "
+                "earth sound wave heat cold north south green blue small large").split()
+
+
+def alpaca_rows(seed: int, n: int, output_words=(20, 40)):
+    """Seed-made Alpaca-format rows (instruction, input, output); every third
+    row has an empty input (the no-input template)."""
+    rng = np.random.default_rng(seed)
+
+    def text(k):
+        return " ".join(rng.choice(ALPACA_WORDS, k))
+
+    return [{"instruction": text(5), "input": text(4) if i % 3 else "",
+             "output": text(int(rng.integers(*output_words)))} for i in range(n)]
