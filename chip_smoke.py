@@ -20,11 +20,12 @@ Phases, each of which raises on failure (exit code != 0):
    row); and timed against its plain version and against one decode launch
    per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
-   the plain version (output and the gradients of sum(o ** 2)) at four
-   shapes in float32 and bfloat16, dQ, dK and dV bit-equal over two runs;
-   then each kernel, the plain version and scaled_dot_product_attention (a
-   yardstick the port never calls) timed at the calibration shape, and the
-   whole backward (di, dK/dV, dQ) against one SDPA backward.
+   the plain version (output and the gradients of sum(o ** 2)) at seven
+   shapes (head_dim 64, 96 and 128) in float32 and bfloat16, dQ, dK and dV
+   bit-equal over two runs; then each kernel, the plain version and
+   scaled_dot_product_attention (a yardstick the port never calls) timed at
+   TinyLlama's calibration shape and at Phi-3's (head_dim 96), and the whole
+   backward (di, dK/dV, dQ) against one SDPA backward.
 5. serving slice: a GRASP-compressed TinyLlama-1.1B at full width (22 layers,
    random weights from a seed, the last two layers' projections low-rank at
    ratio 0.9) saved as a port checkpoint and served by ``grasp_tpu_torch.cli``
@@ -104,12 +105,27 @@ Phases, each of which raises on failure (exit code != 0):
    same run on the CPU (losses within 1e-4). Every launch count is held: 14
    fused launches a forward of 256 rows or more (a micro-batch, an
    evaluation batch, and again a micro-batch under remat), no flash launch.
+12. HF route (run inside 9, after 11): the compression cell's weights written
+   as an HF directory (config.json, two bf16 safetensors files) and
+   compressed by ``grasp-compress-torch`` from there with ``--export_hf_dir``:
+   layers, ranks, plan, launches and saved params equal to the preset route's
+   sequential run; the fp32 export read back torch.equal to the merged
+   params; ``grasp-serve-torch`` on the export (K3 once per layer per decode
+   step, tokens against a teacher-forced plain forward).
+13. Phi-3-mini-4k at full width and depth (32 layers, hidden 3072, 32 heads
+   of 96; random weights from a seed) through an HF directory with fused
+   qkv_proj / gate_up_proj: the import torch.equal to the unfused weights,
+   ``grasp-compress-torch`` with 16 rows of 2047 tokens through K1f, K1k and
+   K1q at head_dim 96 (launches, ranks, one round's gradients by route), the
+   merged bf16 export re-imported, and ``windowed_perplexity`` of it over 8
+   windows with the flash route against plain.
 
 The third line from the end is a JSON record of each kernel (launches in its
-slice's run, error against the plain version, times, bound); then the card's
-line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
-JAX and nothing of grasp_tpu. ``--only
-flash|kernels|serve|spec|compress|evaluate|recover`` runs one part while
+slice's run, error against the plain version, times, bound; the flash
+kernels' times at head_dim 96 under "hd96"); then the card's line; the last
+line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, of
+grasp_tpu or of safetensors. ``--only
+flash|kernels|serve|spec|compress|evaluate|recover|hf`` runs one part while
 developing and prints no result lines.
 """
 
@@ -177,9 +193,9 @@ def _kernel_name(line: str) -> str:
 def phase_build():
     """Build and load the kernels, print the compiler's register and spill
     report, and show from the compiled code (cuobjdump -sass) that every
-    tensor-core kernel (flash forward, dQ, dK/dV; fused low-rank; both bf16
-    int4 kernels at 1, 2, 4 and 8 n-tiles; bf16 paged decode and chunk at
-    head_dim 64 and 128) holds HMMA instructions."""
+    tensor-core kernel (flash forward, dQ, dK/dV at head_dim 64, 96 and 128;
+    fused low-rank; both bf16 int4 kernels at 1, 2, 4 and 8 n-tiles; bf16
+    paged decode and chunk at head_dim 64 and 128) holds HMMA instructions."""
     from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
@@ -211,7 +227,7 @@ def phase_build():
             hmma[name] += 1
     print("sass: HMMA instructions in the tensor-core kernels: "
           + ", ".join(f"{n} {c}" for n, c in sorted(hmma.items())))
-    want = {f"{family}<{hd}>" for family in families[:3] for hd in (64, 128)}
+    want = {f"{family}<{hd}>" for family in families[:3] for hd in (64, 96, 128)}
     want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
     want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
     want |= {f"{family}<{nt}>" for family in families[4:6] for nt in (1, 2, 4, 8)}
@@ -511,7 +527,12 @@ def phase_chunk_timing(torch, n_layers):
 # (B, nh, nkv, S, hd, scale): the calibration shape of TinyLlama-1.1B, a ragged
 # batch of two, head_dim 128, and a single position; None = hd ** -0.5
 FLASH_CASES = ((1, 32, 4, 2047, 64, None), (2, 8, 2, 511, 64, 0.2),
-               (1, 32, 8, 1024, 128, None), (1, 4, 4, 1, 64, None))
+               (1, 32, 8, 1024, 128, None), (1, 4, 4, 1, 64, None),
+               # head_dim 96 (Phi-3): its calibration shape (groups of 1), then
+               # groups of 4 at lengths across the 64-row tile edges
+               (1, 32, 32, 2047, 96, None), (2, 8, 2, 130, 96, 0.2), (1, 8, 2, 65, 96, None))
+# the shape each flash kernel is timed at: TinyLlama's and Phi-3's calibration
+FLASH_TIMING_SHAPES = {64: (1, 32, 4, 2047, 64), 96: (1, 32, 32, 2047, 96)}
 # each gradient's max abs error over the plain gradient's max abs
 FLASH_GRAD_RTOL = 2e-2
 
@@ -589,10 +610,10 @@ def _event_ms(torch, fn, iters, run_ahead=False):
     return start.elapsed_time(end) / iters
 
 
-def phase_flash_timing(torch):
+def phase_flash_timing(torch, shape=FLASH_TIMING_SHAPES[64]):
     """Each kernel, the plain version and the library call
-    (scaled_dot_product_attention, a yardstick the port never calls) at the
-    calibration shape B=1 nh=32 nkv=4 S=2047 hd=64 bf16, in turns plain,
+    (scaled_dot_product_attention, a yardstick the port never calls) at a
+    calibration ``shape`` (B, nh, nkv, S, hd) in bf16, in turns plain,
     kernel, library, library, kernel, plain; means of each pair. For dK/dV
     and dQ the plain version is autograd's gradient with respect to (k, v) or
     to q of an already computed forward. SDPA's backward computes dQ, dK and
@@ -608,7 +629,7 @@ def phase_flash_timing(torch):
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(77)
-    b, nh, nkv, s, hd = FLASH_CASES[0][:5]
+    b, nh, nkv, s, hd = shape
     groups, scale = nh // nkv, hd ** -0.5
     q, k, v = (t.detach() for t in _flash_inputs(torch, gen, dev, torch.bfloat16,
                                                  b, nh, nkv, s, hd))
@@ -690,8 +711,8 @@ def phase_flash_timing(torch):
         out[name] = {"ms": mean["kernel", name], "plain_ms": mean["plain", name],
                      "library_ms": mean["library", name], "bound_ms": max(ops_ms, bytes_ms),
                      "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-        print(f"flash timing {name} (B=1 nh=32 nkv=4 S=2047 hd=64 bf16), ms per call, two "
-              "turns each: " + ", ".join(f"{turn} {t[turn, name][0]:.4f}/{t[turn, name][1]:.4f}"
+        print(f"flash timing {name} (B={b} nh={nh} nkv={nkv} S={s} hd={hd} bf16), ms per call, "
+              "two turns each: " + ", ".join(f"{turn} {t[turn, name][0]:.4f}/{t[turn, name][1]:.4f}"
                                          for turn in turns)
               + f" (library: {library_is[name]})" + _shares(out[name]))
     return out
@@ -1721,8 +1742,9 @@ def phase_compress(torch, card, dev, only=None):
     then checks of what each saved and of the engine's run options at the
     same width. Returns the launch counts of the three flash kernels in the
     two runs, those of the fused low-rank kernel in its compressions, the
-    evaluation's and the recovery's. ``only`` "evaluate" or "recover": the
-    sequential run and that slice alone."""
+    evaluation's and the recovery's, and those of the HF route
+    (compress_from_hf, on the sequential run's checkpoint). ``only``
+    "evaluate", "recover" or "hf": the sequential run and that slice alone."""
     from grasp_tpu_torch.data.loader import get_calibration_batches
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
 
@@ -1734,10 +1756,13 @@ def phase_compress(torch, card, dev, only=None):
         meta, config = _check_checkpoint(torch, ckpt_root, dev, "compress")
         if only == "recover":
             return phase_recover(torch, card, dev, ckpt_root, launches)
+        if only == "hf":
+            return compress_from_hf(torch, card, dev, ckpt_root, launches)
         evaluated = phase_evaluate(torch, card, dev, ckpt_root)
         if only == "evaluate":
             return evaluated
         recovered = phase_recover(torch, card, dev, ckpt_root, launches)
+        from_hf = compress_from_hf(torch, card, dev, ckpt_root, launches)
         layers = meta["redundant_layers"]
         n_layers = config.num_hidden_layers
         n_rows = len(get_calibration_batches("synthetic", load_tokenizer(None), num_samples=16,
@@ -1763,7 +1788,7 @@ def phase_compress(torch, card, dev, only=None):
         compress_flash_routes(torch, card, dev, layers)
         compress_run_options(torch, card, dev, layers)
         fused = compress_with_fused_lowrank(torch, card, dev, meta, n_rows)
-        return flash_launches, fused, evaluated, recovered
+        return flash_launches, fused, evaluated, recovered, from_hf
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
         shutil.rmtree(par_root, ignore_errors=True)
@@ -1781,10 +1806,50 @@ def _smoke_model(dev):
 
 
 def compress_flash_routes(torch, card, dev, layers):
-    """One attention round on the uncompressed model, so that the backward
-    kernels take part: the summed gradients of the flash route and of the
-    plain route (GRASP_FLASH_SWEEP=0), both in bf16, against the plain route
-    in fp32, and the indices each bf16 route selects."""
+    """On TinyLlama-1.1B: one attention round's gradients by route
+    (_route_gradients), then a sweep through every layer with and without
+    remat."""
+    from grasp_tpu_torch.core.engine import GraspEngine, module_name
+    from grasp_tpu_torch.models.llama import ATTN_PROJS
+
+    config, dense_params, batches = _smoke_model(dev)
+    batches = batches[:2]
+    _route_gradients(torch, dev, config, dense_params, batches, min(layers), "compress")
+
+    # remat: a sweep through every layer (layer 0's attention) with and
+    # without recomputing each layer's activations in the backward
+    names0 = [module_name(0, proj) for proj in ATTN_PROJS]
+    remat_grads, peaks = {}, {}
+    for remat in (False, True):
+        engine = GraspEngine(dense_params, config, device=dev, remat=remat)
+        engine._maybe_enable_flash_sweep(batches)
+        # what an earlier sweep left in reference cycles must not be freed
+        # inside the measured one
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        remat_grads[remat] = engine.get_dense_gradients(names0, batches)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated(dev) - base
+    rel = max(((remat_grads[True][n].float() - remat_grads[False][n].float()).abs().max()
+               / remat_grads[False][n].float().abs().max()).item() for n in names0)
+    same = all(torch.equal(remat_grads[True][n], remat_grads[False][n]) for n in names0)
+    print(f"compress, remat: layer 0 attention sweep over 2 rows (backward through 22 layers, "
+          f"flash route): peak memory above the model {peaks[False] / 2**30:.3f} GiB without "
+          f"remat, {peaks[True] / 2**30:.3f} GiB with; gradients bit-equal {same}, worst "
+          f"difference over the max {rel:.3e} (tol {FLASH_SWEEP_RTOL:g}); card {card}")
+    if not rel <= FLASH_SWEEP_RTOL:
+        raise AssertionError("remat changed the sweep's gradients")
+    del dense_params, remat_grads, engine
+    torch.cuda.empty_cache()
+
+
+def _route_gradients(torch, dev, config, dense_params, batches, layer, label):
+    """One attention round at ``layer`` on the uncompressed model, so that
+    the backward kernels take part: the summed gradients of the flash route
+    and of the plain route (GRASP_FLASH_SWEEP=0), both in bf16, against the
+    plain route in fp32, and the indices each bf16 route selects."""
     import dataclasses
 
     from grasp_tpu_torch import GraspConfig
@@ -1792,9 +1857,7 @@ def compress_flash_routes(torch, card, dev, layers):
     from grasp_tpu_torch.models.convert import map_params
     from grasp_tpu_torch.models.llama import ATTN_PROJS
 
-    config, dense_params, batches = _smoke_model(dev)
-    batches = batches[:2]
-    names = [module_name(min(layers), proj) for proj in ATTN_PROJS]
+    names = [module_name(layer, proj) for proj in ATTN_PROJS]
     cfg = GraspConfig(compression_ratio=0.9)
     fp32 = (map_params(dense_params, lambda t: t.float()),
             dataclasses.replace(config, dtype="float32"))
@@ -1823,42 +1886,16 @@ def compress_flash_routes(torch, card, dev, layers):
     for n in names:
         kept = [set(engines[route].indices_dict[n].tolist()) for route in ("flash", "plain")]
         overlap[n.split(".")[-1]] = f"{len(kept[0] & kept[1])}/{len(kept[1])}"
-    print(f"compress: layer {min(layers)} attention round over 2 rows, worst gradient error "
+    print(f"{label}: layer {layer} attention round over {len(batches)} rows, worst gradient error "
           f"over the reference gradient's max: flash route (bf16) against the plain route in "
           f"fp32 {err['flash']:.3e}, plain route (bf16) against it {err['plain']:.3e}, flash "
           f"against plain (both bf16) {between:.3e}; tolerance for the flash route: the "
           f"larger of {FLASH_SWEEP_RTOL:g} and {FLASH_SWEEP_SLACK:g} x the plain route's "
           f"error; selected indices in common {overlap}")
     if not err["flash"] <= max(FLASH_SWEEP_RTOL, FLASH_SWEEP_SLACK * err["plain"]):
-        raise AssertionError("the flash route's gradients are further from the fp32 "
+        raise AssertionError(f"{label}: the flash route's gradients are further from the fp32 "
                              "reference than the plain route's")
-
-    # remat: a sweep through every layer (layer 0's attention) with and
-    # without recomputing each layer's activations in the backward
-    names0 = [module_name(0, proj) for proj in ATTN_PROJS]
-    remat_grads, peaks = {}, {}
-    for remat in (False, True):
-        engine = GraspEngine(dense_params, config, device=dev, remat=remat)
-        engine._maybe_enable_flash_sweep(batches)
-        # what an earlier sweep left in reference cycles must not be freed
-        # inside the measured one
-        gc.collect()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        base = torch.cuda.memory_allocated(dev)
-        remat_grads[remat] = engine.get_dense_gradients(names0, batches)
-        torch.cuda.synchronize()
-        peaks[remat] = torch.cuda.max_memory_allocated(dev) - base
-    rel = max(((remat_grads[True][n].float() - remat_grads[False][n].float()).abs().max()
-               / remat_grads[False][n].float().abs().max()).item() for n in names0)
-    same = all(torch.equal(remat_grads[True][n], remat_grads[False][n]) for n in names0)
-    print(f"compress, remat: layer 0 attention sweep over 2 rows (backward through 22 layers, "
-          f"flash route): peak memory above the model {peaks[False] / 2**30:.3f} GiB without "
-          f"remat, {peaks[True] / 2**30:.3f} GiB with; gradients bit-equal {same}, worst "
-          f"difference over the max {rel:.3e} (tol {FLASH_SWEEP_RTOL:g}); card {card}")
-    if not rel <= FLASH_SWEEP_RTOL:
-        raise AssertionError("remat changed the sweep's gradients")
-    del engines, grads, dense_params, svd_out, remat_grads, engine
+    del engines, grads, svd_out
     torch.cuda.empty_cache()
 
 
@@ -2726,6 +2763,274 @@ def phase_recover(torch, card, dev, ckpt_root, compress_launches):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# HF checkpoint directories: the weights of a compression cell written as a
+# public release ships them (bf16, two safetensors files), compressed by the
+# CLI from there, exported and read back
+HF_SHARDS = 2
+PHI3_SEED = 42
+PHI3_ARGS = ["--dataset_name", "synthetic", "--num_prune_layers", "2", "--compression_ratio",
+             "0.9", "--num_samples", "16", "--seq_len", "2048", "--dtype", "bfloat16"]
+
+
+def _free_disk(path, need, label):
+    """Print ``df`` of the file system under ``path``; raise below ``need``
+    bytes free."""
+    df = subprocess.run(["df", "-h", path], capture_output=True, text=True).stdout
+    free = shutil.disk_usage(path).free
+    print(f"{label}: {df.strip().splitlines()[-1]} (df -h); {free / 1e9:.1f} GB free, "
+          f"{need / 1e9:.1f} GB needed")
+    if free < need:
+        raise AssertionError(f"{label}: {free / 1e9:.1f} GB free under {path}, "
+                             f"{need / 1e9:.1f} GB needed")
+
+
+def _write_hf_dir(torch, params, config, path, model_type):
+    """``params`` as an HF checkpoint directory in bf16: config.json from
+    hf_config_dict and the state dict split over HF_SHARDS files by the
+    port's safetensors writer (save_hf_checkpoint writes one file). Returns
+    (seconds, bytes of weights)."""
+    from grasp_tpu_torch.models.hf_io import (
+        hf_config_dict,
+        state_dict_from_params,
+        write_safetensors,
+    )
+
+    t0 = time.perf_counter()
+    os.makedirs(path)
+    sd = state_dict_from_params(params, config, dtype=torch.bfloat16,
+                                fuse_phi3=model_type == "phi3")
+    keys = list(sd)
+    step = -(-len(keys) // HF_SHARDS)
+    for i in range(HF_SHARDS):
+        part = {k: sd[k] for k in keys[i * step:(i + 1) * step]}
+        write_safetensors(part, os.path.join(
+            path, f"model-{i + 1:05d}-of-{HF_SHARDS:05d}.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config_dict(config, model_type), f, indent=2)
+    nbytes = sum(t.numel() * t.element_size() for t in sd.values())
+    del sd
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t0, nbytes
+
+
+def _same_tree(torch, got, want):
+    """Leaves of ``got`` that are not torch.equal to ``want``'s (their
+    dotted names), or the key sets' difference."""
+    from grasp_tpu_torch.models.convert import flatten_params
+
+    a, b = flatten_params(got), flatten_params(want)
+    if a.keys() != b.keys():
+        return sorted(set(a) ^ set(b))
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def compress_from_hf(torch, card, dev, preset_root, preset_launches):
+    """TinyLlama-1.1B through an HF directory: the compression cell's weights
+    (the preset, bf16, the CLI's seed) written as an HF directory in two
+    shards, ``grasp-compress-torch`` from it with ``--export_hf_dir``; the
+    layers, ranks, plan, saved params and flash launches must equal the
+    preset route's sequential run (``preset_root``: the same weights take the
+    same ops), the fp32 export read back must be torch.equal to the merged
+    params, and ``grasp-serve-torch`` serves the export (K3 once per layer
+    per decode step, tokens against a teacher-forced plain forward). Returns
+    the flash kernels' and K3's launches."""
+    from grasp_tpu_torch.checkpoints import load_checkpoint
+    from grasp_tpu_torch.cli import load_model
+    from grasp_tpu_torch.models.hf_io import read_safetensors, state_dict_from_params
+
+    root = tempfile.mkdtemp(prefix="smoke_hf_", dir=os.path.join(ROOT, "build"))
+    try:
+        hf_dir, ck, export = (os.path.join(root, name) for name in ("hf", "ck", "export"))
+        config, params, _, _ = load_model("tinyllama-1.1b", device=dev, dtype="bfloat16", seed=42)
+        _free_disk(root, 5 * _param_count(params) * 2, "compress, HF directory")
+        secs, nbytes = _write_hf_dir(torch, params, config, hf_dir, "llama")
+        del params
+        print(f"compress, HF directory: TinyLlama-1.1B's preset weights (seed 42) written as "
+              f"{HF_SHARDS} bf16 safetensors files, {nbytes} bytes in {secs:.2f} s")
+        launches, _, summary = _compress_cli(
+            torch, dev, ck, ["--model_name_or_path", hf_dir, "--export_hf_dir", export],
+            "compress, HF directory", card)
+        got, got_config, got_plan, got_meta = load_checkpoint(ck, dev)
+        want, want_config, want_plan, want_meta = load_checkpoint(preset_root, dev)
+        differ = _same_tree(torch, got, want)
+        same = {"config": got_config == want_config, "plan": got_plan == want_plan,
+                "layers": got_meta["redundant_layers"] == want_meta["redundant_layers"],
+                "rank_dict": got_meta["rank_dict"] == want_meta["rank_dict"],
+                "launches": launches == preset_launches, "params torch.equal": not differ}
+        print(f"compress, HF directory against the preset route: {same}; flash launches "
+              f"{launches}, prefix {summary['prefix']}")
+        if not all(same.values()):
+            raise AssertionError(f"compress, HF directory: differs from the preset route "
+                                 f"({differ[:4]})")
+        del got
+        t0 = time.perf_counter()
+        back = read_safetensors(os.path.join(export, "model.safetensors"))
+        read_s = time.perf_counter() - t0
+        merged = state_dict_from_params(want, want_config, merge=True)
+        bad = sorted(set(back) ^ set(merged)) or [
+            k for k in merged if not torch.equal(back[k], merged[k].cpu())]
+        size = os.path.getsize(os.path.join(export, "model.safetensors"))
+        print(f"compress, HF export: {size} bytes of fp32 (LlamaForCausalLM), read back in "
+              f"{read_s:.2f} s; {len(merged)} tensors torch.equal to the merged params: "
+              f"{not bad}")
+        if bad:
+            raise AssertionError(f"compress, HF export: {bad[:4]} differ from the merged params")
+        del back, merged, want
+        torch.cuda.empty_cache()
+        served = serve_variant(torch, dev, export, "HF export")
+        return {**launches, "paged": served["paged"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_phi3(torch, card, dev):
+    """Phi-3-mini-4k (32 layers, hidden 3072, 32 heads of 96) at full width
+    and depth through an HF directory: the preset's random weights (bf16,
+    seed PHI3_SEED) written with fused qkv_proj / gate_up_proj in two shards,
+    imported (every leaf torch.equal to the unfused weights), compressed by
+    ``grasp-compress-torch`` with 16 rows of 2047 tokens through K1f, K1k and
+    K1q at head_dim 96 (launches against the dispatch rules, ranks against
+    preserve_rank, one round's gradients by route against fp32), exported
+    merged in bf16 as a Phi-3 checkpoint, re-imported, and evaluated:
+    ``windowed_perplexity`` over 8 windows of 2048 tokens with the flash
+    route and the plain route, each window's mean CE within EVAL_CE_TOL.
+    Returns the flash kernels' launches."""
+    import dataclasses
+
+    from grasp_tpu_torch import ModelConfig
+    from grasp_tpu_torch.checkpoints import load_checkpoint
+    from grasp_tpu_torch.cli import compress_main, load_model
+    from grasp_tpu_torch.data.loader import get_calibration_batches, get_evaluation_corpus
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.eval.ppl import windowed_mean_ce, windowed_perplexity
+    from grasp_tpu_torch.models.hf_io import load_hf_checkpoint, save_hf_checkpoint
+    from grasp_tpu_torch.models.llama import init_params
+
+    root = tempfile.mkdtemp(prefix="smoke_phi3_", dir=os.path.join(ROOT, "build"))
+    total = {"fwd": 0, "dkv": 0, "dq": 0}
+
+    def add(got):
+        for name in total:
+            total[name] += got[name]
+
+    try:
+        hf_dir, ck, export = (os.path.join(root, name) for name in ("hf", "ck", "export"))
+        config = dataclasses.replace(ModelConfig.phi3_mini_4k(), dtype="bfloat16")
+        params = init_params(torch.Generator(device=dev).manual_seed(PHI3_SEED), config,
+                             device=dev)
+        # the input directory and the port checkpoint at once, then the
+        # checkpoint and the export
+        _free_disk(root, 2.5 * _param_count(params) * 2, "phi3")
+        secs, nbytes = _write_hf_dir(torch, params, config, hf_dir, "phi3")
+        print(f"phi3: Phi-3-mini-4k's preset weights (seed {PHI3_SEED}) written as {HF_SHARDS} "
+              f"bf16 safetensors files with fused qkv_proj / gate_up_proj, {nbytes} bytes in "
+              f"{secs:.2f} s; card {card}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_config, got, got_plan, tokenizer = load_model(hf_dir, device=dev, dtype="bfloat16")
+        torch.cuda.synchronize()
+        import_s = time.perf_counter() - t0
+        differ = _same_tree(torch, got, params)
+        print(f"phi3: imported in {import_s:.2f} s (tokenizer {type(tokenizer).__name__}); "
+              f"config equal {got_config == config}, q/k/v split from qkv_proj, gate/up from "
+              f"gate_up_proj and every other leaf torch.equal to the unfused weights: "
+              f"{not differ}")
+        if differ or got_config != config or got_plan != tuple(
+                ("dense",) * 7 for _ in range(config.num_hidden_layers)):
+            raise AssertionError(f"phi3: the import differs from the written weights "
+                                 f"({differ[:4]})")
+        del got
+
+        cli = PHI3_ARGS + ["--model_name_or_path", hf_dir, "--save_path", ck, "--device",
+                           str(dev)]
+        print(f"phi3: grasp-compress-torch {' '.join(cli)}")
+        launches = _eval_counts(reset=True)
+        t0 = time.perf_counter()
+        rc = compress_main(cli)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _eval_counts()
+        if rc != 0:
+            raise AssertionError(f"phi3: compress_main returned {rc}")
+        shutil.rmtree(hf_dir)
+        meta, _ = _check_checkpoint(torch, ck, dev, "phi3")
+        summary = meta["extra"]["summary"]
+        layers = meta["redundant_layers"]
+        print(f"phi3: {wall:.1f} s end to end (summary {summary['wall_clock_s']:.2f} s), stage "
+              f"seconds {summary['stage_times_s']}, prefix {summary['prefix']}; card {card}")
+        batches = get_calibration_batches("synthetic", load_tokenizer(None), num_samples=16,
+                                          seq_len=2048, seed=42)
+        rounds = [(li, attn) for li in sorted(layers, reverse=True) for attn in (False, True)]
+        want = _want_flash(config.num_hidden_layers, len(batches), rounds, min(layers),
+                           summary["prefix"])
+        _hold_launches("phi3", {k: launches[k] for k in total}, want)
+        add(launches)
+        _route_gradients(torch, dev, config, params, batches[:2], min(layers), "phi3")
+        del params
+        torch.cuda.empty_cache()
+
+        # the export: merged, fused, bf16; re-imported
+        ck_params, ck_config, ck_plan, _ = load_checkpoint(ck, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_hf_checkpoint(ck_params, ck_config, export, merge=True, model_type="phi3",
+                           dtype=torch.bfloat16)
+        export_s = time.perf_counter() - t0
+        shutil.rmtree(ck)
+        t0 = time.perf_counter()
+        ex_config, ex_params = load_hf_checkpoint(export, dtype=torch.bfloat16, device=dev)
+        torch.cuda.synchronize()
+        reimport_s = time.perf_counter() - t0
+        merged = dict(ck_params, layers=[
+            {group: ({proj: ({"kernel": (p["in_kernel"].float() @ p["out_kernel"].float())
+                              .bfloat16()} if "in_kernel" in p else p)
+                      for proj, p in sub.items()} if group in ("self_attn", "mlp") else sub)
+             for group, sub in layer.items()} for layer in ck_params["layers"]])
+        differ = _same_tree(torch, ex_params, merged)
+        size = os.path.getsize(os.path.join(export, "model.safetensors"))
+        print(f"phi3: export (merged, fused, bf16) {size} bytes in {export_s:.2f} s, re-imported "
+              f"in {reimport_s:.2f} s; every leaf torch.equal to the checkpoint's, low-rank "
+              f"pairs to bf16(in_kernel @ out_kernel in fp32): {not differ}; card {card}")
+        if differ:
+            raise AssertionError(f"phi3: the re-imported export differs ({differ[:4]})")
+        del ck_params, merged
+
+        # perplexity of the export: flash route against plain, window by window
+        ex_config = dataclasses.replace(ex_config, dtype="bfloat16")
+        configs = {"plain": ex_config,
+                   "flash": dataclasses.replace(ex_config, use_flash_attention=True)}
+        corpus = get_evaluation_corpus("synthetic", load_tokenizer(None))
+        ces, ppls, ms = {}, {}, {}
+        for label, cfg in configs.items():
+            _eval_counts(reset=True)
+            ces[label] = windowed_mean_ce(ex_params, cfg, corpus)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ppls[label] = windowed_perplexity(ex_params, cfg, corpus)
+            torch.cuda.synchronize()
+            ms[label] = (time.perf_counter() - t0) * 1e3 / EVAL_WINDOWS
+            got = _eval_counts()
+            _hold_eval_counts(f"phi3, windowed_perplexity {label}", got,
+                              0 if label == "plain" else 2 * config.num_hidden_layers
+                              * EVAL_WINDOWS, 0)
+            add(got)
+            if len(ces[label]) != EVAL_WINDOWS or not all(map(math.isfinite, ces[label])):
+                raise AssertionError(f"phi3: {label}: window CEs {ces[label]}")
+        gap = float(max(abs(a - b) for a, b in zip(ces["flash"], ces["plain"])))
+        print(f"phi3: synthetic PPL of the export plain {ppls['plain']:.4f}, flash "
+              f"{ppls['flash']:.4f}; window mean CE max |diff| flash against plain {gap:.2e} "
+              f"(tol {EVAL_CE_TOL}); PPL ms a window of 2048 tokens (B=1): plain "
+              f"{ms['plain']:.3f}, flash {ms['flash']:.3f}; card {card}")
+        if gap > EVAL_CE_TOL:
+            raise AssertionError("phi3: the flash route's perplexity left the plain route's")
+        del ex_params
+        torch.cuda.empty_cache()
+        print(f"phi3: flash launches {total} in the Phi-3 slice")
+        return total
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -2766,7 +3071,7 @@ def drive_quantizer(torch, dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
-                                           "evaluate", "recover"], default=None,
+                                           "evaluate", "recover", "hf"], default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -2784,7 +3089,7 @@ def main(argv=None) -> int:
     phase_build()
     if args.only == "flash":
         print(phase_flash(torch))
-        print(phase_flash_timing(torch))
+        print({hd: phase_flash_timing(torch, shape) for hd, shape in FLASH_TIMING_SHAPES.items()})
         return 0
     if args.only == "kernels":
         print(phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch))
@@ -2796,6 +3101,9 @@ def main(argv=None) -> int:
         return 0
     if args.only in ("evaluate", "recover"):
         print(phase_compress(torch, card, dev, only=args.only))
+        return 0
+    if args.only == "hf":
+        print(phase_compress(torch, card, dev, only="hf"), phase_phi3(torch, card, dev))
         return 0
     paged_err = phase_kernel(torch)
     paged = phase_kernel_timing(torch, 22)
@@ -2810,15 +3118,17 @@ def main(argv=None) -> int:
         return 0
     flash_err = phase_flash(torch)
     flash = phase_flash_timing(torch)
+    flash96 = phase_flash_timing(torch, FLASH_TIMING_SHAPES[96])
     lowrank_err, int4_err, quant_err = phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch)
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
     paged_launches, spec_launches, served = phase_slice(torch, card, dev)
-    flash_launches, fused_compress_launches, evaluated, recovered = phase_compress(
+    flash_launches, fused_compress_launches, evaluated, recovered, from_hf = phase_compress(
         torch, card, dev)
+    phi3 = phase_phi3(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
-                 if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu"))
+                 if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu", "safetensors"))
     if bad:
         raise AssertionError(f"the port imported {bad}")
     flash_src = "grasp_tpu_torch/csrc/flash_attention.cu"
@@ -2827,7 +3137,7 @@ def main(argv=None) -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
-         "launches": paged_launches, "max_abs_err": paged_err, **paged},
+         "launches": paged_launches + from_hf["paged"], "max_abs_err": paged_err, **paged},
         # library_ms: no single PyTorch call reads a page table; the timing line
         # above has one decode launch per chunk position beside it
         {"name": "paged_attention_chunk", "route": "cuda",
@@ -2835,19 +3145,23 @@ def main(argv=None) -> int:
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
          "launches": spec_launches["chunk"], "max_abs_err": chunk_err, **chunk},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
-        # launches: the two compressions plus the evaluation slice
+        # launches: the two compressions, the evaluation slice, the HF route
+        # and the Phi-3 slice (head_dim 96: its compression and perplexity);
+        # times at TinyLlama's shape, "hd96" at Phi-3's
         {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
-         "launches": flash_launches["fwd"] + evaluated["fwd"], "max_abs_err": flash_err["fwd"],
-         **flash["fwd"]},
+         "launches": flash_launches["fwd"] + evaluated["fwd"] + from_hf["fwd"] + phi3["fwd"],
+         "max_abs_err": flash_err["fwd"], **flash["fwd"], "hd96": flash96["fwd"]},
         # the bf16 backward's bodies: a launch is flash_dkv_mma_kernel and its
         # group sum flash_dkv_reduce_kernel; library_ms is the whole SDPA backward
         {"name": "flash_dkv_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:305",
-         "launches": flash_launches["dkv"], "max_abs_err": flash_err["dkv"], **flash["dkv"]},
+         "launches": flash_launches["dkv"] + from_hf["dkv"] + phi3["dkv"],
+         "max_abs_err": flash_err["dkv"], **flash["dkv"], "hd96": flash96["dkv"]},
         {"name": "flash_dq_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
-         "launches": flash_launches["dq"], "max_abs_err": flash_err["dq"], **flash["dq"]},
+         "launches": flash_launches["dq"] + from_hf["dq"] + phi3["dq"],
+         "max_abs_err": flash_err["dq"], **flash["dq"], "hd96": flash96["dq"]},
         # launches: prefill of the fused serving variant, the flagged compression,
         # the evaluation slice and the recovery slice's bf16 runs; the bf16 body
         # (the fp32 inputs of phase_lowrank take lowrank_fused_kernel)

@@ -2,32 +2,37 @@
 
 ``grasp-compress-torch``: the GRASP compression pipeline (block influence,
 SVD, calibration gradient sweeps, rank selection, low-rank compilation) on a
-port checkpoint or a named preset, saved as a port checkpoint; sequential
+port checkpoint, a local HF checkpoint directory or a named preset, saved as
+a port checkpoint and, with ``--export_hf_dir``, as a merged HF checkpoint
+(models/hf_io.py: dense weights that transformers loads); sequential
 rounds or one parallel sweep (``--sweep``), resumable after a crash
 (``--compress_resume_dir``), ``--remat`` for the sweeps' memory and the gram
 SVD (``--svd_method gram``); ``--recovery`` then fine-tunes the redundant
 layers on a local Alpaca-format ``--data_path`` (GRASP*, train/recover.py:
 trainer state under ``<save_path>_trainer``, the result saved as
 ``<save_path>_recovered``); ``--evaluate`` evaluates the compressed (or
-recovered) model after the save (``--eval_ppl``, ``--eval_tasks``). HF export
-and meshes are not ported yet and raise NotImplementedError.
+recovered) model after the save (``--eval_ppl``, ``--eval_tasks``). Meshes
+are not ported yet and raise NotImplementedError.
 
 ``grasp-evaluate-torch``: perplexity (``--eval_ppl``), zero/few-shot tasks or
-LongBench (``--eval_tasks``) of a port checkpoint or a preset, written to
-``--results_json``.
+LongBench (``--eval_tasks``) of a model, written to ``--results_json``.
 
-``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine,
-from a grasp_tpu_torch checkpoint directory (``grasp_meta.json`` +
-``params.pt``; grasp_tpu checkpoints convert with
-``scripts/convert_grasp_tpu_checkpoint.py``) or a named architecture preset
-with random weights made from ``--seed``; ``--quantize int8|int4`` serves a
-quantized copy of the weights, ``--quantized_kv`` keeps the KV pages in int8,
-and ``--speculative int8 --gamma N`` drafts N tokens a step with an int8 copy
-of the weights and verifies them with the served weights in one forward
-(greedy outputs are the plain engine's). A checkpoint whose model config has
+``grasp-serve-torch``: OpenAI-style HTTP completions over the paged engine;
+``--quantize int8|int4`` serves a quantized copy of the weights,
+``--quantized_kv`` keeps the KV pages in int8, and ``--speculative int8
+--gamma N`` drafts N tokens a step with an int8 copy of the weights and
+verifies them with the served weights in one forward (greedy outputs are the
+plain engine's). A checkpoint whose model config has
 ``use_pallas_lowrank`` runs its low-rank projections through the fused kernel
-at 256 rows or more (prefill). HF checkpoint import, the prefix cache and
-chunked prefill are not ported yet.
+at 256 rows or more (prefill). The prefix cache and chunked prefill are not
+ported yet.
+
+Every entry point takes a model from a grasp_tpu_torch checkpoint directory
+(``grasp_meta.json`` + ``params.pt``; grasp_tpu checkpoints convert with
+``scripts/convert_grasp_tpu_checkpoint.py``), a local HF checkpoint directory
+(``config.json`` + ``*.safetensors`` or ``pytorch_model*.bin``; its tokenizer
+where it holds one, else the byte-level tokenizer) or a named architecture
+preset with random weights made from ``--seed``.
 """
 
 from __future__ import annotations
@@ -69,22 +74,37 @@ def setup_logger(log_file: Optional[str] = None) -> None:
 
 
 def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int = 0):
-    """(config, params, plan, tokenizer) from a port checkpoint directory or
-    a named preset (random init from ``seed``; the checkpoint keeps its own
-    dtype, a preset takes ``dtype``)."""
+    """(config, params, plan, tokenizer) from a port checkpoint directory, a
+    local HF checkpoint directory (``config.json``, no ``grasp_meta.json``)
+    or a named preset (random init from ``seed``). A port checkpoint keeps its
+    own dtype; an HF directory and a preset take ``dtype``."""
     from grasp_tpu_torch.configs import ModelConfig
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
-    from grasp_tpu_torch.models.llama import default_plan, init_params
+    from grasp_tpu_torch.models.llama import (
+        check_supported,
+        default_plan,
+        init_params,
+        plan_from_params,
+        torch_dtype,
+    )
 
     if os.path.isdir(name_or_path):
-        if not os.path.exists(os.path.join(name_or_path, "grasp_meta.json")):
-            raise NotImplementedError(
-                f"{name_or_path} has no grasp_meta.json: HF checkpoint import is not "
-                "ported yet")
-        from grasp_tpu_torch.checkpoints import load_checkpoint
+        if os.path.exists(os.path.join(name_or_path, "grasp_meta.json")):
+            from grasp_tpu_torch.checkpoints import load_checkpoint
 
-        params, config, plan, _meta = load_checkpoint(name_or_path, device)
-        return config, params, plan, load_tokenizer(None)
+            params, config, plan, _meta = load_checkpoint(name_or_path, device)
+            return config, params, plan, load_tokenizer(None)
+        if not os.path.exists(os.path.join(name_or_path, "config.json")):
+            raise FileNotFoundError(f"{name_or_path} holds neither grasp_meta.json (a port "
+                                    "checkpoint) nor config.json (an HF checkpoint)")
+        from grasp_tpu_torch.models.hf_io import config_from_dir, load_hf_checkpoint
+
+        # refuse a family the model does not run before reading its weights
+        check_supported(config_from_dir(name_or_path))
+        config, params = load_hf_checkpoint(name_or_path, dtype=torch_dtype(dtype),
+                                            device=device)
+        config = dataclasses.replace(config, dtype=dtype)
+        return config, params, plan_from_params(params, config), load_tokenizer(name_or_path)
     key = name_or_path.lower()
     if key not in _PRESETS:
         raise FileNotFoundError(f"{name_or_path!r} is neither a checkpoint directory nor a "
@@ -102,7 +122,7 @@ def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int =
 def _compress_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GRASP model compression (PyTorch/CUDA)")
     p.add_argument("--model_name_or_path", type=str, required=True,
-                   help="grasp_tpu_torch checkpoint dir or preset name")
+                   help="grasp_tpu_torch checkpoint dir, HF checkpoint dir or preset name")
     p.add_argument("--dataset_name", type=str, default="wikitext2",
                    help="wikitext2 | c4 | synthetic")
     p.add_argument("--layers_id", type=int, nargs="+", default=None)
@@ -138,10 +158,13 @@ def _compress_parser() -> argparse.ArgumentParser:
                    help="crash-resume directory: the engine snapshots its state there after "
                         "block influence and every round; a rerun with the same directory "
                         "goes on at the first round not done")
-    # parsed so that a grasp-compress command line carries over; each raises
+    # meshes: parsed so that a grasp-compress command line carries over; they raise
     p.add_argument("--dp", type=int, default=1)
     p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--export_hf_dir", type=str, default=None)
+    p.add_argument("--export_hf_dir", type=str, default=None,
+                   help="also write the compressed model as an HF checkpoint directory "
+                        "(config.json + model.safetensors, low-rank projections merged "
+                        "dense in float32) that transformers loads")
     # recovery (GRASP*): the redundant layers fine-tuned after compression
     p.add_argument("--recovery", action="store_true")
     p.add_argument("--data_path", type=str, default="yahma/alpaca-cleaned",
@@ -180,10 +203,8 @@ def compress_main(argv=None) -> int:
     """``grasp-compress-torch``: compress a model and save the checkpoint."""
     args = _compress_parser().parse_args(argv)
     setup_logger(args.log_file)
-    unported = {"--export_hf_dir": args.export_hf_dir, "--dp/--tp": args.dp * args.tp > 1}
-    for flag, asked in unported.items():
-        if asked:
-            raise NotImplementedError(f"grasp-compress-torch does not support {flag} yet")
+    if args.dp * args.tp > 1:
+        raise NotImplementedError("grasp-compress-torch does not support --dp/--tp yet")
     # the recovery data is read before the compression, so that a missing file
     # fails at once rather than after the sweeps
     recovery_rows = _recovery_rows(args.data_path) if args.recovery else None
@@ -232,6 +253,11 @@ def compress_main(argv=None) -> int:
                     layer_importances=engine.layer_importances,
                     extra={"grasp_config": vars(args), "summary": summary})
     logger.info("checkpoint saved to %s", save_path)
+    if args.export_hf_dir:
+        from grasp_tpu_torch.models.hf_io import save_hf_checkpoint
+
+        save_hf_checkpoint(engine.params, config, args.export_hf_dir, merge=True)
+        logger.info("HF export written to %s", args.export_hf_dir)
     if args.recovery:
         engine.params = _run_recovery(engine, config, tokenizer, args, save_path, recovery_rows)
     if args.evaluate:
@@ -351,7 +377,7 @@ def _run_evaluation(params, config, plan, tokenizer, args) -> dict:
 def _evaluate_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GRASP checkpoint evaluation (PyTorch/CUDA)")
     p.add_argument("--model_path", type=str, required=True,
-                   help="grasp_tpu_torch checkpoint dir or preset name")
+                   help="grasp_tpu_torch checkpoint dir, HF checkpoint dir or preset name")
     p.add_argument("--tokenizer_path", type=str, default=None)
     p.add_argument("--model_name", type=str, default=None)
     p.add_argument("--eval_ppl", type=str, default="wikitext2,ptb,c4")
@@ -366,13 +392,14 @@ def _evaluate_parser() -> argparse.ArgumentParser:
                    help="write the evaluation results dict to this JSON file")
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"],
-                   help="parameter dtype of a preset (a checkpoint keeps its own)")
+                   help="parameter dtype of a preset or an HF directory (a port checkpoint "
+                        "keeps its own)")
     p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
     return p
 
 
 def evaluate_main(argv=None) -> int:
-    """``grasp-evaluate-torch``: evaluate a checkpoint or a preset."""
+    """``grasp-evaluate-torch``: evaluate a checkpoint, an HF directory or a preset."""
     args = _evaluate_parser().parse_args(argv)
     setup_logger(args.log_file)
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
@@ -389,7 +416,7 @@ def evaluate_main(argv=None) -> int:
 def _serve_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="GRASP serving (PyTorch/CUDA)")
     p.add_argument("--model_path", type=str, required=True,
-                   help="grasp_tpu_torch checkpoint dir or preset name")
+                   help="grasp_tpu_torch checkpoint dir, HF checkpoint dir or preset name")
     p.add_argument("--tokenizer_path", type=str, default=None)
     p.add_argument("--model_name", type=str, default=None,
                    help="model id reported by /v1/models (default: model_path)")
@@ -397,7 +424,8 @@ def _serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8000)
     p.add_argument("--device", type=str, default="cuda")
     p.add_argument("--dtype", type=str, default="bfloat16", choices=["float32", "bfloat16"],
-                   help="parameter dtype of a preset (a checkpoint keeps its own)")
+                   help="parameter dtype of a preset or an HF directory (a port checkpoint "
+                        "keeps its own)")
     p.add_argument("--seed", type=int, default=0, help="random-init seed of a preset")
     p.add_argument("--quantize", type=str, default="none", choices=["none", "int8", "int4"],
                    help="weight quantization for the serving copy")

@@ -1,5 +1,5 @@
 // Causal flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels,
-// head_dim 64 and 128, float32 and bfloat16.
+// head_dim 64, 96 and 128, float32 and bfloat16.
 //
 // Replaces the three TPU kernels of grasp_tpu/ops/pallas_attention.py (fp32
 // body, bf16 body):
@@ -35,7 +35,9 @@
 // - fp32 keeps the simple first design: 256 threads, every product is fp32
 //   FMAs on CUDA cores from fp32 tiles in shared memory, each thread owning a
 //   4 x 4 piece of the 64 x 64 score tile and a 4 x (hd / 16) piece of the
-//   output tile; p and ds stay fp32; no pipelining. Forward and dQ: one block
+//   output tile (ColMap: 4 adjacent columns in each 64-column group at hd 64
+//   and 128, 2 in each 32-column group at hd 96); p and ds stay fp32; no
+//   pipelining. Forward and dQ: one block
 //   per (batch * head, 64 query rows) loops over the 64-key tiles at or below
 //   the diagonal. dK/dV: one block per (batch * kv head, 64 keys) loops over
 //   the q heads of its group and the query tiles at or above the diagonal, so
@@ -69,6 +71,35 @@ __device__ __forceinline__ void store4(__nv_bfloat16* dst, float a, float b, flo
   raw.x = *reinterpret_cast<uint32_t*>(&lo);
   raw.y = *reinterpret_cast<uint32_t*>(&hi);
   *reinterpret_cast<uint2*>(dst) = raw;
+}
+__device__ __forceinline__ void store2(float* dst, float a, float b) {
+  *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(a, b);
+}
+
+// The columns of a [64, HD] output tile that thread tx (0..15) owns in the
+// fp32 bodies: W adjacent columns in each of G groups of 16 * W columns, at
+// tx * W + 16 * W * g; W * G = HD / 16. hd 64 and 128 take 4 columns a group
+// (float4), hd 96 2 (float2) in 3 groups of 32.
+template <int HD>
+struct ColMap {
+  static_assert(HD % 32 == 0, "the fp32 bodies take head dims that are multiples of 32");
+  static constexpr int W = HD % 64 == 0 ? 4 : 2;
+  static constexpr int G = HD / (16 * W);
+};
+
+// x[0 .. W) = src[0 .. W), one 16- or 8-byte shared-memory load
+template <int W>
+__device__ __forceinline__ void load_cols(float (&x)[W], const float* src) {
+  if constexpr (W == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x; x[1] = t.y;
+  }
 }
 
 // max / sum over the 16 lanes that share a tile row (lane = ty * 16 + tx)
@@ -133,12 +164,13 @@ __device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* __rest
 }
 
 // acc[i][c] += sum_j p[(ty*4+i)][j] * b[j][cols(c)]: the thread's 4 x (HD/16)
-// piece of P B for a [64, 64] shared p (stride kLdP) and a [64, HD] tile b.
-// Thread columns are tx*4 .. tx*4+3 of every 64-wide column block.
+// piece of P B for a [64, 64] shared p (stride kLdP) and a [64, HD] tile b,
+// columns by ColMap<HD>.
 template <int HD>
 __device__ __forceinline__ void tile_pb(float (&acc)[4][HD / 16], const float* __restrict__ p,
                                         const float* __restrict__ b, int ty, int tx) {
   constexpr int kLd = HD + 4;
+  constexpr int W = ColMap<HD>::W;
   for (int j0 = 0; j0 < kTile; j0 += 4) {
     float pv[4][4];
 #pragma unroll
@@ -149,15 +181,13 @@ __device__ __forceinline__ void tile_pb(float (&acc)[4][HD / 16], const float* _
 #pragma unroll
     for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-      for (int cc = 0; cc < HD / 64; ++cc) {
-        const float4 bv = *reinterpret_cast<const float4*>(b + (j0 + jj) * kLd + tx * 4 + 64 * cc);
+      for (int cc = 0; cc < ColMap<HD>::G; ++cc) {
+        float bv[W];
+        load_cols<W>(bv, b + (j0 + jj) * kLd + tx * W + 16 * W * cc);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][cc * 4 + 0] += pv[i][jj] * bv.x;
-          acc[i][cc * 4 + 1] += pv[i][jj] * bv.y;
-          acc[i][cc * 4 + 2] += pv[i][jj] * bv.z;
-          acc[i][cc * 4 + 3] += pv[i][jj] * bv.w;
-        }
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int w = 0; w < W; ++w) acc[i][cc * W + w] += pv[i][jj] * bv[w];
       }
     }
   }
@@ -169,20 +199,19 @@ template <int HD>
 __device__ __forceinline__ void tile_ptb(float (&acc)[4][HD / 16], const float* __restrict__ p,
                                          const float* __restrict__ b, int ty, int tx) {
   constexpr int kLd = HD + 4;
+  constexpr int W = ColMap<HD>::W;
 #pragma unroll 2
   for (int r = 0; r < kTile; ++r) {
     const float4 t = *reinterpret_cast<const float4*>(p + r * kLdP + ty * 4);
     const float pv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
-    for (int cc = 0; cc < HD / 64; ++cc) {
-      const float4 bv = *reinterpret_cast<const float4*>(b + r * kLd + tx * 4 + 64 * cc);
+    for (int cc = 0; cc < ColMap<HD>::G; ++cc) {
+      float bv[W];
+      load_cols<W>(bv, b + r * kLd + tx * W + 16 * W * cc);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        acc[i][cc * 4 + 0] += pv[i] * bv.x;
-        acc[i][cc * 4 + 1] += pv[i] * bv.y;
-        acc[i][cc * 4 + 2] += pv[i] * bv.z;
-        acc[i][cc * 4 + 3] += pv[i] * bv.w;
-      }
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int w = 0; w < W; ++w) acc[i][cc * W + w] += pv[i] * bv[w];
     }
   }
 }
@@ -193,15 +222,20 @@ template <typename T, int HD>
 __device__ __forceinline__ void store_piece(T* __restrict__ dst, const float (&acc)[4][HD / 16],
                                             const float (&row_scale)[4], int row0, int S, int ty,
                                             int tx) {
+  constexpr int W = ColMap<HD>::W;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + ty * 4 + i;
     if (row >= S) continue;
 #pragma unroll
-    for (int cc = 0; cc < HD / 64; ++cc) {
-      store4(dst + (int64_t)row * HD + tx * 4 + 64 * cc, acc[i][cc * 4 + 0] * row_scale[i],
-             acc[i][cc * 4 + 1] * row_scale[i], acc[i][cc * 4 + 2] * row_scale[i],
-             acc[i][cc * 4 + 3] * row_scale[i]);
+    for (int cc = 0; cc < ColMap<HD>::G; ++cc) {
+      T* d = dst + (int64_t)row * HD + tx * W + 16 * W * cc;
+      const float* a = acc[i] + cc * W;
+      if constexpr (W == 4)
+        store4(d, a[0] * row_scale[i], a[1] * row_scale[i], a[2] * row_scale[i],
+               a[3] * row_scale[i]);
+      else
+        store2(d, a[0] * row_scale[i], a[1] * row_scale[i]);
     }
   }
 }
@@ -716,9 +750,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // dQ (flash_dq_mma_kernel): one block per (64 query rows, batch * q head),
 // longest rows first. Each warp keeps its Q and dO fragments in registers for
 // the whole key loop; K and V arrive in tiles of 64 keys at hd 64 (32 at hd
-// 128, where the accumulators of 128 columns leave no registers for a wider
-// tile). S = Q K^T and dP = dO V^T on the tensor cores; ds = p (dp - di)
-// scale is rounded to bf16 in registers, as the TPU kernel rounds
+// 96 and 128, where the accumulators of 96 or 128 columns leave no registers
+// for a wider tile). S = Q K^T and dP = dO V^T on the tensor cores; ds = p
+// (dp - di) scale is rounded to bf16 in registers, as the TPU kernel rounds
 // ds.astype(k.dtype), and is the A operand of dQ += dS K directly (the
 // accumulator layout of two n-tiles is the A layout); K fragments by
 // ldmatrix.trans.
@@ -727,12 +761,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // per (64 keys, batch * q head): 1024 blocks at the calibration shape where
 // one block per kv head gave 128 blocks for 132 SMs, each running up to 8 q
 // heads x 32 query tiles (the diagonal alone cost 2x). Each warp owns 16 keys
-// and keeps their K and V fragments in registers at hd 64 (at hd 128 it reads
-// them from the resident tile each step, for registers). Q and dO tiles, with
-// their lse and di rows, come through the two stages, 64 queries a step (32 at
-// hd 128). S^T = K Q^T and dP^T = V dO^T run on the tensor cores; P^T and dS^T
-// are rounded to bf16 in registers and are the A operands of dV += P^T dO and
-// dK += dS^T Q. The TPU kernel multiplies fp32 p and ds there (an fp32
+// and keeps their K and V fragments in registers at hd 64 (at hd 96 and 128
+// it reads them from the resident tile each step, for registers). Q and dO
+// tiles, with their lse and di rows, come through the two stages, 64 queries
+// a step (32 at hd 96 and 128). S^T = K Q^T and dP^T = V dO^T run on the
+// tensor cores; P^T and dS^T are rounded to bf16 in registers and are the A
+// operands of dV += P^T dO and dK += dS^T Q. The TPU kernel multiplies fp32 p and ds there (an fp32
 // operand promotes its products); rounding them to bf16 is FlashAttention-2's
 // arithmetic, a difference from the TPU kernel held to the gradient gate of
 // 2e-2 of the plain gradient's max. Blocks start with the longest key tiles
@@ -746,7 +780,12 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 // query rows (dQ) or keys (dK/dV) a block: 4 warps of 16
 constexpr int kBwdBlock = kMmaWarps * 16;
-// keys a dQ step, queries a dK/dV step
+// keys a dQ step, queries a dK/dV step. hd 96 takes hd 128's branch (a step
+// of 32, K and V read from shared memory in dK/dV): at a step of 64 its live
+// fp32 values (dQ: 48 accumulators + 64 of S and dP; dK/dV: 96 + 64) would
+// equal hd 128's at 32, which already takes 238 to 244 registers, and K/V
+// fragments in registers would add 48 more; at 32 dQ takes 171 and dK/dV 178
+// (no spills).
 template <int HD>
 __host__ __device__ constexpr int bwd_step() { return HD == 64 ? 64 : 32; }
 
@@ -1264,8 +1303,10 @@ int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout
 // hd]; k, v, dk, dv [B, nkv, S, hd]; lse, di [B, nh, S] float32.
 #define GRASP_DISPATCH(F32, BF16, ...)                              \
   if (dtype == 0 && head_dim == 64) return F32<64>(__VA_ARGS__);    \
+  if (dtype == 0 && head_dim == 96) return F32<96>(__VA_ARGS__);    \
   if (dtype == 0 && head_dim == 128) return F32<128>(__VA_ARGS__);  \
   if (dtype == 1 && head_dim == 64) return BF16<64>(__VA_ARGS__);   \
+  if (dtype == 1 && head_dim == 96) return BF16<96>(__VA_ARGS__);   \
   if (dtype == 1 && head_dim == 128) return BF16<128>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue
 

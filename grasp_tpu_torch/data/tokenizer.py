@@ -6,12 +6,19 @@ environment has zero network egress, so we support:
   - local HF tokenizer directories (tokenizer.json / sentencepiece model) via
     transformers with ``local_files_only=True``;
   - :class:`ByteTokenizer`, a self-contained byte-level fallback used by tests,
-    synthetic calibration, and benchmarks.
+    synthetic calibration, and benchmarks, and for a directory that holds no
+    tokenizer file (an exported checkpoint holds none).
 """
 
 from __future__ import annotations
 
+import logging
+import os
 from typing import List, Optional, Sequence
+
+logger = logging.getLogger("grasp_tpu_torch")
+
+TOKENIZER_FILES = ("tokenizer.json", "tokenizer.model", "tokenizer_config.json")
 
 
 class ByteTokenizer:
@@ -60,15 +67,21 @@ class ByteTokenizer:
 
 
 def load_tokenizer(name_or_path: Optional[str]):
-    """HF tokenizer from a local path, else the byte-level fallback."""
-    if name_or_path:
-        import os
-
-        if os.path.isdir(name_or_path):
+    """The HF tokenizer of a local directory that holds a tokenizer file
+    (``TOKENIZER_FILES``; needs ``transformers``), else the byte-level
+    fallback, with a warning for a directory that holds none."""
+    if name_or_path and os.path.isdir(name_or_path):
+        if not any(os.path.exists(os.path.join(name_or_path, f)) for f in TOKENIZER_FILES):
+            logger.warning("%s holds no tokenizer file (%s): using the byte-level tokenizer",
+                           name_or_path, ", ".join(TOKENIZER_FILES))
+            return ByteTokenizer()
+        try:
             from transformers import AutoTokenizer
-
-            tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
-            if tok.pad_token is None:
-                tok.pad_token = tok.eos_token  # reference grasp.py:253
-            return tok
+        except ImportError as e:
+            raise ImportError(f"{name_or_path} holds a tokenizer; loading it needs the "
+                              "transformers package") from e
+        tok = AutoTokenizer.from_pretrained(name_or_path, local_files_only=True)
+        if tok.pad_token is None:
+            tok.pad_token = tok.eos_token  # reference grasp.py:253
+        return tok
     return ByteTokenizer()

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
 _MAX_HEADS = 65535  # batch * heads is one grid axis of the kernels
 _KEY_TILE = 64  # keys per tile in both forward bodies
 
@@ -83,8 +83,8 @@ def flash_bwd_plan(batch: int, nh: int, nkv: int, s: int, hd: int,
 
     bf16 (flash_dq_mma_kernel, flash_dkv_mma_kernel; 4 warps of 16 rows):
     dQ takes 64 query rows a block over (batch * heads, query tiles), key
-    steps of 64 at hd 64 and 32 at hd 128 (the registers of 128 dQ columns
-    leave no room for a wider step); dK/dV takes 64 keys a block for one q
+    steps of 64 at hd 64 and 32 at hd 96 and 128 (the registers of 96 or 128
+    dQ columns leave no room for a wider step); dK/dV takes 64 keys a block for one q
     head over (batch * heads, key tiles), query steps of the same widths,
     fp32 partials of every q head in a workspace of 2 x B * nh * S * hd
     floats, and a second pass that adds each group's partials, 4 values a

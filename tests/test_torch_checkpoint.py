@@ -1,6 +1,7 @@
 """grasp_tpu_torch checkpoints, the grasp_tpu checkpoint converter, the CLI,
 and the port's independence from JAX."""
 
+import dataclasses
 import http.client
 import importlib.util
 import json
@@ -18,7 +19,7 @@ from grasp_tpu.models import init_params as j_init_params
 from grasp_tpu_torch import checkpoints as tckpt
 from grasp_tpu_torch.cli import load_model, serve_main
 from grasp_tpu_torch.models import llama as tl
-from grasp_tpu_torch.models.convert import flatten_params
+from grasp_tpu_torch.models.convert import flatten_params, map_params
 from torch_parity import port_config, small_config, to_port
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -168,8 +169,18 @@ def test_load_model_presets_and_unported_sources(tmp_path):
     assert tok.eos_token_id == 257
     _, again, _, _ = load_model("tiny", device="cpu", seed=3)
     _assert_same(again, params)
-    with pytest.raises(NotImplementedError):
-        load_model(str(tmp_path), device="cpu")  # an HF directory: not ported
+    with pytest.raises(FileNotFoundError):  # neither grasp_meta.json nor config.json
+        load_model(str(tmp_path), device="cpu")
+    # an HF directory (once refused): the weights in the asked dtype, the plan
+    # from the params, the byte-level tokenizer where it holds none
+    from grasp_tpu_torch.models.hf_io import save_hf_checkpoint
+
+    save_hf_checkpoint(params, config, str(tmp_path / "hf"))
+    hf_config, hf_params, hf_plan, hf_tok = load_model(str(tmp_path / "hf"), device="cpu",
+                                                       dtype="bfloat16")
+    assert hf_config == dataclasses.replace(config, dtype="bfloat16")
+    assert hf_plan == plan and hf_tok.eos_token_id == 257
+    _assert_same(hf_params, map_params(params, lambda t: t.bfloat16()))
     with pytest.raises(FileNotFoundError):
         load_model("no-such-model", device="cpu")
     with pytest.raises(NotImplementedError):
@@ -179,8 +190,10 @@ def test_load_model_presets_and_unported_sources(tmp_path):
 def test_the_port_never_imports_jax():
     code = ("import sys; import grasp_tpu_torch, grasp_tpu_torch.serving.paged, "
             "grasp_tpu_torch.serving.server, grasp_tpu_torch.cli, grasp_tpu_torch.checkpoints, "
-            "grasp_tpu_torch.ops.paged_attention, grasp_tpu_torch.ops._build; "
-            "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+            "grasp_tpu_torch.ops.paged_attention, grasp_tpu_torch.ops._build, "
+            "grasp_tpu_torch.models.hf_io, grasp_tpu_torch.data.tokenizer; "
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'safetensors', 'ml_dtypes')); "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

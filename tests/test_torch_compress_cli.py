@@ -70,11 +70,22 @@ def test_compress_main_on_the_cpu_writes_a_checkpoint_that_the_server_loads(tmp_
 @pytest.mark.parametrize("flags", [[["--recovery", "--data_path", "no/such/alpaca"]],
                                    [["--export_hf_dir", "x"]], [["--tp", "2"], ["--dp", "2"]]],
                          ids=lambda f: f[0][0])
-def test_compress_main_refuses_what_is_not_ported(flags):
-    """HF export and meshes raise NotImplementedError; --recovery runs, and
-    refuses recovery data that is not a local file or directory with the JAX
-    CLI's FileNotFoundError (before it compresses)."""
+def test_compress_main_refuses_what_is_not_ported(flags, tmp_path, monkeypatch):
+    """Meshes raise NotImplementedError; --recovery runs, and refuses
+    recovery data that is not a local file or directory with the JAX CLI's
+    FileNotFoundError (before it compresses). --export_hf_dir, refused until
+    the HF export was ported, now writes the merged HF checkpoint after the
+    port checkpoint."""
+    monkeypatch.chdir(tmp_path)
     for flag in flags:
+        if flag[0] == "--export_hf_dir":
+            assert compress_main(["--model_name_or_path", "tiny", "--device", "cpu",
+                                  "--dataset_name", "synthetic", "--num_prune_layers", "1",
+                                  "--compression_ratio", "0.5", "--num_samples", "2",
+                                  "--seq_len", "16", "--save_path", "ck"] + flag) == 0
+            assert sorted(os.listdir(flag[1])) == ["config.json", "model.safetensors"]
+            assert os.path.exists(os.path.join("ck", tckpt.META_NAME))
+            continue
         error, match = ((FileNotFoundError, "not found locally") if flag[0] == "--recovery"
                         else (NotImplementedError, flag[0][:4]))
         with pytest.raises(error, match=match):

@@ -117,13 +117,14 @@ def _out_and_grads(fn, q, k, v, groups, scale):
 
 
 def test_flash_kernels_match_plain(dev):
-    """Forward and the three gradients of sum(o ** 2): head dims 64 and 128,
+    """Forward and the three gradients of sum(o ** 2): head dims 64, 96 and 128,
     group sizes 1 to 8, lengths 1, tile +- 1 and ragged, a batch of 3, scales
     other than hd ** -0.5, fp32 and bf16. Gradients are held to 2e-2 of the
     plain gradient's max (the JAX package's gate for its TPU kernels)."""
     for b, nh, nkv, s, hd, scale in ((1, 8, 2, 1, 64, 0.125), (3, 4, 4, 63, 64, 0.125),
                                      (1, 8, 1, 64, 64, 0.3), (2, 8, 2, 65, 128, 0.05),
-                                     (1, 16, 4, 300, 64, 0.125), (1, 4, 2, 257, 128, 128 ** -0.5)):
+                                     (1, 16, 4, 300, 64, 0.125), (1, 4, 2, 257, 128, 128 ** -0.5),
+                                     (1, 4, 4, 130, 96, 96 ** -0.5), (2, 8, 2, 65, 96, 0.2)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_case(dev, dtype, b, nh, nkv, s, hd)
             got = _out_and_grads(flash_attention, q, k, v, nh // nkv, scale)
@@ -210,3 +211,39 @@ def test_compression_engine_on_cuda_chooses_the_cpu_engine_layers_and_ranks(dev)
     for name in want["rank_dict"]:
         same = len(set(gpu.indices_log[name].tolist()) & set(cpu.indices_log[name].tolist()))
         assert same >= 0.9 * len(cpu.indices_log[name]), name
+
+
+def test_hf_files_written_from_the_device_read_back_on_it(dev, tmp_path):
+    """write_safetensors takes CUDA tensors of every dtype it knows and
+    read_safetensors gives their bits back; an HF directory saved from bf16
+    params on the card loads onto the card leaf for leaf torch.equal."""
+    from grasp_tpu_torch.models.convert import flatten_params
+    from grasp_tpu_torch.models.hf_io import (
+        load_hf_checkpoint,
+        read_safetensors,
+        save_hf_checkpoint,
+        write_safetensors,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    base = torch.randn(3, 5, generator=gen, device=dev)
+    tensors = {f"t.{dt}": (base * 50).to(dt) for dt in (
+        torch.float64, torch.float32, torch.float16, torch.bfloat16, torch.int64, torch.int32,
+        torch.int16, torch.int8, torch.uint8, torch.bool)}
+    write_safetensors(tensors, str(tmp_path / "all.safetensors"))
+    back = read_safetensors(str(tmp_path / "all.safetensors"))
+    assert back.keys() == tensors.keys()
+    for name, t in tensors.items():
+        assert torch.equal(back[name].to(dev), t), name
+
+    config = ModelConfig.tiny(hidden_size=192, num_attention_heads=2, num_key_value_heads=2,
+                              num_hidden_layers=2, dtype="bfloat16")
+    params = init_params(torch.Generator(device=dev).manual_seed(5), config, device=dev)
+    save_hf_checkpoint(params, config, str(tmp_path / "hf"), model_type="phi3",
+                       dtype=torch.bfloat16)
+    got_config, got = load_hf_checkpoint(str(tmp_path / "hf"), dtype=torch.bfloat16, device=dev)
+    assert got_config.head_dim_ == 96
+    want, have = flatten_params(params), flatten_params(got)
+    assert want.keys() == have.keys()
+    for name in want:
+        assert have[name].device == want[name].device and torch.equal(have[name], want[name]), name

@@ -52,10 +52,10 @@ def _plain_lse(q, k, groups, scale):
 
 
 def test_flash_mma_forward_and_lse_match_plain(dev):
-    """bf16 at every length across the tile edges, hd 64 and 128, gqa 1, 4, 8,
-    a scale other than hd ** -0.5: o within 2e-2, lse within 1e-4 x max(1,
-    |lse|) of the plain logsumexp, finite."""
-    for (s, hd, groups), seed in zip(itertools.product(FLASH_LENGTHS, (64, 128), (1, 4, 8)),
+    """bf16 at every length across the tile edges, hd 64, 96 and 128, gqa 1,
+    4, 8, a scale other than hd ** -0.5: o within 2e-2, lse within 1e-4 x
+    max(1, |lse|) of the plain logsumexp, finite."""
+    for (s, hd, groups), seed in zip(itertools.product(FLASH_LENGTHS, (64, 96, 128), (1, 4, 8)),
                                      itertools.count()):
         q, k, v = _qkv(dev, torch.bfloat16, 1 + seed % 2, 8, 8 // groups, s, hd, seed)
         scale = 0.3 / hd ** 0.5
@@ -74,7 +74,8 @@ def test_flash_mma_forward_is_bit_equal_run_to_run_and_feeds_the_backward(dev):
     """Two forwards give the same bits; the gradients of sum(o ** 2) through
     the dK/dV and dQ kernels, which read its lse, stay within 2e-2 of the
     plain gradient's max."""
-    for b, nh, nkv, s, hd in ((1, 32, 4, 2047, 64), (2, 8, 2, 129, 64), (1, 8, 1, 300, 128)):
+    for b, nh, nkv, s, hd in ((1, 32, 4, 2047, 64), (2, 8, 2, 129, 64), (1, 8, 1, 300, 128),
+                              (1, 32, 32, 2047, 96)):
         q, k, v = (t.requires_grad_() for t in _qkv(dev, torch.bfloat16, b, nh, nkv, s, hd, s))
         scale = hd ** -0.5
         first = fa.flash_attention(q, k, v, nh // nkv, scale)
@@ -93,13 +94,13 @@ def test_flash_mma_forward_is_bit_equal_run_to_run_and_feeds_the_backward(dev):
 def test_flash_mma_backward_matches_plain_and_is_bit_equal_run_to_run(dev):
     """bf16 gradients of sum(o ** 2) through flash_dkv_mma_kernel (with its
     group sum) and flash_dq_mma_kernel at every length across the tile edges,
-    hd 64 and 128, gqa 1, 4, 8, batches of 1 and 2, a scale other than
+    hd 64, 96 and 128, gqa 1, 4, 8, batches of 1 and 2, a scale other than
     hd ** -0.5: each within 2e-2 of the plain gradient's max, finite, the same
     bits over two backward passes, and one launch of each counted a pass.
     fp32 keeps the CUDA-core bodies at 1e-4 of the plain gradient's max."""
     cases = [(s, hd, groups, torch.bfloat16)
-             for s, hd, groups in itertools.product(FLASH_LENGTHS, (64, 128), (1, 4, 8))]
-    cases += [(s, hd, 4, torch.float32) for s in (1, 65, 1000) for hd in (64, 128)]
+             for s, hd, groups in itertools.product(FLASH_LENGTHS, (64, 96, 128), (1, 4, 8))]
+    cases += [(s, hd, 4, torch.float32) for s in (1, 65, 1000) for hd in (64, 96, 128)]
     for seed, (s, hd, groups, dtype) in enumerate(cases):
         q, k, v = (t.requires_grad_()
                    for t in _qkv(dev, dtype, 1 + seed % 2, 8, 8 // groups, s, hd, seed))
@@ -128,7 +129,7 @@ def test_flash_mma_backward_matches_plain_and_is_bit_equal_run_to_run(dev):
 
 
 def test_flash_fp32_keeps_the_cuda_core_body_and_its_gate(dev):
-    for s, hd, groups in ((1, 64, 1), (65, 128, 4), (1000, 64, 8)):
+    for s, hd, groups in ((1, 64, 1), (65, 128, 4), (1000, 64, 8), (129, 96, 1), (1000, 96, 4)):
         q, k, v = _qkv(dev, torch.float32, 1, 8, 8 // groups, s, hd, s)
         o, lse = fa._forward_cuda(q, k, v, 0.1)
         want = fa.flash_attention_reference(q, k, v, groups, 0.1)

@@ -50,20 +50,33 @@ def _assert_grads_close(got, want, rtol):
     (2, 8, 2, 70, 64, 64 ** -0.5),   # groups of 4, batch of 2
     (1, 8, 2, 17, 32, 0.3),          # a scale that is not hd ** -0.5
     (1, 2, 1, 1, 64, 64 ** -0.5),    # a single position sees one key
+    (1, 2, 2, 40, 96, 96 ** -0.5),   # Phi-3's head_dim, no grouping
+    (1, 4, 2, 70, 96, 0.2),          # head_dim 96 in groups of 2
 ])
 def test_plain_version_matches_the_jax_reference_and_its_gradients(b, nh, nkv, s, hd, scale):
+    """At head_dim 96 the Pallas kernels themselves are held too, in TPU
+    interpret mode (forward and gradients; lengths that are not a multiple
+    of their blocks)."""
     q, k, v = _inputs(b, nh, nkv, s, hd)
     groups = nh // nkv
     out, grads = _torch_out_and_grads(q, k, v, groups, scale)
-    want = jpa._xla_reference(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), groups, scale)
+    jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+    want = jpa._xla_reference(jq, jk, jv, groups, scale)
     want_grads = jax.grad(lambda *a: (jpa._xla_reference(*a, groups, scale) ** 2).sum(),
-                          argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+                          argnums=(0, 1, 2))(jq, jk, jv)
     np.testing.assert_allclose(out, np.asarray(want), atol=1e-5, rtol=0)
     if s == 1:  # dq and dk are exactly 0 here: compare absolutely
         for g, w in zip(grads, want_grads):
             np.testing.assert_allclose(g, np.asarray(w), atol=1e-5, rtol=0)
     else:
         _assert_grads_close(grads, want_grads, 1e-4)
+    if hd == 96:
+        with pltpu.force_tpu_interpret_mode():
+            kernel = jpa.flash_attention(jq, jk, jv, groups, scale)
+            kernel_grads = jax.grad(lambda *a: (jpa.flash_attention(*a, groups, scale) ** 2).sum(),
+                                    argnums=(0, 1, 2))(jq, jk, jv)
+        np.testing.assert_allclose(out, np.asarray(kernel), atol=1e-5, rtol=0)
+        _assert_grads_close(grads, kernel_grads, 1e-4)
 
 
 def test_plain_version_matches_the_pallas_kernels_in_interpret_mode():
@@ -127,10 +140,11 @@ def test_attention_scale_reaches_the_flash_route(monkeypatch):
 @pytest.mark.parametrize("case", ["head_dim", "layout", "dtype"])
 def test_cuda_argument_checks_raise(case):
     q, k, v = (torch.from_numpy(x) for x in _inputs(1, 4, 2, 8, 64))
-    if case == "head_dim":
-        with pytest.raises(NotImplementedError):
-            tfa._check_cuda_args(q[..., :32].contiguous(), k[..., :32].contiguous(),
-                                 v[..., :32].contiguous(), 2)
+    if case == "head_dim":  # 64, 96 and 128 are taken, 32 and 80 refused
+        for hd in (32, 80):
+            with pytest.raises(NotImplementedError):
+                tfa._check_cuda_args(*(torch.from_numpy(x) for x in _inputs(1, 4, 2, 8, hd)), 2)
+        tfa._check_cuda_args(*(torch.from_numpy(x) for x in _inputs(1, 4, 2, 8, 96)), 2)
     elif case == "layout":
         with pytest.raises(ValueError):  # 4 heads over 2 are groups of 2
             tfa._check_cuda_args(q, k, v, 4)

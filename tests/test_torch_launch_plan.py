@@ -88,7 +88,7 @@ def test_lowrank_plans_chunk_ranks_above_256():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_plan_grid_covers_every_query_row_once(dtype):
     for s, hd, bnh in itertools.product((1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000, 2047),
-                                        (64, 128), ((1, 32), (2, 8), (1, 4))):
+                                        (64, 96, 128), ((1, 32), (2, 8), (1, 4))):
         plan = flash_fwd_plan(*bnh, s, hd, dtype)
         assert plan.grid == (-(-s // plan.block_m), bnh[0] * bnh[1])
         assert (plan.grid[0] - 1) * plan.block_m < s <= plan.grid[0] * plan.block_m
@@ -97,22 +97,26 @@ def test_flash_plan_grid_covers_every_query_row_once(dtype):
 
 def test_flash_plan_of_each_body():
     """fp32: fp32 Q, K, V and P tiles; bf16: a Q tile and two stages of K and
-    V tiles, rows padded by 8 bf16 values; 64 query rows a block in both."""
-    for hd in (64, 128):
+    V tiles, rows padded by 8 bf16 values; 64 query rows a block in both.
+    At hd 96: 66,560 B in bf16 and 94,208 in fp32."""
+    for hd in (64, 96, 128):
         f32 = flash_fwd_plan(1, 32, 2047, hd, torch.float32)
         assert (f32.block_m, f32.smem_bytes) == (64, (3 * 64 * (hd + 4) + 64 * 68) * 4)
         bf16 = flash_fwd_plan(1, 32, 2047, hd, torch.bfloat16)
         assert (bf16.block_m, bf16.smem_bytes) == (64, 320 * (hd + 8) * 2)
     assert flash_fwd_plan(1, 32, 2047, 64, torch.bfloat16).grid == (32, 32)
+    assert flash_fwd_plan(1, 32, 2047, 96, torch.bfloat16).smem_bytes == 66560
+    assert flash_fwd_plan(1, 32, 2047, 96, torch.float32).smem_bytes == 94208
 
 
 def test_flash_backward_plans_cover_every_row_and_key_once():
     """bf16: dQ blocks of 64 query rows and dK/dV blocks of 64 keys, both over
-    (batch * heads, tiles), steps of 64 at hd 64 and 32 at hd 128, a workspace
+    (batch * heads, tiles), steps of 64 at hd 64 and 32 at hd 96 and 128, a workspace
     of every q head's fp32 dK and dV, a group sum of 4 values a thread. fp32
     keeps the CUDA-core bodies' 64-row tiles, dK/dV over (tiles, batch * kv
     heads) and no workspace."""
-    for s, hd, (b, nh, nkv) in itertools.product((1, 63, 64, 65, 511, 1024, 2047), (64, 128),
+    for s, hd, (b, nh, nkv) in itertools.product((1, 63, 64, 65, 511, 1024, 2047),
+                                                 (64, 96, 128),
                                                  ((1, 32, 4), (2, 8, 2), (1, 4, 4), (1, 32, 8))):
         tiles = -(-s // 64)
         bf16 = flash_bwd_plan(b, nh, nkv, s, hd, torch.bfloat16)

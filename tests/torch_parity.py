@@ -11,7 +11,7 @@ from grasp_tpu.configs import GraspConfig, ModelConfig
 from grasp_tpu.core.engine import GraspEngine
 from grasp_tpu.models import init_params
 from grasp_tpu_torch.configs import ModelConfig as PortConfig
-from grasp_tpu_torch.models.convert import params_from_numpy
+from grasp_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 
 
 def small_config(**overrides) -> ModelConfig:
@@ -95,3 +95,21 @@ def alpaca_rows(seed: int, n: int, output_words=(20, 40)):
 
     return [{"instruction": text(5), "input": text(4) if i % 3 else "",
              "output": text(int(rng.integers(*output_words)))} for i in range(n)]
+
+
+def assert_trees_equal(got, want, path="params"):
+    """Same structure; every leaf equal bit for bit (port tensors as numpy,
+    bf16 through ml_dtypes)."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for key in want:
+            assert_trees_equal(got[key], want[key], f"{path}.{key}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_trees_equal(g, w, f"{path}.{i}")
+    else:
+        w = np.asarray(want)
+        g = got if isinstance(got, np.ndarray) else params_to_numpy({"x": got})["x"]
+        assert g.dtype == w.dtype and g.shape == w.shape, path
+        assert np.array_equal(g.view(np.uint8), w.view(np.uint8)), path
