@@ -8,17 +8,19 @@ Phases, each of which raises on failure (exit code != 0):
 1. device: requires CUDA; prints the card's name and power limit.
 2. build: compiles grasp_tpu_torch/csrc/*.cu with nvcc (sm_90a) into build/.
 3. paged kernel: the paged-attention decode kernel against its plain PyTorch
-   version on the same inputs, at TinyLlama's decode shape and at head_dim
-   128, then at groups of 1 to 16 with lengths on both sides of every edge of
-   the launch plan's ranges, in float32 and bfloat16, within stated
-   tolerances and torch.equal to itself run to run; then both timed with
-   CUDA events at the decode shape. Then the chunk kernel of speculative
-   verification against its plain version and, row by row with torch.equal,
-   against the decode kernel at each row's own length (head_dim 64 and 128,
-   float32 and bfloat16, groups of 1, 4 and 8, chunks of 1, 2, 5 and 9, pages
-   of 16 and 128 slots, lengths across tile, page and range edges, a dead
-   row); and timed against its plain version and against one decode launch
-   per chunk position.
+   version on the same inputs, at TinyLlama's decode shape, at head_dim 128
+   and at Phi-3's heads (32 MHA heads of 96), then at groups of 1 to 16 at
+   head_dim 64, 96 and 128 with lengths on both sides of every edge of the
+   launch plan's ranges, in float32 and bfloat16, within stated tolerances
+   and torch.equal to itself run to run; then both timed with CUDA events at
+   TinyLlama's and at Phi-3's decode shape. Then the chunk kernel of
+   speculative verification against its plain version and, row by row with
+   torch.equal, against the decode kernel at each row's own length (head_dim
+   64, 96 and 128, float32 and bfloat16, groups of 1 to 16, chunks of 1, 2, 5
+   and 9, pages of 16 and 128 slots, lengths across tile, page and range
+   edges, a dead row, the verify step's shape at TinyLlama's and Phi-3's
+   heads); and timed at both against its plain version and against one
+   decode launch per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at seven
    shapes (head_dim 64, 96 and 128) in float32 and bfloat16, dQ, dK and dV
@@ -118,15 +120,22 @@ Phases, each of which raises on failure (exit code != 0):
    ``grasp-compress-torch`` with 16 rows of 2047 tokens through K1f, K1k and
    K1q at head_dim 96 (launches, ranks, one round's gradients by route), the
    merged bf16 export re-imported, and ``windowed_perplexity`` of it over 8
-   windows with the flash route against plain.
+   windows with the flash route against plain. Before the export, the
+   compressed checkpoint is served by ``grasp-serve-torch`` as in 5 (K3 at
+   head_dim 96, 32 launches a decode step) and with ``--speculative int8
+   --gamma 4`` as in 8 (K4, 32 launches a macro-step); after it, the export
+   is served with ``--chat_template phi3`` and the byte-level tokenizer: chat
+   completions unstreamed and streamed, n = 2, logprobs, a stop string and
+   /metrics.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
-kernels' times at head_dim 96 under "hd96"); then the card's line; the last
-line is ``{"ok": true, "device": {...}}``. Imports nothing of JAX, of
-grasp_tpu or of safetensors. ``--only
-flash|kernels|serve|spec|compress|evaluate|recover|hf`` runs one part while
-developing and prints no result lines.
+and paged kernels' times at head_dim 96 under "hd96"); then the card's
+line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
+JAX, of grasp_tpu or of safetensors. ``--only
+flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve`` runs one
+part while developing and prints no result lines (phi3serve: the paged
+kernels at head_dim 96 and phase 13 with its serving).
 """
 
 import argparse
@@ -195,7 +204,7 @@ def phase_build():
     report, and show from the compiled code (cuobjdump -sass) that every
     tensor-core kernel (flash forward, dQ, dK/dV at head_dim 64, 96 and 128;
     fused low-rank; both bf16 int4 kernels at 1, 2, 4 and 8 n-tiles; bf16
-    paged decode and chunk at head_dim 64 and 128) holds HMMA instructions."""
+    paged decode and chunk at head_dim 64, 96 and 128) holds HMMA instructions."""
     from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
@@ -231,7 +240,7 @@ def phase_build():
     want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
     want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
     want |= {f"{family}<{nt}>" for family in families[4:6] for nt in (1, 2, 4, 8)}
-    want |= {f"{family}<{hd}>" for family in families[6:] for hd in (64, 128)}
+    want |= {f"{family}<{hd}>" for family in families[6:] for hd in (64, 96, 128)}
     if not want <= set(hmma) or min(hmma.values()) == 0:
         raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
@@ -262,25 +271,36 @@ def _split_edge_lengths(split_slots, capacity):
     return sorted(n for n in out if 1 <= n <= capacity)
 
 
-def phase_kernel(torch):
+# Phi-3-mini-4k's heads (query heads, kv heads, head_dim): 32 MHA heads of 96
+PHI3_HEADS = (32, 32, 96)
+# query heads a kv head that both paged kernels are held at, at every head_dim
+PAGED_GROUPS = (1, 4, 8, 16)
+
+
+def phase_kernel(torch, hds=(64, 96, 128)):
     """The decode kernel against its plain version within TOL: TinyLlama's
-    decode shape and head_dim 128 with lengths across tile and page edges and
-    a dead row; then groups of 1, 4, 8 and 16 at head_dim 64 (1, 4, 8 at 128)
-    with lengths on both sides of every edge of the plan's ranges. Every call
-    runs twice and must be torch.equal to itself. Returns the worst error."""
+    decode shape, head_dim 128 and Phi-3's heads (32 MHA heads of 96) with
+    lengths across tile and page edges and a dead row, Phi-3's heads again on
+    both sides of every edge of the plan's ranges; then groups of 1, 4, 8 and
+    16 at each head_dim with lengths on both sides of every range edge. Every
+    call runs twice and must be torch.equal to itself. ``hds``: the head_dims
+    to hold. Returns the worst error."""
     from grasp_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference, paged_plan)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1234)
     lengths = [1, 127, 128, 129, 2048, 0, 1000, 2047]  # 0: dead row on null page 0
-    cases = [(hd, nh, nkv, lengths) for hd, nh, nkv in ((64, 32, 4), (128, 32, 8))]
-    for hd, gqas in ((64, (1, 4, 8, 16)), (128, (1, 4, 8))):
-        for gqa in gqas:
+    nh96, nkv96, _ = PHI3_HEADS
+    cases = [(64, 32, 4, lengths), (128, 32, 8, lengths), (96, nh96, nkv96, lengths)]
+    split96 = paged_plan(128, 16, 96, 1, torch.bfloat16).split_slots
+    cases.append((96, nh96, nkv96, _split_edge_lengths(split96, 2048) + [0]))
+    for hd in (64, 96, 128):
+        for gqa in PAGED_GROUPS:
             split = paged_plan(128, 16, hd, gqa, torch.bfloat16).split_slots
             cases.append((hd, 2 * gqa, 2, _split_edge_lengths(split, 2048)))
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for hd, nh, nkv, lens_case in cases:
+    for hd, nh, nkv, lens_case in (c for c in cases if c[0] in hds):
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             q, k, v, lens, tables = _pages_case(torch, gen, dev, dtype, len(lens_case), nh, nkv,
@@ -294,13 +314,14 @@ def phase_kernel(torch):
             same = torch.equal(got, again)
             ok = torch.isfinite(got).all().item() and err <= TOL[dtype_name] and same
             print(f"kernel vs plain: hd={hd} nh={nh} nkv={nkv} {dtype_name}, {len(lens_case)} "
-                  f"rows of lengths {lens_case[0]}..{max(lens_case)}: max_abs_err={err:.3e} "
+                  f"rows of lengths {min(lens_case)}..{max(lens_case)}: max_abs_err={err:.3e} "
                   f"(tol {TOL[dtype_name]:g}), equal run to run: {same} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"paged attention kernel disagrees: hd={hd} nh={nh} "
                                      f"nkv={nkv} {dtype_name}")
             worst[dtype_name] = max(worst[dtype_name], err)
+            del q, k, v
     print(f"kernel vs plain, worst: float32 {worst['float32']:.3e}, bfloat16 "
           f"{worst['bfloat16']:.3e}")
     return max(worst.values())
@@ -334,19 +355,27 @@ def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
     return start.elapsed_time(end) / (iters * n_layers)
 
 
-def phase_kernel_timing(torch, n_layers):
-    """Kernel and plain version at TinyLlama's decode shape: B=8, bf16,
-    lengths of the slice's prompts 32 tokens into decoding. Turns: plain,
-    kernel, kernel, plain, each after the idle spin; reports the mean of each
-    pair."""
+# the served shapes the paged kernels are timed at: (layer slices cycled
+# through, query heads, kv heads, head_dim, pages in the pool). TinyLlama's
+# 22 layers' pools together exceed the L2 cache, as in decode; one call at
+# Phi-3's heads already reads 70 MB of live K/V, so 4 slices do.
+TINYLLAMA_TIMING = (22, 32, 4, 64, 256)
+PHI3_TIMING = (4, 32, 32, 96, 129)
+
+
+def phase_kernel_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
+    """Kernel and plain version at a served decode shape: B=8, bf16,
+    lengths of the slice's prompts 32 tokens into decoding, pages of 128, 16
+    a row (TinyLlama's heads by default). Turns: plain, kernel, kernel,
+    plain, each after the idle spin; reports the mean of each pair."""
     from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(99)
     lengths = [n + 32 for n in PROMPT_LENS]
-    q, k, v, lens, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, 32, 4, 64,
-                                        128, 16, 256, lengths, layers=n_layers)
-    scale = 64 ** -0.5
+    q, k, v, lens, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
+                                        128, 16, num_pages, lengths, layers=n_layers)
+    scale = hd ** -0.5
 
     def kern(li):
         paged_attention(q, k[li], v[li], lens, tables, scale)
@@ -362,11 +391,14 @@ def phase_kernel_timing(torch, n_layers):
     # once at 3.35 TB/s, against q.k and p.v (2 flops each per element) at the
     # bf16 tensor-core peak
     live = sum(lengths)
-    nbytes = 2 * live * 4 * 64 * 2 + 2 * 8 * 32 * 64 * 2 + lens.numel() * 4 + tables.numel() * 4
-    rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **_bound(nbytes, 4 * live * 32 * 64),
+    nbytes = (2 * live * nkv * hd * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+              + tables.numel() * 4)
+    rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **_bound(nbytes, 4 * live * nh * hd),
            "library_ms": None}
-    print(f"kernel timing (B=8 nh=32 nkv=4 hd=64 bf16, lengths {lengths}): "
+    print(f"kernel timing (B=8 nh={nh} nkv={nkv} hd={hd} bf16, lengths {lengths}): "
           f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms" + _shares(rec))
+    del q, k, v
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -410,20 +442,22 @@ def _chunk_compare(torch, q, k, v, base, tables, scale):
     return (got.float() - want.float()).abs().max().item(), unequal
 
 
-def phase_chunk(torch):
+def phase_chunk(torch, hds=(64, 96, 128)):
     """The chunk kernel against its plain version within TOL, and against the
     decode kernel with torch.equal: row (b, c) is the decode kernel's output
     at length base[b] + c. A grid of small cases, then the verify step's own
-    shape. Returns the worst error against the plain version."""
+    shape at TinyLlama's heads and at Phi-3's (32 MHA heads of 96). ``hds``:
+    the head_dims to hold. Returns the worst error against the plain
+    version."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     b, nkv = len(CHUNK_BASES), 2
     worst, cases, rows = 0.0, 0, 0
-    for hd in (64, 128):
+    for hd in hds:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             unequal, errs = [], []
-            for gqa in (1, 4, 8):
+            for gqa in PAGED_GROUPS:
                 for ps, pps in ((16, 16), (128, 2)):
                     _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nkv * gqa, nkv,
                                                         hd, ps, pps, b * pps + 1, CHUNK_BASES)
@@ -436,17 +470,18 @@ def phase_chunk(torch):
                         cases += 1
                         rows += b * c_len
             ok = not unequal and max(errs) <= TOL[dtype_name]
-            print(f"chunk kernel: hd={hd} {dtype_name}, gqa 1/4/8, pages of 16 and 128, chunks "
-                  f"{CHUNK_LENS}, {b} rows of base lengths {CHUNK_BASES}: max_abs_err against the "
-                  f"plain version {max(errs):.3e} (tol {TOL[dtype_name]:g}); rows unequal to the "
-                  f"decode kernel at length base + c: {len(unequal)} {unequal[:4]} "
-                  f"{'ok' if ok else 'FAIL'}")
+            print(f"chunk kernel: hd={hd} {dtype_name}, gqa {PAGED_GROUPS}, pages of 16 and "
+                  f"128, chunks {CHUNK_LENS}, {b} rows of base lengths {CHUNK_BASES}: max_abs_err "
+                  f"against the plain version {max(errs):.3e} (tol {TOL[dtype_name]:g}); rows "
+                  f"unequal to the decode kernel at length base + c: {len(unequal)} "
+                  f"{unequal[:4]} {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}")
             worst = max(worst, max(errs))
-    c_len, nh, nkv, hd = SPEC_GAMMA + 1, 32, 4, 64
-    for dtype_name, bases in itertools.product(("float32", "bfloat16"),
-                                               (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)):
+    c_len = SPEC_GAMMA + 1
+    shapes = [s for s in ((32, 4, 64), PHI3_HEADS) if s[2] in hds]
+    for (nh, nkv, hd), dtype_name, bases in itertools.product(
+            shapes, ("float32", "bfloat16"), (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)):
         dtype = getattr(torch, dtype_name)
         b = len(bases)
         _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, 128, 16, 256,
@@ -461,30 +496,32 @@ def phase_chunk(torch):
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"paged attention chunk kernel disagrees at the verify step's "
-                                 f"shape: {dtype_name}")
+                                 f"shape: hd={hd} {dtype_name}")
         worst = max(worst, err)
         cases += 1
         rows += b * c_len
+        del q, k, v
     print(f"chunk kernel: {cases} cases, {rows} rows, every row bit-equal to the decode kernel")
     return worst
 
 
-def phase_chunk_timing(torch, n_layers):
+def phase_chunk_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
     """The chunk kernel, its plain version and one decode launch per chunk
     position on the same inputs, at the verify step's shape: B=8, bf16, the
-    slice's lengths, a chunk of gamma + 1 = 5. Turns: plain, kernel, decode
-    launches, decode launches, kernel, plain, each after the idle spin.
-    Bound: every K/V row a query of the chunk sees read once, q and the
-    output moved once, at 3.35 TB/s, against q.k and p.v at the bf16 peak."""
+    slice's lengths, a chunk of gamma + 1 = 5 (TinyLlama's heads by default).
+    Turns: plain, kernel, decode launches, decode launches, kernel, plain,
+    each after the idle spin. Bound: every K/V row a query of the chunk sees
+    read once, q and the output moved once, at 3.35 TB/s, against q.k and
+    p.v at the bf16 peak."""
     from grasp_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_chunk, paged_attention_chunk_reference)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(98)
     lengths = [n + 32 for n in PROMPT_LENS]
-    c_len, nh, nkv, hd = SPEC_GAMMA + 1, 32, 4, 64
+    c_len = SPEC_GAMMA + 1
     _, k, v, base, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
-                                        128, 16, 256, lengths, layers=n_layers)
+                                        128, 16, num_pages, lengths, layers=n_layers)
     q = torch.randn(8, c_len, nh, hd, generator=gen, device=dev).bfloat16()
     singles = [(q[:, c].contiguous(), base + c) for c in range(c_len)]
     scale = hd ** -0.5
@@ -515,12 +552,15 @@ def phase_chunk_timing(torch, n_layers):
     nbytes = (2 * kv_rows * nkv * hd * 2 + 2 * q.numel() * 2 + base.numel() * 4
               + tables.numel() * 4)
     rec = {"ms": mean["kernel"], "plain_ms": mean["plain"],
-           **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None}
+           **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None,
+           "decodes_ms": mean["decodes"]}
     print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, base lengths "
           f"{lengths}), ms per call, two turns each: "
           + ", ".join(f"{name} {xs[0]:.4f}/{xs[1]:.4f}" for name, xs in t.items())
           + f"; {c_len} decode launches over one chunk launch: "
             f"{mean['decodes'] / mean['kernel']:.2f}x" + _shares(rec))
+    del q, k, v, singles
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -1090,10 +1130,10 @@ def phase_quantizer_timing(torch):
     return out
 
 
-def build_flagship(torch, dev):
-    """TinyLlama-1.1B at full width, bf16, random weights from a seeded
-    generator; the last two layers' seven projections become GRASP
-    low-rank factors at preserve_rank(in, out, 0.9)."""
+def build_flagship(torch, dev, config=None):
+    """TinyLlama-1.1B (or ``config``) at full width, bf16, random weights
+    from a seeded generator; the last two layers' seven projections become
+    GRASP low-rank factors at preserve_rank(in, out, 0.9)."""
     import dataclasses
 
     from grasp_tpu_torch import ModelConfig
@@ -1101,7 +1141,7 @@ def build_flagship(torch, dev):
         ATTN_PROJS, PROJ_ORDER, default_plan, init_params, plan_set)
     from grasp_tpu_torch.ops.saliency import preserve_rank
 
-    config = dataclasses.replace(ModelConfig.tinyllama_1_1b(), dtype="bfloat16")
+    config = dataclasses.replace(config or ModelConfig.tinyllama_1_1b(), dtype="bfloat16")
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(gen, config, device=dev)
     plan = default_plan(config)
@@ -1118,10 +1158,9 @@ def build_flagship(torch, dev):
     return config, params, plan
 
 
-def _post(port, body, timeout=600):
+def _post(port, body, timeout=600, path="/v1/completions"):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
-    conn.request("POST", "/v1/completions", json.dumps(body),
-                 {"Content-Type": "application/json"})
+    conn.request("POST", path, json.dumps(body), {"Content-Type": "application/json"})
     resp = conn.getresponse()
     data = resp.read()
     conn.close()
@@ -1379,17 +1418,21 @@ def _full_length(results, prompts, n_tokens, label):
     return outs
 
 
-def serve_speculative(torch, card, dev, ckpt_root):
+def serve_speculative(torch, card, dev, ckpt_root, tag="serve", agreement=SPEC_AGREEMENT):
     """This slice's main path: ``--speculative int8 --gamma 4`` over fp pools.
     Greedy requests together, then a sampled one. Returns the launches of the
-    chunk kernel and of the decode kernel in that run."""
+    chunk kernel and of the decode kernel in that run. ``tag`` starts each
+    printed line. ``agreement``: the least mean share of positions at which
+    the greedy streams agree with the plain engine's, or None to report the
+    share only (where random weights leave the top logits tied to within the
+    served path's rounding, two correct engines part at the first tie)."""
     import numpy as np
 
     from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
     from grasp_tpu_torch.serving.paged import ServingEngine
     from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
 
-    label = f"--speculative int8 --gamma {SPEC_GAMMA}"
+    label = f"{tag} --speculative int8 --gamma {SPEC_GAMMA}"
     rng = np.random.default_rng(23)
     t0 = time.perf_counter()
     with _served(torch, dev, ckpt_root,
@@ -1416,7 +1459,7 @@ def serve_speculative(torch, card, dev, ckpt_root):
         got = {"chunk": paged_attention_chunk.launches, "decode": paged_attention.launches}
         want = {"chunk": layers * steps, "decode": layers * (SPEC_GAMMA + 1) * steps}
         n_tok = sum(len(o) for o in outs) + len(sampled)
-        print(f"serve {label}: started in {start_s:.1f} s; {len(outs)} greedy completions "
+        print(f"{label}: started in {start_s:.1f} s; {len(outs)} greedy completions "
               f"together ({wall:.3f} s) and 1 sampled, {SPEC_MAX_TOKENS} tokens each; {steps} "
               f"macro-steps in {engine.decode_seconds:.3f} s "
               f"({engine.decode_seconds / max(steps, 1) * 1e3:.2f} ms each); launches {got}, "
@@ -1426,15 +1469,15 @@ def serve_speculative(torch, card, dev, ckpt_root):
               f"card {card}")
         if (steps == 0 or got != want or engine.decode_steps != (SPEC_GAMMA + 1) * steps
                 or any(not 0 <= t < config.vocab_size for t in sampled)):
-            raise AssertionError(f"serve {label}: launch counts differ from the macro-steps")
+            raise AssertionError(f"{label}: launch counts differ from the macro-steps")
 
         gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
                                                 list(zip(prompts, outs)), dev)
-        print(f"serve {label}: greedy tokens vs plain teacher-forced forward of the target: "
+        print(f"{label}: greedy tokens vs plain teacher-forced forward of the target: "
               f"argmax agrees at {match}/{total} positions, max logit gap {gap:.4f} "
               f"(tol {GAP_TOL})")
         if gap > GAP_TOL:
-            raise AssertionError(f"serve {label}: served tokens disagree with the plain forward")
+            raise AssertionError(f"{label}: served tokens disagree with the plain forward")
 
         # the same requests through the plain engine over the same weights
         plain = ServingEngine(engine.params, config, engine.plan, device=dev, num_pages=256,
@@ -1447,13 +1490,14 @@ def serve_speculative(torch, card, dev, ckpt_root):
         agree = [sum(a == b for a, b in zip(o, w)) / len(w) for o, w in zip(outs, plain_outs)]
         same = sum(o == w for o, w in zip(outs, plain_outs))
         mean = sum(agree) / len(agree)
-        print(f"serve {label}: against the plain engine on the same requests: {same}/{len(outs)} "
+        print(f"{label}: against the plain engine on the same requests: {same}/{len(outs)} "
               f"streams identical, share of agreeing positions {[round(a, 3) for a in agree]}, "
-              f"mean {mean:.3f} (bound {SPEC_AGREEMENT}; identity is reported, not required: the "
+              f"mean {mean:.3f} (bound {agreement}; identity is reported, not required: the "
               f"verify step's projections run at {8 * (SPEC_GAMMA + 1)} rows and the decode "
               f"step's at 8)")
-        if [len(o) for o in plain_outs] != [len(o) for o in outs] or mean < SPEC_AGREEMENT:
-            raise AssertionError(f"serve {label}: streams stray from the plain engine's")
+        if [len(o) for o in plain_outs] != [len(o) for o in outs] or (
+                agreement is not None and mean < agreement):
+            raise AssertionError(f"{label}: streams stray from the plain engine's")
     return got
 
 
@@ -1542,13 +1586,17 @@ def phase_slice(torch, card, dev, spec_only=False):
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
 
-def _serve_main_path(torch, card, dev, ckpt_root, config, t0):
+def _serve_main_path(torch, card, dev, ckpt_root, config, t0, tag="slice"):
+    """The served main path: one streamed completion of a 512-token prompt,
+    then 8 concurrent completions of PROMPT_LENS and /v1/models; tokens
+    against a teacher-forced plain forward, K3 launches against the decode
+    steps. ``tag`` starts each printed line. Returns K3's launches."""
     import numpy as np
 
     from grasp_tpu_torch.ops.paged_attention import paged_attention
 
     with _served(torch, dev, ckpt_root) as (engine, port):
-        print(f"slice: checkpoint saved and served on 127.0.0.1:{port} in "
+        print(f"{tag}: checkpoint served on 127.0.0.1:{port} in "
               f"{time.perf_counter() - t0:.1f} s")
 
         rng = np.random.default_rng(0)
@@ -1588,24 +1636,24 @@ def _serve_main_path(torch, card, dev, ckpt_root, config, t0):
 
         launches, steps = paged_attention.launches, engine.decode_steps
         want = config.num_hidden_layers * steps
-        print(f"slice: 1 streamed + {len(outs)} concurrent completions, tokens "
+        print(f"{tag}: 1 streamed + {len(outs)} concurrent completions, tokens "
               f"{[len(stoks)] + [len(o) for o in outs]}; decode steps {steps}, kernel "
               f"launches {launches} (want {config.num_hidden_layers} x {steps} = {want})")
         if steps == 0 or launches != want:
             raise AssertionError("the decode path did not run the kernel once per layer per step")
         n_tok = sum(len(o) for o in outs)
-        print(f"slice: TTFT (streamed, 512-token prompt, alone) {ttft * 1e3:.1f} ms; "
+        print(f"{tag}: TTFT (streamed, 512-token prompt, alone) {ttft * 1e3:.1f} ms; "
               f"8 concurrent requests: {n_tok} tokens in {wall:.3f} s = "
               f"{n_tok / wall:.1f} tok/s end to end; decode steps "
               f"{steps} in {engine.decode_seconds:.3f} s; card {card}")
         decode_tok = sum(len(o) for o in outs) + len(stoks)
-        print(f"slice: decode-only rate {decode_tok / engine.decode_seconds:.1f} tok/s "
+        print(f"{tag}: decode-only rate {decode_tok / engine.decode_seconds:.1f} tok/s "
               f"(tokens of all 9 requests over host time inside decode steps)")
 
         gap, match, total = check_against_plain(
             torch, engine.params, engine.config, engine.plan,
             [(stream_prompt, stoks)] + list(zip(prompts[:3], outs[:3])), dev)
-        print(f"slice: served vs plain teacher-forced forward: argmax agrees at "
+        print(f"{tag}: served vs plain teacher-forced forward: argmax agrees at "
               f"{match}/{total} positions, max logit gap {gap:.4f} (tol {GAP_TOL})")
         if gap > GAP_TOL:
             raise AssertionError("served tokens disagree with the plain forward")
@@ -2883,6 +2931,155 @@ def compress_from_hf(torch, card, dev, preset_root, preset_launches):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def _sse(port, body, path):
+    """A streamed request's chunks, up to [DONE]."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", path, json.dumps(dict(body, stream=True)),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    lines = [raw.decode().strip() for raw in resp if raw.startswith(b"data: ")]
+    conn.close()
+    if resp.status != 200 or not lines or lines[-1] != "data: [DONE]":
+        raise AssertionError(f"stream {path}: HTTP {resp.status}, ended {lines[-1:]}")
+    chunks = [json.loads(line[len("data: "):]) for line in lines[:-1]]
+    if any("error" in c for c in chunks):
+        raise AssertionError(f"stream {path}: {chunks[-1]}")
+    return chunks
+
+
+def serve_phi3_endpoints(torch, card, dev, export):
+    """``grasp-serve-torch --chat_template phi3`` on the merged bf16 Phi-3
+    export (no tokenizer file beside it: the byte-level tokenizer, which
+    keeps transformers, and with it safetensors, out of the process): a chat
+    completion unstreamed and streamed (the same tokens), n = 2 sampled with
+    a seed (choice j equal to a single request at seed + j), logprobs = 5 on
+    a greedy request (tokens unchanged, the chosen logprob the top-1 within
+    1e-5), a stop string (finish "stop", the text ending before the match),
+    and /metrics against what was served. Greedy tokens are held to a
+    teacher-forced plain forward, K3's launches to 32 x decode steps. Returns
+    K3's launches."""
+    import numpy as np
+
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.ops.paged_attention import paged_attention
+    from grasp_tpu_torch.serving.server import render_chat
+
+    tok = load_tokenizer(export)
+    rng = np.random.default_rng(31)
+
+    def words(n):
+        return " ".join(f"w{i}" for i in rng.integers(3, 32000, n))
+
+    msgs = [{"role": "system", "content": words(12)}, {"role": "user", "content": words(60)}]
+    prompt = render_chat(msgs, tok, "phi3")
+    chat_path = "/v1/chat/completions"
+    served, counted = [], {"requests": 0, "tokens": 0}
+
+    def answer(status, data, n_choices=1):
+        if status != 200:
+            raise AssertionError(f"phi3 endpoints: HTTP {status}: {data[:300]!r}")
+        body = json.loads(data)
+        if len(body["choices"]) != n_choices:
+            raise AssertionError(f"phi3 endpoints: {len(body['choices'])} choices")
+        counted["requests"] += n_choices
+        counted["tokens"] += body["usage"]["completion_tokens"]
+        return body
+
+    def ids(choice):
+        return choice["message"]["token_ids"] if "message" in choice else choice["token_ids"]
+
+    with _served(torch, dev, export, ["--chat_template", "phi3"]) as (engine, port):
+        _reset_paged_counts(engine)
+        chat = answer(*_post(port, {"messages": msgs, "max_tokens": 24}, path=chat_path))
+        c0 = chat["choices"][0]
+        chat_ids = ids(c0)
+        ok = {"chat object": chat["object"] == "chat.completion"
+              and c0["message"]["role"] == "assistant",
+              "chat prompt tokens": chat["usage"]["prompt_tokens"] == len(prompt),
+              "chat text": c0["message"]["content"] == tok.decode(chat_ids,
+                                                                  skip_special_tokens=True)}
+        served.append((prompt, chat_ids))
+
+        chunks = _sse(port, {"messages": msgs, "max_tokens": 24}, chat_path)
+        streamed = [t for c in chunks for t in c["choices"][0]["delta"].get("token_ids", [])]
+        counted["requests"] += 1
+        counted["tokens"] += len(streamed)
+        ok["chat streamed"] = (streamed == chat_ids
+                               and {c["object"] for c in chunks} == {"chat.completion.chunk"}
+                               and chunks[-1]["choices"][0]["finish_reason"]
+                               == c0["finish_reason"])
+
+        kw = {"messages": msgs, "max_tokens": 16, "temperature": 0.8, "top_k": 40}
+        pair = answer(*_post(port, dict(kw, n=2, seed=7), path=chat_path), n_choices=2)
+        singles = [answer(*_post(port, dict(kw, seed=s), path=chat_path)) for s in (7, 8)]
+        ok["n=2 choice j = seed + j"] = [ids(c) for c in pair["choices"]] == [
+            ids(b["choices"][0]) for b in singles]
+
+        greedy = answer(*_post(port, {"prompt": prompt, "max_tokens": 16}))
+        lp = answer(*_post(port, {"prompt": prompt, "max_tokens": 16, "logprobs": 5}))
+        block = lp["choices"][0]["logprobs"]
+        gaps = [abs(chosen - max(top.values()))
+                for chosen, top in zip(block["token_logprobs"], block["top_logprobs"])]
+        worst_lp = max(gaps, default=math.inf)
+        ok["logprobs"] = (ids(lp["choices"][0]) == ids(greedy["choices"][0])
+                          and len(gaps) == len(ids(greedy["choices"][0]))
+                          and all(len(top) <= 5 for top in block["top_logprobs"])
+                          and worst_lp <= 1e-5)
+
+        # the byte-level tokenizer decodes ids below 256 only: the stop string
+        # is a character of the first of 16 greedy continuations of 64 tokens
+        # whose text has one other than U+FFFD (a part of a multi-byte
+        # character decodes to U+FFFD until the rest arrives)
+        starts = [rng.integers(3, 32000, 40).tolist() for _ in range(16)]
+        texts = answer(*_post(port, {"prompt": starts, "max_tokens": 64}), n_choices=16)
+        found = [(p, c, [x for x in c["text"] if x != "\ufffd"])
+                 for p, c in zip(starts, texts["choices"])]
+        found = [f for f in found if f[2]]
+        if not found:
+            raise AssertionError("phi3 endpoints: no continuation decodes to a character")
+        start, full, chars = found[0]
+        served.append((start, full["token_ids"]))
+        stop = chars[len(chars) // 2]
+        cut = answer(*_post(port, {"prompt": start, "max_tokens": 64, "stop": [stop]}))
+        cut = cut["choices"][0]
+        ok["stop"] = (cut["finish_reason"] == "stop"
+                      and cut["text"] == full["text"][:full["text"].find(stop)]
+                      and stop not in cut["text"]
+                      and full["token_ids"][:len(cut["token_ids"])] == cut["token_ids"])
+
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/metrics")
+        resp = conn.getresponse()
+        metrics = dict(line.split(" ", 1) for line in resp.read().decode().strip().splitlines())
+        conn.close()
+        ok["metrics"] = (resp.status == 200
+                         and int(metrics["grasp_requests_total"]) == counted["requests"]
+                         and int(metrics["grasp_completions_total"]) == counted["requests"]
+                         and int(metrics["grasp_tokens_generated_total"]) == counted["tokens"]
+                         and int(metrics["grasp_live_requests"]) == 0)
+        launches, steps = paged_attention.launches, engine.decode_steps
+        ok["K3 launches"] = steps > 0 and launches == engine.config.num_hidden_layers * steps
+        gap, match, total = check_against_plain(torch, engine.params, engine.config, engine.plan,
+                                                served, dev)
+        ok["greedy tokens against the plain forward"] = gap <= GAP_TOL
+        print(f"phi3 endpoints: --chat_template phi3 on the export, tokenizer "
+              f"{type(tok).__name__}; chat of {len(prompt)} prompt tokens -> {len(chat_ids)} "
+              f"tokens ({c0['finish_reason']}), streamed the same; n=2 at seed 7 "
+              f"{[len(ids(c)) for c in pair['choices']]} tokens; logprobs=5: chosen against "
+              f"top-1 max gap {worst_lp:.2e}; stop {stop!r}: {len(cut['token_ids'])} of "
+              f"{len(full['token_ids'])} tokens, text cut at {len(cut['text'])} chars; /metrics "
+              f"requests {metrics['grasp_requests_total']}, completions "
+              f"{metrics['grasp_completions_total']}, tokens "
+              f"{metrics['grasp_tokens_generated_total']} (served {counted}); K3 launches "
+              f"{launches} = {engine.config.num_hidden_layers} x {steps} decode steps; greedy "
+              f"tokens against the plain forward: argmax agrees at {match}/{total}, max logit gap "
+              f"{gap:.4f} (tol {GAP_TOL}); card {card}")
+        print(f"phi3 endpoints: {ok}")
+        if not all(ok.values()):
+            raise AssertionError(f"phi3 endpoints failed: {[k for k, v in ok.items() if not v]}")
+    return launches
+
+
 def phase_phi3(torch, card, dev):
     """Phi-3-mini-4k (32 layers, hidden 3072, 32 heads of 96) at full width
     and depth through an HF directory: the preset's random weights (bf16,
@@ -2894,7 +3091,11 @@ def phase_phi3(torch, card, dev):
     merged in bf16 as a Phi-3 checkpoint, re-imported, and evaluated:
     ``windowed_perplexity`` over 8 windows of 2048 tokens with the flash
     route and the plain route, each window's mean CE within EVAL_CE_TOL.
-    Returns the flash kernels' launches."""
+    The compressed checkpoint is served by ``grasp-serve-torch`` before it
+    is removed (K3 at head_dim 96, then ``--speculative int8 --gamma 4``
+    through K4), and the export with ``--chat_template phi3``
+    (serve_phi3_endpoints). Returns the flash kernels' launches and the
+    paged kernels' ({"paged": K3, "chunk": K4})."""
     import dataclasses
 
     from grasp_tpu_torch import ModelConfig
@@ -2969,6 +3170,17 @@ def phase_phi3(torch, card, dev):
         del params
         torch.cuda.empty_cache()
 
+        # the compressed checkpoint served: decode through K3, then under
+        # --speculative int8 the verify step through K4
+        served = {"paged": _serve_main_path(torch, card, dev, ck, config, time.perf_counter(),
+                                            tag="phi3 serve")}
+        # agreement reported, not gated: the top logits of these random
+        # weights lie within the served path's rounding of each other at many
+        # positions, so two correct engines part early; each token is held to
+        # the target's forward within GAP_TOL instead
+        served["chunk"] = serve_speculative(torch, card, dev, ck, tag="phi3 serve",
+                                            agreement=None)["chunk"]
+
         # the export: merged, fused, bf16; re-imported
         ck_params, ck_config, ck_plan, _ = load_checkpoint(ck, dev)
         torch.cuda.synchronize()
@@ -3025,8 +3237,9 @@ def phase_phi3(torch, card, dev):
             raise AssertionError("phi3: the flash route's perplexity left the plain route's")
         del ex_params
         torch.cuda.empty_cache()
-        print(f"phi3: flash launches {total} in the Phi-3 slice")
-        return total
+        served["paged"] += serve_phi3_endpoints(torch, card, dev, export)
+        print(f"phi3: flash launches {total}, paged launches {served} in the Phi-3 slice")
+        return total, served
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -3071,7 +3284,8 @@ def drive_quantizer(torch, dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
-                                           "evaluate", "recover", "hf"], default=None,
+                                           "evaluate", "recover", "hf", "phi3serve"],
+                        default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
     import torch
@@ -3105,10 +3319,17 @@ def main(argv=None) -> int:
     if args.only == "hf":
         print(phase_compress(torch, card, dev, only="hf"), phase_phi3(torch, card, dev))
         return 0
+    if args.only == "phi3serve":
+        print(phase_kernel(torch, hds=(96,)), phase_kernel_timing(torch, *PHI3_TIMING))
+        print(phase_chunk(torch, hds=(96,)), phase_chunk_timing(torch, *PHI3_TIMING))
+        print(phase_phi3(torch, card, dev))
+        return 0
     paged_err = phase_kernel(torch)
-    paged = phase_kernel_timing(torch, 22)
+    paged = phase_kernel_timing(torch, *TINYLLAMA_TIMING)
+    paged96 = phase_kernel_timing(torch, *PHI3_TIMING)
     chunk_err = phase_chunk(torch)
-    chunk = phase_chunk_timing(torch, 22)
+    chunk = phase_chunk_timing(torch, *TINYLLAMA_TIMING)
+    chunk96 = phase_chunk_timing(torch, *PHI3_TIMING)
     if args.only == "spec":
         print(chunk, phase_slice(torch, card, dev, spec_only=True))
         return 0
@@ -3125,7 +3346,7 @@ def main(argv=None) -> int:
     paged_launches, spec_launches, served = phase_slice(torch, card, dev)
     flash_launches, fused_compress_launches, evaluated, recovered, from_hf = phase_compress(
         torch, card, dev)
-    phi3 = phase_phi3(torch, card, dev)
+    phi3, phi3_served = phase_phi3(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu", "safetensors"))
@@ -3137,13 +3358,15 @@ def main(argv=None) -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
-         "launches": paged_launches + from_hf["paged"], "max_abs_err": paged_err, **paged},
+         "launches": paged_launches + from_hf["paged"] + phi3_served["paged"],
+         "max_abs_err": paged_err, **paged, "hd96": paged96},
         # library_ms: no single PyTorch call reads a page table; the timing line
         # above has one decode launch per chunk position beside it
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
-         "launches": spec_launches["chunk"], "max_abs_err": chunk_err, **chunk},
+         "launches": spec_launches["chunk"] + phi3_served["chunk"], "max_abs_err": chunk_err,
+         **chunk, "hd96": chunk96},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
         # launches: the two compressions, the evaluation slice, the HF route
         # and the Phi-3 slice (head_dim 96: its compression and perplexity);

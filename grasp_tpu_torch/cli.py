@@ -441,6 +441,10 @@ def _serve_parser() -> argparse.ArgumentParser:
     p.add_argument("--num_pages", type=int, default=256)
     p.add_argument("--page_size", type=int, default=128)
     p.add_argument("--max_pages_per_seq", type=int, default=16)
+    p.add_argument("--chat_template", type=str, default=None,
+                   choices=[None, "llama2", "chatml", "phi3", "gemma", "generic"],
+                   help="chat rendering for /v1/chat/completions (default: the "
+                        "tokenizer's own template, else generic)")
     p.add_argument("--log_file", type=str, default=None)
     return p
 
@@ -485,7 +489,8 @@ def serve_main(argv=None, block: bool = True):
 
         engine = ServingEngine(params, config, plan, **kw)
     handles = serve(engine, host=args.host, port=args.port, tokenizer=tokenizer,
-                    model_id=args.model_name or args.model_path, block=block)
+                    model_id=args.model_name or args.model_path,
+                    chat_template=args.chat_template, block=block)
     return 0 if block else handles
 
 

@@ -1,4 +1,4 @@
-// Paged attention for Hopper (sm_90a), head_dim 64 and 128: the one-query
+// Paged attention for Hopper (sm_90a), head_dim 64, 96 and 128: the one-query
 // decode kernel and the chunk kernel of speculative verification.
 //
 // The decode kernels replace the TPU kernel
@@ -46,9 +46,16 @@
 //   fragments by ldmatrix, an online softmax on the accumulators in base 2,
 //   P rounded to bf16 in registers (FlashAttention's arithmetic, as the flash
 //   forward does) and O += P V with V fragments by ldmatrix.trans. The four
-//   warps' states are added in warp order into the block's partial.
+//   warps' states are added in warp order into the block's partial. A ring
+//   row of 8 or 16 16-byte chunks permutes them by chunk ^ (row % 8); at
+//   head_dim 96 a row has 12, which that XOR would carry into the next row,
+//   so there rows are padded to HD + 8 elements (13 chunks: 8 rows at one
+//   chunk fall in 8 distinct bank groups, as in the q tile) and not permuted.
 // - fp32 keeps the first design's CUDA-core tile loop (its 1e-4 gate is below
 //   what bf16 products keep), now over one range and into the same combine.
+//   Its PV phase gives thread (warp w, lane) columns lane + 32 i of query
+//   rows w + 4 j, so all 128 threads work at every head_dim and a group of
+//   up to 16 rows fits in registers.
 //
 // The chunk kernels: C query tokens per sequence (the token a speculative step
 // starts from and its C - 1 draft tokens), q and out [B, C, nh, hd]; query c
@@ -77,7 +84,7 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRowsPerThread = 8;
+constexpr int kMaxGqa = 16;         // query rows of a kv head (both bodies)
 constexpr int kMaxCluster = 8;      // splits of a row: one portable cluster
 constexpr int kSplitAlign = 64;     // a range is a whole number of 64-slot tiles
 constexpr int kMmaTile = 64;        // slots per bf16 tile: 16 per warp
@@ -205,9 +212,10 @@ __device__ __forceinline__ void combine_splits(const float* pm, const float* pl,
 
 template <int HD>
 struct Shape {
-  static constexpr int kTile = 4096 / HD;                  // slots per tile: 64 or 32
-  static constexpr int kRowGroups = kThreads / HD;         // PV phase: threads per column
-  static constexpr int kMaxGqa = kMaxRowsPerThread * kRowGroups;
+  static_assert(HD % 32 == 0, "a thread owns whole columns lane + 32 i");
+  static constexpr int kTile = HD <= 64 ? 64 : 32;  // slots per tile
+  static constexpr int kCols = HD / 32;             // PV phase: columns lane + 32 i of a thread
+  static constexpr int kRows = kMaxGqa / kWarps;    // ... of rows warp + kWarps j
 };
 
 // One block's range, shared by the fp32 decode and chunk kernels: the gqa
@@ -226,20 +234,21 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
                                                  int page_size, int pages_per_seq, float scale,
                                                  int split, int split_slots) {
   constexpr int kTile = Shape<HD>::kTile;
-  constexpr int kRowGroups = Shape<HD>::kRowGroups;
-  constexpr int kMaxGqa = Shape<HD>::kMaxGqa;
+  constexpr int kCols = Shape<HD>::kCols;
+  constexpr int kRows = Shape<HD>::kRows;
   constexpr int kVec = 4;  // floats per 16-byte load
   constexpr int kVecPerRow = HD / kVec;
   static_assert(kTile <= kThreads, "one thread per slot fills the row offsets");
   static_assert(kSplitAlign % kTile == 0, "a range is a whole number of tiles");
+  static_assert(kMaxGqa * HD <= kTile * (HD + 1), "the range's output fits in the drained k_s");
 
   __shared__ float q_s[kMaxGqa][HD];
   __shared__ float k_s[kTile][HD + 1];  // +1: the score loop reads rows across a warp
   __shared__ float v_s[kTile][HD];
   __shared__ float p_s[kMaxGqa][kTile];  // scores, then softmax numerators
   __shared__ float m_s[kMaxGqa], l_s[kMaxGqa], alpha_s[kMaxGqa];
-  __shared__ float part_s[kMaxGqa][HD];  // the range's unnormalised output
   __shared__ int64_t row_s[kTile];       // element offset of each slot's K/V row
+  float* part_s = &k_s[0][0];  // after the loop: the range's unnormalised output [gqa][HD]
 
   const int tid = threadIdx.x;
   const Range range = range_of(length, split, split_slots, pages_per_seq * page_size);
@@ -251,12 +260,14 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
     l_s[g] = 0.f;
   }
 
-  // PV phase layout: thread owns column d of rows rg, rg + kRowGroups, ...
-  const int d = tid % HD;
-  const int rg = tid / HD;
-  float acc[kMaxRowsPerThread];
+  // PV phase layout: acc[j][i] is column lane + 32 i of query row warp + kWarps j
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  float acc[kRows][kCols];
 #pragma unroll
-  for (int r = 0; r < kMaxRowsPerThread; ++r) acc[r] = 0.f;
+  for (int j = 0; j < kRows; ++j)
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) acc[j][i] = 0.f;
   __syncthreads();
 
   for (int s0 = range.s_lo; s0 < range.s_end; s0 += kTile) {
@@ -295,8 +306,6 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
     __syncthreads();
 
     // online softmax, one warp per query row; NaN-free when a tile is all -inf
-    const int warp = tid / 32;
-    const int lane = tid % 32;
     for (int g = warp; g < gqa; g += kWarps) {
       float mx = -INFINITY;
       for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, p_s[g][t]);
@@ -323,35 +332,63 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
 
     // acc[g][d] = alpha[g] * acc[g][d] + sum_t p[g][t] * v[t][d]
 #pragma unroll
-    for (int r = 0; r < kMaxRowsPerThread; ++r) {
-      const int g = rg + r * kRowGroups;
-      if (g < gqa) acc[r] *= alpha_s[g];
+    for (int j = 0; j < kRows; ++j) {
+      const int g = warp + j * kWarps;
+      if (g < gqa) {
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) acc[j][i] *= alpha_s[g];
+      }
     }
     for (int t = 0; t < n; ++t) {
-      const float v = v_s[t][d];
+      float v[kCols];
 #pragma unroll
-      for (int r = 0; r < kMaxRowsPerThread; ++r) {
-        const int g = rg + r * kRowGroups;
-        if (g < gqa) acc[r] += p_s[g][t] * v;
+      for (int i = 0; i < kCols; ++i) v[i] = v_s[t][lane + 32 * i];
+#pragma unroll
+      for (int j = 0; j < kRows; ++j) {
+        const int g = warp + j * kWarps;
+        if (g < gqa) {
+          const float p = p_s[g][t];
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) acc[j][i] += p * v[i];
+        }
       }
     }
     __syncthreads();  // the next tile overwrites shared memory
   }
 
 #pragma unroll
-  for (int r = 0; r < kMaxRowsPerThread; ++r) {
-    const int g = rg + r * kRowGroups;
-    if (g < gqa) part_s[g][d] = acc[r];
+  for (int j = 0; j < kRows; ++j) {
+    const int g = warp + j * kWarps;
+    if (g < gqa) {
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) part_s[g * HD + lane + 32 * i] = acc[j][i];
+    }
   }
-  combine_splits<float, HD, false>(m_s, l_s, &part_s[0][0], ob, gqa, range.n_live, split);
+  combine_splits<float, HD, false>(m_s, l_s, part_s, ob, gqa, range.n_live, split);
 }
 
 // ---------------------------------------------------------------------------
 // bf16 body (tensor cores)
 // ---------------------------------------------------------------------------
 
+// A ring row of the bf16 body: HD elements whose 16-byte chunks are permuted
+// by chunk ^ (row % 8) where a row holds a multiple of 8 chunks (hd 64, 128),
+// else HD + 8 elements in order (hd 96: 13 chunks, so the 8 rows an ldmatrix
+// reads at one chunk meet 8 distinct bank groups). Element offset of chunk ch
+// of row r: at(r, ch).
 template <int HD>
-__host__ __device__ constexpr int mma_stage_bytes() { return 2 * kMmaTile * HD * 2; }  // K and V tiles
+struct Ring {
+  static constexpr bool kSwizzle = HD % 64 == 0;
+  static constexpr int kLd = kSwizzle ? HD : HD + 8;
+  __device__ static __forceinline__ int at(int r, int ch) {
+    return r * kLd + ((kSwizzle ? ch ^ (r & 7) : ch) << 3);
+  }
+};
+
+template <int HD>
+__host__ __device__ constexpr int mma_stage_bytes() {  // K and V tiles
+  return 2 * kMmaTile * Ring<HD>::kLd * 2;
+}
 
 // the q tile and the block's partial (m, l, acc of 16 rows)
 template <int HD>
@@ -374,8 +411,8 @@ int mma_smem_bytes(int stages, int split_slots, int page_size) {
 // at the top). Dynamic shared memory: the ring of `stages` K/V tiles (once
 // drained, its first stage holds the warps' partial outputs), the q tile (once
 // in registers, it holds the warps' m and l), the block's partial, the range's
-// page ids. A ring row is HD elements with its 16-byte chunks permuted
-// (chunk ^ row % 8), so that the 8 rows an ldmatrix reads meet in no bank.
+// page ids. Ring rows are laid out by Ring<HD>, so that the 8 rows an
+// ldmatrix reads meet in no bank.
 template <int HD>
 __device__ __forceinline__ void attend_split_mma(
     const __nv_bfloat16* __restrict__ qb, __nv_bfloat16* __restrict__ ob, int length,
@@ -384,7 +421,8 @@ __device__ __forceinline__ void attend_split_mma(
     int page_size, int pages_per_seq, float scale_log2, int split, int split_slots, int stages) {
   constexpr int LD = HD + 8;  // q tile row stride: its ldmatrix is free of bank conflicts
   constexpr int kChunks = HD / 8;  // 16-byte pieces a row
-  constexpr int kStage = 2 * kMmaTile * HD;  // elements of a stage: K tile, then V tile
+  constexpr int RLD = Ring<HD>::kLd;  // ring row stride
+  constexpr int kStage = 2 * kMmaTile * RLD;  // elements of a stage: K tile, then V tile
   static_assert(kWarps * kMmaRows * HD * 4 <= mma_stage_bytes<HD>(),
                 "the warps' partial outputs fit in the drained ring's first stage");
   static_assert(kWarps * 2 * kMmaRows * 4 <= kMmaRows * LD * 2,
@@ -416,7 +454,7 @@ __device__ __forceinline__ void attend_split_mma(
   // (a stale V row could hold a NaN that p = 0 would not cancel)
   auto load_tile = [&](int j, int st) {
     __nv_bfloat16* ks = ring + st * kStage;
-    __nv_bfloat16* vs = ks + kMmaTile * HD;
+    __nv_bfloat16* vs = ks + kMmaTile * RLD;
     const int t0 = rg.s_lo + j * kMmaTile;
 #pragma unroll
     for (int i = tid; i < kMmaTile * kChunks; i += kThreads) {
@@ -427,7 +465,7 @@ __device__ __forceinline__ void attend_split_mma(
       if (ok)
         off = ((head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size) *
                   HD + ch * 8;
-      const int dst = r * HD + ((ch ^ (r & 7)) << 3);
+      const int dst = Ring<HD>::at(r, ch);
       tc::cp_async16(ks + dst, k_pages + off, ok);
       tc::cp_async16(vs + dst, v_pages + off, ok);
     }
@@ -458,9 +496,9 @@ __device__ __forceinline__ void attend_split_mma(
     }
     const int key0 = rg.s_lo + j * kMmaTile + warp * 16;  // the warp's 16 slots
     if (key0 < rg.s_end) {
-      const __nv_bfloat16* ks = ring + st * kStage + warp * 16 * HD;
-      const __nv_bfloat16* vs = ks + kMmaTile * HD;
-      const int r8 = lane % 8;  // the row of its matrix a lane addresses, and its swizzle
+      const __nv_bfloat16* ks = ring + st * kStage + warp * 16 * RLD;
+      const __nv_bfloat16* vs = ks + kMmaTile * RLD;
+      const int r8 = lane % 8;  // the row of its matrix a lane addresses
       float s[2][4];
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -469,8 +507,7 @@ __device__ __forceinline__ void attend_split_mma(
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
         uint32_t kb[4];
-        tc::ldmatrix_x4(kb, ks + ((lane / 16) * 8 + r8) * HD +
-                                (((kk * 2 + (lane / 8) % 2) ^ r8) << 3));
+        tc::ldmatrix_x4(kb, ks + Ring<HD>::at((lane / 16) * 8 + r8, kk * 2 + (lane / 8) % 2));
         tc::mma_bf16(s[0], qf[kk], kb[0], kb[1]);
         tc::mma_bf16(s[1], qf[kk], kb[2], kb[3]);
       }
@@ -526,8 +563,7 @@ __device__ __forceinline__ void attend_split_mma(
 #pragma unroll
       for (int d2 = 0; d2 < HD / 16; ++d2) {
         uint32_t vb[4];
-        tc::ldmatrix_x4_trans(vb, vs + (((lane / 8) % 2) * 8 + r8) * HD +
-                                      (((d2 * 2 + lane / 16) ^ r8) << 3));
+        tc::ldmatrix_x4_trans(vb, vs + Ring<HD>::at(((lane / 8) % 2) * 8 + r8, d2 * 2 + lane / 16));
         tc::mma_bf16(acc[2 * d2], pa, vb[0], vb[1]);
         tc::mma_bf16(acc[2 * d2 + 1], pa, vb[2], vb[3]);
       }
@@ -700,8 +736,8 @@ bool plan_ok(int dtype, int gqa, int page_size, int pages_per_seq, int split_slo
   if (split_slots <= 0 || split_slots % kSplitAlign != 0 || splits < 1 || splits > kMaxCluster ||
       splits != (capacity + split_slots - 1) / split_slots)
     return false;
-  if (dtype == 0) return gqa <= Shape<HD>::kMaxGqa && stages == 0 && smem_bytes == 0;
-  return gqa <= kMmaRows && stages >= 1 && stages <= kMaxStages &&
+  if (dtype == 0) return gqa <= kMaxGqa && stages == 0 && smem_bytes == 0;
+  return gqa <= kMaxGqa && stages >= 1 && stages <= kMaxStages &&
          smem_bytes == mma_smem_bytes<HD>(stages, split_slots, page_size) &&
          (size_t)smem_bytes <= kMaxSharedBytes;
 }
@@ -756,6 +792,10 @@ int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
     return dispatch<64>(q, k_pages, v_pages, lengths, tables, out, batch, chunk, nh, nkv,
+                        num_pages, page_size, pages_per_seq, dtype, split_slots, splits, stages,
+                        smem_bytes, scale, s);
+  if (head_dim == 96)
+    return dispatch<96>(q, k_pages, v_pages, lengths, tables, out, batch, chunk, nh, nkv,
                         num_pages, page_size, pages_per_seq, dtype, split_slots, splits, stages,
                         smem_bytes, scale, s);
   if (head_dim == 128)

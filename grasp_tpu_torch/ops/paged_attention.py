@@ -28,12 +28,13 @@ import functools
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 96, 128)
 
 MAX_CLUSTER = 8        # ranges of a row: one portable thread-block cluster
 SPLIT_ALIGN = 64       # a range is a whole number of 64-slot tiles
 MMA_TILE = 64          # slots per bf16 tile (16 for each of the 4 warps)
 MMA_ROWS = 16          # query rows of the bf16 kernel's m16 tile
+MAX_GQA = 16           # query heads of a kv head: the m16 tile, and the fp32 body's registers
 MAX_STAGES = 4
 MAX_SHARED_BYTES = 232448
 # four blocks an SM (each also costs the SM 1 KB it reserves, of 228 KB): the
@@ -56,28 +57,39 @@ class PagedPlan:
     smem_bytes: int
 
 
+def ring_ld(head_dim: int) -> int:
+    """Elements of a ring row of the bf16 kernels (csrc/paged_attention.cu,
+    Ring): head_dim where a row's 16-byte chunks are a multiple of 8 and are
+    permuted in place, else head_dim + 8 (hd 96)."""
+    return head_dim if head_dim % 64 == 0 else head_dim + 8
+
+
+def fp32_tile(head_dim: int) -> int:
+    """Slots a step of the fp32 kernels' loop (csrc/paged_attention.cu, Shape)."""
+    return 64 if head_dim <= 64 else 32
+
+
 def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int) -> int:
     """Dynamic shared memory of the bf16 kernels (csrc/paged_attention.cu,
     mma_smem_bytes): the ring of K and V tiles, the q tile, the block's
     partial (m, l and the output of 16 rows), the range's page ids."""
     range_pages = (split_slots - 1) // page_size + 2
-    return (stages * 2 * MMA_TILE * head_dim * 2 + MMA_ROWS * (head_dim + 8) * 2
+    return (stages * 2 * MMA_TILE * ring_ld(head_dim) * 2 + MMA_ROWS * (head_dim + 8) * 2
             + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4 + -(-range_pages * 4 // 16) * 16)
 
 
 def check_kernel_shape(nh: int, nkv: int, head_dim: int) -> None:
     """Raise NotImplementedError for head layouts the CUDA kernels do not
-    take: head_dim 64 or 128, and a group the fp32 body holds at 8 query rows
-    per thread over 128 threads split into 128 // head_dim row groups
-    (gqa <= 16 at 64, 8 at 128; the bf16 body's m16 tile takes 16 at both)."""
+    take: head_dim 64, 96 or 128, and a whole group of at most ``MAX_GQA``
+    query heads a kv head (the bf16 body's m16 tile; the fp32 body keeps
+    16 rows of head_dim / 32 columns a thread in registers)."""
     if head_dim not in _HEAD_DIMS:
         raise NotImplementedError(
             f"the paged attention kernel supports head_dim {_HEAD_DIMS}, not {head_dim}")
-    max_gqa = 8 * (128 // head_dim)
-    if nh % nkv or nh // nkv > max_gqa:
+    if nh % nkv or nh // nkv > MAX_GQA:
         raise NotImplementedError(
             f"{nh} query heads over {nkv} kv heads: the paged attention kernel needs "
-            f"a whole group of at most {max_gqa} at head_dim {head_dim}")
+            f"a whole group of at most {MAX_GQA}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,7 +115,7 @@ def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
     split_slots = -(-split_slots // SPLIT_ALIGN) * SPLIT_ALIGN
     splits = -(-capacity // split_slots)
     if dtype == torch.float32:
-        return PagedPlan(split_slots, splits, 4096 // head_dim, 0, 0)
+        return PagedPlan(split_slots, splits, fp32_tile(head_dim), 0, 0)
     tiles = split_slots // MMA_TILE
     stages = max(s for s in range(1, min(MAX_STAGES, tiles) + 1)
                  if s == 1 or mma_smem_bytes(head_dim, s, split_slots, page_size) <= SMEM_BUDGET)

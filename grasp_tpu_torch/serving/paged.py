@@ -15,9 +15,9 @@ engine, whose kernels read fp pages only. The pools are updated in place; the
 JAX engine donated them to its jitted step instead.
 
 Ported: fp and int8 pools, int8 and int4 weights (through ``proj_apply``),
-greedy and temperature/top-k/top-p sampling, eos stops, cancel. The prefix
-cache, chunked prefill, penalties, logit bias, logprobs and guided decoding
-raise NotImplementedError.
+greedy and temperature/top-k/top-p sampling, logprobs, eos stops, cancel.
+The prefix cache, chunked prefill, penalties, logit bias, min_p and guided
+decoding raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -172,6 +172,7 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
 
 
 _MAX_TOP_K = 64  # cap on a request's top_k (sizes the batched top-k)
+_MAX_LOGPROBS = 8  # cap on a request's top-N logprobs
 
 
 def sampled_rows(reqs: List[Optional["_Request"]]) -> List[int]:
@@ -206,11 +207,26 @@ def sample_tokens(logits: torch.Tensor, reqs: List[Optional["_Request"]]) -> tor
     return toks
 
 
+def token_logprobs(logits: torch.Tensor, toks: torch.Tensor):
+    """The model's raw log-probabilities (fp32 log-softmax of the untempered,
+    unfiltered logits, as OpenAI's ``logprobs`` reports them): per row, the
+    chosen token's and the top ``_MAX_LOGPROBS`` ids and values, ranked by a
+    stable sort so that tied values keep the lower id first (``lax.top_k``'s
+    order). Returns host arrays (chosen [B], top_ids [B, N], top_lps [B, N])."""
+    lp = torch.log_softmax(logits.float(), dim=-1)
+    chosen = lp.gather(1, toks.long()[:, None])[:, 0]
+    top_lps, top_ids = torch.sort(lp, dim=-1, descending=True, stable=True)
+    return (chosen.cpu().numpy(), top_ids[:, :_MAX_LOGPROBS].cpu().numpy(),
+            top_lps[:, :_MAX_LOGPROBS].cpu().numpy())
+
+
 class _Request:
     __slots__ = ("rid", "prompt", "pages", "pos", "out", "max_new", "done", "row",
-                 "temperature", "top_k", "top_p", "seed", "generator", "finish")
+                 "temperature", "top_k", "top_p", "seed", "generator", "finish", "logprobs",
+                 "lp")
 
-    def __init__(self, rid, prompt, max_new, temperature=0.0, top_k=0, top_p=1.0, seed=0):
+    def __init__(self, rid, prompt, max_new, temperature=0.0, top_k=0, top_p=1.0, seed=0,
+                 logprobs=0):
         self.rid = rid
         self.prompt = np.asarray(prompt).reshape(-1).astype(np.int32)
         self.pages: List[int] = []
@@ -225,6 +241,8 @@ class _Request:
         self.seed = 0 if seed is None else int(seed)
         self.generator: Optional[torch.Generator] = None  # made at admission
         self.finish = "length"  # why the request retired: eos/length/cancel
+        self.logprobs = int(logprobs)  # top-N logprobs per token (0 = off)
+        self.lp: List[tuple] = []      # (chosen_lp, top_ids, top_lps) per out token
 
     @property
     def greedy(self) -> bool:
@@ -248,7 +266,7 @@ def _build_scatter(pool: PagePool, cache, phys: torch.Tensor) -> None:
 
 
 _UNSUPPORTED_SUBMIT = {
-    "logprobs": 0, "presence_penalty": 0.0, "frequency_penalty": 0.0,
+    "presence_penalty": 0.0, "frequency_penalty": 0.0,
     "repetition_penalty": 1.0, "min_p": 0.0, "logit_bias": None, "guided_regex": None,
 }
 
@@ -294,6 +312,8 @@ class ServingEngine:
         self._live: List[Optional[_Request]] = [None] * max_batch
         self._finished: List[_Request] = []
         self._next_tok = np.zeros(max_batch, np.int32)
+        # a row's logprob record of its pending token, parked until emitted
+        self._next_lp: List[Optional[tuple]] = [None] * max_batch
         self._rid = 0
         self.decode_steps = 0
         self.decode_seconds = 0.0
@@ -301,12 +321,15 @@ class ServingEngine:
     # -- public API --------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: Optional[int] = None,
-               **unsupported) -> int:
+               logprobs: int = 0, **unsupported) -> int:
         """Enqueue a request. temperature=0 decodes greedily; otherwise
         temperature/top-k/top-p sampling from a generator seeded with
-        ``seed`` (default: the request id). Penalties, logit_bias, logprobs
-        and guided decoding raise NotImplementedError unless left at their
-        defaults."""
+        ``seed`` (default: the request id). ``logprobs=N`` (at most
+        ``_MAX_LOGPROBS``) records, per emitted token, the model's
+        log-probability of the chosen token and the top N (``_Request.lp``,
+        read from :meth:`collect_requests`); the token choice is the same
+        with and without. Penalties, logit_bias, min_p and guided decoding
+        raise NotImplementedError unless left at their defaults."""
         for name, value in unsupported.items():
             if name not in _UNSUPPORTED_SUBMIT:
                 raise TypeError(f"submit() got an unexpected keyword argument {name!r}")
@@ -314,6 +337,8 @@ class ServingEngine:
                 raise NotImplementedError(f"grasp_tpu_torch serving does not support {name} yet")
         if top_k > _MAX_TOP_K:
             raise ValueError(f"top_k={top_k} > supported max {_MAX_TOP_K}")
+        if not 0 <= logprobs <= _MAX_LOGPROBS:
+            raise ValueError(f"logprobs={logprobs} not in [0, {_MAX_LOGPROBS}]")
         flat = np.asarray(prompt_ids).reshape(-1)
         if flat.size and (flat.min() < 0 or flat.max() >= self.config.vocab_size):
             raise ValueError(f"prompt token ids must be in [0, {self.config.vocab_size})")
@@ -326,7 +351,8 @@ class ServingEngine:
                              f"{self.pool.num_pages - 1} allocatable")
         self._rid += 1
         self._pending.append(_Request(self._rid, prompt_ids, max_new_tokens, temperature,
-                                      top_k, top_p, self._rid if seed is None else seed))
+                                      top_k, top_p, self._rid if seed is None else seed,
+                                      logprobs))
         return self._rid
 
     def cancel(self, rid: int) -> bool:
@@ -371,8 +397,18 @@ class ServingEngine:
         return -(-(prompt_len + max_new) // self.pool.page_size)
 
     def _pick_tokens(self, logits: torch.Tensor, reqs: List[Optional[_Request]]) -> np.ndarray:
-        """Per-row next tokens for ``reqs`` (row i <- logits[i]), on the host."""
-        return sample_tokens(logits, reqs).cpu().numpy().astype(np.int32)
+        """Per-row next tokens for ``reqs`` (row i <- logits[i]), on the host.
+        A request that wants logprobs has its record of the picked token
+        parked in ``_next_lp`` until step() emits the token."""
+        toks = sample_tokens(logits, reqs)
+        if any(r is not None and r.logprobs for r in reqs):
+            chosen, top_ids, top_lps = token_logprobs(logits, toks)
+            for i, r in enumerate(reqs):
+                if r is not None and r.logprobs:
+                    k = r.logprobs
+                    self._next_lp[r.row] = (float(chosen[i]), top_ids[i, :k].tolist(),
+                                            top_lps[i, :k].tolist())
+        return toks.cpu().numpy().astype(np.int32)
 
     def _prefill_into(self, pool: PagePool, params: Params, config: ModelConfig,
                       plan: ModelPlan, req: _Request) -> torch.Tensor:
@@ -471,6 +507,8 @@ class ServingEngine:
             self._retire(req)
             return False
         req.out.append(tok)
+        if req.logprobs and self._next_lp[req.row] is not None:
+            req.lp.append(self._next_lp[req.row])
         return True
 
     def _retire(self, req: _Request) -> None:
@@ -478,4 +516,5 @@ class ServingEngine:
         req.pages = []
         req.done = True
         self._live[req.row] = None
+        self._next_lp[req.row] = None  # not the row's next tenant's
         self._finished.append(req)

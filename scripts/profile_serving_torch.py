@@ -4,10 +4,12 @@ time, on one NVIDIA GPU.
 
     python scripts/profile_serving_torch.py [--steps 20] [--quantize none|int8|int4]
                                             [--speculative none|int8] [--gamma 4]
+                                            [--model tinyllama|phi3]
                                             [--out build/serving_profile.json]
 
-Builds chip_smoke.py's GRASP-compressed TinyLlama-1.1B (bf16, random weights
-from a seed), quantizes its weights if asked (as ``grasp-serve-torch
+Builds chip_smoke.py's GRASP-compressed TinyLlama-1.1B, or with ``--model
+phi3`` Phi-3-mini-4k (32 layers, 32 MHA heads of 96) compressed the same way
+(bf16, random weights from a seed, the last two layers low-rank), quantizes its weights if asked (as ``grasp-serve-torch
 --quantize`` does), admits 8 requests with the smoke's prompt lengths into a
 ServingEngine with the grasp-serve-torch defaults, and then
 
@@ -107,6 +109,7 @@ def main(argv=None) -> int:
     p.add_argument("--quantize", choices=["none", "int8", "int4"], default="none")
     p.add_argument("--speculative", choices=["none", "int8"], default="none")
     p.add_argument("--gamma", type=int, default=4)
+    p.add_argument("--model", choices=["tinyllama", "phi3"], default="tinyllama")
     p.add_argument("--out", default=os.path.join(ROOT, "build", "serving_profile.json"))
     args = p.parse_args(argv)
 
@@ -117,6 +120,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving_torch: needs a CUDA device")
     from chip_smoke import PROMPT_LENS, build_flagship, card_line
+    from grasp_tpu_torch import ModelConfig
     from grasp_tpu_torch.ops._build import load_library
     from grasp_tpu_torch.ops.quant import quantize_model_weights, quantized_size_bytes
     from grasp_tpu_torch.serving.paged import ServingEngine
@@ -125,7 +129,9 @@ def main(argv=None) -> int:
     load_library()  # build the kernels before anything is timed
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    config, params, plan = build_flagship(torch, dev)
+    config, params, plan = build_flagship(
+        torch, dev, ModelConfig.phi3_mini_4k() if args.model == "phi3" else None)
+    last = config.num_hidden_layers - 1
     speculative = args.speculative == "int8"
     draft = quantize_model_weights(params, bits=8) if speculative else None
     if args.quantize != "none":
@@ -190,7 +196,8 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     record = {
         "card": card_line(),
-        "config": "TinyLlama-1.1B bf16, layers 20-21 low-rank (ratio 0.9), batch 8, page 128",
+        "config": f"{'Phi-3-mini-4k' if args.model == 'phi3' else 'TinyLlama-1.1B'} bf16, "
+                  f"layers {last - 1}-{last} low-rank (ratio 0.9), batch 8, page 128",
         "quantize": args.quantize,
         "param_bytes": weight_bytes,
         "live_rows": live,

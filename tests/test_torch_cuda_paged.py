@@ -1,6 +1,7 @@
 """The split paged-attention kernels on the card: lengths on both sides of
-every range edge, every group size the kernels take, run-to-run bits, and the
-verify kernel's rows bit-equal to the decode kernel across range edges.
+every range edge, every group size the kernels take (1 to 16) at head_dim 64,
+96 and 128, run-to-run bits, and the verify kernel's rows bit-equal to the
+decode kernel across range edges.
 
 Needs an NVIDIA GPU and no JAX; from the repository root:
 
@@ -58,7 +59,8 @@ def _case(dev, dtype, lengths, nh, nkv, hd, c_len=None, seed=0):
     return q, k, v, lens, tables.reshape(b, PPS).to(torch.int32).contiguous()
 
 
-@pytest.mark.parametrize("hd,gqas", [(64, (1, 4, 8, 16)), (128, (1, 4, 8))])
+@pytest.mark.parametrize("hd,gqas", [(64, (1, 4, 8, 16)), (128, (1, 4, 8, 16)),
+                                     (96, (1, 4, 8, 16))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_decode_across_range_edges_every_group_and_run_to_run(dev, hd, gqas, dtype):
     for gqa in gqas:
@@ -81,8 +83,8 @@ def test_chunk_across_range_edges_equals_decode_row_by_row(dev, dtype):
     """Chunks of 5 whose queries straddle the edges of the 256-slot ranges
     (and the table's end): row (b, c) equals decode at length base + c."""
     bases = (252, 255, 256, 257, 508, 510, 1020, 1790, 2043, 2044)
-    for hd, gqa in ((64, 8), (128, 4)):
-        q, k, v, base, tables = _case(dev, dtype, bases, 2 * gqa, 2, hd, c_len=5, seed=hd)
+    for hd, gqa in ((64, 8), (128, 4), (96, 1), (96, 16)):
+        q, k, v, base, tables = _case(dev, dtype, bases, 2 * gqa, 2, hd, c_len=5, seed=hd + gqa)
         got = paged_attention_chunk(q, k, v, base, tables, 0.125)
         want = paged_attention_chunk_reference(q, k, v, base, tables, 0.125)
         assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
@@ -112,4 +114,17 @@ def test_entry_points_refuse_a_plan_of_another_layout(dev):
     assert call(plan.split_slots // 2, plan.splits * 2, plan.stages, plan.smem_bytes) == invalid
     assert call(plan.split_slots, plan.splits, plan.stages - 1, plan.smem_bytes) == invalid
     assert call(plan.split_slots, plan.splits, 5, plan.smem_bytes) == invalid
+    # head_dim 96: its plan is taken, and a ring of unpadded rows is refused
+    q, k, v, lens, tables = _case(dev, torch.bfloat16, [300, 7], 2, 2, 96)
+    out = torch.empty_like(q)
+    plan = paged_plan(PS, PPS, 96, 1, torch.bfloat16)
+
+    def call96(smem):
+        return lib.grasp_paged_attention_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), tables.data_ptr(),
+            out.data_ptr(), 2, 2, 2, k.shape[1], PS, PPS, 96, 1, plan.split_slots, plan.splits,
+            plan.stages, smem, ctypes.c_float(0.125), stream)
+
+    assert call96(plan.smem_bytes) == 0
+    assert call96(plan.smem_bytes - 2 * 64 * 8 * 2) == invalid
     torch.cuda.synchronize()

@@ -56,7 +56,7 @@ def _case(dev, dtype, c_len, nh, nkv, hd, ps, pps, seed=0, bases=BASES, num_page
     return q, k, v, base, tables.contiguous()
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 96])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 def test_chunk_kernel_matches_plain_and_equals_the_decode_kernel_row_by_row(dev, hd, dtype):
     """Groups of 1, 4 and 8, chunks of 1, 2, 5 and 9, pages of 16 and 128
@@ -118,10 +118,10 @@ def test_chunk_kernel_counts_launches_and_rejects_bad_input(dev):
         paged_attention_chunk(q[:, 0], k, v, base, tables, 0.125)
 
 
-def _models(dev, dtype):
+def _models(dev, dtype, **shape):
+    shape = shape or dict(hidden_size=256, num_attention_heads=4, num_key_value_heads=2)
     config = dataclasses.replace(
-        ModelConfig.tiny(hidden_size=256, num_attention_heads=4, num_key_value_heads=2,
-                         num_hidden_layers=3, vocab_size=512), dtype=dtype)
+        ModelConfig.tiny(num_hidden_layers=3, vocab_size=512, **shape), dtype=dtype)
     params = init_params(torch.Generator(device=dev).manual_seed(0), config, device=dev)
     return config, params, quantize_model_weights(params, bits=8)
 
@@ -177,3 +177,32 @@ def test_speculative_engine_bf16_sampled_and_int8_kv(dev):
     q8 = sampled(quantized_kv=True)
     assert all(len(o) == 10 for o in q8)
     assert (paged_attention.launches, paged_attention_chunk.launches) == (0, 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_phi3_shaped_model_serves_through_both_engines(dev, dtype):
+    """Phi-3's head layout at small width (3 layers, 2 MHA heads of 96): the
+    plain engine runs K3 once per layer per decode step, the speculative
+    engine K4 once per layer per macro-step and K3 once per draft layer per
+    draft step; in fp32 the speculative greedy streams are the plain
+    engine's."""
+    config, params, draft = _models(dev, dtype, hidden_size=192, num_attention_heads=2,
+                                    num_key_value_heads=2)
+    assert config.head_dim_ == 96
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, 500, size=n) for n in (5, 17, 33, 40, 9)]
+    plain = ServingEngine(params, config, device=dev, **POOL)
+    paged_attention.launches = paged_attention_chunk.launches = 0
+    want = _run(plain, prompts, 12)
+    assert plain.decode_steps > 0 and all(len(o) == 12 for o in want)
+    assert (paged_attention.launches, paged_attention_chunk.launches) == (
+        3 * plain.decode_steps, 0)
+    spec = SpeculativeServingEngine(params, config, draft, config, gamma=3, device=dev, **POOL)
+    paged_attention.launches = paged_attention_chunk.launches = 0
+    got = _run(spec, prompts, 12)
+    assert spec.macro_steps > 0 and spec.decode_steps == 4 * spec.macro_steps
+    assert paged_attention_chunk.launches == 3 * spec.macro_steps
+    assert paged_attention.launches == 3 * 4 * spec.macro_steps
+    assert all(len(o) == 12 for o in got)
+    if dtype == "float32":
+        assert got == want

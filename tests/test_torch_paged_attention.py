@@ -20,12 +20,12 @@ HD, PS, PPS, NUM_PAGES = 64, 8, 4, 16
 TOL = 1e-5
 
 
-def _inputs(nh, nkv, lengths, seed):
+def _inputs(nh, nkv, lengths, seed, hd=HD):
     rng = np.random.default_rng(seed)
     b = len(lengths)
-    q = rng.standard_normal((b, nh, HD)).astype(np.float32)
-    k = rng.standard_normal((nkv, NUM_PAGES, PS, HD)).astype(np.float32)
-    v = rng.standard_normal((nkv, NUM_PAGES, PS, HD)).astype(np.float32)
+    q = rng.standard_normal((b, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((nkv, NUM_PAGES, PS, hd)).astype(np.float32)
+    v = rng.standard_normal((nkv, NUM_PAGES, PS, hd)).astype(np.float32)
     tables = (rng.permutation(NUM_PAGES - 1)[: b * PPS] + 1).reshape(b, PPS).astype(np.int32)
     return q, k, v, np.asarray(lengths, np.int32), tables
 
@@ -62,6 +62,28 @@ def test_plain_matches_tpu_kernel_and_gather(nh, nkv):
                              jnp.asarray(lens), jnp.asarray(tables), scale)
         np.testing.assert_allclose(got, np.asarray(kernel), atol=TOL, rtol=0, err_msg=str(lengths))
         np.testing.assert_allclose(got, np.asarray(gather), atol=TOL, rtol=0, err_msg=str(lengths))
+
+
+@pytest.mark.parametrize("nh,nkv", [(2, 2), (4, 2)], ids=["mha", "gqa2"])
+def test_plain_matches_tpu_kernel_and_gather_at_head_dim_96(nh, nkv):
+    """Phi-3's head_dim (MHA there), which the JAX engine routes to the same
+    Pallas kernel: lengths of 1, crossing a page, full tables, a dead row."""
+    for lengths in ([1, 1, 1], [7, 8, 9], [32, 31, 17], [0, 5, 32]):
+        q, k, v, lens, tables = _inputs(nh, nkv, lengths, seed=nh * 7 + sum(lengths), hd=96)
+        if not lengths[0]:
+            tables[0] = 0
+        scale = 96 ** -0.5
+        got = paged_attention_reference(*(torch.from_numpy(a) for a in (q, k, v, lens, tables)),
+                                        scale).numpy()
+        kernel = paged_attention_hd64(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                      jnp.asarray(lens), jnp.asarray(tables), interpret=True,
+                                      scale=scale)
+        gather = _jax_gather(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(lens), jnp.asarray(tables), scale)
+        np.testing.assert_allclose(got, np.asarray(kernel), atol=TOL, rtol=0, err_msg=str(lengths))
+        if lengths[0]:  # the gather path has no dead-row rule
+            np.testing.assert_allclose(got, np.asarray(gather), atol=TOL, rtol=0,
+                                       err_msg=str(lengths))
 
 
 def test_dead_row_and_custom_scale():

@@ -27,12 +27,12 @@ HD, PS, PPS, NUM_PAGES = 64, 8, 4, 16
 TOL = 1e-5
 
 
-def _inputs(nh, nkv, c_len, bases, seed):
+def _inputs(nh, nkv, c_len, bases, seed, hd=HD):
     rng = np.random.default_rng(seed)
     b = len(bases)
-    q = rng.standard_normal((b, c_len, nh, HD)).astype(np.float32)
-    k = rng.standard_normal((nkv, NUM_PAGES, PS, HD)).astype(np.float32)
-    v = rng.standard_normal((nkv, NUM_PAGES, PS, HD)).astype(np.float32)
+    q = rng.standard_normal((b, c_len, nh, hd)).astype(np.float32)
+    k = rng.standard_normal((nkv, NUM_PAGES, PS, hd)).astype(np.float32)
+    v = rng.standard_normal((nkv, NUM_PAGES, PS, hd)).astype(np.float32)
     tables = (rng.permutation(NUM_PAGES - 1)[: b * PPS] + 1).reshape(b, PPS).astype(np.int32)
     return q, k, v, np.asarray(bases, np.int32), tables
 
@@ -53,6 +53,28 @@ def test_plain_chunk_matches_tpu_kernel(nh, nkv):
         kernel = paged_attention_hd64_chunk(*(jnp.asarray(a) for a in args), interpret=True,
                                             scale=scale)
         np.testing.assert_allclose(got, np.asarray(kernel), atol=TOL, rtol=0, err_msg=str(bases))
+
+
+@pytest.mark.parametrize("nh,nkv", [(2, 2), (4, 2)], ids=["mha", "gqa2"])
+def test_plain_chunk_matches_tpu_kernel_at_head_dim_96(nh, nkv):
+    """Phi-3's head_dim: chunks of 1 and 5 (the verify step's gamma + 1) with
+    base lengths of 1, across a page edge, up to the full table, and a dead
+    row."""
+    for c_len, bases in [(c, b) for c in (1, 5) for b in ([1, 1, 1], [6, 8, 9],
+                                                          [32 - c + 1, 27, 0])]:
+        args = _inputs(nh, nkv, c_len, bases, seed=nh * 11 + c_len + sum(bases), hd=96)
+        if not bases[-1]:
+            args[-1][-1] = 0
+        scale = 96 ** -0.5
+        got = paged_attention_chunk_reference(*_torch(args), scale).numpy()
+        kernel = paged_attention_hd64_chunk(*(jnp.asarray(a) for a in args), interpret=True,
+                                            scale=scale)
+        np.testing.assert_allclose(got, np.asarray(kernel), atol=TOL, rtol=0, err_msg=str(bases))
+        for c in range(c_len):  # row (b, c) is the single-query version at base + c
+            q, k, v, base, tables = _torch(args)
+            single = paged_attention_reference(q[:, c].contiguous(), k, v, base + c, tables,
+                                               scale)
+            torch.testing.assert_close(torch.from_numpy(got[:, c]), single, atol=2e-6, rtol=0)
 
 
 def test_rows_match_the_single_query_version():
@@ -106,11 +128,11 @@ def test_cuda_argument_checks_refuse_what_the_kernel_does_not_take():
     q, k, v, base, tables = _torch(_inputs(4, 2, 3, [3, 20], seed=6))
     _check_cuda_args(q, k, v, base, tables)  # the chunk form passes
     with pytest.raises(NotImplementedError):
-        check_kernel_shape(4, 2, 96)
+        check_kernel_shape(4, 2, 80)
     with pytest.raises(NotImplementedError):
         check_kernel_shape(34, 2, 64)  # a group of 17 at head_dim 64
     with pytest.raises(NotImplementedError):
-        check_kernel_shape(18, 2, 128)  # a group of 9 at head_dim 128
+        check_kernel_shape(34, 2, 128)  # a group of 17 at head_dim 128
     with pytest.raises(TypeError):
         _check_cuda_args(q.half(), k.half(), v.half(), base, tables)
     with pytest.raises(TypeError):

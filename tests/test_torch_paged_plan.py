@@ -1,8 +1,8 @@
 """Launch plan of the paged-attention kernels (grasp_tpu_torch/ops/paged_attention.py),
 checked on the CPU: pure Python, no GPU. The C entry points of
 csrc/paged_attention.cu refuse a plan that breaks these rules; here they are
-held for pages of 16 and 128 slots, 1 to 33 pages a row, head_dim 64 and
-128, groups of 1 to 16 and both dtypes."""
+held for pages of 16 and 128 slots, 1 to 33 pages a row, head_dim 64, 96
+and 128, groups of 1 to 16 and both dtypes."""
 
 import itertools
 
@@ -16,11 +16,13 @@ from grasp_tpu_torch.ops.paged_attention import (
 PAGE_SIZES = (16, 128)
 PAGES_PER_SEQ = (1, 2, 16, 33)
 DTYPES = (torch.float32, torch.bfloat16)
-MAX_GQA = {64: 16, 128: 8}
+MAX_GQA = {64: 16, 96: 16, 128: 16}
+FP32_TILE = {64: 64, 96: 32, 128: 32}
 
 
 def tables():
-    for ps, pps, hd, gqa in itertools.product(PAGE_SIZES, PAGES_PER_SEQ, (64, 128), (1, 4, 8, 16)):
+    for ps, pps, hd, gqa in itertools.product(PAGE_SIZES, PAGES_PER_SEQ, (64, 96, 128),
+                                                 (1, 4, 8, 16)):
         if gqa <= MAX_GQA[hd]:
             yield ps, pps, hd, gqa
 
@@ -80,7 +82,7 @@ def test_clusters_and_shared_memory_fit_the_card(dtype):
         assert plan.split_slots % SPLIT_ALIGN == 0 and plan.split_slots % plan.tile == 0, case
         assert plan.smem_bytes <= MAX_SHARED_BYTES, case
         if dtype == torch.float32:
-            assert (plan.tile, plan.stages, plan.smem_bytes) == (4096 // hd, 0, 0), case
+            assert (plan.tile, plan.stages, plan.smem_bytes) == (FP32_TILE[hd], 0, 0), case
             continue
         assert plan.tile == MMA_TILE, case
         # no more stages than a range has tiles; four blocks an SM
@@ -98,13 +100,29 @@ def test_the_served_table_splits_in_eight_ranges_of_256_slots():
     assert (fp32.split_slots, fp32.splits) == (256, 8)
 
 
+def test_phi3_serving_table_at_head_dim_96():
+    """Phi-3-mini-4k's serving table (MHA, head_dim 96, pages of 128, 16 a
+    row): the same eight ranges of 256; one cp.async stage in bf16, its ring
+    rows padded to 104 elements; fp32 steps of 32 slots."""
+    bf16 = paged_plan(128, 16, 96, 1, torch.bfloat16)
+    assert (bf16.split_slots, bf16.splits, bf16.tile, bf16.stages) == (256, 8, 64, 1)
+    assert bf16.smem_bytes == 2 * 64 * 104 * 2 + 16 * 104 * 2 + (32 + 16 * 96) * 4 + 16
+    assert mma_smem_bytes(96, 2, 256, 128) > SMEM_BUDGET  # a second stage would not fit
+    fp32 = paged_plan(128, 16, 96, 1, torch.float32)
+    assert (fp32.split_slots, fp32.splits, fp32.tile) == (256, 8, 32)
+
+
 def test_plan_refuses_head_dim_96_a_group_too_large_and_other_dtypes():
+    """Head_dim 96 with a group of 17, head_dim 80, a group of 17 at 64 and
+    at 128 in fp32, float16 and an empty table are refused."""
     with pytest.raises(NotImplementedError):
-        paged_plan(128, 16, 96, 4, torch.bfloat16)
+        paged_plan(128, 16, 96, 17, torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        paged_plan(128, 16, 80, 4, torch.bfloat16)
     with pytest.raises(NotImplementedError):
         paged_plan(128, 16, 64, 17, torch.bfloat16)
     with pytest.raises(NotImplementedError):
-        paged_plan(128, 16, 128, 9, torch.float32)
+        paged_plan(128, 16, 128, 17, torch.float32)
     with pytest.raises(TypeError):
         paged_plan(128, 16, 64, 4, torch.float16)
     with pytest.raises(ValueError):

@@ -124,7 +124,9 @@ def test_submit_validates_and_rejects_unported_options(compressed):
         eng.submit([config.vocab_size], 2)
     with pytest.raises(MemoryError):
         eng.pool.alloc(99)
-    for opt in ({"logprobs": 2}, {"presence_penalty": 0.5}, {"logit_bias": {3: 1.0}},
+    with pytest.raises(ValueError):
+        eng.submit([1, 2], 2, logprobs=9)  # above the engine's top-N cap of 8
+    for opt in ({"presence_penalty": 0.5}, {"logit_bias": {3: 1.0}},
                 {"guided_regex": "a+"}):
         with pytest.raises(NotImplementedError):
             eng.submit([1, 2], 2, **opt)
@@ -180,9 +182,9 @@ def test_http_server_answers_with_the_engine_tokens(compressed):
         assert [t for c in chunks for t in c["choices"][0]["token_ids"]] == want[rids[1]]
         assert chunks[-1]["choices"][0]["finish_reason"] == "length"
 
-        assert _request(port, "POST", "/v1/chat/completions", {"messages": []})[0] == 501
+        assert _request(port, "POST", "/v1/chat/completions", {"messages": []})[0] == 400
         assert _request(port, "POST", "/v1/completions",
-                        {"prompt": prompts[0], "logprobs": 2})[0] == 400
+                        {"prompt": prompts[0], "logprobs": 9})[0] == 400
         assert _request(port, "POST", "/v1/completions",
                         {"prompt": list(range(1, 40)), "max_tokens": 8})[0] == 400
     finally:
