@@ -127,15 +127,35 @@ Phases, each of which raises on failure (exit code != 0):
    is served with ``--chat_template phi3`` and the byte-level tokenizer: chat
    completions unstreamed and streamed, n = 2, logprobs, a stop string and
    /metrics.
+14. the rest of the serving engine (run inside 5's slice, on its checkpoint,
+   between 7's int8 and fused variants): (a) ``--prefix_cache``, one system
+   prefix of 1024 tokens and four suffixes of 100 to 300 tokens in turn
+   (/metrics' grasp_prefix_tokens_saved 3 x 1024, TTFT cold and on a hit,
+   tokens against a teacher-forced plain forward and against an engine
+   without the cache); (c) over the same server ``logit_bias``,
+   ``repetition_penalty``, ``min_p`` = 1 against greedy (ties by logprob),
+   and penalized greedy requests against the penalties recomputed on a
+   teacher-forced forward; (d) ``guided_regex`` and ``response_format``
+   (json_object, json_schema) with the byte-level tokenizer, each output a
+   fullmatch or, cut by max_tokens, a prefix of one; (e) ``--speculative int8
+   --gamma 4 --prefix_cache`` with penalized greedy requests, then guided
+   speculation with two grammars in one batch through the engine API; and,
+   after 7's fused variant, (b) ``--prefill_chunk 256`` on the checkpoint with
+   ``use_pallas_lowrank``: four short rows decoding while a 1500-token prompt
+   admits in 6 chunks (5 decode steps or more between its first chunk and its
+   first token, the short rows' inter-token latency against whole-prompt
+   admission). K3 = 22 x decode steps, K4 = 22 x macro-steps and K2 = 14 x
+   prefill forwards of 256 rows or more throughout.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
 and paged kernels' times at head_dim 96 under "hd96"); then the card's
 line; the last line is ``{"ok": true, "device": {...}}``. Imports nothing of
 JAX, of grasp_tpu or of safetensors. ``--only
-flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve`` runs one
-part while developing and prints no result lines (phi3serve: the paged
-kernels at head_dim 96 and phase 13 with its serving).
+flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features``
+runs one part while developing and prints no result lines (phi3serve: the
+paged kernels at head_dim 96 and phase 13 with its serving; features: phase
+14 alone).
 """
 
 import argparse
@@ -1540,14 +1560,452 @@ def serve_quantized_kv(torch, dev, ckpt_root, speculative):
             raise AssertionError(f"serve {label} failed")
 
 
-def phase_slice(torch, card, dev, spec_only=False):
+# the rest of the serving engine: one system prefix of 8 pages, suffixes of
+# 100 to 300 tokens; four short rows and a long prompt for chunked admission
+FEATURE_PREFIX = 1024
+FEATURE_SUFFIXES = (100, 180, 240, 300)
+FEATURE_MAX_TOKENS = 32
+CHUNK_SHORT_LENS = (70, 90, 110, 130)
+CHUNK_LONG_LEN = 1500
+CHUNK_MAX_TOKENS = 64
+PREFILL_CHUNK = 256
+# greedy requests with every penalty (the logit bias is held on its own)
+FEATURE_PEN = {"presence_penalty": 0.6, "frequency_penalty": 0.4, "repetition_penalty": 1.3}
+FEATURE_REGEX = "[a-z]{3}-[0-9]{4}"
+FEATURE_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "pattern": "[a-z]{1,8}"}, "n": {"type": "integer"}},
+    "required": ["name", "n"]}
+
+
+def _body(status, data, label):
+    if status != 200:
+        raise AssertionError(f"{label}: HTTP {status}: {data[:300]!r}")
+    return json.loads(data)["choices"][0]
+
+
+def _metrics(port):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", "/metrics")
+    body = conn.getresponse().read().decode()
+    conn.close()
+    return dict(line.split(" ", 1) for line in body.strip().splitlines())
+
+
+def check_penalized_against_plain(torch, params, config, plan, served, dev, pen):
+    """check_against_plain with the penalties recomputed on the teacher-forced
+    logits: at each generated position the counts of the prompt and the
+    tokens served before it, a seen token's logit divided by the repetition
+    penalty (multiplied where negative), minus frequency x count and presence
+    x seen; the served token within GAP_TOL of the adjusted maximum."""
+    from grasp_tpu_torch.models.llama import forward
+
+    rep, pres, freq = (pen["repetition_penalty"], pen["presence_penalty"],
+                       pen["frequency_penalty"])
+    worst, match, total = 0.0, 0, 0
+    with torch.no_grad():
+        for prompt, out in served:
+            ids = torch.tensor([list(prompt) + out[:-1]], device=dev)
+            rows = forward(params, ids, config=config, plan=plan)["logits"][0].float()
+            rows = rows[len(prompt) - 1:]
+            for i, tok in enumerate(out):
+                counts = torch.bincount(torch.tensor(list(prompt) + out[:i], device=dev),
+                                        minlength=config.vocab_size).float()
+                seen = counts > 0
+                row = rows[i]
+                row = torch.where(seen, torch.where(row < 0, row * rep, row / rep), row)
+                row = row - counts * freq - seen.float() * pres
+                worst = max(worst, (row.max() - row[tok]).item())
+                match += int(row.argmax().item() == tok)
+                total += 1
+    return worst, match, total
+
+
+def _grammar_walk(pattern, tokens):
+    """(every token allowed, the end state accepting) of byte tokens through
+    the byte-level DFA of ``pattern``."""
+    from grasp_tpu_torch.serving.guided import CompiledGrammar
+
+    g = CompiledGrammar(pattern, [bytes([i]) for i in range(256)])
+    state = g.start
+    for t in tokens:
+        if not 0 <= t < 256 or g.token_trans[state, t] < 0:
+            return False, False
+        state = int(g.token_trans[state, t])
+    return True, bool(g.accepting[state])
+
+
+def _hold_guided(label, pattern, choice, tokens):
+    """A guided output fullmatches its grammar, or, cut by max_tokens, is a
+    prefix a continuation can complete."""
+    ok, accepting = _grammar_walk(pattern, tokens)
+    if not ok or (choice["finish_reason"] == "stop" and not accepting):
+        raise AssertionError(f"{label}: {choice['text']!r} leaves the grammar")
+    return "fullmatch" if accepting and choice["finish_reason"] == "stop" else "valid prefix"
+
+
+def _hold_counts(label, got, want):
+    print(f"{label}: launches {got}, derived {want}")
+    if got != want or not all(want.values()):
+        raise AssertionError(f"{label}: launch counts differ from the derived ones")
+
+
+def serve_features(torch, card, dev, ckpt_root):
+    """Phase 14 on the serving checkpoint: (a) ``--prefix_cache`` with one
+    system prefix and four suffixes in turn, (c) the sampling controls and
+    (d) guided decoding over HTTP on the same server, (e) ``--speculative
+    int8 --gamma 4 --prefix_cache`` with penalized greedy requests, then
+    guided speculation with two grammars through the engine API. Returns
+    the launches of K3 and K4."""
+    import numpy as np
+
+    from grasp_tpu_torch.data.tokenizer import ByteTokenizer
+    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
+    from grasp_tpu_torch.serving.guided import json_regex, schema_regex
+    from grasp_tpu_torch.serving.paged import ServingEngine
+    from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
+
+    rng = np.random.default_rng(41)
+    launches = {"paged": 0, "chunk": 0}
+    with _served(torch, dev, ckpt_root, ["--prefix_cache"]) as (engine, port):
+        config, layers = engine.config, engine.config.num_hidden_layers
+        prefix = rng.integers(3, config.vocab_size, size=FEATURE_PREFIX).tolist()
+        prompts = [prefix + rng.integers(3, config.vocab_size, size=n).tolist()
+                   for n in FEATURE_SUFFIXES]
+        warm = rng.integers(3, config.vocab_size, size=300).tolist()
+        _check_completion(*_post(port, {"prompt": warm, "max_tokens": 2}), warm)
+        saved0 = engine.prefix_tokens_saved
+        _reset_paged_counts(engine)
+        outs, ttfts = [], []
+        for p in prompts:  # in turn: the first is cold, the others hit its 8 pages
+            status, toks, ttft = _stream(port, {"prompt": p, "max_tokens": FEATURE_MAX_TOKENS})
+            if status != 200 or not 1 <= len(toks) <= FEATURE_MAX_TOKENS:
+                raise AssertionError(f"features (a): HTTP {status}, {len(toks)} tokens")
+            outs.append(toks)
+            ttfts.append(ttft)
+        steps, got = engine.decode_steps, paged_attention.launches
+        metrics = _metrics(port)
+        saved = int(metrics["grasp_prefix_tokens_saved"]) - saved0
+        print(f"features (a) --prefix_cache: {len(prompts)} requests in turn of a "
+              f"{FEATURE_PREFIX}-token system prefix + {list(FEATURE_SUFFIXES)} tokens, "
+              f"{FEATURE_MAX_TOKENS} new each; /metrics grasp_prefix_tokens_saved {saved} (want "
+              f"{3 * FEATURE_PREFIX}) of grasp_prefix_tokens_total "
+              f"{metrics['grasp_prefix_tokens_total']}; TTFT cold {ttfts[0] * 1e3:.1f} ms, "
+              f"hits {[round(t * 1e3, 1) for t in ttfts[1:]]} ms (host clock, streamed); K3 "
+              f"launches {got} (want {layers} x {steps}); card {card}")
+        if saved != 3 * FEATURE_PREFIX or steps == 0 or got != layers * steps:
+            raise AssertionError("features (a): the prefix cache or K3 ran other than counted")
+        launches["paged"] += got
+        gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
+                                                list(zip(prompts, outs)), dev)
+        plain = ServingEngine(engine.params, config, engine.plan, device=dev, num_pages=256,
+                              page_size=128, max_batch=8, max_pages_per_seq=16)
+        rids = [plain.submit(p, FEATURE_MAX_TOKENS) for p in prompts]
+        with torch.no_grad():
+            plain_outs = plain.run()
+        del plain
+        same = sum(a == b for o, r in zip(outs, rids) for a, b in zip(o, plain_outs[r]))
+        print(f"features (a): vs plain teacher-forced forward: argmax agrees at {match}/{total}, "
+              f"max logit gap {gap:.4f} (tol {GAP_TOL}); tokens equal to an engine without "
+              f"the cache at {same}/{total} positions (reported: a suffix prefill runs its "
+              f"products at fewer rows)")
+        if gap > GAP_TOL:
+            raise AssertionError("features (a): served tokens disagree with the plain forward")
+
+        # (c) the sampling controls, greedy unless noted
+        _reset_paged_counts(engine)
+        p = prompts[0][-200:]
+        bias_tok = 1234
+        biased = _body(*_post(port, {"prompt": p, "max_tokens": 16,
+                                     "logit_bias": {str(bias_tok): 100}}), "(c) bias")
+        rep = _body(*_post(port, {"prompt": p, "max_tokens": 24, "repetition_penalty": 1e6}),
+                    "(c) repetition")
+        # min_p = 1 keeps the tokens at the top probability: the greedy
+        # stream, where bf16 logits tie at the top either of the tied ones
+        greedy = _body(*_post(port, {"prompt": p, "max_tokens": 16, "logprobs": 1}),
+                       "(c) greedy")
+        min_p = _body(*_post(port, {"prompt": p, "max_tokens": 16, "min_p": 1.0,
+                                    "temperature": 1.0, "seed": 3, "logprobs": 1}), "(c) min_p")
+        diverge = next((i for i, (a, b) in enumerate(zip(min_p["token_ids"],
+                                                         greedy["token_ids"])) if a != b), None)
+        min_p_ok = len(min_p["token_ids"]) == len(greedy["token_ids"]) and (
+            diverge is None or min_p["logprobs"]["token_logprobs"][diverge]
+            == greedy["logprobs"]["token_logprobs"][diverge])
+        top1 = all(lp == max(top.values()) for lp, top in zip(
+            min_p["logprobs"]["token_logprobs"], min_p["logprobs"]["top_logprobs"]))
+        pen_outs = [_body(*_post(port, {"prompt": q[-300:], "max_tokens": FEATURE_MAX_TOKENS,
+                                        **FEATURE_PEN}), "(c) penalties")["token_ids"]
+                    for q in prompts[:2]]
+        gap, match, total = check_penalized_against_plain(
+            torch, engine.params, config, engine.plan,
+            [(q[-300:], o) for q, o in zip(prompts, pen_outs)], dev, FEATURE_PEN)
+        steps, got = engine.decode_steps, paged_attention.launches
+        where = "throughout" if diverge is None else f"up to a tie at position {diverge}"
+        print(f"features (c): logit_bias {{{bias_tok}: 100}} -> {biased['token_ids'][:6]}...; "
+              f"repetition_penalty 1e6: {len(set(rep['token_ids']))} distinct of "
+              f"{len(rep['token_ids'])}; min_p 1 at temperature 1: every token the model's "
+              f"top-1 {top1}, the greedy stream {where}; "
+              f"{FEATURE_PEN}: vs the adjusted "
+              f"teacher-forced forward argmax agrees at {match}/{total}, max gap {gap:.4f} "
+              f"(tol {GAP_TOL}); K3 {got} (want {layers} x {steps})")
+        if (set(biased["token_ids"]) != {bias_tok} or len(biased["token_ids"]) != 16
+                or len(set(rep["token_ids"])) != len(rep["token_ids"])
+                or not (min_p_ok and top1) or gap > GAP_TOL
+                or got != layers * steps):
+            raise AssertionError("features (c): a sampling control misbehaved")
+        launches["paged"] += got
+
+        # (d) guided decoding with the byte-level tokenizer the server loaded
+        _reset_paged_counts(engine)
+        schema = {"type": "json_schema", "json_schema": {"name": "s", "schema": FEATURE_SCHEMA}}
+        seen = []
+        for label, field, pattern in (
+                ("guided_regex", {"guided_regex": FEATURE_REGEX}, FEATURE_REGEX),
+                ("json_object", {"response_format": {"type": "json_object"}}, json_regex()),
+                ("json_schema", {"response_format": schema}, schema_regex(FEATURE_SCHEMA))):
+            t0 = time.perf_counter()
+            choice = _body(*_post(port, {"prompt": "Answer: ", "max_tokens": 64, **field}),
+                           f"(d) {label}")
+            secs = time.perf_counter() - t0
+            verdict = _hold_guided(f"features (d) {label}", pattern, choice, choice["token_ids"])
+            if label == "guided_regex" and not re.fullmatch(FEATURE_REGEX, choice["text"]):
+                raise AssertionError(f"features (d): {choice['text']!r} does not fullmatch")
+            if verdict == "fullmatch" and label == "json_schema":
+                value = json.loads(choice["text"])
+                if set(value) != {"name", "n"} or not isinstance(value["n"], int):
+                    raise AssertionError(f"features (d): {value} does not match the schema")
+            seen.append(f"{label} {choice['text']!r} ({verdict}, {choice['finish_reason']}, "
+                        f"{secs:.2f} s with the grammar's first compile)")
+        steps, got = engine.decode_steps, paged_attention.launches
+        print(f"features (d): {'; '.join(seen)}; K3 {got} (want {layers} x {steps})")
+        if got != layers * steps:
+            raise AssertionError("features (d): K3 ran other than counted")
+        launches["paged"] += got
+
+    # (e) speculation with the prefix cache and penalized greedy requests
+    label = f"features (e) --speculative int8 --gamma {SPEC_GAMMA} --prefix_cache"
+    with _served(torch, dev, ckpt_root, ["--speculative", "int8", "--gamma", str(SPEC_GAMMA),
+                                         "--prefix_cache"]) as (engine, port):
+        if not isinstance(engine, SpeculativeServingEngine) or not engine.prefix_cache:
+            raise AssertionError(f"{label}: the command line built another engine")
+        config = engine.config
+        _check_completion(*_post(port, {"prompt": warm, "max_tokens": 2}), warm)
+        _reset_paged_counts(engine)
+        saved0 = engine.prefix_tokens_saved
+        spec_prompts = prompts[:3]
+        outs = []
+        for q in spec_prompts:
+            outs.append(_body(*_post(port, {"prompt": q, "max_tokens": FEATURE_MAX_TOKENS,
+                                            **FEATURE_PEN}), label)["token_ids"])
+        steps, stats = engine.macro_steps, dict(engine.last_stats)
+        got = {"chunk": paged_attention_chunk.launches, "decode": paged_attention.launches}
+        want = {"chunk": layers * steps, "decode": layers * engine.decode_steps}
+        gap, match, total = check_penalized_against_plain(
+            torch, engine.params, config, engine.plan, list(zip(spec_prompts, outs)), dev,
+            FEATURE_PEN)
+        print(f"{label}: {len(outs)} penalized greedy requests in turn, {steps} macro-steps "
+              f"({engine.decode_seconds / max(steps, 1) * 1e3:.2f} ms each), drafts accepted "
+              f"{stats['accepted']}/{stats['drafted']}, prefix tokens saved "
+              f"{engine.prefix_tokens_saved - saved0}; K4/K3 {got} (want {want}); vs the "
+              f"adjusted teacher-forced forward argmax agrees at {match}/{total}, max gap "
+              f"{gap:.4f} (tol {GAP_TOL})")
+        if (steps == 0 or got != want or gap > GAP_TOL
+                or engine.decode_steps != (SPEC_GAMMA + 1) * steps
+                or engine.prefix_tokens_saved - saved0 != 2 * FEATURE_PREFIX
+                or not all(1 <= len(o) <= FEATURE_MAX_TOKENS for o in outs)):
+            raise AssertionError(f"{label}: failed")
+        launches["chunk"] += got["chunk"]
+        launches["paged"] += got["decode"]
+
+        # guided speculation through the engine API: two grammars in a batch
+        tok = ByteTokenizer()
+        api = SpeculativeServingEngine(engine.params, config, engine.dparams, config,
+                                       plan=engine.plan, draft_plan=engine.dplan,
+                                       gamma=SPEC_GAMMA, device=dev, num_pages=64,
+                                       page_size=128, max_batch=4, max_pages_per_seq=4,
+                                       eos_token_id=tok.eos_token_id, tokenizer=tok)
+        pats = [FEATURE_REGEX, schema_regex(FEATURE_SCHEMA), FEATURE_REGEX]
+        _reset_paged_counts(api)
+        rids = [api.submit(tok.encode(f"Request {i}: ", add_special_tokens=True), 48,
+                           guided_regex=pat, **(FEATURE_PEN if i == 2 else {}))
+                for i, pat in enumerate(pats)]
+        with torch.no_grad():
+            done = {r.rid: r for r in _drain(api)}
+        got = {"chunk": paged_attention_chunk.launches, "decode": paged_attention.launches}
+        want = {"chunk": layers * api.macro_steps, "decode": layers * api.decode_steps}
+        verdicts = []
+        for rid, pat in zip(rids, pats):
+            r = done[rid]
+            choice = {"finish_reason": "stop" if r.finish == "eos" else "length",
+                      "text": tok.decode(r.out)}
+            verdicts.append(f"{choice['text']!r} ({_hold_guided(label, pat, choice, r.out)})")
+        print(f"{label}, engine API, two grammars in one batch: {'; '.join(verdicts)}; "
+              f"{api.macro_steps} macro-steps; K4/K3 {got} (want {want})")
+        if got != want or api.macro_steps == 0:
+            raise AssertionError(f"{label}: guided speculation ran the kernels other than counted")
+        launches["chunk"] += got["chunk"]
+        launches["paged"] += got["decode"]
+        del api
+    return launches
+
+
+def _drain(engine):
+    done = []
+    while engine.has_work():
+        engine.step()
+        done += engine.collect_requests()
+    return done
+
+
+def serve_chunked(torch, card, dev, ckpt_root):
+    """Phase 14 (b) on the checkpoint whose config sets use_pallas_lowrank:
+    ``--prefill_chunk 256``, four short requests decoding when a 1500-token
+    prompt arrives; then the same through an engine without chunks (the
+    engine API) for the short rows' inter-token latency under whole-prompt
+    admission. Returns the launches of K2 and K3."""
+    import dataclasses
+
+    import numpy as np
+
+    from grasp_tpu_torch.ops.lowrank import FUSED_MIN_ROWS, fused_lowrank
+    from grasp_tpu_torch.ops.paged_attention import paged_attention
+    from grasp_tpu_torch.serving.paged import ServingEngine
+
+    label = f"features (b) --prefill_chunk {PREFILL_CHUNK}"
+    rng = np.random.default_rng(43)
+    with _served(torch, dev, ckpt_root, ["--prefill_chunk", str(PREFILL_CHUNK)]) as (engine,
+                                                                                       port):
+        config, layers = engine.config, engine.config.num_hidden_layers
+        if not config.use_pallas_lowrank or engine.prefill_chunk != PREFILL_CHUNK:
+            raise AssertionError(f"{label}: not the fused checkpoint with chunks")
+        n_lowrank = sum("in_kernel" in p for lp in engine.params["layers"]
+                        for group in ("self_attn", "mlp") for p in lp[group].values())
+        short = [rng.integers(3, config.vocab_size, size=n).tolist() for n in CHUNK_SHORT_LENS]
+        long = rng.integers(3, config.vocab_size, size=CHUNK_LONG_LEN).tolist()
+        # warm-up, not counted: a short prompt and one whose first chunk takes K2
+        warm = rng.integers(3, config.vocab_size, size=300).tolist()
+        for p in (short[0], warm):
+            _check_completion(*_post(port, {"prompt": p, "max_tokens": 2}), p)
+
+        def logged(eng):
+            """Wrap eng.step to log (seconds, decode steps, admissions in flight)."""
+            log, step = [], eng.step
+
+            def timed():
+                t0 = time.perf_counter()
+                step()
+                log.append((time.perf_counter() - t0, eng.decode_steps, bool(eng._admitting)))
+            eng.step = timed
+            return log
+
+        def run_pattern(eng, submit, wait):
+            """The four short rows, then the long prompt once they decode."""
+            handles = [submit(p, CHUNK_MAX_TOKENS) for p in short]
+            while eng.decode_steps < 3:
+                wait()
+            handles.append(submit(long, 8))
+            return handles
+
+        _reset_paged_counts(engine)
+        fused_lowrank.launches = 0
+        log = logged(engine)
+        results = [None] * 5
+
+        def post(i, p, n):
+            results[i] = _post(port, {"prompt": p, "max_tokens": n})
+
+        def submit(p, n):
+            t = threading.Thread(target=post, args=(len(threads), p, n))
+            threads.append(t)
+            t.start()
+            return t
+
+        threads = []
+        run_pattern(engine, submit, lambda: time.sleep(0.002))
+        for t in threads:
+            t.join(timeout=900)
+        del engine.step
+        outs = [_check_completion(s, d, p) for (s, d), p in zip(results, short + [long])]
+        in_flight = [(secs, steps) for secs, steps, adm in log if adm]
+        steady = [secs for secs, _, adm in log[-20:] if not adm]
+        got = {"fused": fused_lowrank.launches, "paged": paged_attention.launches}
+        ps = engine.pool.page_size
+        rows = [-(-len(p) // ps) * ps for p in short + [long]]
+        chunks = [min(PREFILL_CHUNK, r - f) for r in rows for f in range(0, r, PREFILL_CHUNK)]
+        want = {"fused": n_lowrank * sum(c >= FUSED_MIN_ROWS for c in chunks),
+                "paged": layers * engine.decode_steps}
+        itl = [s * 1e3 for s, _ in in_flight]
+        print(f"{label}: 4 rows of {list(CHUNK_SHORT_LENS)} tokens ({CHUNK_MAX_TOKENS} new) "
+              f"decoding when a {CHUNK_LONG_LEN}-token prompt arrives: {len(in_flight)} decode "
+              f"steps between its first chunk and its first token (want 5 or more); short "
+              f"rows' inter-token latency during the admission {min(itl):.2f} to "
+              f"{max(itl):.2f} ms (mean {sum(itl) / len(itl):.2f}), steady "
+              f"{sum(steady) / len(steady) * 1e3:.2f} ms (host clock around engine.step); "
+              f"card {card}")
+        _hold_counts(label, got, want)
+        if len(in_flight) < 5:
+            raise AssertionError(f"{label}: the short rows waited for the long admission")
+        plain_config = dataclasses.replace(config, use_pallas_lowrank=False)
+        gap, match, total = check_against_plain(torch, engine.params, plain_config, engine.plan,
+                                                list(zip(short + [long], outs)), dev)
+        print(f"{label}: vs plain teacher-forced forward: argmax agrees at {match}/{total}, "
+              f"max logit gap {gap:.4f} (tol {GAP_TOL})")
+        if gap > GAP_TOL:
+            raise AssertionError(f"{label}: served tokens disagree with the plain forward")
+        launches = dict(got)
+
+        # the same pattern with whole-prompt admission, through the engine API
+        whole = ServingEngine(engine.params, config, engine.plan, device=dev, num_pages=256,
+                              page_size=128, max_batch=8, max_pages_per_seq=16)
+        _reset_paged_counts(whole)
+        fused_lowrank.launches = paged_attention.launches = 0
+        wlog = logged(whole)
+        with torch.no_grad():
+            run_pattern(whole, whole.submit, whole.step)
+            whole.run()
+        admit = [secs for secs, _, _ in wlog[3:4]]
+        wsteady = [secs for secs, _, _ in wlog[5:25]]
+        got = {"fused": fused_lowrank.launches, "paged": paged_attention.launches}
+        want = {"fused": n_lowrank * sum(r >= FUSED_MIN_ROWS for r in rows),
+                "paged": layers * whole.decode_steps}
+        print(f"{label}, against whole-prompt admission (engine API): the short rows' "
+              f"inter-token latency at the long prompt's admission {admit[0] * 1e3:.2f} ms, "
+              f"steady {sum(wsteady) / len(wsteady) * 1e3:.2f} ms")
+        _hold_counts(f"{label}, whole-prompt", got, want)
+        del whole
+        return {k: launches[k] + got[k] for k in launches}
+
+
+def _set_fused(ckpt_root):
+    """Set use_pallas_lowrank in the checkpoint's model config."""
+    from grasp_tpu_torch.checkpoints import META_NAME
+
+    meta_path = os.path.join(ckpt_root, META_NAME)
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta["model_config"]["use_pallas_lowrank"] = True
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+
+
+def phase_features(torch, card, dev, ckpt_root):
+    """Phase 14 on the serving checkpoint, (b) after setting
+    use_pallas_lowrank in it. Returns the launches of K3, K4 and K2."""
+    served = serve_features(torch, card, dev, ckpt_root)
+    _set_fused(ckpt_root)
+    chunked = serve_chunked(torch, card, dev, ckpt_root)
+    return {"paged": served["paged"] + chunked["paged"], "chunk": served["chunk"],
+            "fused": chunked["fused"]}
+
+
+def phase_slice(torch, card, dev, only=None):
     """The serving slice, then the same checkpoint served with speculation
-    and int8 KV pages, with int4 weights, int8 weights and the fused low-rank
-    kernel. Returns the launches of the paged kernel on the main path, of
-    the chunk and decode kernels under speculation, and of the int4 and
-    fused kernels on theirs. ``spec_only``: the speculative and int8-KV parts
-    alone."""
-    from grasp_tpu_torch.checkpoints import META_NAME, save_checkpoint
+    and int8 KV pages, with int4 weights, int8 weights, the rest of the
+    serving engine (phase 14) and the fused low-rank kernel. Returns the
+    launches of the paged kernel on the main path, of the chunk and decode
+    kernels under speculation, of the int4 and fused kernels on theirs, and
+    of K2, K3 and K4 in phase 14. ``only``: "spec" the speculative and
+    int8-KV parts alone, "features" phase 14 alone."""
+    from grasp_tpu_torch.checkpoints import save_checkpoint
     from grasp_tpu_torch.models.convert import flatten_params
 
     config, params, plan = build_flagship(torch, dev)
@@ -1562,26 +2020,27 @@ def phase_slice(torch, card, dev, spec_only=False):
         save_checkpoint(ckpt_root, params, config, plan)
         del params
         torch.cuda.empty_cache()
-        launches = None if spec_only else _serve_main_path(torch, card, dev, ckpt_root, config, t0)
+        if only == "features":
+            return phase_features(torch, card, dev, ckpt_root)
+        launches = None if only else _serve_main_path(torch, card, dev, ckpt_root, config, t0)
         spec_launches = serve_speculative(torch, card, dev, ckpt_root)
         serve_quantized_kv(torch, dev, ckpt_root, speculative=False)
         serve_quantized_kv(torch, dev, ckpt_root, speculative=True)
-        if spec_only:
-            return launches, spec_launches, None
+        if only == "spec":
+            return launches, spec_launches, None, None
         variants = {"int4": serve_variant(torch, dev, ckpt_root, "--quantize int4",
                                           ["--quantize", "int4"], dma_round=True),
                     "int8": serve_variant(torch, dev, ckpt_root, "--quantize int8",
                                           ["--quantize", "int8"])}
-        meta_path = os.path.join(ckpt_root, META_NAME)
-        with open(meta_path) as f:
-            meta = json.load(f)
-        meta["model_config"]["use_pallas_lowrank"] = True
-        with open(meta_path, "w") as f:
-            json.dump(meta, f)
+        served = serve_features(torch, card, dev, ckpt_root)
+        _set_fused(ckpt_root)
         variants["fused"] = serve_variant(torch, dev, ckpt_root, "use_pallas_lowrank")
         if variants["fused"]["fused"] == 0 or variants["int4"]["grid"] == 0:
             raise AssertionError("a serving variant never reached its kernel")
-        return launches, spec_launches, variants
+        chunked = serve_chunked(torch, card, dev, ckpt_root)
+        features = {"paged": served["paged"] + chunked["paged"], "chunk": served["chunk"],
+                    "fused": chunked["fused"]}
+        return launches, spec_launches, variants, features
     finally:
         shutil.rmtree(ckpt_root, ignore_errors=True)
 
@@ -3284,7 +3743,8 @@ def drive_quantizer(torch, dev):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
-                                           "evaluate", "recover", "hf", "phi3serve"],
+                                           "evaluate", "recover", "hf", "phi3serve",
+                                           "features"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -3319,6 +3779,9 @@ def main(argv=None) -> int:
     if args.only == "hf":
         print(phase_compress(torch, card, dev, only="hf"), phase_phi3(torch, card, dev))
         return 0
+    if args.only == "features":
+        print(phase_slice(torch, card, dev, only="features"))
+        return 0
     if args.only == "phi3serve":
         print(phase_kernel(torch, hds=(96,)), phase_kernel_timing(torch, *PHI3_TIMING))
         print(phase_chunk(torch, hds=(96,)), phase_chunk_timing(torch, *PHI3_TIMING))
@@ -3331,7 +3794,7 @@ def main(argv=None) -> int:
     chunk = phase_chunk_timing(torch, *TINYLLAMA_TIMING)
     chunk96 = phase_chunk_timing(torch, *PHI3_TIMING)
     if args.only == "spec":
-        print(chunk, phase_slice(torch, card, dev, spec_only=True))
+        print(chunk, phase_slice(torch, card, dev, only="spec"))
         return 0
     if args.only == "serve":
         print(phase_slice(torch, card, dev))
@@ -3343,7 +3806,7 @@ def main(argv=None) -> int:
     lowrank_err, int4_err, quant_err = phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch)
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
-    paged_launches, spec_launches, served = phase_slice(torch, card, dev)
+    paged_launches, spec_launches, served, features = phase_slice(torch, card, dev)
     flash_launches, fused_compress_launches, evaluated, recovered, from_hf = phase_compress(
         torch, card, dev)
     phi3, phi3_served = phase_phi3(torch, card, dev)
@@ -3358,14 +3821,16 @@ def main(argv=None) -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
-         "launches": paged_launches + from_hf["paged"] + phi3_served["paged"],
+         "launches": paged_launches + from_hf["paged"] + phi3_served["paged"]
+         + features["paged"],
          "max_abs_err": paged_err, **paged, "hd96": paged96},
         # library_ms: no single PyTorch call reads a page table; the timing line
         # above has one decode launch per chunk position beside it
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
-         "launches": spec_launches["chunk"] + phi3_served["chunk"], "max_abs_err": chunk_err,
+         "launches": spec_launches["chunk"] + phi3_served["chunk"] + features["chunk"],
+         "max_abs_err": chunk_err,
          **chunk, "hd96": chunk96},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
         # launches: the two compressions, the evaluation slice, the HF route
@@ -3392,7 +3857,7 @@ def main(argv=None) -> int:
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
          "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"]
-         + recovered["fused"],
+         + recovered["fused"] + features["fused"],
          "max_abs_err": lowrank_err, **lowrank},
         {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:198",

@@ -24,8 +24,13 @@ LongBench (``--eval_tasks``) of a model, written to ``--results_json``.
 verifies them with the served weights in one forward (greedy outputs are the
 plain engine's). A checkpoint whose model config has
 ``use_pallas_lowrank`` runs its low-rank projections through the fused kernel
-at 256 rows or more (prefill). The prefix cache and chunked prefill are not
-ported yet.
+at 256 rows or more (prefill). ``--prefix_cache`` shares the K/V pages of
+prompts that open alike between requests (only the suffix runs the prefill),
+and ``--prefill_chunk N`` admits a prompt N tokens a step while the live rows
+go on decoding (not with ``--speculative``). Requests take penalties, logit
+bias, min_p and guided decoding (``guided_regex``, ``response_format``); the
+speculative engine is built without the tokenizer, as in the JAX package, so
+over HTTP it refuses ``guided_regex``.
 
 Every entry point takes a model from a grasp_tpu_torch checkpoint directory
 (``grasp_meta.json`` + ``params.pt``; grasp_tpu checkpoints convert with
@@ -431,6 +436,14 @@ def _serve_parser() -> argparse.ArgumentParser:
                    help="weight quantization for the serving copy")
     p.add_argument("--quantized_kv", action="store_true",
                    help="int8 KV pages (half the decode KV traffic)")
+    p.add_argument("--prefix_cache", action="store_true",
+                   help="share KV pages between requests whose prompts open with the same "
+                        "pages (the shared prefix skips the prefill, in the target and in a "
+                        "speculative draft)")
+    p.add_argument("--prefill_chunk", type=int, default=None,
+                   help="admit prompts this many tokens an engine step (a multiple of "
+                        "--page_size) so that long prompts do not stall the running batch; "
+                        "not with --speculative")
     p.add_argument("--speculative", type=str, default="none", choices=["none", "int8"],
                    help="int8: self-draft speculation (an int8-quantized copy drafts, the "
                         "served weights verify; greedy outputs identical)")
@@ -453,7 +466,10 @@ def serve_main(argv=None, block: bool = True):
     """``grasp-serve-torch``. With ``block=False`` returns
     ``(GraspServer, ThreadingHTTPServer, thread)`` instead of serving
     forever (``--port 0`` picks a free port: ``httpd.server_address[1]``)."""
-    args = _serve_parser().parse_args(argv)
+    parser = _serve_parser()
+    args = parser.parse_args(argv)
+    if args.prefill_chunk and args.speculative != "none":
+        parser.error("--prefill_chunk is not supported with --speculative")
     setup_logger(args.log_file)
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
     from grasp_tpu_torch.ops.quant import quantize_model_weights
@@ -478,7 +494,7 @@ def serve_main(argv=None, block: bool = True):
         eos = ([int(eos)] if eos is not None else []) + extra
     kw = dict(device=device, num_pages=args.num_pages, page_size=args.page_size,
               max_batch=args.max_batch, max_pages_per_seq=args.max_pages_per_seq,
-              eos_token_id=eos, quantized_kv=args.quantized_kv)
+              eos_token_id=eos, quantized_kv=args.quantized_kv, prefix_cache=args.prefix_cache)
     if draft is not None:
         from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
 
@@ -487,7 +503,8 @@ def serve_main(argv=None, block: bool = True):
     else:
         from grasp_tpu_torch.serving.paged import ServingEngine
 
-        engine = ServingEngine(params, config, plan, **kw)
+        engine = ServingEngine(params, config, plan, prefill_chunk=args.prefill_chunk,
+                               tokenizer=tokenizer, **kw)
     handles = serve(engine, host=args.host, port=args.port, tokenizer=tokenizer,
                     model_id=args.model_name or args.model_path,
                     chat_template=args.chat_template, block=block)

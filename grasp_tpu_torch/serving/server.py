@@ -6,19 +6,22 @@ grasp_tpu/serving/server.py).
   token ids, or a batch of either; ``max_tokens``, ``temperature``,
   ``top_k``, ``top_p``, ``seed``, ``n`` (sample j at seed + j),
   ``logprobs`` (the model's top-N per token), ``stop`` (host-side stop
-  strings, up to 4); ``"stream": true`` serves tokens as Server-Sent Events
-  (a single prompt with n = 1).
+  strings, up to 4), ``presence_penalty``, ``frequency_penalty``,
+  ``repetition_penalty``, ``min_p``, ``logit_bias`` and ``guided_regex`` or
+  ``response_format`` (``json_object``, ``json_schema``, ``text``);
+  ``"stream": true`` serves tokens as Server-Sent Events (a single prompt
+  with n = 1).
 - ``POST /v1/chat/completions``: messages rendered by :func:`render_chat`
   (the tokenizer's own chat template, or the server's ``chat_template``:
   llama2, chatml, phi3, gemma or a generic transcript), answered as
   ``chat.completion`` objects or streamed ``chat.completion.chunk`` deltas.
 - ``GET /v1/models``, ``GET /health`` and ``GET /metrics`` (request, token,
-  completion and step counters, live and pending requests, free pages).
+  completion and step counters, live and pending requests, free pages, and
+  with the prefix cache the prompt tokens it saved of those admitted).
 - One scheduler thread owns the device and loops ``engine.step()``; HTTP
-  handler threads only enqueue requests and wait on a per-request queue.
-
-The request fields for penalties, logit bias, min_p and guided decoding are
-not ported yet (400).
+  handler threads only enqueue requests and wait on a per-request queue; a
+  request's grammar compiles on its handler thread, outside the scheduler's
+  lock.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
+from grasp_tpu_torch.serving.guided import json_regex, schema_regex
 from grasp_tpu_torch.serving.paged import ServingEngine
 
 logger = logging.getLogger("grasp_tpu_torch")
@@ -89,16 +93,23 @@ class GraspServer:
 
     def submit(self, prompt_ids, max_new_tokens: int, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: Optional[int] = None,
-               logprobs: int = 0, stop: Optional[List[str]] = None) -> tuple:
+               logprobs: int = 0, stop: Optional[List[str]] = None, **sampling) -> tuple:
         """Enqueue one request; returns (rid, delivery). Raises ValueError on
         requests the engine could never admit. ``stop``: host-side stop
         strings; the request is cancelled once its decoded output holds one
-        (needs a tokenizer)."""
+        (needs a tokenizer). Other keyword arguments (penalties, min_p,
+        logit_bias, guided_regex) go to the engine, which validates them."""
         if stop and self.tokenizer is None:
             raise ValueError("stop strings need a tokenizer")
+        if sampling.get("guided_regex"):
+            # a first compile lifts the grammar to the whole vocabulary in
+            # Python (seconds at 32k): here, so that decoding goes on; the
+            # engine's cache makes the locked submit a lookup
+            self.engine._compile_guided(sampling["guided_regex"])
         with self._wake:
             rid = self.engine.submit(prompt_ids, max_new_tokens, temperature=temperature,
-                                     top_k=top_k, top_p=top_p, seed=seed, logprobs=logprobs)
+                                     top_k=top_k, top_p=top_p, seed=seed, logprobs=logprobs,
+                                     **sampling)
             d = _Delivery(stop=stop)
             self._deliveries[rid] = d
             self.counters["requests_total"] += 1
@@ -132,9 +143,11 @@ class GraspServer:
         with self._lock:
             live = sum(1 for r in self.engine._live if r is not None)
             pending = len(self.engine._pending)
+            admitting = len(self.engine._admitting)
             free = self.engine.pool.free_pages
         return {"status": "ok", "model": self.model_id, "live": live, "pending": pending,
-                "free_pages": free, "uptime_s": round(time.time() - self.started_at, 1)}
+                "admitting": admitting, "free_pages": free,
+                "uptime_s": round(time.time() - self.started_at, 1)}
 
     def _loop(self) -> None:
         while True:
@@ -263,14 +276,6 @@ def _usage(prompt_ids: List[int], out: List[int]) -> Dict[str, int]:
 _MAX_CHOICES = 16  # cap on len(prompts) * n per HTTP request
 _MAX_STOPS = 4     # stop strings per request (OpenAI's cap)
 
-# request fields the port does not serve yet, with the values that mean "off"
-_UNSUPPORTED_FIELDS = {
-    "presence_penalty": (None, 0, 0.0), "frequency_penalty": (None, 0, 0.0),
-    "repetition_penalty": (None, 1, 1.0), "min_p": (None, 0, 0.0),
-    "logit_bias": (None,), "guided_regex": (None,), "response_format": (None,),
-}
-
-
 def _parse_prompts(server: GraspServer, prompt) -> List[List[int]]:
     """OpenAI prompt forms: a string, a token-id list, or a batch of either."""
     def one(p):
@@ -326,9 +331,34 @@ def _lp_block(server: GraspServer, delivery: _Delivery,
             "top_logprobs": [top_block(e) for e in delivery.lps]}
 
 
+def _guided(req: Dict[str, Any]) -> Optional[str]:
+    """The request's output grammar: ``guided_regex``, or ``response_format``
+    ``json_object`` (any JSON value of nesting 2 or less) or ``json_schema``
+    (the schema as a regex; ValueError on a schema it cannot express)."""
+    guided = req.get("guided_regex")
+    rf = req.get("response_format")
+    if rf is not None:
+        if not (isinstance(rf, dict) and rf.get("type") in ("json_object", "json_schema", "text")):
+            raise ValueError("bad response_format")
+        if rf["type"] != "text" and guided is not None:
+            raise ValueError("guided_regex and response_format together")
+        if rf["type"] == "json_object":
+            guided = json_regex()
+        elif rf["type"] == "json_schema":
+            js = rf.get("json_schema")
+            schema = js.get("schema", js) if isinstance(js, dict) else None
+            if not isinstance(schema, dict):
+                raise ValueError("json_schema needs a schema object")
+            guided = schema_regex(schema)
+    if guided is not None and (not isinstance(guided, str) or not guided):
+        raise ValueError("bad guided_regex")
+    return guided
+
+
 def _sampling(req: Dict[str, Any], n_prompts: int) -> Dict[str, Any]:
     """The request's sampling fields, validated; ValueError or TypeError on a
-    bad one."""
+    bad one. ``engine`` holds the fields the engine takes beyond the plain
+    sampler's (it validates their ranges)."""
     stop = req.get("stop")
     if isinstance(stop, str):
         stop = [stop]
@@ -336,13 +366,26 @@ def _sampling(req: Dict[str, Any], n_prompts: int) -> Dict[str, Any]:
                              or not all(isinstance(x, str) and x for x in stop)):
         raise ValueError("bad stop")
     seed = req.get("seed")
+    engine = {"presence_penalty": float(req.get("presence_penalty", 0.0)),
+              "frequency_penalty": float(req.get("frequency_penalty", 0.0)),
+              "repetition_penalty": float(req.get("repetition_penalty", 1.0)),
+              "min_p": float(req.get("min_p", 0.0))}
+    bias = req.get("logit_bias")
+    if bias is not None:
+        if not isinstance(bias, dict):
+            raise ValueError("bad logit_bias")
+        # OpenAI sends {"token id as a string": bias}; int keys pass too
+        engine["logit_bias"] = {int(t): float(v) for t, v in bias.items()}
+    guided = _guided(req)
+    if guided is not None:
+        engine["guided_regex"] = guided
     out = {"max_new": int(req.get("max_tokens", 16)),
            "temperature": float(req.get("temperature", 0.0)),
            "top_k": int(req.get("top_k", 0)), "top_p": float(req.get("top_p", 1.0)),
            "seed": int(seed) if seed is not None else None,
            "logprobs": int(req.get("logprobs") or 0), "stop": stop,
            "n": int(req.get("n", 1)), "stream": bool(req.get("stream", False)),
-           "timeout": float(req.get("timeout_s", 600.0))}
+           "timeout": float(req.get("timeout_s", 600.0)), "engine": engine}
     if out["n"] < 1 or out["n"] * n_prompts > _MAX_CHOICES:
         raise ValueError("bad n")
     return out
@@ -380,6 +423,9 @@ class _Handler(BaseHTTPRequestHandler):
             lines += [f"grasp_live_requests {s['live']}", f"grasp_pending_requests {s['pending']}",
                       f"grasp_free_kv_pages {s['free_pages']}",
                       f"grasp_uptime_seconds {s['uptime_s']}"]
+            if g.engine.prefix_cache:
+                lines += [f"grasp_prefix_tokens_saved {g.engine.prefix_tokens_saved}",
+                          f"grasp_prefix_tokens_total {g.engine.prefix_tokens_total}"]
             body = ("\n".join(lines) + "\n").encode()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain; version=0.0.4")
@@ -399,10 +445,6 @@ class _Handler(BaseHTTPRequestHandler):
             req = json.loads(self.rfile.read(n) or b"{}")
         except (ValueError, json.JSONDecodeError):
             return self._json(400, {"error": {"message": "invalid JSON body"}})
-        for name, off in _UNSUPPORTED_FIELDS.items():
-            if req.get(name) not in off:
-                return self._json(400, {"error": {
-                    "message": f"{name!r} is not supported by grasp_tpu_torch yet"}})
         if chat:
             messages = req.get("messages")
             if not isinstance(messages, list) or not messages:
@@ -435,7 +477,8 @@ class _Handler(BaseHTTPRequestHandler):
                     seed = opt["seed"] + j if opt["seed"] is not None else None
                     rid, d = g.submit(p_ids, opt["max_new"], temperature=opt["temperature"],
                                       top_k=opt["top_k"], top_p=opt["top_p"], seed=seed,
-                                      logprobs=opt["logprobs"], stop=opt["stop"])
+                                      logprobs=opt["logprobs"], stop=opt["stop"],
+                                      **opt["engine"])
                     subs.append((p_ids, rid, d))
         except (ValueError, MemoryError) as e:
             for _, rid, _d in subs:  # don't strand the already-admitted part

@@ -28,17 +28,26 @@ up to gamma + 1 tokens per forward instead of 1.
   seed, and from the JAX package's, in its bits.
 - Rejected positions leave stale KV in both pools; the per-row masks hide
   them and the next chunk overwrites them in place.
+- Penalties, logit bias, min_p and guided decoding: the draft adjusts each
+  of its steps' logits with working copies of the rows' token counts and
+  grammar states carried along its drafted tokens, and the acceptance
+  recomputes the same adjustments position by position on the target's
+  logits. Penalized greedy rows so emit the penalized plain engine's stream
+  and penalized sampled rows follow penalized target-only sampling.
+- The prefix cache: a page shared by content holds its first writer's
+  target and draft K/V, so the draft's prefill also runs the suffix alone.
+  Pages are allocated and freed through ``self.pool`` only; the draft pool
+  never allocates.
 
-Ported: fp and int8 pools, greedy and sampled rows in one batch, eos.
-``logprobs`` and ``prefill_chunk`` raise ValueError (as in the JAX engine);
-penalties, logit bias, guided decoding and the prefix cache raise
-NotImplementedError, as in the plain engine of this package.
+Ported: fp and int8 pools, greedy and sampled rows in one batch, eos, every
+sampling control of the plain engine and the prefix cache. ``logprobs`` and
+``prefill_chunk`` raise ValueError (as in the JAX engine).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -71,6 +80,8 @@ from grasp_tpu_torch.serving.paged import (
     ServingEngine,
     _paged_decode_fn,
     _Request,
+    apply_penalties,
+    mask_guided,
     sampled_rows,
     sampling_settings,
 )
@@ -143,6 +154,43 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
     return fn
 
 
+class _Penalties:
+    """A penalized macro-step's context on the device, rows in batch order:
+    ``counts`` [B, V] int32 and ``bias`` [B, V] fp32 (zero where a row has
+    no logit bias), per-row ``min_ps``, ``pres``, ``freq`` and ``reps``, and
+    for guided batches a grammar table ``trans`` [S, V] (token transitions,
+    -1 = reject), ``accept`` [S], the rows' ``states`` [B] and ``flags`` [B]
+    and the stop ids' ``eos_mask`` [V]; ``trans`` is None when no row is
+    guided."""
+
+    __slots__ = ("counts", "bias", "min_ps", "pres", "freq", "reps", "trans", "accept",
+                 "states", "flags", "eos_mask")
+
+    def __init__(self, **kw):
+        for name in self.__slots__:
+            setattr(self, name, kw.get(name))
+
+    def adjust(self, logits: torch.Tensor, counts: torch.Tensor, states: Optional[torch.Tensor],
+               rep: int = 1) -> torch.Tensor:
+        """The plain engine's penalized adjustments (and grammar mask) of
+        [B * rep, V] logits, each row's settings repeated ``rep`` times."""
+        def per_row(t):
+            return t.repeat_interleave(rep, dim=0) if rep > 1 else t
+
+        adj = apply_penalties(logits, counts, per_row(self.bias), per_row(self.pres),
+                              per_row(self.freq), per_row(self.reps))
+        if self.trans is None:
+            return adj
+        return mask_guided(adj, self.trans[states] >= 0, self.accept[states], self.eos_mask,
+                           per_row(self.flags))
+
+    def advance(self, states: torch.Tensor, toks: torch.Tensor) -> torch.Tensor:
+        """The rows' grammar states after picking ``toks``: a stop id, a
+        rejected token or an unguided row keeps its state."""
+        ns = self.trans[states, toks].long()
+        return torch.where(self.flags & ~self.eos_mask[toks] & (ns >= 0), ns, states)
+
+
 def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int = _MAX_TOP_K):
     """Build the draft phase: gamma + 1 one-token paged decodes on the draft
     pool, each next token fed to the following step on the device, nothing
@@ -153,31 +201,43 @@ def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int
     the argmax of the raw logits. A sampled row draws its next draft token
     from its own filtered distribution (per-row temperature, top-k, top-p; one
     draw from the request's generator per step), and each step's filtered
-    draft probabilities are kept for the acceptance step.
+    draft probabilities are kept for the acceptance step. With ``pen`` (a
+    :class:`_Penalties`) each step's logits are adjusted first, with working
+    copies of the counts and grammar states advanced by every drafted token,
+    and the filter adds min_p.
 
     (params, tok0 [B], k_pages, v_pages, tables, pos0 [B], live [B],
-    k_scales=None, v_scales=None, reqs=()) -> (drafts [B, gamma], q_probs
-    [B, gamma, V] fp32, or None for an all-greedy batch)."""
+    k_scales=None, v_scales=None, reqs=(), pen=None) -> (drafts [B, gamma],
+    q_probs [B, gamma, V] fp32, or None for an all-greedy batch)."""
     body = _paged_decode_fn(config, plan)
 
     def fn(params, tok0, k_pages, v_pages, tables, pos0, live, k_scales=None, v_scales=None,
-           reqs=()):
+           reqs=(), pen=None):
         sampled = sampled_rows(reqs)
         if sampled:
             temps, ks, top_ps = sampling_settings(reqs, sampled, tok0.device)
+        if pen is not None:
+            counts, states = pen.counts.clone(), pen.states
+            every_row = torch.arange(tok0.shape[0], device=tok0.device)
         tok, drafts, qs = tok0, [], []
         for i in range(gamma + 1):
             logits = body(params, tok, k_pages, v_pages, tables, pos0 + i, live,
                           k_scales, v_scales)
             if i == gamma:
                 break
-            tok = torch.argmax(logits, dim=-1)
+            scores = logits if pen is None else pen.adjust(logits, counts, states)
+            tok = torch.argmax(scores, dim=-1)
             if sampled:
-                filt = topk_topp_filter(logits.float() / temps[:, None], ks, top_ps, max_k)
+                filt = topk_topp_filter(scores.float() / temps[:, None], ks, top_ps, max_k,
+                                        min_ps=None if pen is None else pen.min_ps)
                 q_i = torch.softmax(filt, dim=-1)
                 for row in sampled:
                     tok[row] = torch.multinomial(q_i[row], 1, generator=reqs[row].generator)[0]
                 qs.append(q_i)
+            if pen is not None:
+                counts[every_row, tok] += 1
+                if pen.trans is not None:
+                    states = pen.advance(states, tok)
             drafts.append(tok)
         return torch.stack(drafts, dim=1), (torch.stack(qs, dim=1) if sampled else None)
 
@@ -187,15 +247,31 @@ def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int
 def _accept_fn(gamma: int, max_k: int):
     """Build the batched acceptance: greedy rows take the argmax-prefix rule,
     sampled rows the rejection rule of ``speculative_accept`` with their own
-    generator. Everything stays on the device.
+    generator. Everything stays on the device. With ``pen`` the target's
+    logits at chunk position i are adjusted as the draft adjusted its own
+    there: counts plus d_1 .. d_i, grammar states rolled through them.
 
     (tlogits [B, gamma + 1, V], drafts [B, gamma], q_probs [B, gamma, V] or
-    None for an all-greedy batch, reqs) -> (a [B] accepted counts, corr [B]
-    correction or bonus token, targets [B, gamma + 1] the target's argmax)."""
+    None for an all-greedy batch, reqs, pen=None) -> (a [B] accepted counts,
+    corr [B] correction or bonus token, targets [B, gamma + 1] the target's
+    argmax)."""
 
-    def fn(tlogits, drafts, q_probs, reqs):
+    def fn(tlogits, drafts, q_probs, reqs, pen=None):
         b, g1, v = tlogits.shape
-        targets = torch.argmax(tlogits, dim=-1)  # [B, gamma + 1]
+        scores = tlogits
+        if pen is not None:
+            drafted = torch.nn.functional.one_hot(drafts, v).to(torch.int32).cumsum(
+                dim=1, dtype=torch.int32)
+            counts = torch.cat([pen.counts[:, None], pen.counts[:, None] + drafted], dim=1)
+            states = None
+            if pen.trans is not None:
+                states = [pen.states]
+                for i in range(gamma):
+                    states.append(pen.advance(states[-1], drafts[:, i]))
+                states = torch.stack(states, dim=1).reshape(-1)
+            scores = pen.adjust(tlogits.reshape(b * g1, v), counts.reshape(b * g1, v), states,
+                                rep=g1).reshape(b, g1, v)
+        targets = torch.argmax(scores, dim=-1)  # [B, gamma + 1]
         matches = torch.cumprod((targets[:, :gamma] == drafts).to(torch.int64), dim=1)
         a = matches.sum(dim=1)
         corr = targets.gather(1, a[:, None])[:, 0]
@@ -205,10 +281,11 @@ def _accept_fn(gamma: int, max_k: int):
         if sampled:
             temps, ks, top_ps = sampling_settings(reqs, sampled, tlogits.device)
             rows = torch.tensor(sampled, device=tlogits.device)
-            scaled = tlogits[rows].float() / temps[rows, None, None]
-            filt = topk_topp_filter(scaled.reshape(len(sampled) * g1, v),
-                                    ks[rows].repeat_interleave(g1),
-                                    top_ps[rows].repeat_interleave(g1), max_k)
+            scaled = scores[rows].float() / temps[rows, None, None]
+            filt = topk_topp_filter(
+                scaled.reshape(len(sampled) * g1, v), ks[rows].repeat_interleave(g1),
+                top_ps[rows].repeat_interleave(g1), max_k,
+                min_ps=None if pen is None else pen.min_ps[rows].repeat_interleave(g1))
             p_probs = torch.softmax(filt, dim=-1).reshape(len(sampled), g1, v)
             for n, row in enumerate(sampled):
                 a[row], corr[row] = speculative_accept(reqs[row].generator, drafts[row],
@@ -251,9 +328,11 @@ class SpeculativeServingEngine(ServingEngine):
         if self.device.type == "cuda" and not quantized:
             check_kernel_shape(draft_config.num_attention_heads,
                                draft_config.num_key_value_heads, draft_config.head_dim_)
+        # the tables index both pools; pages are allocated, shared and freed
+        # through self.pool alone, the draft pool's own allocator stays unused
         self.dpool = PagePool(draft_config, self.pool.num_pages, self.pool.page_size,
                               device=self.device, quantized=quantized)
-        self.dpool._free = self.pool._free  # one allocator: the tables index both pools
+        self._gtables = None  # (grammar ids, trans, accept, state offsets) of a mixed batch
         self._dmulti = _draft_multi_fn(draft_config, self.dplan, self.gamma)
         self._verify = _paged_verify_fn(config, self.plan, self.gamma + 1)
         self._accept = _accept_fn(self.gamma, _MAX_TOP_K)
@@ -262,26 +341,102 @@ class SpeculativeServingEngine(ServingEngine):
 
     def submit(self, prompt_ids, max_new_tokens: int, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0, seed: Optional[int] = None,
-               logprobs: int = 0, **unsupported) -> int:
+               logprobs: int = 0, **sampling) -> int:
         """Enqueue a request. Greedy rows emit the plain engine's stream;
         sampled rows (temperature > 0) speculate through the rejection rule
-        and follow the target's distribution exactly. ``logprobs`` is refused:
-        a macro-step emits accepted tokens in bulk, without a distribution per
-        token. A request reserves gamma + 1 slots beyond its last token: a
-        macro-step may write that far past the accepted stream."""
+        and follow the target's distribution exactly; the penalties, logit
+        bias, min_p and guided_regex of :meth:`ServingEngine.submit` keep
+        both. ``logprobs`` is refused: a macro-step emits accepted tokens in
+        bulk, without a distribution per token. A request reserves gamma + 1
+        slots beyond its last token: a macro-step may write that far past
+        the accepted stream."""
         if logprobs:
             raise ValueError("logprobs are not supported with speculation; use ServingEngine")
         return super().submit(prompt_ids, max_new_tokens, temperature, top_k, top_p, seed,
-                              **unsupported)
+                              **sampling)
 
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
         return -(-(prompt_len + max_new + self.gamma + 1) // self.pool.page_size)
 
     def _admit(self, req: _Request, row: int) -> None:
-        """Admit into both pools: the target as the plain engine does, then
-        the draft's prefill of the same prompt into the same pages."""
-        super()._admit(req, row)
-        self._prefill_into(self.dpool, self.dparams, self.dconfig, self.dplan, req)
+        """Admit into both pools: the target as the plain engine does (its
+        cached prefix pages included), then the draft's prefill of the
+        prompt's suffix into the same pages, after the draft K/V of the
+        shared ones."""
+        adm = self._admit_start(req, row)
+        if not self._admit_chunk(adm):  # prefill_chunk is refused above
+            raise AssertionError("a speculative admission prefills the whole prompt")
+        self._prefill_into(self.dpool, self.dparams, self.dconfig, self.dplan, req,
+                           adm.prefix_len)
+
+    def _guided_tables(self, reqs: List[_Request]):
+        """(trans [S, V] int32, accept [S] bool, states [max_batch],
+        flags [max_batch]) on the device for the guided rows of ``reqs``. One
+        grammar: its own table, uploaded once and cached on it; several: one
+        block-diagonal table (states offset per grammar), cached until the
+        set of grammars changes."""
+        grammars = []
+        for r in reqs:
+            if r.guided is not None and all(g is not r.guided for g in grammars):
+                grammars.append(r.guided)
+        if len(grammars) == 1:
+            g = grammars[0]
+            cache = g.__dict__.setdefault("_dev_trans", {})
+            if str(self.device) not in cache:
+                cache[str(self.device)] = (torch.from_numpy(g.token_trans).to(self.device),
+                                           torch.from_numpy(g.accepting).to(self.device))
+            trans, accept = cache[str(self.device)]
+            offsets = {id(g): 0}
+        else:
+            key = tuple(id(g) for g in grammars)
+            if self._gtables is None or self._gtables[0] != key:
+                n = sum(g.n_states for g in grammars)
+                trans = np.full((n, self.config.vocab_size), -1, np.int32)
+                accept = np.zeros(n, bool)
+                offsets, off = {}, 0
+                for g in grammars:
+                    trans[off:off + g.n_states] = np.where(g.token_trans >= 0,
+                                                           g.token_trans + off, -1)
+                    accept[off:off + g.n_states] = g.accepting
+                    offsets[id(g)] = off
+                    off += g.n_states
+                self._gtables = (key, torch.from_numpy(trans).to(self.device),
+                                 torch.from_numpy(accept).to(self.device), offsets)
+            _, trans, accept, offsets = self._gtables
+        states = torch.zeros(self.max_batch, dtype=torch.long)
+        flags = torch.zeros(self.max_batch, dtype=torch.bool)
+        for r in reqs:
+            if r.guided is not None:
+                states[r.row], flags[r.row] = offsets[id(r.guided)] + r.gstate, True
+        return trans, accept, states.to(self.device), flags.to(self.device)
+
+    def _penalties(self, live_reqs: List[_Request]) -> _Penalties:
+        """The macro-step's :class:`_Penalties` over the batch's rows."""
+        min_ps, pres, freq, reps, biased = self._penalty_rows(list(self._live))
+        pen = _Penalties(counts=self._counts, bias=self._bias * biased[:, None], min_ps=min_ps,
+                         pres=pres, freq=freq, reps=reps)
+        if any(r.guided is not None for r in live_reqs):
+            pen.trans, pen.accept, pen.states, pen.flags = self._guided_tables(live_reqs)
+            pen.eos_mask = self._eos_mask_dev()
+        return pen
+
+    def _commit_penalized(self, live_reqs: List[_Request], drafts, a_arr, corr) -> None:
+        """Fold each row's picks of the macro-step (its accepted drafts and
+        the correction or bonus token, counted at pick time as the plain
+        engine counts) into the counts of penalized rows, and advance the
+        guided rows' grammar states through them."""
+        rows, toks = [], []
+        for r in live_reqs:
+            picks = drafts[r.row, :int(a_arr[r.row])].tolist() + [int(corr[r.row])]
+            if r.penalized:
+                rows += [r.row] * len(picks)
+                toks += picks
+            if r.guided is not None:
+                self._advance_grammar(r, picks)
+        if rows:
+            self._counts.index_put_(
+                (self._ids(rows), self._ids(toks)),
+                torch.ones(len(rows), dtype=torch.int32, device=self.device), accumulate=True)
 
     def _emit_all(self, req: _Request, toks) -> None:
         """Emit ``toks`` in order until the request stops: at a stop token or
@@ -319,19 +474,22 @@ class SpeculativeServingEngine(ServingEngine):
         state = (torch.from_numpy(tables).to(dev), torch.from_numpy(pos0).to(dev),
                  torch.from_numpy(live).to(dev))
         dpool, pool = self.dpool, self.pool
+        pen = self._penalties(live_reqs) if any(r.penalized for r in live_reqs) else None
         drafts, q_probs = self._dmulti(self.dparams, tok0, dpool.k_pages, dpool.v_pages, *state,
-                                       dpool.k_scales, dpool.v_scales, reqs)
+                                       dpool.k_scales, dpool.v_scales, reqs, pen)
         # target verify: one batched (gamma + 1)-token paged forward
         verify_in = torch.cat([tok0[:, None], drafts], dim=1)
         tlogits = self._verify(self.params, verify_in, pool.k_pages, pool.v_pages, *state,
                                pool.k_scales, pool.v_scales)
-        a_dev, corr_dev, _ = self._accept(tlogits, drafts, q_probs, reqs)
+        a_dev, corr_dev, _ = self._accept(tlogits, drafts, q_probs, reqs, pen)
         # the macro-step's one synchronisation with the host
         block = torch.cat([drafts, a_dev[:, None], corr_dev[:, None]], dim=1).cpu().numpy()
         drafts_h, a_arr, corr = block[:, :gamma], block[:, gamma], block[:, gamma + 1]
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += gamma + 1
         self.macro_steps += 1
+        if pen is not None:
+            self._commit_penalized(live_reqs, drafts_h, a_arr, corr)
 
         # emission per row (host bookkeeping)
         self.last_stats["chunks"] += len(live_reqs)

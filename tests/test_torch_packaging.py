@@ -1,7 +1,8 @@
 """An installed port carries what it builds from and builds inside itself:
 every kernel source and header, the token store's C++ source and the eval
 JSON tables match a glob of the port's package data in pyproject.toml, and
-both build directories lie inside the package, beside their sources.
+both build directories lie inside the package, beside their sources. Neither
+the port nor chip_smoke.py imports anything of JAX or of grasp_tpu.
 """
 
 import fnmatch
@@ -40,3 +41,26 @@ def test_build_directories_lie_inside_the_package():
         assert "build/" in (ROOT / ".gitignore").read_text().split()
     assert os.path.commonpath([_build.library_path(), PACKAGE]) == str(PACKAGE)
     assert os.path.commonpath([bindings.library_path(), PACKAGE]) == str(PACKAGE)
+
+
+def _imported_roots(path: Path):
+    """The top-level package of every import statement in a source file."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {alias.name.split(".")[0] for alias in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_the_port_and_chip_smoke_import_nothing_of_jax():
+    """chip_smoke.py and every module of the port: no import of jax, jaxlib,
+    flax, optax or grasp_tpu, at any depth of the file."""
+    banned = {"jax", "jaxlib", "flax", "optax", "grasp_tpu"}
+    files = [ROOT / "chip_smoke.py", *PACKAGE.rglob("*.py")]
+    assert len(files) > 20 and PACKAGE / "serving" / "guided.py" in files
+    for path in files:
+        assert not _imported_roots(path) & banned, path

@@ -332,13 +332,22 @@ def test_finish_reason_stop_on_eos_matches_jax(compressed):
 
 
 def test_fields_of_the_rest_of_the_engine_answer_400(servers, compressed):
-    """Penalties, logit bias, min_p and guided decoding are not ported yet:
-    the port refuses them, whatever grasp_tpu's server answers."""
-    prompt = _prompt(compressed[0], 7, 4)
-    for field in ({"presence_penalty": 0.5}, {"frequency_penalty": 0.5},
-                  {"repetition_penalty": 1.2}, {"min_p": 0.1}, {"logit_bias": {"9": 5.0}},
-                  {"guided_regex": "a+"}, {"response_format": {"type": "json_object"}}):
+    """Penalties, logit bias, min_p and guided decoding out of their ranges,
+    malformed, or (guided_regex, response_format) on an engine without a
+    tokenizer: both servers answer 400 with the same message."""
+    config = compressed[0]
+    prompt = _prompt(config, 7, 4)
+    for field in ({"presence_penalty": 2.5}, {"frequency_penalty": -3.0},
+                  {"repetition_penalty": 0.0}, {"min_p": 1.5},
+                  {"logit_bias": {str(config.vocab_size): 5.0}}, {"logit_bias": {"9": 101.0}},
+                  {"logit_bias": [9]}, {"presence_penalty": "x"}, {"guided_regex": "a+"},
+                  {"guided_regex": ""}, {"response_format": {"type": "json_object"}},
+                  {"response_format": {"type": "xml"}},
+                  {"response_format": {"type": "json_schema", "json_schema": {"type": "date"}}},
+                  {"response_format": {"type": "json_object"}, "guided_regex": "a"}):
         for path, body in (("/v1/completions", {"prompt": prompt}),
                            ("/v1/chat/completions", {"messages": MESSAGES[1:2]})):
-            status, err = _post(servers["port"][1], {**body, "max_tokens": 2, **field}, path)
-            assert status == 400 and "not supported" in err["error"]["message"], field
+            out = _same(_both(servers, {**body, "max_tokens": 2, **field}, path))
+            assert "error" in out, field
+            status = _post(servers["port"][1], {**body, "max_tokens": 2, **field}, path)[0]
+            assert status == 400, field

@@ -126,13 +126,16 @@ def test_submit_validates_and_rejects_unported_options(compressed):
         eng.pool.alloc(99)
     with pytest.raises(ValueError):
         eng.submit([1, 2], 2, logprobs=9)  # above the engine's top-N cap of 8
-    for opt in ({"presence_penalty": 0.5}, {"logit_bias": {3: 1.0}},
+    # the sampling controls validate as grasp_tpu's engine does; guided
+    # decoding needs the engine's tokenizer and an eos id
+    for opt in ({"presence_penalty": 2.5}, {"logit_bias": {config.vocab_size: 1.0}},
                 {"guided_regex": "a+"}):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError):
             eng.submit([1, 2], 2, **opt)
-    for opt in ({"prefix_cache": True}, {"prefill_chunk": 8}):
-        with pytest.raises(NotImplementedError):
-            _engine(config, tp, plan, **opt)
+    ps = eng.pool.page_size
+    for chunk in (ps + 1, 0):  # a positive multiple of the page size
+        with pytest.raises(ValueError):
+            _engine(config, tp, plan, prefill_chunk=chunk)
     rid = eng.submit([1, 2, 3], 3)
     assert eng.cancel(rid) and not eng.cancel(rid)
     assert eng.collect() == {rid: []}

@@ -246,13 +246,12 @@ def test_refusals(models):
     with pytest.raises(ValueError):  # 16 + 13 + gamma + 1 slots need a third page
         spec.submit(np.arange(1, 17), 13)
     assert _plain(target, max_pages_per_seq=2).submit(np.arange(1, 17), 13) == 1
-    for opt in ({"presence_penalty": 0.5}, {"logit_bias": {3: 1.0}}, {"guided_regex": "a+"}):
-        with pytest.raises(NotImplementedError):
+    for opt in ({"presence_penalty": 2.5}, {"repetition_penalty": 0.0},
+                {"guided_regex": "a+"}):  # without the engine's tokenizer
+        with pytest.raises(ValueError):
             spec.submit([1, 2], 2, **opt)
     with pytest.raises(ValueError):
         _spec(target, draft, 3, prefill_chunk=16)
-    with pytest.raises(NotImplementedError):
-        _spec(target, draft, 3, prefix_cache=True)
     with pytest.raises(ValueError):
         _spec(target, draft, 0)
     other = port_config(ModelConfig.tiny(num_hidden_layers=1, vocab_size=136))

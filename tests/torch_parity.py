@@ -113,3 +113,37 @@ def assert_trees_equal(got, want, path="params"):
         g = got if isinstance(got, np.ndarray) else params_to_numpy({"x": got})["x"]
         assert g.dtype == w.dtype and g.shape == w.shape, path
         assert np.array_equal(g.view(np.uint8), w.view(np.uint8)), path
+
+
+def engine_state(engine):
+    """What two engines that served the same requests must agree on, page
+    for page: each live row's request (pages, position, tokens), the rows
+    whose admission is in flight, the allocator (free list, references, the
+    prefix registry and its LRU order) and the prefix counters."""
+    pool = engine.pool
+    return {"live": [None if r is None else (r.pages, r.pos, r.out) for r in engine._live],
+            "admitting": sorted(engine._admitting), "free": list(pool._free),
+            "ref": list(pool._ref), "registry": dict(pool._hash_to_page),
+            "evictable": list(pool._evictable), "free_pages": pool.free_pages,
+            "saved": engine.prefix_tokens_saved, "total": engine.prefix_tokens_total}
+
+
+def lockstep(jax_engine, port_engine, waves):
+    """Serve ``waves`` (lists of (prompt, max_new, submit kwargs), each wave
+    submitted when the previous one has drained) through both engines one
+    step at a time, holding their :func:`engine_state` equal after every
+    step; returns the port's streams and the number of steps in order."""
+    outs, steps = [], 0
+    for wave in waves:
+        rids = [[e.submit(p, n, **kw) for p, n, kw in wave] for e in (jax_engine, port_engine)]
+        done = [{}, {}]
+        while jax_engine.has_work() or port_engine.has_work():
+            for e, d in zip((jax_engine, port_engine), done):
+                e.step()
+                d.update(e.collect())
+            steps += 1
+            assert engine_state(port_engine) == engine_state(jax_engine), f"step {steps}"
+        got = [done[1][r] for r in rids[1]]
+        assert got == [done[0][r] for r in rids[0]]
+        outs += got
+    return outs, steps
