@@ -32,8 +32,16 @@ on the gram basis without the larger singular factor
 
 Not ported (ROADMAP.md, never ported): ``prefix="cache_host"`` and the
 bandwidth-driven choice of it, growing sweep chunks, base parking, compile
-prefetch, the fused one-dispatch sweeps, stacked gram groups; MoE layers and
-a device mesh raise NotImplementedError.
+prefetch, the fused one-dispatch sweeps, stacked gram groups; a device mesh
+raises NotImplementedError.
+
+Mixtral-family layers: "mlp" names the MoE block's stacked expert parts
+w1/w2/w3 (``model.layers.N.block_sparse_moe.w1``), one module a part for all
+experts. The dense-gradient path factors, selects (one top-k per expert) and
+compiles them batched over the expert axis into low-rank pairs ``w*_a`` [E,
+in, k] / ``w*_b`` [E, k, out], which the MoE block reads by key (the plan
+keeps only the dense layers' projections). The SVD-module path
+(``grad_mode="svd"``) and adaptive ranks refuse expert parts.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ from grasp_tpu_torch.models.llama import (
     plan_set,
     torch_dtype,
 )
+from grasp_tpu_torch.models.moe import MOE_PARTS
 from grasp_tpu_torch.ops.saliency import (
     adaptive_rank_selection,
     bi_from_hiddens,
@@ -97,14 +106,28 @@ _EIGH_ARENA_BUDGET = 1.7e9
 _PREFIX_RESERVE = 6 * 2**30
 
 
+_MOE_GROUP = "block_sparse_moe"
+# the dense MLP's target names on an MoE block (HF Mixtral's correspondence)
+_MOE_NAMES = {"gate_proj": "w1", "down_proj": "w2", "up_proj": "w3"}
+
+
 def _resolve_targets(defaults: List[str], targets) -> List[str]:
-    """Target list against a block's defaults (the defaults when empty)."""
-    return list(targets) if targets else list(defaults)
+    """Target list against a block's defaults (the defaults when empty); on
+    an MoE block the dense MLP's names translate to the expert parts."""
+    tg = list(targets) if targets else list(defaults)
+    if list(defaults) == list(MOE_PARTS) and all(t in MLP_PROJS for t in tg):
+        tg = [_MOE_NAMES[t] for t in tg]
+    return tg
 
 
 def module_name(layer_id: int, proj: str) -> str:
-    """Reference-compatible module path, e.g. 'model.layers.3.self_attn.q_proj'."""
-    group = "self_attn" if proj in ATTN_PROJS else "mlp"
+    """Reference-compatible module path, e.g. 'model.layers.3.self_attn.q_proj';
+    a stacked expert part is one module under HF Mixtral's group name,
+    'model.layers.3.block_sparse_moe.w1'."""
+    if proj in MOE_PARTS:
+        group = _MOE_GROUP
+    else:
+        group = "self_attn" if proj in ATTN_PROJS else "mlp"
     return f"model.layers.{layer_id}.{group}.{proj}"
 
 
@@ -123,8 +146,6 @@ class GraspEngine:
         instead of keeping them (``GraspConfig.remat`` turns it on as well)."""
         if svd_method not in _SVD_METHODS:
             raise ValueError(f"unknown svd method {svd_method!r}")
-        if config.num_local_experts > 0:
-            raise NotImplementedError("grasp_tpu_torch does not compress MoE layers yet")
         self.device = torch.device(device)
         self.params = map_params(params, lambda t: t.detach().to(self.device))
         self.config = config
@@ -175,11 +196,31 @@ class GraspEngine:
     # ------------------------------------------------------------------
 
     def _get_proj(self, name: str) -> Params:
+        """One projection's params; a stacked expert part is presented as
+        {"kernel"} or {"in_kernel", "out_kernel"} (the tensors, not copies)."""
         layer_id, group, proj = parse_module_name(name)
+        if group == _MOE_GROUP:
+            ex = self.params["layers"][layer_id]["moe"]["experts"]
+            if proj in ex:
+                return {"kernel": ex[proj]}
+            return {"in_kernel": ex[proj + "_a"], "out_kernel": ex[proj + "_b"]}
         return self.params["layers"][layer_id][group][proj]
 
     def _set_proj(self, name: str, new_params: Params, kind: str) -> None:
+        """Store one projection's new params. An expert part goes into the
+        experts dict by key (``w1`` or ``w1_a``/``w1_b``) and leaves the plan
+        alone."""
         layer_id, group, proj = parse_module_name(name)
+        if group == _MOE_GROUP:
+            moe = self.params["layers"][layer_id]["moe"]
+            ex = {k: v for k, v in moe["experts"].items()
+                  if k not in (proj, proj + "_a", proj + "_b")}
+            if kind == "dense":
+                ex[proj] = new_params["kernel"]
+            else:
+                ex[proj + "_a"], ex[proj + "_b"] = new_params["in_kernel"], new_params["out_kernel"]
+            moe["experts"] = ex
+            return
         self.params["layers"][layer_id][group][proj] = new_params
         self.plan = plan_set(self.plan, layer_id, proj, kind)
 
@@ -190,9 +231,13 @@ class GraspEngine:
         for name, leaf in leaves.items():
             li, group, proj = parse_module_name(name)
             layer = dict(layers[li])
-            grp = dict(layer[group])
-            grp[proj] = {**grp[proj], key: leaf}
-            layer[group] = grp
+            if group == _MOE_GROUP:  # the stacked kernel itself is the leaf
+                moe = layer["moe"]
+                layer["moe"] = {**moe, "experts": {**moe["experts"], proj: leaf}}
+            else:
+                grp = dict(layer[group])
+                grp[proj] = {**grp[proj], key: leaf}
+                layer[group] = grp
             layers[li] = layer
         return {**self.params, "layers": layers}
 
@@ -272,7 +317,7 @@ class GraspEngine:
             return list(ATTN_PROJS)
         if block_type == "mlp":
             if "moe" in self.params["layers"][layer_id]:
-                raise NotImplementedError("grasp_tpu_torch does not compress MoE layers yet")
+                return list(MOE_PARTS)
             return list(MLP_PROJS)
         raise NotImplementedError(f"block type {block_type} not supported")
 
@@ -293,7 +338,7 @@ class GraspEngine:
             by_shape.setdefault(tuple(self._get_proj(n)["kernel"].shape), []).append(n)
         out: Dict[str, SvdFactors] = {}
         for group in by_shape.values():
-            stack = torch.stack([self._get_proj(n)["kernel"].T.float() for n in group])
+            stack = torch.stack([self._get_proj(n)["kernel"].mT.float() for n in group])
             u, s, vh = svd(stack, method=self.svd_method)
             for i, n in enumerate(group):
                 out[n] = (u[i], s[i], vh[i])
@@ -309,6 +354,11 @@ class GraspEngine:
             raise ValueError("Layer id should be given, but got None")
         if target_layer_types is None:
             return True
+        if block_type == "mlp" and "moe" in self.params["layers"][layer_id]:
+            raise NotImplementedError(
+                "SVD-module (grad_mode='svd') compression of sparse-MoE expert MLPs is not "
+                "supported; the dense-gradient path (grad_mode='dense', the default) "
+                "compresses stacked experts batched over the expert axis")
         names = self._round_names(layer_id, block_type, target_layer_types)
         for n, (u, s, vh) in self._svd_of_dense(names).items():
             new: Params = {"u": u, "s": s, "vh": vh}
@@ -505,7 +555,7 @@ class GraspEngine:
         for n in names:
             u, s, vh = svd_out.pop(n)
             # dL/dkernel [in, out] -> dL/dW [out, in]
-            self._select_compile_one(n, u, s, vh, grads.pop(n).T, cfg, indices_dict)
+            self._select_compile_one(n, u, s, vh, grads.pop(n).mT, cfg, indices_dict)
         self._record_selection(indices_dict, cfg, t_stage)
 
     def _select_compile_after_sweep(self, names: List[str], grads: Dict[str, torch.Tensor],
@@ -522,7 +572,7 @@ class GraspEngine:
                 self._select_compile_one_ufree(n, grads.pop(n), cfg, indices_dict)
             else:
                 u, s, vh = self._svd_of_dense([n]).pop(n)
-                self._select_compile_one(n, u, s, vh, grads.pop(n).T, cfg, indices_dict)
+                self._select_compile_one(n, u, s, vh, grads.pop(n).mT, cfg, indices_dict)
             self._stage("svd_select_one", t_one)
         self._record_selection(indices_dict, cfg, t_stage)
 
@@ -558,10 +608,16 @@ class GraspEngine:
         importance_np = importance.detach().cpu().numpy()
         if ratio is not None:
             k = preserve_rank(in_f, out_f, ratio)
+            # stacked experts [E, r]: one top-k per expert, the same tie order
             indices = select_topk(importance.detach(), k).cpu().numpy()
         else:
             if not threshold_ratio:
                 raise ValueError("Please provide Taylor threshold to select rank adaptively")
+            if importance.dim() > 1:
+                raise NotImplementedError(
+                    "adaptive (threshold_ratio) rank selection over stacked MoE experts is "
+                    "not supported: per-expert ranks would be ragged; use a fixed "
+                    "compression_ratio")
             indices = np.asarray(adaptive_rank_selection(importance_np, threshold_ratio))
         self.grasp_values_dict[n] = {
             "svd_importance": np.round(importance_np, 3).tolist(),
@@ -577,7 +633,7 @@ class GraspEngine:
         self.rank_dict[n] = int(st.shape[-1])
         bias = self._get_proj(n).get("bias")
         if merge:
-            new: Params = {"kernel": merge_svd(ut, st, vht).T.to(dtype).contiguous()}
+            new: Params = {"kernel": merge_svd(ut, st, vht).mT.to(dtype).contiguous()}
             kind = "dense"
         else:
             in_kernel, out_kernel = lowrank_factors(ut, st, vht, sigma_fuse)
@@ -608,12 +664,12 @@ class GraspEngine:
         (``sel_importance``) and the kept columns (``sel_truncate``).
         grad_kernel: dL/d(kernel) in the [in, out] layout."""
         kernel = self._get_proj(n)["kernel"]  # [in, out]
-        w = kernel.T
+        w = kernel.mT
         t_sub = time.time()
         s, basis, side = gram_basis(w)
         self._stage("sel_eigh", t_sub)
         t_sub = time.time()
-        importance = ufree_sigma_saliency(w, grad_kernel.T, s, basis, side, cfg.metric)
+        importance = ufree_sigma_saliency(w, grad_kernel.mT, s, basis, side, cfg.metric)
         indices = self._select_indices(n, importance, s, kernel.shape[-2], kernel.shape[-1],
                                        cfg.compression_ratio, cfg.threshold_ratio)
         indices_dict[n] = indices

@@ -14,8 +14,8 @@ and written here (:func:`read_safetensors`, :func:`write_safetensors`): an
 raw little-endian bytes; neither the ``safetensors`` package nor numpy (which
 has no bf16) is needed.
 
-Families the port's model does not run yet (MoE, Gemma, sliding windows)
-still import to a tree; ``models.llama.check_supported`` refuses them where
+Families the port's model does not run yet (Gemma, sliding windows) still
+import to a tree; ``models.llama.check_supported`` refuses them where
 a model is built.
 """
 
@@ -31,6 +31,7 @@ import torch
 
 from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.models.llama import ATTN_PROJS, MLP_PROJS
+from grasp_tpu_torch.models.moe import MOE_PARTS
 
 _ST_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
@@ -230,7 +231,7 @@ def params_from_state_dict(state_dict: Dict[str, Any], config: ModelConfig,
             "experts": {
                 w: torch.stack([kernel_of(f"{base}.experts.{j}.{w}.weight")
                                 for j in range(config.num_local_experts)])
-                for w in ("w1", "w2", "w3")
+                for w in MOE_PARTS
             },
         }
 
@@ -302,9 +303,6 @@ def _export_proj(sd: Dict[str, torch.Tensor], name: str, p: Dict[str, Any], merg
         put(f"{name}.bias", p["bias"])
 
 
-MOE_PARTS_EXPORT = ("w1", "w2", "w3")
-
-
 def state_dict_from_params(params: Dict[str, Any], config: ModelConfig, merge: bool = False,
                            dtype: torch.dtype = torch.float32,
                            fuse_phi3: bool = False) -> Dict[str, torch.Tensor]:
@@ -344,7 +342,7 @@ def state_dict_from_params(params: Dict[str, Any], config: ModelConfig, merge: b
             moe = layer["moe"]
             put(f"{base}.block_sparse_moe.gate.weight", moe["gate"]["kernel"].t())
             ex = moe["experts"]
-            for w in MOE_PARTS_EXPORT:
+            for w in MOE_PARTS:
                 if w + "_a" in ex:  # stacked low-rank experts (the engine's MoE path)
                     if not merge:
                         raise ValueError(f"{base}: compressed MoE experts have no reference "

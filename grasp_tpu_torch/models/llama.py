@@ -19,8 +19,9 @@ package's name so that checkpoints carry over), and the flash-attention route
 of the full-sequence forward (ops/flash_attention.py), which also runs a
 range of layers (the compression engine's prefix split) and recomputes each
 layer in the backward on request (``remat``), and the int8 KV cache
-(``init_kv_cache(quantized=True)``). Softcapping, sliding windows, MoE, Gemma
-norms and the ``hybrid`` kind raise NotImplementedError.
+(``init_kv_cache(quantized=True)``), and the Mixtral family's sparse-MoE
+layers (models/moe.py) in place of the dense MLP. Softcapping, sliding
+windows, Gemma norms and the ``hybrid`` kind raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from grasp_tpu_torch.configs import ModelConfig
+from grasp_tpu_torch.models.moe import init_moe_params, moe_apply
 from grasp_tpu_torch.ops.flash_attention import flash_attention
 from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
 from grasp_tpu_torch.ops.quant import _absmax_scale, quant_matmul, quant_matmul_int4
@@ -65,7 +67,6 @@ def check_supported(config: ModelConfig) -> None:
         "attention logit softcapping (Gemma-2)": config.attn_logit_softcapping is not None,
         "final logit softcapping (Gemma-2)": config.final_logit_softcapping is not None,
         "sliding-window attention": config.sliding_window is not None,
-        "mixture-of-experts layers": config.num_local_experts > 0,
         "Gemma (1+w) norms / embedding scale / sandwich norms": (
             config.norm_plus_one or config.scale_embeddings or config.sandwich_norms),
     }
@@ -128,7 +129,9 @@ def _proj_shapes(config: ModelConfig) -> Dict[str, Tuple[int, int]]:
 
 def init_params(generator: torch.Generator, config: ModelConfig, *,
                 device: torch.device, scale: float = 0.02) -> Params:
-    """Random-normal init (std 0.02), all projections dense. The generator
+    """Random-normal init (std 0.02), all projections dense; a Mixtral
+    config (``num_local_experts > 0``) gets an MoE block in every layer
+    instead of the dense MLP. The generator
     must live on ``device``. The numbers differ from the JAX package's for
     the same seed; tests share weights through models.convert instead."""
     check_supported(config)
@@ -151,12 +154,17 @@ def init_params(generator: torch.Generator, config: ModelConfig, *,
 
     layers = []
     for _ in range(config.num_hidden_layers):
-        layers.append({
+        layer = {
             "input_layernorm": {"weight": ones()},
             "post_attention_layernorm": {"weight": ones()},
             "self_attn": {n: proj(n, config.attention_bias) for n in ATTN_PROJS},
-            "mlp": {n: proj(n, config.mlp_bias) for n in MLP_PROJS},
-        })
+        }
+        if config.num_local_experts > 0:
+            layer["moe"] = init_moe_params(generator, config, device=device, dtype=dtype,
+                                           scale=scale)
+        else:
+            layer["mlp"] = {n: proj(n, config.mlp_bias) for n in MLP_PROJS}
+        layers.append(layer)
     params: Params = {
         "embed_tokens": {"weight": normal((config.vocab_size, config.hidden_size))},
         "layers": layers,
@@ -326,10 +334,12 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
     """The post-attention half of a decoder layer, shared by every decode
     body. h: the residual stream before the attention add; attn: the o_proj
     output. Returns the stream after the MLP residual."""
-    if "moe" in lp or "pre_feedforward_layernorm" in lp:
-        raise NotImplementedError("grasp_tpu_torch does not support MoE or sandwich-norm layers yet")
+    if "pre_feedforward_layernorm" in lp:
+        raise NotImplementedError("grasp_tpu_torch does not support sandwich-norm layers yet")
     h = h + attn
     x = rms_norm(h, lp["post_attention_layernorm"]["weight"], config.rms_norm_eps)
+    if "moe" in lp:  # Mixtral-family sparse MoE block
+        return h + moe_apply(x, lp["moe"], config)
     mp = lp["mlp"]
     fused = config.use_pallas_lowrank
     gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"], fused)

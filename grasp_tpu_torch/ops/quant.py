@@ -191,13 +191,41 @@ def quantize_proj(proj: Dict[str, Any], bits: int = 8, group_size: int = 128) ->
     return out
 
 
+def quantize_experts(ex: Dict[str, torch.Tensor], bits: int = 8,
+                     group_size: int = 128) -> Dict[str, torch.Tensor]:
+    """Quantize an MoE block's stacked dense experts ([E, in, out] each)
+    expert by expert: ``w*_q`` (bits 8) or ``w*_q4`` (bits 4) beside
+    ``w*_scale`` ([E, 1, out] or [E, G, out]). The JAX package quantizes the
+    experts outside its jitted quantizer, so the scales here are true
+    divisions (``reciprocal=False``), not those of :func:`quantize_proj`.
+    GRASP low-rank experts (``w*_a`` / ``w*_b``) raise: the MoE block has no
+    quantized low-rank form, in either package."""
+    if bits not in (4, 8):
+        raise ValueError(f"bits must be 4 or 8, got {bits}")
+    low = sorted(k for k in ex if k.endswith(("_a", "_b")))
+    if low:
+        raise NotImplementedError(f"GRASP low-rank experts {low} do not quantize; merge them "
+                                  "into dense experts first")
+    out: Dict[str, torch.Tensor] = {}
+    for w, stacked in ex.items():
+        if bits == 8:  # per expert and output channel: the absmax over axis 1
+            out[w + "_q"], out[w + "_scale"] = quantize_int8(stacked, 1)
+        else:
+            qs = [quantize_int4(m, 0, group_size) for m in stacked]
+            out[w + "_q4"] = torch.stack([q for q, _ in qs])
+            out[w + "_scale"] = torch.stack([sc for _, sc in qs])
+    return out
+
+
 def quantize_model_weights(params: Dict[str, Any], quantize_lm_head: bool = True, bits: int = 8,
                            group_size: int = 128, consume: bool = False) -> Dict[str, Any]:
     """Quantize every projection kernel (dense and low-rank) to int8 or int4.
 
     bits=8: per-output-channel absmax. bits=4: group-wise absmax along the
     contraction dim. The lm_head (the largest weight read per decoded token)
-    is quantized by default; embeddings and norms keep their dtype.
+    is quantized by default; embeddings and norms keep their dtype. MoE
+    layers quantize their stacked experts expert by expert
+    (:func:`quantize_experts`) and keep the router gate.
 
     consume=True releases each source layer as soon as its quantized copy is
     built (the input tree is emptied in place), so that the peak holds the
@@ -209,14 +237,17 @@ def quantize_model_weights(params: Dict[str, Any], quantize_lm_head: bool = True
     layers = []
     src_layers = params["layers"]
     for li, layer in enumerate(src_layers):
-        if "moe" in layer:
-            raise NotImplementedError("grasp_tpu_torch does not quantize MoE layers yet")
         new_layer = dict(layer)
-        for group, names in (("self_attn", ATTN_PROJS), ("mlp", MLP_PROJS)):
+        groups = [("self_attn", ATTN_PROJS)] + ([("mlp", MLP_PROJS)] if "mlp" in layer else [])
+        for group, names in groups:
             new_group = dict(layer[group])
             for name in names:
                 new_group[name] = quantize_proj(layer[group][name], bits, group_size)
             new_layer[group] = new_group
+        if "moe" in layer:
+            new_layer["moe"] = {"gate": layer["moe"]["gate"],
+                                "experts": quantize_experts(layer["moe"]["experts"], bits,
+                                                            group_size)}
         layers.append(new_layer)
         if consume:
             src_layers[li] = None

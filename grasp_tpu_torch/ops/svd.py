@@ -152,14 +152,29 @@ def ufree_sigma_saliency(w: torch.Tensor, grad_w: torch.Tensor, s: torch.Tensor,
     return q.abs() / torch.maximum(s, _s_floor(s))
 
 
+def _take(x: torch.Tensor, indices: torch.Tensor, dim: int) -> torch.Tensor:
+    """x's entries along ``dim`` (-1 or -2) at ``indices``: one index list
+    for every matrix ([k]), or one for each ([..., k], ``take_along_axis``)."""
+    if indices.dim() == 1:
+        return x[..., indices] if dim == -1 else x[..., indices, :]
+    if x.dim() == indices.dim():  # the singular values [..., r]
+        return torch.gather(x, -1, indices)
+    if dim == -1:
+        idx = indices[..., None, :].expand(*x.shape[:-1], indices.shape[-1])
+    else:
+        idx = indices[..., :, None].expand(*x.shape[:-2], indices.shape[-1], x.shape[-1])
+    return torch.gather(x, dim, idx)
+
+
 def ufree_truncate(w: torch.Tensor, s: torch.Tensor, basis: torch.Tensor, side: str,
                    indices) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The kept triplets (u, s, vh), in the order of ``indices``, recovering
-    only the kept columns of the larger factor."""
+    only the kept columns of the larger factor. Batched (stacked experts):
+    indices [..., k] pick each matrix's own columns."""
     indices = torch.as_tensor(indices, dtype=torch.long, device=s.device)
-    sk = s[..., indices]
+    sk = _take(s, indices, -1)
     s_safe = torch.maximum(sk, _s_floor(s))
-    bk = basis[..., :, indices]
+    bk = _take(basis, indices, -1)
     wf = w.float()
     with _fp32_products():
         if side == "v":
@@ -170,9 +185,10 @@ def ufree_truncate(w: torch.Tensor, s: torch.Tensor, basis: torch.Tensor, side: 
 def truncate_svd(u: torch.Tensor, s: torch.Tensor, vh: torch.Tensor,
                  indices: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Slice the kept singular triplets, preserving index order
-    (S[idx], U[:, idx], Vh[idx, :])."""
+    (S[idx], U[:, idx], Vh[idx, :]). Batched (stacked experts): indices
+    [..., k] pick each matrix's own triplets."""
     indices = torch.as_tensor(indices, dtype=torch.long, device=s.device)
-    return u[..., :, indices], s[..., indices], vh[..., indices, :]
+    return _take(u, indices, -1), _take(s, indices, -1), _take(vh, indices, -2)
 
 
 def lowrank_factors(u: torch.Tensor, s: torch.Tensor, vh: torch.Tensor,

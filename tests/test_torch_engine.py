@@ -152,9 +152,12 @@ def test_unported_options_raise_and_remove_layers():
     batches = calibration_batches(teng.config, n=1)
     with pytest.raises(NotImplementedError, match="cache_host"):
         teng.run(batches, GraspConfig(num_prune_layers=1, prefix="cache_host"))
-    with pytest.raises(NotImplementedError):
-        GraspEngine(teng.params, dataclasses.replace(teng.config, num_local_experts=4),
-                    device="cpu")
+    # an MoE model compresses its experts on the dense-gradient path only
+    moe_config = dataclasses.replace(teng.config, num_local_experts=4)
+    moe = GraspEngine(tl.init_params(torch.Generator().manual_seed(0), moe_config, device="cpu"),
+                      moe_config, device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        moe.compress_block(0, "mlp", ["down_proj"])
     for flag in (["--dp", "2"], ["--tp", "2"]):  # --export_hf_dir runs: test_torch_hf_cli.py
         with pytest.raises(NotImplementedError, match=flag[0][:4]):
             compress_main(["--model_name_or_path", "tiny", "--device", "cpu"] + flag)

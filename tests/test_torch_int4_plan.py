@@ -16,6 +16,9 @@ from grasp_tpu_torch.ops.int4_matmul import (
 SERVED = [(2048, 2048, 128), (2048, 256, 128), (2048, 5632, 128), (5632, 2048, 128),
           (2048, 32000, 128), (2048, 22, 128), (2048, 102, 128), (2048, 150, 128),
           (5632, 150, 128), (150, 5632, 128), (150, 2048, 128)]
+# and of Mixtral-8x7B's merged export: q/o, k/v, lm_head (its experts take the
+# plain stacked products)
+MIXTRAL = [(4096, 4096, 128), (4096, 1024, 128), (4096, 32000, 128)]
 ODD = [(512, 72, 128), (512, 130, 128), (300, 256, 128), (1000, 384, 128), (1024, 256, 256),
        (2048, 640, 256), (256, 1, 128)]
 ROWS = (1, 8, 64)
@@ -29,7 +32,7 @@ def geometry(in_f, gs):
 
 
 def plans(dtype, variant="grid"):
-    for in_f, out_f, gs in SERVED + ODD:
+    for in_f, out_f, gs in SERVED + MIXTRAL + ODD:
         p_rows, g = geometry(in_f, gs)
         for m in ROWS:
             yield (in_f, out_f, g, m), int4_plan(m, in_f, p_rows, out_f, g, variant, True, dtype)

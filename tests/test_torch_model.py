@@ -121,14 +121,16 @@ def test_prefill_and_decode_match_jax(models, which):
 
 def test_unported_architecture_features_raise():
     for overrides in ({"attn_logit_softcapping": 50.0}, {"final_logit_softcapping": 30.0},
-                      {"sliding_window": 16}, {"num_local_experts": 4},
-                      {"norm_plus_one": True}, {"sandwich_norms": True}):
+                      {"sliding_window": 16}, {"norm_plus_one": True}, {"sandwich_norms": True}):
         config = small_config(**overrides)
         with pytest.raises(NotImplementedError):
             tl.LlamaModel(config, device="cpu", generator=torch.Generator().manual_seed(0))
-    # the fused low-rank flag is ported: the model builds with it
+    # the fused low-rank flag and MoE layers are ported: the model builds with them
     tl.LlamaModel(small_config(use_pallas_lowrank=True), device="cpu",
                   generator=torch.Generator().manual_seed(0))
+    moe = tl.LlamaModel(small_config(num_local_experts=4), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    assert all("moe" in layer and "mlp" not in layer for layer in moe.params["layers"])
 
 
 def test_unported_paths_raise(models):
@@ -138,8 +140,12 @@ def test_unported_paths_raise(models):
     q_proj = tp["layers"][0]["self_attn"]["q_proj"]
     with pytest.raises(NotImplementedError):
         tl.proj_apply(x, q_proj, "hybrid")
-    with pytest.raises(NotImplementedError):  # MoE quantization waits for models/moe.py
-        quantize_model_weights({"layers": [dict(tp["layers"][0], moe={"experts": {}})]})
+    # GRASP low-rank experts have no quantized form (in either package)
+    lowrank_moe = {"gate": {"kernel": torch.zeros(config.hidden_size, 2)},
+                   "experts": {"w1_a": torch.zeros(2, config.hidden_size, 1),
+                               "w1_b": torch.zeros(2, 1, 8)}}
+    with pytest.raises(NotImplementedError):
+        quantize_model_weights({"layers": [dict(tp["layers"][0], moe=lowrank_moe)]})
     with pytest.raises(NotImplementedError):
         tl.rope_cos_sin(torch.arange(4), 64, 1e4, scaling={
             "rope_type": "longrope", "short_factor": [1.0], "long_factor": [1.0],
