@@ -13,8 +13,10 @@ sweeps, the prefix split, resume snapshots, remat, the gram SVDs;
 ``grasp-compress-torch``) with causal flash attention forward and backward in hand-written CUDA kernels
 (``csrc/flash_attention.cu``), and serving a LLaMA-family model (dense and
 GRASP low-rank projections) over a paged KV cache with decode attention in a
-hand-written CUDA kernel (``csrc/paged_attention.cu``; ``grasp-serve-torch``).
-Features outside these slices raise ``NotImplementedError``.
+hand-written CUDA kernel (``csrc/paged_attention.cu``; ``grasp-serve-torch``),
+for every model family of the JAX package (LLaMA, Qwen2, Phi-3, Mistral,
+Gemma, Gemma-2, Mixtral). Multi-device paths (meshes, ``--dp``/``--tp``, the
+``hybrid`` projection kind) raise ``NotImplementedError``.
 """
 
 from grasp_tpu_torch.configs import GraspConfig, ModelConfig  # noqa: F401

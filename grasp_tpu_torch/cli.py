@@ -86,7 +86,6 @@ def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int =
     from grasp_tpu_torch.configs import ModelConfig
     from grasp_tpu_torch.data.tokenizer import load_tokenizer
     from grasp_tpu_torch.models.llama import (
-        check_supported,
         default_plan,
         init_params,
         plan_from_params,
@@ -102,10 +101,8 @@ def load_model(name_or_path: str, *, device, dtype: str = "float32", seed: int =
         if not os.path.exists(os.path.join(name_or_path, "config.json")):
             raise FileNotFoundError(f"{name_or_path} holds neither grasp_meta.json (a port "
                                     "checkpoint) nor config.json (an HF checkpoint)")
-        from grasp_tpu_torch.models.hf_io import config_from_dir, load_hf_checkpoint
+        from grasp_tpu_torch.models.hf_io import load_hf_checkpoint
 
-        # refuse a family the model does not run before reading its weights
-        check_supported(config_from_dir(name_or_path))
         config, params = load_hf_checkpoint(name_or_path, dtype=torch_dtype(dtype),
                                             device=device)
         config = dataclasses.replace(config, dtype=dtype)

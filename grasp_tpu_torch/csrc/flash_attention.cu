@@ -1,5 +1,5 @@
 // Causal flash attention for Hopper (sm_90a): forward, dK/dV and dQ kernels,
-// head_dim 64, 96 and 128, float32 and bfloat16.
+// head_dim 64, 96, 128 and 256, float32 and bfloat16.
 //
 // Replaces the three TPU kernels of grasp_tpu/ops/pallas_attention.py (fp32
 // body, bf16 body):
@@ -44,6 +44,16 @@
 //   the group sum needs no atomics and is the same from run to run. fp32
 //   stays off the tensor cores because its gate (1e-4) is below what TF32
 //   keeps.
+// - head_dim 256 (Gemma). bf16: the accumulators of 256 output columns (128
+//   fp32 registers a thread for O or dQ, 256 for dK and dV) do not fit beside
+//   the score tiles, so a block owns one half of the output columns
+//   (out_cols<256> = 128, a third grid axis of 2) and recomputes the scores of
+//   its tile over the whole head_dim: the forward does 1.5x the products, dQ
+//   5/3 and dK/dV 1.5x, with hd 128's registers. Q (and dO) fragments are read
+//   from the resident tile each step instead of kept in registers. fp32: the
+//   streamed tiles of the backward hold 32 rows (fp32_step<256>), so that
+//   fp32 tiles of 256 columns fit in shared memory; dK/dV computes its tile
+//   transposed (keys as rows) at every head_dim, which gives the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,8 +65,13 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 64;        // query rows and keys per tile
-constexpr int kLdP = kTile + 4;  // row stride of the p / ds tiles (floats)
+constexpr int kTile = 64;        // query rows (keys in dK/dV) of a block's resident tile
+
+// rows of the streamed tiles of the fp32 backward (keys in dQ, queries in
+// dK/dV): 64, and 32 at head_dim 256, where four fp32 tiles of 64 rows would
+// take 266 KB of shared memory
+template <int HD>
+__host__ __device__ constexpr int fp32_step() { return HD > 128 ? 32 : 64; }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -114,15 +129,15 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-// Rows [row0, row0 + 64) of a [S, HD] matrix -> fp32 shared tile with row
+// Rows [row0, row0 + R) of a [S, HD] matrix -> fp32 shared tile with row
 // stride HD + 4; rows >= S are zero. 16-byte global loads.
-template <typename T, int HD>
+template <typename T, int HD, int R = kTile>
 __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
                                           int row0, int S, int tid) {
   constexpr int kVec = 16 / sizeof(T);
   constexpr int kVecPerRow = HD / kVec;
   constexpr int kLd = HD + 4;
-  for (int i = tid; i < kTile * kVecPerRow; i += kThreads) {
+  for (int i = tid; i < R * kVecPerRow; i += kThreads) {
     const int r = i / kVecPerRow;
     const int c = (i % kVecPerRow) * kVec;
     float vals[kVec];
@@ -142,40 +157,41 @@ __device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __re
   }
 }
 
-// acc[i][j] += sum_d a[(ty*4+i)][d] * b[(tx+16j)][d]: the thread's 4 x 4 piece
-// of A B^T for two [64, HD] shared tiles (row stride HD + 4).
-template <int HD>
-__device__ __forceinline__ void tile_abt(float (&acc)[4][4], const float* __restrict__ a,
+// acc[i][j] += sum_d a[(ty*4+i)][d] * b[(tx+16j)][d]: the thread's 4 x NB/16
+// piece of A B^T for a [64, HD] shared tile a and an [NB, HD] tile b (row
+// stride HD + 4).
+template <int HD, int NB>
+__device__ __forceinline__ void tile_abt(float (&acc)[4][NB / 16], const float* __restrict__ a,
                                          const float* __restrict__ b, int ty, int tx) {
   constexpr int kLd = HD + 4;
 #pragma unroll 4
   for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[4];
+    float4 av[4], bv[NB / 16];
 #pragma unroll
     for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty * 4 + i) * kLd + d);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
+    for (int j = 0; j < NB / 16; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * kLd + d);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NB / 16; ++j)
         acc[i][j] += av[i].x * bv[j].x + av[i].y * bv[j].y + av[i].z * bv[j].z + av[i].w * bv[j].w;
   }
 }
 
 // acc[i][c] += sum_j p[(ty*4+i)][j] * b[j][cols(c)]: the thread's 4 x (HD/16)
-// piece of P B for a [64, 64] shared p (stride kLdP) and a [64, HD] tile b,
-// columns by ColMap<HD>.
-template <int HD>
+// piece of P B for a [64, NB] shared p (stride NB + 4) and an [NB, HD] tile b,
+// columns by ColMap<HD>; j runs in order.
+template <int HD, int NB>
 __device__ __forceinline__ void tile_pb(float (&acc)[4][HD / 16], const float* __restrict__ p,
                                         const float* __restrict__ b, int ty, int tx) {
   constexpr int kLd = HD + 4;
   constexpr int W = ColMap<HD>::W;
-  for (int j0 = 0; j0 < kTile; j0 += 4) {
+  for (int j0 = 0; j0 < NB; j0 += 4) {
     float pv[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const float4 t = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * kLdP + j0);
+      const float4 t = *reinterpret_cast<const float4*>(p + (ty * 4 + i) * (NB + 4) + j0);
       pv[i][0] = t.x; pv[i][1] = t.y; pv[i][2] = t.z; pv[i][3] = t.w;
     }
 #pragma unroll
@@ -189,29 +205,6 @@ __device__ __forceinline__ void tile_pb(float (&acc)[4][HD / 16], const float* _
 #pragma unroll
           for (int w = 0; w < W; ++w) acc[i][cc * W + w] += pv[i][jj] * bv[w];
       }
-    }
-  }
-}
-
-// acc[i][c] += sum_r p[r][(ty*4+i)] * b[r][cols(c)]: the thread's piece of
-// P^T B (the dK/dV products), same tiles as tile_pb.
-template <int HD>
-__device__ __forceinline__ void tile_ptb(float (&acc)[4][HD / 16], const float* __restrict__ p,
-                                         const float* __restrict__ b, int ty, int tx) {
-  constexpr int kLd = HD + 4;
-  constexpr int W = ColMap<HD>::W;
-#pragma unroll 2
-  for (int r = 0; r < kTile; ++r) {
-    const float4 t = *reinterpret_cast<const float4*>(p + r * kLdP + ty * 4);
-    const float pv[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-    for (int cc = 0; cc < ColMap<HD>::G; ++cc) {
-      float bv[W];
-      load_cols<W>(bv, b + r * kLd + tx * W + 16 * W * cc);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int w = 0; w < W; ++w) acc[i][cc * W + w] += pv[i] * bv[w];
     }
   }
 }
@@ -240,12 +233,20 @@ __device__ __forceinline__ void store_piece(T* __restrict__ dst, const float (&a
   }
 }
 
+// fp32 layouts: Q, K, V and P (forward); two resident tiles of 64 rows, two
+// streamed of fp32_step rows and one (dQ: ds) or two (dK/dV: p and ds) tiles
+// of 64 x fp32_step
 template <int HD>
-constexpr int fwd_smem_bytes() { return (3 * kTile * (HD + 4) + kTile * kLdP) * (int)sizeof(float); }
+constexpr int fwd_smem_bytes() { return (3 * kTile * (HD + 4) + kTile * (kTile + 4)) * (int)sizeof(float); }
 template <int HD>
-constexpr int dq_smem_bytes() { return (4 * kTile * (HD + 4) + kTile * kLdP) * (int)sizeof(float); }
+constexpr int dq_smem_bytes() {
+  return (2 * (kTile + fp32_step<HD>()) * (HD + 4) + kTile * (fp32_step<HD>() + 4)) * (int)sizeof(float);
+}
 template <int HD>
-constexpr int dkv_smem_bytes() { return (4 * kTile * (HD + 4) + 2 * kTile * kLdP) * (int)sizeof(float); }
+constexpr int dkv_smem_bytes() {
+  return (2 * (kTile + fp32_step<HD>()) * (HD + 4) + 2 * kTile * (fp32_step<HD>() + 4)) *
+         (int)sizeof(float);
+}
 
 // ---------------------------------------------------------------------------
 // forward
@@ -295,7 +296,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_abt<HD>(s, q_s, k_s, ty, tx);
+    tile_abt<HD, kTile>(s, q_s, k_s, ty, tx);
 
     // online softmax; NaN-free when a row of the tile is fully masked
 #pragma unroll
@@ -316,7 +317,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float p = (s[i][j] == -INFINITY) ? 0.f : expf(s[i][j] - m_safe);
-        p_s[(ty * 4 + i) * kLdP + tx + 16 * j] = p;
+        p_s[(ty * 4 + i) * (kTile + 4) + tx + 16 * j] = p;
         sum += p;
       }
       sum = row_sum(sum);
@@ -326,7 +327,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int c = 0; c < HD / 16; ++c) acc[i][c] *= alpha;
     }
     __syncthreads();
-    tile_pb<HD>(acc, p_s, v_s, ty, tx);
+    tile_pb<HD, kTile>(acc, p_s, v_s, ty, tx);
   }
 
   float inv[4];
@@ -378,6 +379,11 @@ constexpr int kMmaWarps = 4;
 constexpr int kMmaTileM = kMmaWarps * 16;  // query rows a block
 constexpr int kMmaTileN = 64;              // keys per tile
 
+// output columns a bf16 block owns: all of them up to head_dim 128; at 256 a
+// half, blockIdx.z picking which (the scores are recomputed by each half)
+template <int HD>
+__host__ __device__ constexpr int out_cols() { return HD > 128 ? 128 : HD; }
+
 template <int HD>
 constexpr int fwd_mma_smem_bytes() {
   return (kMmaTileM + 4 * kMmaTileN) * (HD + 8) * 2;
@@ -412,8 +418,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   __nv_bfloat16* k_s = q_s + BM * LD;                                // [2][BN][LD]
   __nv_bfloat16* v_s = k_s + 2 * BN * LD;                            // [2][BN][LD]
 
+  constexpr int OC = out_cols<HD>();
+  constexpr bool kQInRegisters = HD <= 128;  // else read from q_s each tile
   const int qi = gridDim.x - 1 - blockIdx.x;  // long rows first
   const int bh = blockIdx.y;
+  const int c0 = OC == HD ? 0 : blockIdx.z * OC;  // the block's output columns [c0, c0 + OC)
   const int b = bh / nh;
   const int kvh = (bh % nh) / (nh / nkv);
   const int tid = threadIdx.x;
@@ -432,10 +441,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   cp_rows<BN, HD, kThreadsM>(v_s, vh, 0, S, tid);
   tc::cp_async_commit();
 
-  uint32_t qf[HD / 16][4];
-  float acc[HD / 8][4];
+  uint32_t qf[kQInRegisters ? HD / 16 : 1][4];
+  const int qf_at = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // + kk * 16
+  float acc[OC / 8][4];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
+  for (int i = 0; i < OC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores (base 2)
@@ -451,10 +461,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       cp_rows<BN, HD, kThreadsM>(v_s + st * BN * LD, vh, (j + 1) * BN, S, tid);
     }
     tc::cp_async_commit();
-    if (j == 0) {
+    if constexpr (kQInRegisters) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        tc::ldmatrix_x4(qf[kk], q_s + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          tc::ldmatrix_x4(qf[kk], q_s + (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+      }
     }
     const int kv0 = j * BN;
     if (kv0 > wrow0 + 15) continue;  // every key of the tile is after the warp's rows
@@ -468,13 +480,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t q_frag[4];  // hd 256: this step's fragment, from shared
+      if constexpr (!kQInRegisters) tc::ldmatrix_x4(q_frag, q_s + qf_at + kk * 16);
+      const uint32_t(&qa)[4] = kQInRegisters ? qf[kQInRegisters ? kk : 0] : q_frag;
 #pragma unroll
       for (int n2 = 0; n2 < BN / 16; ++n2) {
         uint32_t kb[4];
         tc::ldmatrix_x4(kb, ks + (n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 +
                                 ((lane / 8) % 2) * 8);
-        tc::mma_bf16(s[2 * n2], qf[kk], kb[0], kb[1]);
-        tc::mma_bf16(s[2 * n2 + 1], qf[kk], kb[2], kb[3]);
+        tc::mma_bf16(s[2 * n2], qa, kb[0], kb[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qa, kb[2], kb[3]);
       }
     }
 
@@ -518,7 +533,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       l[h] = alpha[h] * l[h] + sum[h];
     }
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < OC / 8; ++i) {
       acc[i][0] *= alpha[0];
       acc[i][1] *= alpha[0];
       acc[i][2] *= alpha[1];
@@ -533,9 +548,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                               tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int d2 = 0; d2 < HD / 16; ++d2) {
+      for (int d2 = 0; d2 < OC / 16; ++d2) {
         uint32_t vb[4];
-        tc::ldmatrix_x4_trans(vb, vs + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+        tc::ldmatrix_x4_trans(vb, vs + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + c0 +
                                       d2 * 16 + (lane / 16) * 8);
         tc::mma_bf16(acc[2 * d2], pa, vb[0], vb[1]);
         tc::mma_bf16(acc[2 * d2 + 1], pa, vb[2], vb[3]);
@@ -549,14 +564,15 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     inv[h] = l[h] > 0.f ? 1.f / l[h] : 0.f;
     const int row = row_a + h * 8;
     // natural-log units; a row that saw no key keeps lse = +inf (p = 0 in the backward)
-    if (lane % 4 == 0 && row < S)
+    if (lane % 4 == 0 && row < S && (OC == HD || blockIdx.z == 0))
       lse[(int64_t)bh * S + row] = l[h] > 0.f ? m[h] * 0.69314718055994531f + logf(l[h]) : INFINITY;
   }
-  // the warp's own 16 rows of the Q tile hold its output rows, then 16-byte stores
+  // the warp's own 16 rows of the Q tile (which only it reads) hold its
+  // output rows, then 16-byte stores
   __nv_bfloat16* stage = q_s + warp * 16 * LD;
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
+  for (int i = 0; i < OC / 8; ++i) {
     const int c = i * 8 + (lane % 4) * 2;
     *reinterpret_cast<uint32_t*>(stage + (lane / 4) * LD + c) =
         tc::pack_bf16(acc[i][0] * inv[0], acc[i][1] * inv[0]);
@@ -564,11 +580,11 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
         tc::pack_bf16(acc[i][2] * inv[1], acc[i][3] * inv[1]);
   }
   __syncwarp();
-  __nv_bfloat16* oh = o + (int64_t)bh * S * HD;
+  __nv_bfloat16* oh = o + (int64_t)bh * S * HD + c0;
 #pragma unroll
-  for (int i = lane; i < 16 * (HD / 8); i += 32) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
+  for (int i = lane; i < 16 * (OC / 8); i += 32) {
+    const int r = i / (OC / 8);
+    const int c = (i % (OC / 8)) * 8;
     if (wrow0 + r < S)
       *reinterpret_cast<uint4*>(oh + (int64_t)(wrow0 + r) * HD + c) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c);
@@ -576,42 +592,12 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 }
 
 // ---------------------------------------------------------------------------
-// backward: shared recomputation of p and ds for one (query tile, key tile)
+// backward, fp32
 // ---------------------------------------------------------------------------
 
-// p[i][j] = exp(s - lse) under the forward's mask, ds = p * (dp - di) * scale,
-// for the thread's 4 x 4 piece; written to p_out (may be null) and ds_out.
-template <int HD>
-__device__ __forceinline__ void recompute_p_ds(const float* q_s, const float* do_s,
-                                               const float* k_s, const float* v_s,
-                                               const float (&lse_r)[4], const float (&di_r)[4],
-                                               int row0, int col0, int S, float scale, int ty,
-                                               int tx, float* p_out, float* ds_out) {
-  float s[4][4], dp[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[i][j] = 0.f;
-      dp[i][j] = 0.f;
-    }
-  tile_abt<HD>(s, q_s, k_s, ty, tx);
-  tile_abt<HD>(dp, do_s, v_s, ty, tx);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = row0 + ty * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = col0 + tx + 16 * j;
-      const bool live = col <= row && col < S && row < S;
-      const float p = live ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
-      const int at = (ty * 4 + i) * kLdP + tx + 16 * j;
-      if (p_out != nullptr) p_out[at] = p;
-      ds_out[at] = p * (dp[i][j] - di_r[i]) * scale;
-    }
-  }
-}
-
+// dQ: one block per (64 query rows, batch * head) loops over the key tiles of
+// NB = fp32_step keys at or below its last row: ds = p (dp - di) scale with
+// p = exp(s - lse) under the forward's mask, then dQ += ds K.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -620,11 +606,12 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                 float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = HD + 4;
+  constexpr int NB = fp32_step<HD>();
   float* q_s = smem;
   float* do_s = q_s + kTile * kLd;
   float* k_s = do_s + kTile * kLd;
-  float* v_s = k_s + kTile * kLd;
-  float* ds_s = v_s + kTile * kLd;
+  float* v_s = k_s + NB * kLd;
+  float* ds_s = v_s + NB * kLd;  // [64][NB + 4]
 
   const int qi = gridDim.x - 1 - blockIdx.x;
   const int bh = blockIdx.y;
@@ -635,34 +622,58 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
   const int ty = tid / 16;
   const T* kh = k + ((int64_t)b * nkv + kvh) * S * HD;
   const T* vh = v + ((int64_t)b * nkv + kvh) * S * HD;
+  const int row0 = qi * kTile;
+  const int n_tiles = (min(row0 + kTile, S) - 1) / NB + 1;  // key tiles at or below the last row
 
-  load_tile<T, HD>(q_s, q + (int64_t)bh * S * HD, qi * kTile, S, tid);
-  load_tile<T, HD>(do_s, dout + (int64_t)bh * S * HD, qi * kTile, S, tid);
+  load_tile<T, HD>(q_s, q + (int64_t)bh * S * HD, row0, S, tid);
+  load_tile<T, HD>(do_s, dout + (int64_t)bh * S * HD, row0, S, tid);
 
   float lse_r[4], di_r[4], acc[4][HD / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = qi * kTile + ty * 4 + i;
+    const int row = row0 + ty * 4 + i;
     lse_r[i] = row < S ? lse[(int64_t)bh * S + row] : INFINITY;
     di_r[i] = row < S ? di[(int64_t)bh * S + row] : 0.f;
 #pragma unroll
     for (int c = 0; c < HD / 16; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kj = 0; kj <= qi; ++kj) {
+  for (int kj = 0; kj < n_tiles; ++kj) {
     __syncthreads();
-    load_tile<T, HD>(k_s, kh, kj * kTile, S, tid);
-    load_tile<T, HD>(v_s, vh, kj * kTile, S, tid);
+    load_tile<T, HD, NB>(k_s, kh, kj * NB, S, tid);
+    load_tile<T, HD, NB>(v_s, vh, kj * NB, S, tid);
     __syncthreads();
-    recompute_p_ds<HD>(q_s, do_s, k_s, v_s, lse_r, di_r, qi * kTile, kj * kTile, S, scale, ty, tx,
-                       nullptr, ds_s);
+    float s[4][NB / 16], dp[4][NB / 16];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) s[i][j] = dp[i][j] = 0.f;
+    tile_abt<HD, NB>(s, q_s, k_s, ty, tx);
+    tile_abt<HD, NB>(dp, do_s, v_s, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + ty * 4 + i;
+#pragma unroll
+      for (int j = 0; j < NB / 16; ++j) {
+        const int col = kj * NB + tx + 16 * j;
+        const bool live = col <= row && col < S && row < S;
+        const float p = live ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
+        ds_s[(ty * 4 + i) * (NB + 4) + tx + 16 * j] = p * (dp[i][j] - di_r[i]) * scale;
+      }
+    }
     __syncthreads();
-    tile_pb<HD>(acc, ds_s, k_s, ty, tx);
+    tile_pb<HD, NB>(acc, ds_s, k_s, ty, tx);
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_piece<T, HD>(dq + (int64_t)bh * S * HD, acc, one, qi * kTile, S, ty, tx);
+  store_piece<T, HD>(dq + (int64_t)bh * S * HD, acc, one, row0, S, ty, tx);
 }
 
+// dK/dV: one block per (64 keys, batch * kv head) loops over the q heads of
+// its group and the query tiles of NB = fp32_step rows at or after its first
+// key, so the group sum needs no atomics and is the same from run to run. The
+// tile is computed transposed, keys as rows: s^T = K Q^T, dp^T = V dO^T,
+// p^T = exp(s^T - lse), ds^T = p^T (dp^T - di) scale, then dV += p^T dO and
+// dK += ds^T Q.
 template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -671,19 +682,21 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  int nkv, int S, float scale) {
   extern __shared__ __align__(16) float smem[];
   constexpr int kLd = HD + 4;
+  constexpr int NB = fp32_step<HD>();
   float* k_s = smem;
   float* v_s = k_s + kTile * kLd;
   float* q_s = v_s + kTile * kLd;
-  float* do_s = q_s + kTile * kLd;
-  float* p_s = do_s + kTile * kLd;
-  float* ds_s = p_s + kTile * kLdP;
+  float* do_s = q_s + NB * kLd;
+  float* p_s = do_s + NB * kLd;         // [64][NB + 4]
+  float* ds_s = p_s + kTile * (NB + 4);  // [64][NB + 4]
 
   const int kj = blockIdx.x;
   const int bkv = blockIdx.y;  // batch * nkv + kv head
   const int b = bkv / nkv;
   const int kvh = bkv % nkv;
   const int groups = nh / nkv;
-  const int q_tiles = (S + kTile - 1) / kTile;
+  const int q_tiles = (S + NB - 1) / NB;
+  const int first = kj * kTile / NB;  // query tiles before it end before the block's keys
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
@@ -705,23 +718,41 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int64_t bh = (int64_t)b * nh + kvh * groups + g;
     const T* qh = q + bh * S * HD;
     const T* doh = dout + bh * S * HD;
-    for (int qi = kj; qi < q_tiles; ++qi) {
+    for (int qt = first; qt < q_tiles; ++qt) {
       __syncthreads();  // the previous step's reads of q_s, do_s, p_s, ds_s are done
-      load_tile<T, HD>(q_s, qh, qi * kTile, S, tid);
-      load_tile<T, HD>(do_s, doh, qi * kTile, S, tid);
-      float lse_r[4], di_r[4];
+      load_tile<T, HD, NB>(q_s, qh, qt * NB, S, tid);
+      load_tile<T, HD, NB>(do_s, doh, qt * NB, S, tid);
+      float lse_c[NB / 16], di_c[NB / 16];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int row = qi * kTile + ty * 4 + i;
-        lse_r[i] = row < S ? lse[bh * S + row] : INFINITY;
-        di_r[i] = row < S ? di[bh * S + row] : 0.f;
+      for (int j = 0; j < NB / 16; ++j) {
+        const int col = qt * NB + tx + 16 * j;
+        lse_c[j] = col < S ? lse[bh * S + col] : INFINITY;
+        di_c[j] = col < S ? di[bh * S + col] : 0.f;
       }
       __syncthreads();
-      recompute_p_ds<HD>(q_s, do_s, k_s, v_s, lse_r, di_r, qi * kTile, kj * kTile, S, scale, ty,
-                         tx, p_s, ds_s);
+      float sT[4][NB / 16], dpT[4][NB / 16];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NB / 16; ++j) sT[i][j] = dpT[i][j] = 0.f;
+      tile_abt<HD, NB>(sT, k_s, q_s, ty, tx);
+      tile_abt<HD, NB>(dpT, v_s, do_s, ty, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = kj * kTile + ty * 4 + i;
+#pragma unroll
+        for (int j = 0; j < NB / 16; ++j) {
+          const int col = qt * NB + tx + 16 * j;  // the query
+          const bool live = key <= col && col < S && key < S;
+          const float p = live ? expf(sT[i][j] * scale - lse_c[j]) : 0.f;
+          const int at = (ty * 4 + i) * (NB + 4) + tx + 16 * j;
+          p_s[at] = p;
+          ds_s[at] = p * (dpT[i][j] - di_c[j]) * scale;
+        }
+      }
       __syncthreads();
-      tile_ptb<HD>(dv_acc, p_s, do_s, ty, tx);
-      tile_ptb<HD>(dk_acc, ds_s, q_s, ty, tx);
+      tile_pb<HD, NB>(dv_acc, p_s, do_s, ty, tx);
+      tile_pb<HD, NB>(dk_acc, ds_s, q_s, ty, tx);
     }
   }
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
@@ -814,8 +845,11 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   __nv_bfloat16* k_s = do_s + BM * LD;                               // [2][BN][LD]
   __nv_bfloat16* v_s = k_s + 2 * BN * LD;                            // [2][BN][LD]
 
+  constexpr int OC = out_cols<HD>();
+  constexpr bool kQInRegisters = HD <= 128;  // Q and dO fragments; else read from shared
   const int bh = blockIdx.x;
   const int qi = gridDim.y - 1 - blockIdx.y;  // long rows first
+  const int c0 = OC == HD ? 0 : blockIdx.z * OC;  // the block's dQ columns [c0, c0 + OC)
   const int b = bh / nh;
   const int kvh = (bh % nh) / (nh / nkv);
   const int tid = threadIdx.x;
@@ -843,10 +877,11 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     lse2[h] = row < S ? lse[(int64_t)bh * S + row] * kLog2e : INFINITY;
     di_r[h] = row < S ? di[(int64_t)bh * S + row] : 0.f;
   }
-  uint32_t qf[HD / 16][4], df[HD / 16][4];
-  float acc[HD / 8][4];
+  uint32_t qf[kQInRegisters ? HD / 16 : 1][4], df[kQInRegisters ? HD / 16 : 1][4];
+  const int qf_at = (warp * 16 + lane % 16) * LD + (lane / 16) * 8;  // + kk * 16
+  float acc[OC / 8][4];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
+  for (int i = 0; i < OC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
@@ -859,12 +894,14 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       cp_rows<BN, HD, kThreadsM>(v_s + st * BN * LD, vh, (j + 1) * BN, S, tid);
     }
     tc::cp_async_commit();
-    if (j == 0) {
+    if constexpr (kQInRegisters) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        const int at = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
-        tc::ldmatrix_x4(qf[kk], q_s + at);
-        tc::ldmatrix_x4(df[kk], do_s + at);
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const int at = (warp * 16 + lane % 16) * LD + kk * 16 + (lane / 16) * 8;
+          tc::ldmatrix_x4(qf[kk], q_s + at);
+          tc::ldmatrix_x4(df[kk], do_s + at);
+        }
       }
     }
     const int kv0 = j * BN;
@@ -880,16 +917,23 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       for (int e = 0; e < 4; ++e) s[i][e] = dp[i][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t q_frag[4], do_frag[4];  // hd 256: this step's fragments, from shared
+      if constexpr (!kQInRegisters) {
+        tc::ldmatrix_x4(q_frag, q_s + qf_at + kk * 16);
+        tc::ldmatrix_x4(do_frag, do_s + qf_at + kk * 16);
+      }
+      const uint32_t(&qa)[4] = kQInRegisters ? qf[kQInRegisters ? kk : 0] : q_frag;
+      const uint32_t(&da)[4] = kQInRegisters ? df[kQInRegisters ? kk : 0] : do_frag;
 #pragma unroll
       for (int n2 = 0; n2 < BN / 16; ++n2) {
         const int at = (n2 * 16 + (lane / 16) * 8 + lane % 8) * LD + kk * 16 + ((lane / 8) % 2) * 8;
         uint32_t kb[4], vb[4];
         tc::ldmatrix_x4(kb, ks + at);
-        tc::mma_bf16(s[2 * n2], qf[kk], kb[0], kb[1]);
-        tc::mma_bf16(s[2 * n2 + 1], qf[kk], kb[2], kb[3]);
+        tc::mma_bf16(s[2 * n2], qa, kb[0], kb[1]);
+        tc::mma_bf16(s[2 * n2 + 1], qa, kb[2], kb[3]);
         tc::ldmatrix_x4(vb, vs + at);
-        tc::mma_bf16(dp[2 * n2], df[kk], vb[0], vb[1]);
-        tc::mma_bf16(dp[2 * n2 + 1], df[kk], vb[2], vb[3]);
+        tc::mma_bf16(dp[2 * n2], da, vb[0], vb[1]);
+        tc::mma_bf16(dp[2 * n2 + 1], da, vb[2], vb[3]);
       }
     }
 
@@ -915,9 +959,9 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                               tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int d2 = 0; d2 < HD / 16; ++d2) {
+      for (int d2 = 0; d2 < OC / 16; ++d2) {
         uint32_t kb[4];
-        tc::ldmatrix_x4_trans(kb, ks + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD +
+        tc::ldmatrix_x4_trans(kb, ks + (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + c0 +
                                       d2 * 16 + (lane / 16) * 8);
         tc::mma_bf16(acc[2 * d2], da, kb[0], kb[1]);
         tc::mma_bf16(acc[2 * d2 + 1], da, kb[2], kb[3]);
@@ -925,22 +969,23 @@ flash_dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     }
   }
 
-  // the warp's own 16 rows of the Q tile hold its dQ rows, then 16-byte stores
+  // the warp's own 16 rows of the Q tile (which only it reads) hold its dQ
+  // rows, then 16-byte stores
   __nv_bfloat16* stage = q_s + warp * 16 * LD;
   __syncwarp();
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i) {
+  for (int i = 0; i < OC / 8; ++i) {
     const int c = i * 8 + (lane % 4) * 2;
     *reinterpret_cast<uint32_t*>(stage + (lane / 4) * LD + c) = tc::pack_bf16(acc[i][0], acc[i][1]);
     *reinterpret_cast<uint32_t*>(stage + (lane / 4 + 8) * LD + c) =
         tc::pack_bf16(acc[i][2], acc[i][3]);
   }
   __syncwarp();
-  __nv_bfloat16* dqh = dq + (int64_t)bh * S * HD;
+  __nv_bfloat16* dqh = dq + (int64_t)bh * S * HD + c0;
 #pragma unroll
-  for (int i = lane; i < 16 * (HD / 8); i += 32) {
-    const int r = i / (HD / 8);
-    const int c = (i % (HD / 8)) * 8;
+  for (int i = lane; i < 16 * (OC / 8); i += 32) {
+    const int r = i / (OC / 8);
+    const int c = (i % (OC / 8)) * 8;
     if (wrow0 + r < S)
       *reinterpret_cast<uint4*>(dqh + (int64_t)(wrow0 + r) * HD + c) =
           *reinterpret_cast<const uint4*>(stage + r * LD + c);
@@ -959,6 +1004,7 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   constexpr int BQ = bwd_step<HD>();  // queries a step
   constexpr int LD = HD + 8;
   constexpr bool kKvInRegisters = HD == 64;
+  constexpr int OC = out_cols<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* k_s = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BN][LD]
   __nv_bfloat16* v_s = k_s + BN * LD;                                // [BN][LD]
@@ -969,6 +1015,7 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   const int bh = blockIdx.x;  // batch * nh + q head
   const int kj = blockIdx.y;  // key tile; the first ones see the most queries
+  const int c0 = OC == HD ? 0 : blockIdx.z * OC;  // the block's dK and dV columns [c0, c0 + OC)
   const int b = bh / nh;
   const int kvh = (bh % nh) / (nh / nkv);
   const int tid = threadIdx.x;
@@ -1006,9 +1053,9 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   tc::cp_async_commit();
 
   uint32_t kf[kKvInRegisters ? HD / 16 : 1][4], vf[kKvInRegisters ? HD / 16 : 1][4];
-  float dk_acc[HD / 8][4], dv_acc[HD / 8][4];
+  float dk_acc[OC / 8][4], dv_acc[OC / 8][4];
 #pragma unroll
-  for (int i = 0; i < HD / 8; ++i)
+  for (int i = 0; i < OC / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
   const int key_a = wkey0 + lane / 4;  // the lane's two keys: key_a, key_a + 8
@@ -1102,8 +1149,9 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                               tc::pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]),
                               tc::pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3])};
 #pragma unroll
-      for (int d2 = 0; d2 < HD / 16; ++d2) {
-        const int at = (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + d2 * 16 + (lane / 16) * 8;
+      for (int d2 = 0; d2 < OC / 16; ++d2) {
+        const int at =
+            (kk * 16 + ((lane / 8) % 2) * 8 + lane % 8) * LD + c0 + d2 * 16 + (lane / 16) * 8;
         uint32_t ob[4], qb[4];
         tc::ldmatrix_x4_trans(ob, dos + at);
         tc::mma_bf16(dv_acc[2 * d2], pa, ob[0], ob[1]);
@@ -1117,14 +1165,14 @@ flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   tc::cp_async_wait<0>();
 
   // this q head's fp32 partials of the block's keys
-  float* dkp = dk_part + (int64_t)bh * S * HD;
-  float* dvp = dv_part + (int64_t)bh * S * HD;
+  float* dkp = dk_part + (int64_t)bh * S * HD + c0;
+  float* dvp = dv_part + (int64_t)bh * S * HD + c0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key_a + h * 8;
     if (key >= S) continue;
 #pragma unroll
-    for (int i = 0; i < HD / 8; ++i) {
+    for (int i = 0; i < OC / 8; ++i) {
       const int64_t at = (int64_t)key * HD + i * 8 + (lane % 4) * 2;
       *reinterpret_cast<float2*>(dkp + at) = make_float2(dk_acc[i][2 * h], dk_acc[i][2 * h + 1]);
       *reinterpret_cast<float2*>(dvp + at) = make_float2(dv_acc[i][2 * h], dv_acc[i][2 * h + 1]);
@@ -1198,7 +1246,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* 
   if (block_m != kMmaTileM || smem_bytes != smem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kMmaTileM - 1) / kMmaTileM, batch * nh);
+  const dim3 grid((S + kMmaTileM - 1) / kMmaTileM, batch * nh, HD / out_cols<HD>());
   kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -1216,7 +1264,7 @@ int launch_dkv_f32(const void* q, const void* k, const void* v, const void* dout
                    float scale, cudaStream_t stream) {
   auto kernel = flash_dkv_kernel<float, HD>;
   constexpr int smem = dkv_smem_bytes<HD>();
-  if (block_n != kTile || block_m != kTile || smem_bytes != smem || reduce_blocks != 0)
+  if (block_n != kTile || block_m != fp32_step<HD>() || smem_bytes != smem || reduce_blocks != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
@@ -1245,7 +1293,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dou
   const int64_t head_elems = (int64_t)S * HD;
   float* dk_part = static_cast<float*>(workspace);
   float* dv_part = dk_part + (int64_t)batch * nh * head_elems;
-  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock);
+  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock, HD / out_cols<HD>());
   kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
@@ -1265,7 +1313,8 @@ int launch_dq_f32(const void* q, const void* k, const void* v, const void* dout,
                   int block_n, int smem_bytes, float scale, cudaStream_t stream) {
   auto kernel = flash_dq_kernel<float, HD>;
   constexpr int smem = dq_smem_bytes<HD>();
-  if (block_m != kTile || block_n != kTile || smem_bytes != smem) return (int)cudaErrorInvalidValue;
+  if (block_m != kTile || block_n != fp32_step<HD>() || smem_bytes != smem)
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + kTile - 1) / kTile, batch * nh);
@@ -1286,7 +1335,7 @@ int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock);
+  const dim3 grid(batch * nh, (S + kBwdBlock - 1) / kBwdBlock, HD / out_cols<HD>());
   kernel<<<grid, kMmaWarps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
@@ -1305,9 +1354,11 @@ int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout
   if (dtype == 0 && head_dim == 64) return F32<64>(__VA_ARGS__);    \
   if (dtype == 0 && head_dim == 96) return F32<96>(__VA_ARGS__);    \
   if (dtype == 0 && head_dim == 128) return F32<128>(__VA_ARGS__);  \
+  if (dtype == 0 && head_dim == 256) return F32<256>(__VA_ARGS__);  \
   if (dtype == 1 && head_dim == 64) return BF16<64>(__VA_ARGS__);   \
   if (dtype == 1 && head_dim == 96) return BF16<96>(__VA_ARGS__);   \
   if (dtype == 1 && head_dim == 128) return BF16<128>(__VA_ARGS__); \
+  if (dtype == 1 && head_dim == 256) return BF16<256>(__VA_ARGS__); \
   return (int)cudaErrorInvalidValue
 
 // The forward's body by dtype: fp32 flash_fwd_kernel (CUDA cores), bf16

@@ -14,9 +14,10 @@ and written here (:func:`read_safetensors`, :func:`write_safetensors`): an
 raw little-endian bytes; neither the ``safetensors`` package nor numpy (which
 has no bf16) is needed.
 
-Families the port's model does not run yet (Gemma, sliding windows) still
-import to a tree; ``models.llama.check_supported`` refuses them where
-a model is built.
+Every family of the JAX package imports and exports: LLaMA, Qwen2, Mistral
+(its sliding window), Phi-3 (fused projections, longrope's ``rope_scaling``
+kept whole), Mixtral, Gemma (a tied head stays tied) and Gemma-2 (sandwich
+norms, softcaps, alternating layer types).
 """
 
 from __future__ import annotations

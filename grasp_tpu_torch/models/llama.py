@@ -12,7 +12,10 @@ rotate_half, GQA by repeating KV heads, fp32 scores and softmax. Unlike JAX,
 the KV-cache functions write the cache in place.
 
 Ported: the LLaMA/TinyLlama/Qwen2-style families (bias optional, rope scaling
-"linear" and "llama3"), dense, full-SVD and low-rank projections, int8 and
+"linear", "llama3" and Phi-3's "longrope"), Mistral's sliding window, Gemma-1
+((1+w) norms, the embedding scale, GeGLU) and Gemma-2 (sandwich norms,
+attention and final logit softcaps, query_pre_attn_scalar, alternating
+sliding and full layers), dense, full-SVD and low-rank projections, int8 and
 int4 projection weights (ops/quant.py), the fused low-rank kernel behind
 ``config.use_pallas_lowrank`` (ops/lowrank.py; the field keeps the JAX
 package's name so that checkpoints carry over), and the flash-attention route
@@ -20,8 +23,8 @@ of the full-sequence forward (ops/flash_attention.py), which also runs a
 range of layers (the compression engine's prefix split) and recomputes each
 layer in the backward on request (``remat``), and the int8 KV cache
 (``init_kv_cache(quantized=True)``), and the Mixtral family's sparse-MoE
-layers (models/moe.py) in place of the dense MLP. Softcapping, sliding
-windows, Gemma norms and the ``hybrid`` kind raise NotImplementedError.
+layers (models/moe.py) in place of the dense MLP. The ``hybrid`` projection
+kind raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -59,20 +62,6 @@ def torch_dtype(name: str) -> torch.dtype:
     if name not in _DTYPES:
         raise ValueError(f"unsupported dtype {name!r} (use {sorted(_DTYPES)})")
     return _DTYPES[name]
-
-
-def check_supported(config: ModelConfig) -> None:
-    """Raise NotImplementedError for architecture features not ported yet."""
-    missing = {
-        "attention logit softcapping (Gemma-2)": config.attn_logit_softcapping is not None,
-        "final logit softcapping (Gemma-2)": config.final_logit_softcapping is not None,
-        "sliding-window attention": config.sliding_window is not None,
-        "Gemma (1+w) norms / embedding scale / sandwich norms": (
-            config.norm_plus_one or config.scale_embeddings or config.sandwich_norms),
-    }
-    for what, present in missing.items():
-        if present:
-            raise NotImplementedError(f"grasp_tpu_torch does not support {what} yet")
 
 
 def default_plan(config: ModelConfig) -> ModelPlan:
@@ -133,8 +122,10 @@ def init_params(generator: torch.Generator, config: ModelConfig, *,
     config (``num_local_experts > 0``) gets an MoE block in every layer
     instead of the dense MLP. The generator
     must live on ``device``. The numbers differ from the JAX package's for
-    the same seed; tests share weights through models.convert instead."""
-    check_supported(config)
+    the same seed; tests share weights through models.convert instead.
+    Gemma's (1+w) norms (``norm_plus_one``) start at zero, an effective scale
+    of 1 as HF's GemmaRMSNorm; Gemma-2 layers carry the two feed-forward
+    sandwich norms."""
     dtype = torch_dtype(config.dtype)
     shapes = _proj_shapes(config)
 
@@ -150,7 +141,8 @@ def init_params(generator: torch.Generator, config: ModelConfig, *,
         return p
 
     def ones():
-        return torch.ones(config.hidden_size, dtype=dtype, device=device)
+        fill = torch.zeros if config.norm_plus_one else torch.ones
+        return fill(config.hidden_size, dtype=dtype, device=device)
 
     layers = []
     for _ in range(config.num_hidden_layers):
@@ -159,6 +151,9 @@ def init_params(generator: torch.Generator, config: ModelConfig, *,
             "post_attention_layernorm": {"weight": ones()},
             "self_attn": {n: proj(n, config.attention_bias) for n in ATTN_PROJS},
         }
+        if config.sandwich_norms:  # Gemma-2: norms around the MLP too
+            layer["pre_feedforward_layernorm"] = {"weight": ones()}
+            layer["post_feedforward_layernorm"] = {"weight": ones()}
         if config.num_local_experts > 0:
             layer["moe"] = init_moe_params(generator, config, device=device, dtype=dtype,
                                            scale=scale)
@@ -180,12 +175,23 @@ def init_params(generator: torch.Generator, config: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """HF LlamaRMSNorm: fp32 variance, scale applied after cast-back."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             plus_one: bool = False) -> torch.Tensor:
+    """HF LlamaRMSNorm: fp32 variance, the weight multiplied in fp32, then the
+    cast back. ``plus_one`` is GemmaRMSNorm: the scale is (1 + w), also
+    multiplied in fp32 before the cast."""
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
-    return (weight.float() * xf).to(x.dtype)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    return (w * xf).to(x.dtype)
+
+
+def norm(x: torch.Tensor, weight: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+    """The model's RMSNorm: :func:`rms_norm` with the config's eps and (1+w) rule."""
+    return rms_norm(x, weight, config.rms_norm_eps, plus_one=config.norm_plus_one)
 
 
 def mlp_act(config: ModelConfig):
@@ -201,21 +207,42 @@ def mlp_act(config: ModelConfig):
 
 
 def embed_lookup(params: Params, ids: torch.Tensor, config: ModelConfig) -> torch.Tensor:
-    return params["embed_tokens"]["weight"][ids]
+    """Token embeddings; Gemma scales them by sqrt(hidden) with the normalizer
+    rounded to the embedding's dtype first (HF GemmaModel.forward)."""
+    h = params["embed_tokens"]["weight"][ids]
+    if config.scale_embeddings:
+        h = h * torch.tensor(config.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
+    return h
 
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for rotary embedding, HF convention (duplicated freqs),
-    in fp32, shaped [..., S, hd]. scaling: HF rope_scaling ("linear" and
-    "llama3" are ported; "longrope" is not)."""
+    in fp32, shaped [..., S, hd]. scaling: HF rope_scaling, "linear",
+    "llama3" or Phi-3's "longrope": per-dimension short and long factors
+    divide the frequencies, the long set exactly when the call's largest
+    position + 1 exceeds original_max_position_embeddings, and the attention
+    factor (default sqrt(1 + ln(factor) / ln(original))) multiplies cos and
+    sin."""
     dev = positions.device
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=dev) / head_dim))
+    attn_scale = 1.0
     if scaling:
         d = dict(scaling)
         rtype = d.get("rope_type", d.get("type", "default"))
-        if rtype == "llama3":
+        if rtype == "longrope":
+            orig = float(d["original_max_position_embeddings"])
+            factor = float(d.get("max_position_embeddings", orig)) / orig
+            attn_scale = d.get("attention_factor")
+            if attn_scale is None:
+                attn_scale = (1.0 if factor <= 1.0
+                              else math.sqrt(1.0 + math.log(factor) / math.log(orig)))
+            use_long = int(positions.max()) + 1 > orig
+            rescale = torch.tensor(d["long_factor"] if use_long else d["short_factor"],
+                                   dtype=torch.float32, device=dev)
+            inv_freq = inv_freq / rescale
+        elif rtype == "llama3":
             factor = float(d["factor"])
             lo, hi = float(d["low_freq_factor"]), float(d["high_freq_factor"])
             old_ctx = float(d["original_max_position_embeddings"])
@@ -227,13 +254,13 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
             inv_freq = torch.where(is_med, smoothed, inv2)
         elif rtype == "linear":
             inv_freq = inv_freq / float(d["factor"])
-        elif rtype == "longrope":
-            raise NotImplementedError("grasp_tpu_torch does not support longrope yet")
         elif rtype != "default":
             raise ValueError(f"unsupported rope_scaling type: {rtype!r}")
     freqs = positions[..., None].float() * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
-    return torch.cos(emb), torch.sin(emb)
+    if attn_scale == 1.0:
+        return torch.cos(emb), torch.sin(emb)
+    return torch.cos(emb) * attn_scale, torch.sin(emb) * attn_scale
 
 
 def _rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -279,18 +306,24 @@ def proj_apply(x: torch.Tensor, p: Params, kind: str, use_fused: bool = False) -
     raise ValueError(f"unknown projection kind {kind!r}")
 
 
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2's logit cap, cap * tanh(x / cap); the identity for cap None."""
+    return x if cap is None else cap * torch.tanh(x / cap)
+
+
 def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                mask: Optional[torch.Tensor], num_kv_groups: int,
-               scale: Optional[float] = None) -> torch.Tensor:
+               scale: Optional[float] = None, cap: Optional[float] = None) -> torch.Tensor:
     """Scaled-dot-product attention with GQA KV repeat and fp32 softmax.
 
-    q: [B, nh, S, hd], k/v: [B, nkv, T, hd], mask: [B or 1, 1, S, T] additive."""
+    q: [B, nh, S, hd], k/v: [B, nkv, T, hd], mask: [B or 1, 1, S, T] additive.
+    ``cap``: Gemma-2's attention softcap, applied before the mask (HF's order)."""
     if num_kv_groups > 1:
         k = k.repeat_interleave(num_kv_groups, dim=1)
         v = v.repeat_interleave(num_kv_groups, dim=1)
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = softcap(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, cap)
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
@@ -299,7 +332,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _attention_q8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
                   v8: torch.Tensor, v_scale: torch.Tensor, mask: Optional[torch.Tensor],
-                  num_kv_groups: int, scale: Optional[float] = None) -> torch.Tensor:
+                  num_kv_groups: int, scale: Optional[float] = None,
+                  cap: Optional[float] = None) -> torch.Tensor:
     """Attention directly over the int8 KV cache, without a dequantized copy.
 
     The per-key scale commutes out of the score contraction
@@ -314,7 +348,7 @@ def _attention_q8(q: torch.Tensor, k8: torch.Tensor, k_scale: torch.Tensor,
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     scores = torch.matmul(q.float(), k8.float().transpose(-1, -2))
-    scores = scores * (k_scale[..., 0][:, :, None, :] * scale)
+    scores = softcap(scores * (k_scale[..., 0][:, :, None, :] * scale), cap)
     if mask is not None:
         scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
@@ -333,24 +367,42 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
                       kinds: Dict[str, str], config: ModelConfig) -> torch.Tensor:
     """The post-attention half of a decoder layer, shared by every decode
     body. h: the residual stream before the attention add; attn: the o_proj
-    output. Returns the stream after the MLP residual."""
-    if "pre_feedforward_layernorm" in lp:
-        raise NotImplementedError("grasp_tpu_torch does not support sandwich-norm layers yet")
+    output. A Gemma-2 layer (it holds ``pre_feedforward_layernorm``) takes
+    its sandwich norms: post_attention_layernorm on the attention output
+    before the residual add, pre/post_feedforward_layernorm around the MLP
+    (HF Gemma2DecoderLayer). Returns the stream after the MLP residual."""
+    sandwich = "pre_feedforward_layernorm" in lp
+    if sandwich:
+        attn = norm(attn, lp["post_attention_layernorm"]["weight"], config)
     h = h + attn
-    x = rms_norm(h, lp["post_attention_layernorm"]["weight"], config.rms_norm_eps)
+    pre_mlp = lp["pre_feedforward_layernorm" if sandwich else "post_attention_layernorm"]
+    x = norm(h, pre_mlp["weight"], config)
     if "moe" in lp:  # Mixtral-family sparse MoE block
         return h + moe_apply(x, lp["moe"], config)
     mp = lp["mlp"]
     fused = config.use_pallas_lowrank
     gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"], fused)
     up = proj_apply(x, mp["up_proj"], kinds["up_proj"], fused)
-    return h + proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
+    out = proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
+    if "post_feedforward_layernorm" in lp:
+        out = norm(out, lp["post_feedforward_layernorm"]["weight"], config)
+    return h + out
+
+
+def flash_layer_ok(config: ModelConfig, layer: int, s: int, padded: bool) -> bool:
+    """The flash rule of one layer of a full-sequence forward over ``s``
+    tokens, as the JAX package states it: no padding mask, no attention
+    softcap, and no window shorter than the sequence (a window of ``s`` or
+    more masks nothing beyond causality)."""
+    w = config.layer_window(layer)
+    return not padded and config.attn_logit_softcapping is None and (w is None or s <= w)
 
 
 def _takes_flash_route(config: ModelConfig, q: torch.Tensor, causal_full_sequence: bool) -> bool:
     """Whether attention runs in the flash kernels: asked for by the config,
-    a purely causal full-sequence call (no cache, no padding mask), and CUDA
-    tensors; on the CPU the flag is inert, as in the JAX package."""
+    a call that the layer's flash rule admits (:func:`flash_layer_ok`, no
+    cache), and CUDA tensors; on the CPU the flag is inert, as in the JAX
+    package."""
     return config.use_flash_attention and causal_full_sequence and q.device.type == "cuda"
 
 
@@ -360,14 +412,15 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
                    cache_index: int = 0, flash_ok: bool = False):
     """One decoder layer. With ``kv``, the new K/V are written into the cache
     in place at [cache_index, cache_index + S) and attention reads the whole
-    cache under ``mask``. ``flash_ok``: the caller's mask is purely causal, so
-    a CUDA full-sequence call may take the flash-attention kernels."""
+    cache under ``mask``. ``flash_ok``: the layer's flash rule holds
+    (:func:`flash_layer_ok`: the mask is purely causal over this call), so a
+    CUDA full-sequence call may take the flash-attention kernels."""
     b, s, _ = h.shape
     nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim_
     kinds = dict(zip(PROJ_ORDER, layer_plan))
     fused = config.use_pallas_lowrank
 
-    x = rms_norm(h, lp["input_layernorm"]["weight"], config.rms_norm_eps)
+    x = norm(h, lp["input_layernorm"]["weight"], config)
     ap = lp["self_attn"]
     q = proj_apply(x, ap["q_proj"], kinds["q_proj"], fused).reshape(b, s, nh, hd).transpose(1, 2)
     k = proj_apply(x, ap["k_proj"], kinds["k_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
@@ -385,37 +438,69 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
             kv["v"][:, :, span] = v.to(kv["v"].dtype)
         k, v = kv["k"], kv["v"]
 
+    cap = config.attn_logit_softcapping
     if quantized:
         attn = _attention_q8(q, k, kv["k_scale"], v, kv["v_scale"], mask, nh // nkv,
-                             scale=attention_scale(config))
+                             scale=attention_scale(config), cap=cap)
     elif _takes_flash_route(config, q, kv is None and flash_ok):
         attn = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), nh // nkv,
                                attention_scale(config))
     else:
-        attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config))
+        attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config), cap=cap)
     attn = attn.transpose(1, 2).reshape(b, s, nh * hd)
     attn = proj_apply(attn, ap["o_proj"], kinds["o_proj"], fused)
     return attn_mlp_residual(h, attn, lp, kinds, config), kv
 
 
-def _lm_logits(h: torch.Tensor, params: Params) -> torch.Tensor:
-    """Final projection to the vocabulary (tied or separate head)."""
-    if "lm_head" not in params:
-        return torch.matmul(h, params["embed_tokens"]["weight"].T)
-    head = params["lm_head"]
-    if "kernel_q" in head:
-        return quant_matmul(h, head["kernel_q"], head["kernel_scale"])
-    if "kernel_q4" in head:
-        return quant_matmul_int4(h, head["kernel_q4"], head["kernel_scale"])
-    return dense_apply(h, head["kernel"])
+def _lm_logits(h: torch.Tensor, params: Params, cap: Optional[float] = None) -> torch.Tensor:
+    """Final projection to the vocabulary (tied or separate head); ``cap`` is
+    Gemma-2's final logit softcap."""
+    head = params.get("lm_head")
+    if head is None:
+        logits = torch.matmul(h, params["embed_tokens"]["weight"].T)
+    elif "kernel_q" in head:
+        logits = quant_matmul(h, head["kernel_q"], head["kernel_scale"])
+    elif "kernel_q4" in head:
+        logits = quant_matmul_int4(h, head["kernel_q4"], head["kernel_scale"])
+    else:
+        logits = dense_apply(h, head["kernel"])
+    return softcap(logits, cap)
 
 
-def _causal_mask(s: int, t: int, offset: int, device) -> torch.Tensor:
-    """Additive causal mask [1, 1, s, t] in fp32; query i sees keys <= i + offset."""
+def final_logits(h: torch.Tensor, params: Params, config: ModelConfig) -> torch.Tensor:
+    """The final norm, the head and the final softcap of every decode body."""
+    return _lm_logits(norm(h, params["norm"]["weight"], config), params,
+                      config.final_logit_softcapping)
+
+
+def _causal_mask(s: int, t: int, offset: int, device,
+                 window: Optional[int] = None) -> torch.Tensor:
+    """Additive causal mask [1, 1, s, t] in fp32; query i sees keys <= i + offset,
+    and with ``window`` (Mistral's sliding attention) only keys > i + offset -
+    window: the last ``window`` positions, itself included."""
     qi = torch.arange(s, device=device)[:, None] + offset
     ki = torch.arange(t, device=device)[None, :]
+    allow = ki <= qi
+    if window is not None:
+        allow = allow & (ki > qi - window)
     neg = torch.finfo(torch.float32).min
-    return torch.where(ki <= qi, 0.0, neg).float()[None, None]
+    return torch.where(allow, 0.0, neg).float()[None, None]
+
+
+def _layer_masks(config: ModelConfig, s: int, t: int, offset: int, device,
+                 pad: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """Each layer's additive mask: one causal mask per distinct window of
+    ``config.layer_window`` (Gemma-2 alternates sliding and full layers),
+    plus the padding bias ``pad`` where given."""
+    masks: Dict[Optional[int], torch.Tensor] = {}
+    out = []
+    for li in range(config.num_hidden_layers):
+        w = config.layer_window(li)
+        if w not in masks:
+            m = _causal_mask(s, t, offset, device, window=w)
+            masks[w] = m if pad is None else m + pad
+        out.append(masks[w])
+    return out
 
 
 def _padding_bias(mask: torch.Tensor) -> torch.Tensor:
@@ -437,9 +522,10 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
             hidden_in: Optional[torch.Tensor] = None) -> Dict[str, Any]:
     """Full-sequence forward. Returns {"logits": [B, S, V]} and, if asked,
     "hidden_states": the inputs of the decoder layers run plus the final-norm
-    output (HF semantics). With ``config.use_flash_attention``, no
-    ``attention_mask`` and CUDA tensors, attention runs in the flash kernels;
-    on the CPU the flag is inert.
+    output (HF semantics). With ``config.use_flash_attention`` and CUDA
+    tensors, a layer whose flash rule holds (:func:`flash_layer_ok`: no
+    ``attention_mask``, no softcap, no window shorter than the sequence)
+    attends in the flash kernels; on the CPU the flag is inert.
 
     start_layer/stop_layer/hidden_in run only layers [start_layer,
     stop_layer): with ``stop_layer`` set the result is {"hidden": h}, the
@@ -448,7 +534,6 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
     embedding. ``remat`` recomputes each layer's activations in the backward
     (``torch.utils.checkpoint``) instead of keeping them, as the JAX package's
     ``jax.checkpoint``; it changes no value."""
-    check_supported(config)
     plan = plan or default_plan(config)
     b, s = input_ids.shape
     if start_layer > 0:
@@ -461,11 +546,9 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
         positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
     cos, sin = rope_cos_sin(positions, config.head_dim_, config.rope_theta,
                             scaling=config.rope_scaling)
-    mask = _causal_mask(s, s, 0, input_ids.device)
-    if attention_mask is not None:
-        mask = mask + _padding_bias(attention_mask)
+    pad = None if attention_mask is None else _padding_bias(attention_mask)
+    masks = _layer_masks(config, s, s, 0, input_ids.device, pad)
 
-    flash_ok = attention_mask is None  # softcap and windows are refused above
     checkpointed = remat and torch.is_grad_enabled()
     stop = config.num_hidden_layers if stop_layer is None else stop_layer
     hidden_states: List[torch.Tensor] = []
@@ -473,7 +556,8 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
         if output_hidden_states:
             hidden_states.append(h)
 
-        def layer(lp, h_, layer_plan=plan[li]):
+        def layer(lp, h_, layer_plan=plan[li], mask=masks[li],
+                  flash_ok=flash_layer_ok(config, li, s, attention_mask is not None)):
             return _layer_forward(lp, layer_plan, h_, cos, sin, mask, config,
                                   flash_ok=flash_ok)[0]
 
@@ -483,8 +567,8 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
             h = layer(params["layers"][li], h)
     if stop_layer is not None:
         return {"hidden": h}
-    h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
-    out: Dict[str, Any] = {"logits": _lm_logits(h, params)}
+    h = norm(h, params["norm"]["weight"], config)
+    out: Dict[str, Any] = {"logits": _lm_logits(h, params, config.final_logit_softcapping)}
     if output_hidden_states:
         hidden_states.append(h)
         out["hidden_states"] = hidden_states
@@ -565,8 +649,8 @@ def _forward_with_cache(params: Params, input_ids: torch.Tensor,
     of ``cache`` in place. Returns (logits [B, s, V], cache).
 
     length_mask: optional [B, T] validity of cache slots; positions:
-    optional [B, s] RoPE positions (default cache_index + arange(s))."""
-    check_supported(config)
+    optional [B, s] RoPE positions (default cache_index + arange(s)). Each
+    layer attends under its own window (:func:`_layer_masks`)."""
     b, s = input_ids.shape
     t = cache[0]["k"].shape[2]
     dev = input_ids.device
@@ -575,14 +659,12 @@ def _forward_with_cache(params: Params, input_ids: torch.Tensor,
         positions = (torch.arange(s, device=dev)[None, :] + cache_index).expand(b, s)
     cos, sin = rope_cos_sin(positions, config.head_dim_, config.rope_theta,
                             scaling=config.rope_scaling)
-    mask = _causal_mask(s, t, cache_index, dev)
-    if length_mask is not None:
-        mask = mask + _padding_bias(length_mask)
+    pad = None if length_mask is None else _padding_bias(length_mask)
+    masks = _layer_masks(config, s, t, cache_index, dev, pad)
     for li in range(config.num_hidden_layers):
-        h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, mask, config,
+        h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, masks[li], config,
                               kv=cache[li], cache_index=cache_index)
-    h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
-    return _lm_logits(h, params), cache
+    return final_logits(h, params, config), cache
 
 
 def prefill(params, input_ids, cache, *, config, plan, length_mask=None, positions=None):
@@ -631,7 +713,6 @@ class LlamaModel(nn.Module):
                  plan: Optional[ModelPlan] = None, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_supported(config)
         self.config = config
         if params is None:
             if generator is None:

@@ -20,19 +20,35 @@ from typing import Optional, Tuple
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 96, 128)
+_HEAD_DIMS = (64, 96, 128, 256)
 _MAX_HEADS = 65535  # batch * heads is one grid axis of the kernels
 _KEY_TILE = 64  # keys per tile in both forward bodies
+
+
+def out_cols(hd: int, dtype: torch.dtype) -> int:
+    """Output columns a block of the bf16 kernels owns (csrc/flash_attention.cu,
+    out_cols): all of them up to head_dim 128, half at 256, where the
+    accumulators of all 256 would not fit the registers; the fp32 bodies keep
+    every column."""
+    return 128 if hd > 128 and dtype == torch.bfloat16 else hd
+
+
+def fp32_step(hd: int) -> int:
+    """Rows of the fp32 backward's streamed tiles (csrc/flash_attention.cu,
+    fp32_step): 64, and 32 at head_dim 256 for shared memory."""
+    return 32 if hd > 128 else 64
 
 
 @dataclasses.dataclass(frozen=True)
 class FlashFwdPlan:
     """How the forward kernel is launched: ``block_m`` query rows a block,
-    ``grid`` = (query tiles, batch * heads), and the dynamic shared memory a
-    block takes."""
+    ``grid`` = (query tiles, batch * heads), ``col_blocks`` blocks of
+    :func:`out_cols` columns each along a third grid axis, and the dynamic
+    shared memory a block takes."""
     block_m: int
     grid: Tuple[int, int]
     smem_bytes: int
+    col_blocks: int = 1
 
 
 def flash_fwd_plan(batch: int, nh: int, s: int, hd: int, dtype: torch.dtype) -> FlashFwdPlan:
@@ -43,13 +59,16 @@ def flash_fwd_plan(batch: int, nh: int, s: int, hd: int, dtype: torch.dtype) -> 
     (flash_fwd_mma_kernel): 4 warps of 16 rows; a Q tile and two stages of K
     and V tiles in bf16 with rows padded by 8. The SM count does not enter:
     128 rows a block were slower on an H100 at the calibration shape, where
-    they too filled the card (PERF.md, Findings)."""
+    they too filled the card (PERF.md, Findings). At head_dim 256 a bf16
+    block owns half the output columns (:func:`out_cols`) and the fp32 tiles
+    take 217,088 B, one block an SM."""
     block_m = 64
     if dtype == torch.float32:
         smem = (3 * block_m * (hd + 4) + block_m * (_KEY_TILE + 4)) * 4
     else:
         smem = (block_m + 4 * _KEY_TILE) * (hd + 8) * 2
-    return FlashFwdPlan(block_m, (-(-s // block_m), batch * nh), smem)
+    return FlashFwdPlan(block_m, (-(-s // block_m), batch * nh), smem,
+                        hd // out_cols(hd, dtype))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +79,8 @@ class FlashBwdPlan:
     queries a step, ``dkv_grid``, ``dkv_threads``, ``dkv_smem_bytes``; then
     ``reduce_blocks`` blocks of ``reduce_threads`` that add each group's
     partials (0: the group is summed inside a block), from a workspace of
-    ``workspace_bytes``. Grids are (x, y) as launched."""
+    ``workspace_bytes``. Grids are (x, y) as launched, with ``col_blocks``
+    blocks of :func:`out_cols` columns along z in the bf16 kernels."""
     dq_block_m: int
     dq_block_n: int
     dq_grid: Tuple[int, int]
@@ -74,6 +94,7 @@ class FlashBwdPlan:
     reduce_blocks: int
     reduce_threads: int
     workspace_bytes: int
+    col_blocks: int = 1
 
 
 def flash_bwd_plan(batch: int, nh: int, nkv: int, s: int, hd: int,
@@ -91,16 +112,19 @@ def flash_bwd_plan(batch: int, nh: int, nkv: int, s: int, hd: int,
     thread. Shared memory: the resident tiles (Q and dO, or K and V) and two
     stages of the streamed ones, bf16 rows padded by 8, and for dK/dV the
     lse and di rows of both stages.
-    fp32 (flash_dq_kernel, flash_dkv_kernel; 256 threads): 64-row tiles in
-    fp32, the dK/dV block over (key tiles, batch * kv heads) summing its
-    group itself."""
+    fp32 (flash_dq_kernel, flash_dkv_kernel; 256 threads): resident tiles of
+    64 rows and streamed ones of :func:`fp32_step` rows in fp32, the dK/dV
+    block over (key tiles, batch * kv heads) summing its group itself.
+    At head_dim 256 the bf16 blocks own half the dQ, dK and dV columns
+    (``col_blocks`` 2, steps of 32)."""
     tiles = -(-s // 64)
     if dtype == torch.float32:
+        nb = fp32_step(hd)
         return FlashBwdPlan(
-            dq_block_m=64, dq_block_n=64, dq_grid=(tiles, batch * nh), dq_threads=256,
-            dq_smem_bytes=(4 * 64 * (hd + 4) + 64 * 68) * 4,
-            dkv_block_n=64, dkv_block_m=64, dkv_grid=(tiles, batch * nkv), dkv_threads=256,
-            dkv_smem_bytes=(4 * 64 * (hd + 4) + 2 * 64 * 68) * 4,
+            dq_block_m=64, dq_block_n=nb, dq_grid=(tiles, batch * nh), dq_threads=256,
+            dq_smem_bytes=(2 * (64 + nb) * (hd + 4) + 64 * (nb + 4)) * 4,
+            dkv_block_n=64, dkv_block_m=nb, dkv_grid=(tiles, batch * nkv), dkv_threads=256,
+            dkv_smem_bytes=(2 * (64 + nb) * (hd + 4) + 2 * 64 * (nb + 4)) * 4,
             reduce_blocks=0, reduce_threads=0, workspace_bytes=0)
     step = 64 if hd == 64 else 32
     tiles_bytes = (2 * 64 + 4 * step) * (hd + 8) * 2
@@ -111,7 +135,7 @@ def flash_bwd_plan(batch: int, nh: int, nkv: int, s: int, hd: int,
         dkv_block_n=64, dkv_block_m=step, dkv_grid=(batch * nh, tiles), dkv_threads=128,
         dkv_smem_bytes=tiles_bytes + 4 * step * 4,
         reduce_blocks=-(-total4 // 256), reduce_threads=256,
-        workspace_bytes=2 * batch * nh * s * hd * 4)
+        workspace_bytes=2 * batch * nh * s * hd * 4, col_blocks=hd // out_cols(hd, dtype))
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -18,6 +18,12 @@ Both kernels cut each row's table into ranges of :func:`paged_plan`'s
 ``split_slots`` slots, one block a range, and add the ranges up inside the
 launch (one thread-block cluster a row). Each wrapper launches its kernel for
 CUDA tensors and takes the plain version only for CPU tensors.
+
+:func:`paged_attention_gather` is not a kernel's plain version: it is the
+gather route of the JAX engines, plain PyTorch on every device, for what the
+kernels do not compute (int8 pages, a window shorter than the table, an
+attention softcap, a head layout the kernels lack); the serving engines pick
+it by one rule (serving/paged.py, ``paged_route``).
 """
 
 from __future__ import annotations
@@ -78,18 +84,17 @@ def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int)
             + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4 + -(-range_pages * 4 // 16) * 16)
 
 
-def check_kernel_shape(nh: int, nkv: int, head_dim: int) -> None:
-    """Raise NotImplementedError for head layouts the CUDA kernels do not
-    take: head_dim 64, 96 or 128, and a whole group of at most ``MAX_GQA``
-    query heads a kv head (the bf16 body's m16 tile; the fp32 body keeps
-    16 rows of head_dim / 32 columns a thread in registers)."""
+def kernel_shape_error(nh: int, nkv: int, head_dim: int):
+    """Why the CUDA kernels do not take this head layout, or None: they take
+    head_dim 64, 96 or 128, and a whole group of at most ``MAX_GQA`` query
+    heads a kv head (the bf16 body's m16 tile; the fp32 body keeps 16 rows of
+    head_dim / 32 columns a thread in registers)."""
     if head_dim not in _HEAD_DIMS:
-        raise NotImplementedError(
-            f"the paged attention kernel supports head_dim {_HEAD_DIMS}, not {head_dim}")
+        return f"the paged attention kernel supports head_dim {_HEAD_DIMS}, not {head_dim}"
     if nh % nkv or nh // nkv > MAX_GQA:
-        raise NotImplementedError(
-            f"{nh} query heads over {nkv} kv heads: the paged attention kernel needs "
-            f"a whole group of at most {MAX_GQA}")
+        return (f"{nh} query heads over {nkv} kv heads: the paged attention kernel needs "
+                f"a whole group of at most {MAX_GQA}")
+    return None
 
 
 @functools.lru_cache(maxsize=None)
@@ -107,7 +112,9 @@ def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
     ``MAX_STAGES``. Cached: the decode step is bound by the host."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, got {dtype}")
-    check_kernel_shape(gqa, 1, head_dim)
+    why = kernel_shape_error(gqa, 1, head_dim)
+    if why is not None:
+        raise NotImplementedError(why)
     if page_size < 1 or pages_per_seq < 1:
         raise ValueError(f"bad table: {pages_per_seq} pages of {page_size} slots")
     capacity = page_size * pages_per_seq
@@ -181,19 +188,22 @@ def paged_attention_chunk_reference(q: torch.Tensor, k_pages: torch.Tensor,
     return torch.einsum("bcht,bhtd->bchd", probs, v_seq.float()).to(q.dtype)
 
 
-def paged_attention_q8_gather(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                              k_scales: torch.Tensor, v_scales: torch.Tensor,
-                              base_lengths: torch.Tensor, tables: torch.Tensor,
-                              scale: float) -> torch.Tensor:
-    """Chunk attention over int8 pools, on any device: the gather route of
-    the JAX engine's decode and verify steps, which is the only route int8
-    pages have there too (no kernel of either package reads them).
+def paged_attention_gather(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           base_lengths: torch.Tensor, tables: torch.Tensor, scale: float, *,
+                           window=None, cap=None, k_scales=None, v_scales=None) -> torch.Tensor:
+    """Chunk attention through a gathered copy of the pages, on any device:
+    the XLA route of the JAX engines' decode and verify steps
+    (grasp_tpu/serving/paged.py, spec_paged.py), in their order of operations.
 
-    q [B, C, nh, hd] (C = 1 in decode); pages int8 [nkv, P, ps, hd]; scales
-    fp32 [nkv, P, ps, 1]; query c of row b sees slots < base_lengths[b] + c.
-    The key scale multiplies the scores after the contraction, the value
-    scale the softmax weights before theirs, as in ``_attention_q8`` of
-    models/llama.py. Returns [B, C, nh, hd] in q's dtype."""
+    q [B, C, nh, hd] (C = 1 in decode); pages [nkv, P, ps, hd]; query c of
+    row b sits at slot base_lengths[b] - 1 + c and sees the slots at or
+    before it and, with ``window`` (Mistral, Gemma-2's sliding layers), only
+    those after it minus the window. ``cap``: Gemma-2's attention softcap,
+    applied before the mask. int8 pools pass ``k_scales``/``v_scales`` fp32
+    [nkv, P, ps, 1]: the key scale multiplies the scores after the
+    contraction, the value scale the softmax weights before theirs, as
+    ``_attention_q8`` of models/llama.py. The softmax weights are rounded to
+    q's dtype before the product with V. Returns [B, C, nh, hd] in q's dtype."""
     b, c_len, nh, hd = q.shape
     nkv, _, ps, _ = k_pages.shape
     t_max = tables.shape[1] * ps
@@ -205,15 +215,21 @@ def paged_attention_q8_gather(q: torch.Tensor, k_pages: torch.Tensor, v_pages: t
         return out.repeat_interleave(nh // nkv, dim=1) if nh != nkv else out
 
     k_seq, v_seq = seq(k_pages), seq(v_pages)
-    ks_seq, vs_seq = seq(k_scales)[..., 0], seq(v_scales)[..., 0]  # [B, nh, T]
     scores = torch.einsum("bchd,bhtd->bhct", q.float(), k_seq.float()) * scale
-    scores = scores * ks_seq[:, :, None, :]
-    limit = (base_lengths.to(q.device).long()[:, None]
-             + torch.arange(c_len, device=q.device)[None, :])  # [B, C]
-    valid = torch.arange(t_max, device=q.device)[None, None, :] < limit[:, :, None]
+    if k_scales is not None:
+        scores = scores * seq(k_scales)[..., 0][:, :, None, :]
+    if cap is not None:
+        scores = cap * torch.tanh(scores / cap)
+    own = (base_lengths.to(q.device).long()[:, None] - 1
+           + torch.arange(c_len, device=q.device)[None, :])  # [B, C]
+    slot = torch.arange(t_max, device=q.device)[None, None, :]
+    valid = slot <= own[:, :, None]
+    if window is not None:
+        valid = valid & (slot > own[:, :, None] - window)
     scores = scores.masked_fill(~valid[:, None, :, :], float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    probs = probs * vs_seq[:, :, None, :].to(q.dtype)
+    if v_scales is not None:
+        probs = probs * seq(v_scales)[..., 0][:, :, None, :].to(q.dtype)
     return torch.einsum("bhct,bhtd->bchd", probs, v_seq.to(q.dtype))
 
 
@@ -240,7 +256,9 @@ def _check_cuda_args(q, k_pages, v_pages, lengths, tables) -> None:
     nkv = k_pages.shape[0]
     if k_pages.shape[3] != hd:
         raise ValueError(f"pages head_dim {k_pages.shape[3]} != q head_dim {hd}")
-    check_kernel_shape(nh, nkv, hd)
+    why = kernel_shape_error(nh, nkv, hd)
+    if why is not None:
+        raise NotImplementedError(why)
     if lengths.shape != (b,) or tables.dim() != 2 or tables.shape[0] != b:
         raise ValueError(f"lengths {tuple(lengths.shape)} / tables "
                          f"{tuple(tables.shape)} do not match batch {b}")

@@ -7,12 +7,24 @@ request finishes. :class:`ServingEngine` batches continuously: requests join
 mid-flight (prefill into fresh pages), finished rows retire and free their
 pages, and every decode step advances all live rows at once.
 
-Decode attention reads the pages in place through the page table with the
-CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention` (its plain version
-on CPU tensors). int8 pools (``quantized_kv``: int8 pages with one fp32 scale
-per page slot and head) take the gather route on every device, as in the JAX
-engine, whose kernels read fp pages only. The pools are updated in place; the
-JAX engine donated them to its jitted step instead.
+Decode attention takes one of two routes, chosen by :func:`paged_route`
+from the config, the table's capacity and the pool's dtype, as the JAX engine
+chooses: the CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention` (its
+plain version on CPU tensors), which reads the pages in place through the
+page table, or the gather route (``paged_attention_gather``) for what the
+kernel does not compute: int8 pools (``quantized_kv``: int8 pages with one
+fp32 scale per page slot and head), an attention softcap (Gemma-2), a
+sliding window shorter than the table (Mistral, Gemma-2), a head layout the
+kernel lacks (head_dim 256: Gemma). The pools are updated in place; the JAX
+engine donated them to its jitted step instead.
+
+- Sliding windows: each layer attends under its own window. When every layer
+  slides, a row's pages that every later query is masked from return to the
+  pool as it decodes (its table entry becomes the null page), generation pages
+  are allocated as the write position enters them, admission reserves each
+  row's peak (its prompt pages and a band of window / page_size + 2), and a
+  row whose next page the pool cannot give stalls (no emit, no decode, no
+  draw from its generator) until one frees: the rolling-buffer cache.
 
 - ``prefix_cache``: full prompt pages are content-hashed (a chained blake2b
   over the int32 token bytes) and shared between requests, refcounted; a hit
@@ -30,6 +42,7 @@ JAX engine donated them to its jitted step instead.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import time
 from collections import OrderedDict
@@ -45,24 +58,23 @@ from grasp_tpu_torch.models.llama import (
     ModelPlan,
     Params,
     _forward_with_cache,
-    _lm_logits,
     _quantize_kv,
     apply_rope,
     attention_scale,
     attn_mlp_residual,
-    check_supported,
     default_plan,
     embed_lookup,
+    final_logits,
     init_kv_cache,
+    norm,
     proj_apply,
-    rms_norm,
     rope_cos_sin,
     torch_dtype,
 )
 from grasp_tpu_torch.ops.paged_attention import (
-    check_kernel_shape,
+    kernel_shape_error,
     paged_attention,
-    paged_attention_q8_gather,
+    paged_attention_gather,
 )
 from grasp_tpu_torch.serving.guided import CompiledGrammar, token_bytes_of
 
@@ -158,6 +170,40 @@ class PagePool:
         return len(self._free) + len(self._evictable)
 
 
+def _full_layers(config: ModelConfig) -> bool:
+    """Whether any layer of a windowed config attends to every slot (Gemma-2
+    alternates sliding and full layers)."""
+    return config.layer_types is not None and any(
+        t != "sliding_attention" for t in config.layer_types)
+
+
+@functools.lru_cache(maxsize=None)
+def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype):
+    """("kernel" | "gather", reason): the attention route of every paged
+    decode and verify body over a table of ``capacity`` slots and pools of
+    ``pool_dtype``. The kernels (K3, K4) attend to every slot up to the
+    query's own, uncapped, over fp pages, at the head layouts they take; the
+    rest is the gather route, as in the JAX engine. A window of at least the
+    table's capacity masks nothing (slot > pos - w follows from slot <
+    capacity <= w), so it keeps the kernel."""
+    if pool_dtype == torch.int8:
+        return "gather", "int8 pages: no kernel reads them"
+    if config.attn_logit_softcapping is not None:
+        return "gather", (f"attention softcap {config.attn_logit_softcapping:g}: "
+                          "the kernels cannot cap")
+    windows = {config.layer_window(li) for li in range(config.num_hidden_layers)}
+    short = sorted(w for w in windows if w is not None and w < capacity)
+    if short:
+        return "gather", (f"a sliding window of {short[0]} slots is shorter than the "
+                          f"table's {capacity}")
+    why = kernel_shape_error(config.num_attention_heads, config.num_key_value_heads,
+                             config.head_dim_)
+    if why is not None:
+        return "gather", why
+    return "kernel", (f"fp pages, no softcap, every window covers the table's {capacity} "
+                      f"slots, head_dim {config.head_dim_}")
+
+
 def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
     """Build the one-token decode over the page pool.
 
@@ -166,9 +212,11 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
     sequence b's cache (the new token's slot). The new token's K/V are written
     into the pools in place before attention; dead rows (live=0) write slot 0
     of the null page 0 and attend over length 1. With the scale pools the
-    pages are int8: the token's K/V are quantized per head and attention takes
-    the gather route. The pools are arguments, so one body serves a second
-    pool (the draft's, in speculative serving)."""
+    pages are int8 and the token's K/V are quantized per head. Attention takes
+    :func:`paged_route`'s route for the table and pools of the call; each
+    layer's window bias and the softcap apply on the gather route. The pools
+    are arguments, so one body serves a second pool (the draft's, in
+    speculative serving)."""
     nh = config.num_attention_heads
 
     def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
@@ -187,11 +235,12 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
         phys = torch.where(alive, phys, 0)
         lengths = torch.where(alive, pos + 1, 1).to(torch.int32)
         scale = attention_scale(config)
+        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype)
 
         for li in range(config.num_hidden_layers):
             lp = params["layers"][li]
             kinds = dict(zip(PROJ_ORDER, plan[li]))
-            x = rms_norm(h, lp["input_layernorm"]["weight"], config.rms_norm_eps)
+            x = norm(h, lp["input_layernorm"]["weight"], config)
             ap = lp["self_attn"]
             # as in the JAX engine, the fused low-rank flag is not threaded
             # through: decode rows stay below that kernel's 256-row threshold
@@ -204,21 +253,25 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
             # [B] dim of (phys, offset) stays in place: the target is [nkv, B, hd]
             kw, vw = k[:, :, 0, :].transpose(0, 1), v[:, :, 0, :].transpose(0, 1)
             q1 = q[:, :, 0, :].to(h.dtype).contiguous()  # [B, nh, hd]
+            ks = vs = None
             if k_scales is not None:
                 (k_pages[li][:, phys, offset], k_scales[li][:, phys, offset]) = _quantize_kv(kw)
                 (v_pages[li][:, phys, offset], v_scales[li][:, phys, offset]) = _quantize_kv(vw)
-                attn = paged_attention_q8_gather(
-                    q1[:, None], k_pages[li], v_pages[li], k_scales[li], v_scales[li],
-                    lengths, tables, scale)[:, 0]
+                ks, vs = k_scales[li], v_scales[li]
             else:
                 k_pages[li][:, phys, offset] = kw.to(k_pages.dtype)
                 v_pages[li][:, phys, offset] = vw.to(v_pages.dtype)
+            if route == "kernel":
                 attn = paged_attention(q1, k_pages[li], v_pages[li], lengths, tables, scale)
+            else:
+                attn = paged_attention_gather(
+                    q1[:, None], k_pages[li], v_pages[li], lengths, tables, scale,
+                    window=config.layer_window(li), cap=config.attn_logit_softcapping,
+                    k_scales=ks, v_scales=vs)[:, 0]
             attn = proj_apply(attn.reshape(b, 1, nh * hd), ap["o_proj"], kinds["o_proj"])
             h = attn_mlp_residual(h, attn, lp, kinds, config)
 
-        h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
-        return _lm_logits(h, params)[:, 0, :]
+        return final_logits(h, params, config)[:, 0, :]
 
     return fn
 
@@ -310,7 +363,7 @@ class _Request:
     __slots__ = ("rid", "prompt", "pages", "pos", "out", "max_new", "done", "row",
                  "temperature", "top_k", "top_p", "seed", "generator", "finish", "logprobs",
                  "lp", "presence_penalty", "frequency_penalty", "repetition_penalty", "min_p",
-                 "logit_bias", "guided", "gstate")
+                 "logit_bias", "guided", "gstate", "freed_pages", "reserved")
 
     def __init__(self, rid, prompt, max_new, temperature=0.0, top_k=0, top_p=1.0, seed=0,
                  logprobs=0, presence_penalty=0.0, frequency_penalty=0.0,
@@ -338,6 +391,8 @@ class _Request:
         self.logit_bias = dict(logit_bias) if logit_bias else None
         self.guided = None      # CompiledGrammar while guided, else None
         self.gstate = 0         # the grammar DFA's current state
+        self.freed_pages = 0    # leading logical pages recycled (sliding window)
+        self.reserved = 0       # pages reserved against the pool (lazy allocation)
 
     @property
     def greedy(self) -> bool:
@@ -419,7 +474,13 @@ class ServingEngine:
     skipped the prefill). ``prefill_chunk`` (a positive multiple of
     ``page_size``): admission prefills that many tokens per step() while the
     live rows keep decoding. ``tokenizer`` maps token ids to bytes for
-    ``guided_regex``."""
+    ``guided_regex``. ``route`` is :func:`paged_route`'s (route, reason) for
+    the engine's table and pool.
+
+    When every layer slides (``_window_recycle``), rows recycle the pages
+    their later queries are masked from and allocate generation pages as
+    they reach them (``_lazy_pages``): a request may span more pages than the
+    pool holds, so long as its peak (:meth:`_bounded_need`) fits."""
 
     def __init__(self, params: Params, config: ModelConfig, plan: Optional[ModelPlan] = None,
                  *, device, num_pages: int = 64, page_size: int = 128, max_batch: int = 8,
@@ -429,16 +490,23 @@ class ServingEngine:
         if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % page_size):
             raise ValueError(f"prefill_chunk={prefill_chunk} must be a positive multiple "
                              f"of page_size={page_size}")
-        check_supported(config)
         self.params = params
         self.config = config
         self.plan = plan or default_plan(config)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not quantized_kv:  # int8 pools gather
-            check_kernel_shape(config.num_attention_heads, config.num_key_value_heads,
-                               config.head_dim_)
         self.pool = PagePool(config, num_pages, page_size, device=self.device,
                              quantized=quantized_kv)
+        self.route = paged_route(config, max_pages_per_seq * page_size, self.pool.k_pages.dtype)
+        # a full-attention layer reads every slot, so pages recycle only
+        # when every layer slides
+        self._window_recycle = None if _full_layers(config) else config.sliding_window
+        # windowed rows allocate generation pages as they reach them and
+        # reserve their peak at admission, so the pool is never overcommitted
+        # (rows admitted against free pages alone could exhaust it in
+        # lockstep before recycling starts, and all stall for good); an
+        # engine whose step does not stall (the speculative one) turns this off
+        self._lazy_pages = self._window_recycle is not None
+        self._reserved_pages = 0
         self.max_batch = max_batch
         self.max_pages_per_seq = max_pages_per_seq
         if eos_token_id is None:
@@ -524,8 +592,9 @@ class ServingEngine:
         if need > self.max_pages_per_seq:
             raise ValueError(
                 f"request needs {need} pages > max_pages_per_seq={self.max_pages_per_seq}")
-        if need > self.pool.num_pages - 1:  # page 0 is the reserved null page
-            raise ValueError(f"request needs {need} pages but the pool only has "
+        peak = self._bounded_need(len(flat), max_new_tokens)
+        if peak > self.pool.num_pages - 1:  # page 0 is the reserved null page
+            raise ValueError(f"request needs {peak} pages but the pool only has "
                              f"{self.pool.num_pages - 1} allocatable")
         self._rid += 1
         req = _Request(self._rid, prompt_ids, max_new_tokens, temperature, top_k, top_p,
@@ -554,6 +623,8 @@ class ServingEngine:
         for row, adm in list(self._admitting.items()):
             if adm.req.rid == rid:
                 del self._admitting[row]
+                self._reserved_pages -= adm.req.reserved
+                adm.req.reserved = 0
                 self.pool.free(adm.req.pages)
                 adm.req.pages = []
                 adm.req.done = True
@@ -658,8 +729,20 @@ class ServingEngine:
 
     # -- internals ----------------------------------------------------------
     def _pages_needed(self, prompt_len: int, max_new: int) -> int:
-        """Pages a request holds from admission to retirement."""
+        """Pages a request's table spans from admission to retirement."""
         return -(-(prompt_len + max_new) // self.pool.page_size)
+
+    def _bounded_need(self, prompt_len: int, max_new: int) -> int:
+        """Pages a request can ever hold at once: all it spans, or with lazy
+        allocation and recycling its prompt pages plus the band of
+        ceil(window / page_size) + 2 (the write page trails the first
+        unexpired one by less than window + page_size slots)."""
+        full = self._pages_needed(prompt_len, max_new)
+        if not self._lazy_pages:
+            return full
+        ps = self.pool.page_size
+        band = -(-self._window_recycle // ps) + 2
+        return min(full, -(-max(prompt_len, 1) // ps) + band)
 
     def _penalty_rows(self, reqs: List[Optional[_Request]]):
         """Per-row (min_p, presence, frequency, repetition, biased) of a
@@ -809,11 +892,19 @@ class ServingEngine:
                 shared.append(p)
             self.prefix_tokens_saved += len(shared) * ps
             self.prefix_tokens_total += s
+        # lazily allocated rows take their prompt's pages now, the rest as
+        # decoding reaches them
+        need = s_pad // ps if self._lazy_pages else self._pages_needed(s, req.max_new)
         try:
-            req.pages = shared + self.pool.alloc(self._pages_needed(s, req.max_new) - len(shared))
+            req.pages = shared + self.pool.alloc(need - len(shared))
         except MemoryError:
             self.pool.free(shared)  # give the cache's references back
             raise
+        if self._lazy_pages:
+            # reserved at once: a chunked admission spans steps, and other
+            # admissions must see this row's claim on the pool meanwhile
+            req.reserved = self._bounded_need(s, req.max_new)
+            self._reserved_pages += req.reserved
         if not req.greedy:
             req.generator = torch.Generator(device=self.device).manual_seed(req.seed)
         if req.penalized:
@@ -871,22 +962,41 @@ class ServingEngine:
         self._next_tok[row] = int(self._pick_tokens(logits[:, (s - 1) - f], [req])[0])
 
     def _admit_pending(self) -> None:
-        """Admit pending requests into free rows while pages suffice."""
+        """Admit pending requests into free rows while pages suffice: free
+        pages, or with lazy allocation the pages no admitted row has
+        reserved (every live row may still grow to its peak)."""
         for row in range(self.max_batch):
             if self._live[row] is None and row not in self._admitting and self._pending:
                 nxt = self._pending[0]
-                if self._pages_needed(len(nxt.prompt), nxt.max_new) > self.pool.free_pages:
+                need = self._bounded_need(len(nxt.prompt), nxt.max_new)
+                room = ((self.pool.num_pages - 1) - self._reserved_pages if self._lazy_pages
+                        else self.pool.free_pages)
+                if need > room:
                     break  # wait for pages to free up
                 self._admit(self._pending.pop(0), row)
 
-    def _batch_state(self):
-        """(tables [max_batch, pages_per_seq], pos, live) of the live rows,
-        int32 numpy."""
+    def _ensure_pages(self) -> set:
+        """Give each live row a page for its write slot; a row whose page the
+        pool cannot give now stalls this step. Returns the stalled rids."""
+        stalled = set()
+        for r in self._live:
+            if r is None:
+                continue
+            while len(r.pages) <= r.pos // self.pool.page_size:
+                if self.pool.free_pages == 0:
+                    stalled.add(r.rid)
+                    break
+                r.pages.extend(self.pool.alloc(1))
+        return stalled
+
+    def _batch_state(self, stalled=frozenset()):
+        """(tables [max_batch, pages_per_seq], pos, live) of the live rows
+        that are not ``stalled``, int32 numpy."""
         tables = np.zeros((self.max_batch, self.max_pages_per_seq), np.int32)
         pos = np.zeros(self.max_batch, np.int32)
         live = np.zeros(self.max_batch, np.int32)
         for r in self._live:
-            if r is None:
+            if r is None or r.rid in stalled:
                 continue
             tables[r.row, :len(r.pages)] = r.pages
             pos[r.row] = r.pos
@@ -899,14 +1009,15 @@ class ServingEngine:
             if self._admit_chunk(adm):
                 del self._admitting[row]
         self._admit_pending()
+        stalled = self._ensure_pages()
 
         # emit the token computed last step (or by prefill), check stops
         for r in list(self._live):
-            if r is None:
+            if r is None or r.rid in stalled:
                 continue
             self._emit(r, int(self._next_tok[r.row]))
 
-        tables, pos, live = self._batch_state()
+        tables, pos, live = self._batch_state(stalled)
         if not live.any():
             return
 
@@ -917,16 +1028,33 @@ class ServingEngine:
             self.pool.k_pages, self.pool.v_pages, torch.from_numpy(tables).to(dev),
             torch.from_numpy(pos).to(dev), torch.from_numpy(live).to(dev),
             self.pool.k_scales, self.pool.v_scales)
-        nxt = self._pick_tokens(logits, self._live)
+        # a stalled row draws nothing from its generator for a token it drops
+        nxt = self._pick_tokens(logits, [None if r is not None and r.rid in stalled else r
+                                         for r in self._live])
         self.decode_seconds += time.perf_counter() - t0
         self.decode_steps += 1
         for r in list(self._live):
-            if r is None:
+            if r is None or r.rid in stalled:
                 continue
             r.pos += 1
+            self._recycle_window_pages(r)
             self._next_tok[r.row] = nxt[r.row]
             if len(r.out) >= r.max_new:
                 self._retire(r)
+
+    def _recycle_window_pages(self, r: _Request) -> None:
+        """Return the pages every later query of the row is masked from: with
+        visibility slot > pos - window, logical page l expires once
+        (l + 1) * page_size - 1 <= pos - window; its table entry becomes the
+        null page (reads of it are masked, writes go to the current page)."""
+        w = self._window_recycle
+        if w is None:
+            return
+        exp = min(max(0, (r.pos - w + 1) // self.pool.page_size), len(r.pages))
+        for l in range(r.freed_pages, exp):
+            self.pool.free([r.pages[l]])
+            r.pages[l] = 0
+        r.freed_pages = max(r.freed_pages, exp)
 
     def _emit(self, req: _Request, tok: int) -> bool:
         """Append ``tok`` to the request's output, or retire the request on a
@@ -941,6 +1069,8 @@ class ServingEngine:
         return True
 
     def _retire(self, req: _Request) -> None:
+        self._reserved_pages -= req.reserved
+        req.reserved = 0
         self.pool.free(req.pages)
         req.pages = []
         req.done = True

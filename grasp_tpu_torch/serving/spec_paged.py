@@ -58,30 +58,28 @@ from grasp_tpu_torch.models.llama import (
     PROJ_ORDER,
     ModelPlan,
     Params,
-    _lm_logits,
     _quantize_kv,
     apply_rope,
     attention_scale,
     attn_mlp_residual,
     default_plan,
     embed_lookup,
+    final_logits,
+    norm,
     proj_apply,
-    rms_norm,
     rope_cos_sin,
 )
-from grasp_tpu_torch.ops.paged_attention import (
-    check_kernel_shape,
-    paged_attention_chunk,
-    paged_attention_q8_gather,
-)
+from grasp_tpu_torch.ops.paged_attention import paged_attention_chunk, paged_attention_gather
 from grasp_tpu_torch.serving.paged import (
     _MAX_TOP_K,
     PagePool,
     ServingEngine,
     _paged_decode_fn,
+    _full_layers,
     _Request,
     apply_penalties,
     mask_guided,
+    paged_route,
     sampled_rows,
     sampling_settings,
 )
@@ -97,12 +95,15 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
     the pools in place, then query i of row b attends to slots <= pos + i.
 
     The attention mirrors the plain engine's decode, so that greedy
-    speculation emits the stream the plain engine would: fp pools go through
+    speculation emits the stream the plain engine would: it takes
+    ``paged_route``'s route for the call, the kernel route through
     ``paged_attention_chunk`` (on CUDA the chunk kernel, row by row bit-equal
-    to the decode kernel; on CPU tensors its plain version), int8 pools
-    through the decode's gather route, the chunk's K/V quantized per position
-    exactly as the single-token scatter quantizes them. Dead rows (live=0)
-    write on the null page 0 and attend from a base length of 1."""
+    to the decode kernel; on CPU tensors its plain version), the gather route
+    through ``paged_attention_gather`` in its chunk form with each layer's
+    window and the softcap; int8 pools take the gather route, the chunk's
+    K/V quantized per position exactly as the single-token scatter quantizes
+    them. Dead rows (live=0) write on the null page 0 and attend from a base
+    length of 1."""
     nh = config.num_attention_heads
 
     def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
@@ -120,11 +121,12 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
         of = (positions % page_size).long().reshape(-1)
         base = torch.where(alive, pos + 1, 1).to(torch.int32)
         scale = attention_scale(config)
+        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype)
 
         for li in range(config.num_hidden_layers):
             lp = params["layers"][li]
             kinds = dict(zip(PROJ_ORDER, plan[li]))
-            x = rms_norm(h, lp["input_layernorm"]["weight"], config.rms_norm_eps)
+            x = norm(h, lp["input_layernorm"]["weight"], config)
             ap = lp["self_attn"]
             q = proj_apply(x, ap["q_proj"], kinds["q_proj"]).reshape(b, chunk, nh, hd).transpose(1, 2)
             k = proj_apply(x, ap["k_proj"], kinds["k_proj"]).reshape(b, chunk, nkv, hd).transpose(1, 2)
@@ -136,20 +138,25 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
             kw = k.permute(1, 0, 2, 3).reshape(nkv, b * chunk, hd)
             vw = v.permute(1, 0, 2, 3).reshape(nkv, b * chunk, hd)
             qc = q.transpose(1, 2).to(h.dtype).contiguous()  # [B, C, nh, hd]
+            ks = vs = None
             if k_scales is not None:
                 (k_pages[li][:, pf, of], k_scales[li][:, pf, of]) = _quantize_kv(kw)
                 (v_pages[li][:, pf, of], v_scales[li][:, pf, of]) = _quantize_kv(vw)
-                attn = paged_attention_q8_gather(qc, k_pages[li], v_pages[li], k_scales[li],
-                                                 v_scales[li], base, tables, scale)
+                ks, vs = k_scales[li], v_scales[li]
             else:
                 k_pages[li][:, pf, of] = kw.to(k_pages.dtype)
                 v_pages[li][:, pf, of] = vw.to(v_pages.dtype)
+            if route == "kernel":
                 attn = paged_attention_chunk(qc, k_pages[li], v_pages[li], base, tables, scale)
+            else:
+                attn = paged_attention_gather(qc, k_pages[li], v_pages[li], base, tables, scale,
+                                              window=config.layer_window(li),
+                                              cap=config.attn_logit_softcapping,
+                                              k_scales=ks, v_scales=vs)
             attn = proj_apply(attn.reshape(b, chunk, nh * hd), ap["o_proj"], kinds["o_proj"])
             h = attn_mlp_residual(h, attn, lp, kinds, config)
 
-        h = rms_norm(h, params["norm"]["weight"], config.rms_norm_eps)
-        return _lm_logits(h, params)
+        return final_logits(h, params, config)
 
     return fn
 
@@ -325,9 +332,15 @@ class SpeculativeServingEngine(ServingEngine):
         self.dconfig = draft_config
         self.dplan = draft_plan or default_plan(draft_config)
         quantized = self.pool.quantized  # int8 pages and scales in both pools
-        if self.device.type == "cuda" and not quantized:
-            check_kernel_shape(draft_config.num_attention_heads,
-                               draft_config.num_key_value_heads, draft_config.head_dim_)
+        # a physical page backs both pools, so it recycles only once every
+        # later query of target and draft is masked from it: both slide, in
+        # every layer; the step never stalls, so allocation stays upfront
+        self._window_recycle = None
+        if not any(c.sliding_window is None or _full_layers(c) for c in (config, draft_config)):
+            self._window_recycle = max(config.sliding_window, draft_config.sliding_window)
+        self._lazy_pages = False
+        self.draft_route = paged_route(draft_config, self.max_pages_per_seq * self.pool.page_size,
+                                       self.pool.k_pages.dtype)
         # the tables index both pools; pages are allocated, shared and freed
         # through self.pool alone, the draft pool's own allocator stays unused
         self.dpool = PagePool(draft_config, self.pool.num_pages, self.pool.page_size,
@@ -502,6 +515,7 @@ class SpeculativeServingEngine(ServingEngine):
             # the pending token, emitted at the top of the next step.
             # verify_in[0] was emitted at the top of this one.
             r.pos += a + 1
+            self._recycle_window_pages(r)
             self._next_tok[row] = int(corr[row])
             self._emit_all(r, drafts_h[row, :a].tolist())
 

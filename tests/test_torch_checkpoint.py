@@ -183,8 +183,11 @@ def test_load_model_presets_and_unported_sources(tmp_path):
     _assert_same(hf_params, map_params(params, lambda t: t.bfloat16()))
     with pytest.raises(FileNotFoundError):
         load_model("no-such-model", device="cpu")
-    with pytest.raises(NotImplementedError):
-        load_model("mistral-7b", device="cpu")  # sliding window
+    # a windowed (Mistral) directory, refused until the window was ported,
+    # loads with its window
+    save_hf_checkpoint(params, dataclasses.replace(config, sliding_window=16),
+                       str(tmp_path / "mistral"), model_type="mistral")
+    assert load_model(str(tmp_path / "mistral"), device="cpu")[0].sliding_window == 16
 
 
 def test_the_port_never_imports_jax():

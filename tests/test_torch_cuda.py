@@ -117,14 +117,15 @@ def _out_and_grads(fn, q, k, v, groups, scale):
 
 
 def test_flash_kernels_match_plain(dev):
-    """Forward and the three gradients of sum(o ** 2): head dims 64, 96 and 128,
-    group sizes 1 to 8, lengths 1, tile +- 1 and ragged, a batch of 3, scales
+    """Forward and the three gradients of sum(o ** 2): head dims 64, 96, 128 and
+    256, group sizes 1 to 8, lengths 1, tile +- 1 and ragged, a batch of 3, scales
     other than hd ** -0.5, fp32 and bf16. Gradients are held to 2e-2 of the
     plain gradient's max (the JAX package's gate for its TPU kernels)."""
     for b, nh, nkv, s, hd, scale in ((1, 8, 2, 1, 64, 0.125), (3, 4, 4, 63, 64, 0.125),
                                      (1, 8, 1, 64, 64, 0.3), (2, 8, 2, 65, 128, 0.05),
                                      (1, 16, 4, 300, 64, 0.125), (1, 4, 2, 257, 128, 128 ** -0.5),
-                                     (1, 4, 4, 130, 96, 96 ** -0.5), (2, 8, 2, 65, 96, 0.2)):
+                                     (1, 4, 4, 130, 96, 96 ** -0.5), (2, 8, 2, 65, 96, 0.2),
+                                     (1, 8, 1, 97, 256, 256 ** -0.5), (2, 4, 4, 33, 256, 0.2)):
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _flash_case(dev, dtype, b, nh, nkv, s, hd)
             got = _out_and_grads(flash_attention, q, k, v, nh // nkv, scale)

@@ -52,11 +52,13 @@ def _assert_grads_close(got, want, rtol):
     (1, 2, 1, 1, 64, 64 ** -0.5),    # a single position sees one key
     (1, 2, 2, 40, 96, 96 ** -0.5),   # Phi-3's head_dim, no grouping
     (1, 4, 2, 70, 96, 0.2),          # head_dim 96 in groups of 2
+    (1, 4, 1, 40, 256, 256 ** -0.5),  # Gemma's head_dim, one kv head
+    (2, 2, 2, 17, 256, 0.2),         # head_dim 256, no grouping, a batch of 2
 ])
 def test_plain_version_matches_the_jax_reference_and_its_gradients(b, nh, nkv, s, hd, scale):
-    """At head_dim 96 the Pallas kernels themselves are held too, in TPU
-    interpret mode (forward and gradients; lengths that are not a multiple
-    of their blocks)."""
+    """At head_dim 96 and 256 the Pallas kernels themselves are held too, in
+    TPU interpret mode (forward and gradients; lengths that are not a
+    multiple of their blocks)."""
     q, k, v = _inputs(b, nh, nkv, s, hd)
     groups = nh // nkv
     out, grads = _torch_out_and_grads(q, k, v, groups, scale)
@@ -70,7 +72,7 @@ def test_plain_version_matches_the_jax_reference_and_its_gradients(b, nh, nkv, s
             np.testing.assert_allclose(g, np.asarray(w), atol=1e-5, rtol=0)
     else:
         _assert_grads_close(grads, want_grads, 1e-4)
-    if hd == 96:
+    if hd in (96, 256):
         with pltpu.force_tpu_interpret_mode():
             kernel = jpa.flash_attention(jq, jk, jv, groups, scale)
             kernel_grads = jax.grad(lambda *a: (jpa.flash_attention(*a, groups, scale) ** 2).sum(),

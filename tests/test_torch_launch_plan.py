@@ -9,7 +9,7 @@ import itertools
 import pytest
 import torch
 
-from grasp_tpu_torch.ops.flash_attention import flash_bwd_plan, flash_fwd_plan
+from grasp_tpu_torch.ops.flash_attention import flash_bwd_plan, flash_fwd_plan, out_cols
 from grasp_tpu_torch.ops.lowrank import (
     MAX_CLUSTER, TILE_M, TILE_N, lowrank_plan, lowrank_plans, pick_splits, rank_chunks)
 
@@ -88,9 +88,12 @@ def test_lowrank_plans_chunk_ranks_above_256():
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_flash_plan_grid_covers_every_query_row_once(dtype):
     for s, hd, bnh in itertools.product((1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1000, 2047),
-                                        (64, 96, 128), ((1, 32), (2, 8), (1, 4))):
+                                        (64, 96, 128, 256), ((1, 32), (2, 8), (1, 4))):
         plan = flash_fwd_plan(*bnh, s, hd, dtype)
         assert plan.grid == (-(-s // plan.block_m), bnh[0] * bnh[1])
+        # the column blocks split every output column once (bf16 at hd 256: halves)
+        assert plan.col_blocks * out_cols(hd, dtype) == hd
+        assert plan.col_blocks == (2 if hd == 256 and dtype == torch.bfloat16 else 1)
         assert (plan.grid[0] - 1) * plan.block_m < s <= plan.grid[0] * plan.block_m
         assert 0 < plan.smem_bytes <= MAX_SMEM
 
@@ -111,12 +114,13 @@ def test_flash_plan_of_each_body():
 
 def test_flash_backward_plans_cover_every_row_and_key_once():
     """bf16: dQ blocks of 64 query rows and dK/dV blocks of 64 keys, both over
-    (batch * heads, tiles), steps of 64 at hd 64 and 32 at hd 96 and 128, a workspace
-    of every q head's fp32 dK and dV, a group sum of 4 values a thread. fp32
-    keeps the CUDA-core bodies' 64-row tiles, dK/dV over (tiles, batch * kv
-    heads) and no workspace."""
+    (batch * heads, tiles), steps of 64 at hd 64 and 32 above, a workspace
+    of every q head's fp32 dK and dV, a group sum of 4 values a thread; at hd
+    256 two column blocks of 128. fp32 keeps the CUDA-core bodies' 64-row
+    resident tiles (streamed ones of 32 rows at hd 256), dK/dV over (tiles,
+    batch * kv heads) and no workspace."""
     for s, hd, (b, nh, nkv) in itertools.product((1, 63, 64, 65, 511, 1024, 2047),
-                                                 (64, 96, 128),
+                                                 (64, 96, 128, 256),
                                                  ((1, 32, 4), (2, 8, 2), (1, 4, 4), (1, 32, 8))):
         tiles = -(-s // 64)
         bf16 = flash_bwd_plan(b, nh, nkv, s, hd, torch.bfloat16)
@@ -129,9 +133,12 @@ def test_flash_backward_plans_cover_every_row_and_key_once():
         assert bf16.workspace_bytes == 2 * b * nh * s * hd * 4
         assert bf16.reduce_blocks * bf16.reduce_threads * 4 >= b * nkv * s * hd
         assert (bf16.reduce_blocks - 1) * bf16.reduce_threads * 4 < b * nkv * s * hd
-        assert max(bf16.dq_smem_bytes, bf16.dkv_smem_bytes) <= MAX_SMEM // 3  # 3 blocks an SM
+        # 3 blocks an SM up to hd 128, one at 256
+        assert max(bf16.dq_smem_bytes, bf16.dkv_smem_bytes) <= MAX_SMEM // (1 if hd == 256 else 3)
+        assert bf16.col_blocks * out_cols(hd, torch.bfloat16) == hd
         f32 = flash_bwd_plan(b, nh, nkv, s, hd, torch.float32)
         assert (f32.dq_grid, f32.dkv_grid) == ((tiles, b * nh), (tiles, b * nkv))
+        assert f32.dq_block_n == f32.dkv_block_m == (32 if hd == 256 else 64)
         assert (f32.workspace_bytes, f32.reduce_blocks) == (0, 0)
         assert 0 < max(f32.dq_smem_bytes, f32.dkv_smem_bytes) <= MAX_SMEM
     cal = flash_bwd_plan(1, 32, 4, 2047, 64, torch.bfloat16)

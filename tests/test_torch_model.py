@@ -120,12 +120,24 @@ def test_prefill_and_decode_match_jax(models, which):
 
 
 def test_unported_architecture_features_raise():
-    for overrides in ({"attn_logit_softcapping": 50.0}, {"final_logit_softcapping": 30.0},
-                      {"sliding_window": 16}, {"norm_plus_one": True}, {"sandwich_norms": True}):
+    """The family features that once raised here (softcaps, a sliding window,
+    Gemma's (1+w) norms and embedding scale, Gemma-2's sandwich norms) now
+    build and give grasp_tpu's logits on the same weights; the fused
+    low-rank flag and MoE layers build too."""
+    ids = np.random.default_rng(9).integers(0, 256, (2, 12))
+    for overrides in ({"attn_logit_softcapping": 0.2}, {"final_logit_softcapping": 3.0},
+                      {"sliding_window": 4}, {"norm_plus_one": True, "scale_embeddings": True},
+                      {"sandwich_norms": True}):
         config = small_config(**overrides)
-        with pytest.raises(NotImplementedError):
-            tl.LlamaModel(config, device="cpu", generator=torch.Generator().manual_seed(0))
-    # the fused low-rank flag and MoE layers are ported: the model builds with them
+        model = tl.LlamaModel(config, device="cpu", generator=torch.Generator().manual_seed(0))
+        if config.norm_plus_one:  # zero-initialised, an effective scale of 1, as in JAX
+            assert not model.params["norm"]["weight"].any()
+        if config.sandwich_norms:
+            assert "pre_feedforward_layernorm" in model.params["layers"][0]
+        jp = jl.init_params(jax.random.PRNGKey(1), config)
+        want = np.asarray(jl.forward(jp, jnp.asarray(ids), config=config)["logits"])
+        got = tl.forward(to_port(jp), torch.from_numpy(ids), config=config)["logits"]
+        np.testing.assert_allclose(got.numpy(), want, atol=TOL, rtol=0, err_msg=str(overrides))
     tl.LlamaModel(small_config(use_pallas_lowrank=True), device="cpu",
                   generator=torch.Generator().manual_seed(0))
     moe = tl.LlamaModel(small_config(num_local_experts=4), device="cpu",
@@ -134,6 +146,9 @@ def test_unported_architecture_features_raise():
 
 
 def test_unported_paths_raise(models):
+    """The hybrid projection kind and quantized low-rank experts still raise;
+    longrope, which raised here before, gives grasp_tpu's tables in both
+    regimes."""
     config, trees = models
     tp = to_port(trees["dense"][0])
     x = torch.zeros(1, config.hidden_size)
@@ -146,10 +161,16 @@ def test_unported_paths_raise(models):
                                "w1_b": torch.zeros(2, 1, 8)}}
     with pytest.raises(NotImplementedError):
         quantize_model_weights({"layers": [dict(tp["layers"][0], moe=lowrank_moe)]})
-    with pytest.raises(NotImplementedError):
-        tl.rope_cos_sin(torch.arange(4), 64, 1e4, scaling={
-            "rope_type": "longrope", "short_factor": [1.0], "long_factor": [1.0],
-            "original_max_position_embeddings": 8})
+    rng = np.random.default_rng(3)
+    scaling = {"rope_type": "longrope", "short_factor": (1 + rng.random(32)).tolist(),
+               "long_factor": (2 + rng.random(32)).tolist(),
+               "original_max_position_embeddings": 8, "max_position_embeddings": 64}
+    for s in (8, 20):  # short factors, then long ones (position 8 and beyond)
+        pos = np.arange(s)[None]
+        got = tl.rope_cos_sin(torch.from_numpy(pos), 64, 1e4, scaling=scaling)
+        want = jl.rope_cos_sin(jnp.asarray(pos), 64, 1e4, scaling=scaling)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-6, rtol=0)
     # on CPU tensors the fused low-rank flag is inert, as in the JAX package
     ids = torch.zeros(1, 4, dtype=torch.long)
     torch.testing.assert_close(

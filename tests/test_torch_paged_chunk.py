@@ -19,7 +19,7 @@ from grasp_tpu_torch.models.llama import _quantize_kv
 from grasp_tpu_torch.ops.paged_attention import (
     paged_attention_chunk,
     paged_attention_chunk_reference,
-    paged_attention_q8_gather,
+    paged_attention_gather,
     paged_attention_reference,
 )
 
@@ -123,16 +123,15 @@ def test_wrapper_takes_the_plain_version_only_on_cpu_and_refuses_bad_shapes():
 def test_cuda_argument_checks_refuse_what_the_kernel_does_not_take():
     """The checks that run before a launch, on CPU tensors: head_dim, group
     size, dtypes and shapes the kernels do not take raise."""
-    from grasp_tpu_torch.ops.paged_attention import _check_cuda_args, check_kernel_shape
+    from grasp_tpu_torch.ops.paged_attention import _check_cuda_args, kernel_shape_error
 
     q, k, v, base, tables = _torch(_inputs(4, 2, 3, [3, 20], seed=6))
     _check_cuda_args(q, k, v, base, tables)  # the chunk form passes
-    with pytest.raises(NotImplementedError):
-        check_kernel_shape(4, 2, 80)
-    with pytest.raises(NotImplementedError):
-        check_kernel_shape(34, 2, 64)  # a group of 17 at head_dim 64
-    with pytest.raises(NotImplementedError):
-        check_kernel_shape(34, 2, 128)  # a group of 17 at head_dim 128
+    assert "head_dim" in kernel_shape_error(4, 2, 80)
+    assert "group" in kernel_shape_error(34, 2, 64)  # a group of 17 at head_dim 64
+    assert "group" in kernel_shape_error(34, 2, 128)  # a group of 17 at head_dim 128
+    with pytest.raises(NotImplementedError, match="head_dim"):
+        _check_cuda_args(*_torch(_inputs(4, 2, 3, [3, 20], seed=6, hd=80)))
     with pytest.raises(TypeError):
         _check_cuda_args(q.half(), k.half(), v.half(), base, tables)
     with pytest.raises(TypeError):
@@ -148,7 +147,7 @@ def test_int8_gather_route_matches_dequantized_pools():
     weights) against the plain chunk version on the dequantized pools."""
     q, k, v, base, tables = _torch(_inputs(4, 2, 3, [2, 9, 26], seed=8))
     (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
-    got = paged_attention_q8_gather(q, k8, v8, ks, vs, base, tables, 0.125)
+    got = paged_attention_gather(q, k8, v8, base, tables, 0.125, k_scales=ks, v_scales=vs)
     want = paged_attention_chunk_reference(q, k8.float() * ks, v8.float() * vs, base, tables,
                                            0.125)
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)

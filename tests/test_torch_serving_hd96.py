@@ -15,7 +15,7 @@ import pytest
 from grasp_tpu.ops.quant import quantize_model_weights as j_quantize
 from grasp_tpu.serving import ServingEngine as JaxEngine
 from grasp_tpu.serving.spec_paged import SpeculativeServingEngine as JaxSpecEngine
-from grasp_tpu_torch.ops.paged_attention import check_kernel_shape
+from grasp_tpu_torch.ops.paged_attention import kernel_shape_error
 from grasp_tpu_torch.ops.quant import quantize_model_weights
 from grasp_tpu_torch.serving.paged import ServingEngine
 from grasp_tpu_torch.serving.spec_paged import SpeculativeServingEngine
@@ -49,13 +49,11 @@ def _run(engine, prompts, max_new, **kw):
 def test_the_kernels_take_phi3_mini_heads():
     """Phi-3-mini-4k's 32 MHA heads of 96 and a group of 16 at every head_dim
     pass the kernels' shape check; head_dim 80 and a group of 17 do not."""
-    check_kernel_shape(32, 32, 96)
+    assert kernel_shape_error(32, 32, 96) is None
     for hd in (64, 96, 128):
-        check_kernel_shape(32, 2, hd)
-        with pytest.raises(NotImplementedError):
-            check_kernel_shape(34, 2, hd)
-    with pytest.raises(NotImplementedError):
-        check_kernel_shape(32, 32, 80)
+        assert kernel_shape_error(32, 2, hd) is None
+        assert "group of at most 16" in kernel_shape_error(34, 2, hd)
+    assert "not 80" in kernel_shape_error(32, 32, 80)
 
 
 @pytest.mark.parametrize("lens,max_batch", [([5, 17, 40, 70], 4), ([9, 3, 30, 12, 50], 2)],
