@@ -117,16 +117,17 @@ Phases, each of which raises on failure (exit code != 0):
    sequential run; the fp32 export read back torch.equal to the merged
    params; ``grasp-serve-torch`` on the export (K3 once per layer per decode
    step, tokens against a teacher-forced plain forward).
-13. Phi-3-mini-4k at full width and depth (32 layers, hidden 3072, 32 heads
-   of 96; random weights from a seed) through an HF directory with fused
+13. Phi-3-mini-4k at full width (hidden 3072, 32 heads of 96; 8 of its 32
+   layers in the whole run, all 32 under ``--only phi3serve`` and ``--only
+   hf``; random weights from a seed) through an HF directory with fused
    qkv_proj / gate_up_proj: the import torch.equal to the unfused weights,
    ``grasp-compress-torch`` with 16 rows of 2047 tokens through K1f, K1k and
    K1q at head_dim 96 (launches, ranks, one round's gradients by route), the
    merged bf16 export re-imported, and ``windowed_perplexity`` of it over 8
    windows with the flash route against plain. Before the export, the
    compressed checkpoint is served by ``grasp-serve-torch`` as in 5 (K3 at
-   head_dim 96, 32 launches a decode step) and with ``--speculative int8
-   --gamma 4`` as in 8 (K4, 32 launches a macro-step); after it, the export
+   head_dim 96, a launch a layer a decode step) and with ``--speculative int8
+   --gamma 4`` as in 8 (K4, a launch a layer a macro-step); after it, the export
    is served with ``--chat_template phi3`` and the byte-level tokenizer: chat
    completions unstreamed and streamed, n = 2, logprobs, a stop string and
    /metrics.
@@ -173,7 +174,8 @@ Phases, each of which raises on failure (exit code != 0):
    tied head) through K1f, K1k and K1q at head_dim 256, the gradients by
    route against fp32, served plain and with ``--quantize int4`` through the
    gather route (K3 0), its merged export re-imported and its perplexity
-   flash against plain; (b) Mistral-7B (32 layers, window 4096) served
+   flash against plain; (b) Mistral-7B (window 4096; 8 of its 32 layers in
+   the whole run, all 32 under ``--only families``) served
    over a table its window covers (K3, K4 under ``--speculative int8``), the
    same requests and one prompt of 6000 tokens over 8192 slots (the gather
    route, live pages at most ceil(4096 / 128) + 2), in bf16 and its export
@@ -182,6 +184,19 @@ Phases, each of which raises on failure (exit code != 0):
    (c) Gemma-2-9B (4 of 42 layers: softcaps, alternating windows; no K1)
    with one prompt past its window, plain and speculative, on the gather
    route.
+17. The device mesh (parallel/): K1f, K1k, K1q, K3 and K4 against their
+   plain versions at a rank's shapes under ``--tp 2`` (16 query heads over 2
+   KV heads); TinyLlama-1.1B at full width and depth compressed by
+   ``grasp-compress-torch``'s flags with ``--dp 2 --tp 2`` on four ranks
+   that share the card (gloo; two calibration rows a batch, one a data rank)
+   against the same flags on one rank: layers and ranks equal, every
+   selected index equal or a near tie printed and explained, each rank's
+   flash launches as derived, the gathered checkpoint's dense tensors
+   bit-equal; recovery in fp32 on the same mesh against one process (losses
+   within MESH_LOSS_RTOL, replicated tensors bit-equal on every rank); the
+   compressed checkpoint served TP-2 through the engine API, plain (K3, 22
+   launches a decode step on each rank) and with an int8 draft at gamma 4
+   (K4, 22 a macro-step), held to the single-process teacher-forced forward.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
@@ -189,11 +204,12 @@ and paged kernels' times at head_dim 96 under "hd96", at 128 under "hd128",
 the flash kernels' at 256 under "hd256");
 then the card's line; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX, of grasp_tpu or of safetensors. ``--only
-flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families``
+flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh``
 runs one part while developing and prints no result lines (phi3serve: the
 paged kernels at head_dim 96 and phase 13 with its serving; features: phase
 14 alone; mixtral: the paged kernels and the flash timing at head_dim 128,
-then phase 15; families: the flash timing at head_dim 256, then phase 16).
+then phase 15; families: the flash timing at head_dim 256, then phase 16;
+mesh: phase 17).
 """
 
 import argparse
@@ -3548,6 +3564,9 @@ def phase_recover(torch, card, dev, ckpt_root, compress_launches):
 # CLI from there, exported and read back
 HF_SHARDS = 2
 PHI3_SEED = 42
+# Phi-3-mini-4k's depth in the whole smoke (its time limit); --only phi3serve
+# and --only hf run all 32 layers
+PHI3_LAYERS = 8
 PHI3_ARGS = ["--dataset_name", "synthetic", "--num_prune_layers", "2", "--compression_ratio",
              "0.9", "--num_samples", "16", "--seq_len", "2048", "--dtype", "bfloat16"]
 
@@ -3812,7 +3831,7 @@ def serve_phi3_endpoints(torch, card, dev, export):
     return launches
 
 
-def phase_phi3(torch, card, dev):
+def phase_phi3(torch, card, dev, layers=None):
     """Phi-3-mini-4k (32 layers, hidden 3072, 32 heads of 96) at full width
     and depth through an HF directory: the preset's random weights (bf16,
     seed PHI3_SEED) written with fused qkv_proj / gate_up_proj in two shards,
@@ -3849,6 +3868,8 @@ def phase_phi3(torch, card, dev):
     try:
         hf_dir, ck, export = (os.path.join(root, name) for name in ("hf", "ck", "export"))
         config = dataclasses.replace(ModelConfig.phi3_mini_4k(), dtype="bfloat16")
+        if layers:  # the whole smoke's depth (its time limit); --only phi3serve|hf: 32
+            config = dataclasses.replace(config, num_hidden_layers=layers)
         params = init_params(torch.Generator(device=dev).manual_seed(PHI3_SEED), config,
                              device=dev)
         # the input directory and the port checkpoint at once, then the
@@ -4225,6 +4246,8 @@ GEMMA2_LAYERS = 4
 # kernels) and the longer one (64 pages: the gather route), with one prompt of
 # 6000 tokens and 256 new ones; Gemma-2's long prompt passes its window
 MISTRAL_KERNEL_PAGES = 32
+# Mistral-7B's depth in the whole smoke (its time limit; --only families runs 32)
+MISTRAL_LAYERS = 8
 MISTRAL_LONG = (64, 6000, 256)
 GEMMA2_LONG = (40, 4500, 32)
 
@@ -4352,7 +4375,7 @@ def _serve_long(torch, card, dev, label, params, config, plan, table_pages, prom
     return out, max_live
 
 
-def phase_families(torch, card, dev):
+def phase_families(torch, card, dev, mistral_layers=None):
     """Phase 16: the families of P9 at full width, through HF directories of
     their ``model_type`` and the entry points.
 
@@ -4372,6 +4395,7 @@ def phase_families(torch, card, dev):
     pages bounded by the window); then its export served in fp32, the same
     requests through K3's fp32 body and the long row. bf16 tokens beyond
     GAP_TOL of the bf16 forward are held to its fp32 twin (hold_to_plain).
+    ``mistral_layers``: Mistral's depth where the whole smoke cuts it.
     (c) Gemma-2-9B (GEMMA2_LAYERS layers, hidden 3584, 16 over 8 heads of 256,
     softcaps 50 and 30, query_pre_attn_scalar 256): compressed (no K1: the
     softcap), and one prompt longer than its window served plain and
@@ -4478,6 +4502,8 @@ def phase_families(torch, card, dev):
     root = tempfile.mkdtemp(prefix="smoke_mistral_", dir=os.path.join(ROOT, "build"))
     try:
         config = dataclasses.replace(ModelConfig.mistral_7b(), dtype="bfloat16")
+        if mistral_layers:  # the whole smoke's depth (its time limit); --only families: 32
+            config = dataclasses.replace(config, num_hidden_layers=mistral_layers)
         params, ck, meta, launches = _family_compressed(torch, card, dev, root, "mistral-7b",
                                                         config, "mistral")
         add(launches)
@@ -4579,6 +4605,271 @@ def phase_families(torch, card, dev):
     return total, served
 
 
+# phase 17, the device mesh: TinyLlama-1.1B compressed with phase_compress's
+# flags on 2 x 2 ranks that share the card (gloo), two calibration rows a
+# batch so that each data rank runs one; its single-process twin takes the
+# same flags on one rank
+MESH_SHAPE = (2, 2)
+MESH_COMPRESS = ["--batch_size", "2"]
+# the fp32 recovery on the mesh: its losses against one process's, relative
+# (the sharded products sum in another order: measured 1e-7 at the CPU
+# tests' size, tests/test_torch_parallel_train.py holds rtol 1e-5 there)
+MESH_LOSS_RTOL = 1e-4
+MESH_RECOVER_MICRO = 6  # micro-batches of 4 rows of up to 256 tokens, accumulation 2
+MESH_PROMPT_LENS = (70, 130, 300, 600)
+MESH_MAX_TOKENS = 16
+MESH_TIMEOUT_S = 900
+
+
+def _mesh_compress_rank(mesh, argv):
+    """One rank of ``grasp-compress-torch --dp --tp`` (the CLI's rank
+    function, which its launcher runs), with this rank's flash launches:
+    the counters live in each rank's process and start at 0 there."""
+    from grasp_tpu_torch.cli import _compress_parser, _compress_rank
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+
+    record = _compress_rank(mesh, _compress_parser().parse_args(argv), None)
+    return {**record, "rank": mesh.rank, "flash": dict(flash_attention.launches)}
+
+
+def _mesh_kernels_at_local_shapes(torch, dev):
+    """K1f/K1k/K1q, K3 and K4 at a rank's shapes under --tp 2 (16 query
+    heads over 2 KV heads of TinyLlama's 32 over 4) against their plain
+    versions: returns the worst errors."""
+    from grasp_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
+
+    gen = torch.Generator(device=dev).manual_seed(1717)
+    nh, nkv, hd = 16, 2, 64
+    q, k, v = _flash_inputs(torch, gen, dev, torch.bfloat16, 1, nh, nkv, 2047, hd)
+    got = _fwd_bwd(flash_attention, q, k, v, nh // nkv, hd ** -0.5)
+    want = _fwd_bwd(flash_attention_reference, q, k, v, nh // nkv, hd ** -0.5)
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    rel = [e / max(w.float().abs().max().item(), 1e-30) for e, w in zip(errs[1:], want[1:])]
+    pq, pk, pv, lens, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd, 128,
+                                           16, 160, [70, 130, 300, 600, 1000, 1500, 2047, 0])
+    paged = paged_attention(pq, pk[0], pv[0], lens, tables, hd ** -0.5)
+    paged_err = (paged.float() - paged_attention_reference(
+        pq, pk[0], pv[0], lens, tables, hd ** -0.5).float()).abs().max().item()
+    cq = torch.randn(8, SPEC_GAMMA + 1, nh, hd, generator=gen, device=dev).bfloat16()
+    chunk_err, unequal = _chunk_compare(torch, cq, pk[0], pv[0], lens - 1, tables, hd ** -0.5)
+    print(f"mesh: kernels at a rank's shapes (bf16, {nh} query heads over {nkv} KV heads of "
+          f"{hd}): flash fwd max_abs_err {errs[0]:.3e} (tol {TOL['bfloat16']}), dq/dk/dv over "
+          f"the plain gradient's max {[f'{r:.3e}' for r in rel]} (tol {FLASH_GRAD_RTOL}); paged "
+          f"decode {paged_err:.3e}, chunk {chunk_err:.3e} (tol {TOL['bfloat16']}), chunk rows "
+          f"unlike the decode kernel's {unequal}")
+    if (errs[0] > TOL["bfloat16"] or max(rel) > FLASH_GRAD_RTOL or paged_err > TOL["bfloat16"]
+            or chunk_err > TOL["bfloat16"] or unequal):
+        raise AssertionError("mesh: a kernel disagrees with its plain version at a rank's shape")
+    return {"fwd": errs[0], "dq": errs[1], "dkv": max(errs[2:]), "paged": paged_err,
+            "chunk": chunk_err}
+
+
+def _hold_selection(one, mesh):
+    """The mesh run's selection against the single process's, module by
+    module. The kept set must be equal, or each index kept by one run alone
+    a near tie with one kept by the other alone: their saliencies in the
+    single run no further apart than the largest saliency difference between
+    the two runs on that matrix. Indices kept by both in another order keep
+    the same singular directions (the factors' columns are permuted) and are
+    counted. Returns (swaps across the boundary, order differences), printed."""
+    import numpy as np
+
+    swaps, reordered = [], 0
+    if set(one["indices"]) != set(mesh["indices"]):
+        raise AssertionError("mesh: another set of modules was selected")
+    for name, want in one["indices"].items():
+        got, want = np.asarray(mesh["indices"][name]), np.asarray(want)
+        imp, imp_mesh = one["importances"][name], mesh["importances"][name]
+        drift = float(np.abs(imp - imp_mesh).max())
+        dropped = sorted(set(want.tolist()) - set(got.tolist()), key=lambda i: -imp[i])
+        added = sorted(set(got.tolist()) - set(want.tolist()), key=lambda i: -imp[i])
+        if not dropped:
+            reordered += int((got != want).sum())
+        for a, b in zip(dropped, added):
+            gap = abs(float(imp[a] - imp[b]))
+            swaps.append((name, a, b, gap, drift))
+            print(f"mesh: near tie in {name}: {a} kept by the single run, {b} by the mesh, "
+                  f"saliencies {gap:.3e} apart in the single run, the runs' largest "
+                  f"difference {drift:.3e}")
+            if gap > drift:
+                raise AssertionError(f"mesh: {name}: {b} kept for {a}, beyond a near tie")
+    print(f"mesh: selection: {len(swaps)} indices kept by one run alone (near ties), "
+          f"{reordered} positions that hold another kept index (the same set, reordered)")
+    return swaps, reordered
+
+
+def phase_mesh(torch, card, dev):
+    """Phase 17: the device mesh. The kernels at a rank's shapes; then
+    TinyLlama-1.1B at full width and depth compressed by ``grasp-compress-torch
+    --dp 2 --tp 2`` on four ranks that share the card (K1f, K1k, K1q on each
+    rank's heads) against the same flags on one rank: layers, ranks, indices
+    (near ties explained), each rank's flash launches as derived, the gathered
+    checkpoint's dense tensors bit-equal; recovery in fp32 on the same mesh
+    against one process (losses, replicated tensors bit-equal across ranks);
+    TP-2 serving of the compressed checkpoint through the engine API (K3 per
+    decode step, K4 per macro-step, on each rank), held to the single-process
+    teacher-forced forward. Returns the kernels' errors and the launches
+    summed over the ranks."""
+    import dataclasses
+
+    import numpy as np
+
+    from grasp_tpu_torch.checkpoints import load_checkpoint
+    from grasp_tpu_torch.cli import _compress_parser, compress_run, recovery_batches
+    from grasp_tpu_torch.data.loader import get_calibration_batches
+    from grasp_tpu_torch.data.tokenizer import load_tokenizer
+    from grasp_tpu_torch.models.convert import flatten_params, map_params
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+    from grasp_tpu_torch.parallel import launch
+    from grasp_tpu_torch.parallel.workers import run_cases
+    from grasp_tpu_torch.train.recover import recovery_train
+
+    t_phase = time.perf_counter()
+    errs = _mesh_kernels_at_local_shapes(torch, dev)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_mesh_", dir=os.path.join(ROOT, "build"))
+    try:
+        argv = COMPRESS_ARGS + MESH_COMPRESS
+        one_root, mesh_root = os.path.join(root, "one"), os.path.join(root, "mesh")
+        for name in flash_attention.launches:
+            flash_attention.launches[name] = 0
+        t0 = time.perf_counter()
+        one = compress_run(argv + ["--save_path", one_root, "--device", str(dev)])
+        one_wall = time.perf_counter() - t0
+        one_flash = dict(flash_attention.launches)
+        torch.cuda.empty_cache()
+        dp, tp = MESH_SHAPE
+        print(f"mesh: grasp-compress-torch {' '.join(argv)} --dp {dp} --tp {tp} "
+              f"(single-process twin: {one_wall:.1f} s, flash launches {one_flash})")
+        t0 = time.perf_counter()
+        ranks = launch(_mesh_compress_rank, dp, tp, argv + ["--save_path", mesh_root],
+                       device="cuda", timeout_s=MESH_TIMEOUT_S)
+        mesh_wall = time.perf_counter() - t0
+        mesh = ranks[0]
+        layers = one["summary"]["redundant_layers"]
+        print(f"mesh: compression on {dp * tp} ranks in {mesh_wall:.1f} s (4 ranks share the "
+              f"card; no speed-up is claimed), stage seconds of rank 0 "
+              f"{mesh['summary']['stage_times_s']}, prefix {mesh['summary']['prefix']}; "
+              f"layers {mesh['summary']['redundant_layers']} (single {layers}); card {card}")
+        if (mesh["summary"]["redundant_layers"] != layers
+                or mesh["summary"]["rank_dict"] != one["summary"]["rank_dict"]):
+            raise AssertionError("mesh: layers or ranks differ from the single process's")
+        swaps, _ = _hold_selection(one, mesh)
+        got, config, plan, meta = load_checkpoint(mesh_root, "cpu")
+        n_layers = config.num_hidden_layers
+        n_batches = len(get_calibration_batches("synthetic", load_tokenizer(None),
+                                                num_samples=16, seq_len=2048, seed=42,
+                                                batch_size=2))
+        rounds = [(li, attn) for li in sorted(layers, reverse=True) for attn in (False, True)]
+        want = _want_flash(n_layers, n_batches, rounds, min(layers), mesh["summary"]["prefix"])
+        for r in ranks:
+            _hold_launches(f"mesh, rank {r['rank']}", r["flash"], want)
+        if mesh["summary"]["prefix"] == one["summary"]["prefix"]:
+            _hold_launches("mesh, single-process twin", one_flash, want)
+        ref, _, ref_plan, ref_meta = load_checkpoint(one_root, "cpu")
+        got, ref = flatten_params(got), flatten_params(ref)
+        trained = [k for k in ref if k.split(".")[:2] in [["layers", str(li)] for li in layers]]
+        dense_equal = all(torch.equal(got[k], ref[k]) for k in ref if k not in trained)
+        factor_gap = max(float((got[k].float() - ref[k].float()).abs().max()) for k in trained)
+        print(f"mesh: the gathered checkpoint: plan equal {plan == ref_plan}, "
+              f"{len(ref) - len(trained)} dense tensors bit-equal {dense_equal}, "
+              f"{len(trained)} factors of the two low-rank layers within "
+              f"{factor_gap:.3e} of the single process's ({len(swaps)} near ties)")
+        if plan != ref_plan or not dense_equal or got.keys() != ref.keys():
+            raise AssertionError("mesh: the gathered checkpoint differs from the single one")
+        del got, ref
+
+        # recovery in fp32 and TP-2 serving, one launch of the same mesh
+        rows = _alpaca_rows(7, 64)
+        rargs = _compress_parser().parse_args(
+            ["--model_name_or_path", "x", "--max_length", "256", "--micro_batch_size", "4",
+             "--train_on_inputs"])
+        train = recovery_batches(rows, load_tokenizer(None), rargs)[0][:MESH_RECOVER_MICRO]
+        rkw = dict(accum_steps=2, steps_per_epoch=len(train), log_every=1, warmup_steps=0,
+                   learning_rate=1e-3)
+        rng = np.random.default_rng(17)
+        prompts = [rng.integers(3, 32000, size=n).tolist() for n in MESH_PROMPT_LENS]
+        cases = [("recover", "recover_run", dict(
+                     params_np=one_root, config_json=None, plan=None, layers=layers,
+                     train_batches=train, val_batches=None, kwargs=rkw, dtype="float32")),
+                 ("serve", "serve_checkpoint", dict(path=one_root, prompts=prompts,
+                                                     max_new=MESH_MAX_TOKENS,
+                                                     gamma=SPEC_GAMMA))]
+        t0 = time.perf_counter()
+        out = launch(run_cases, dp, tp, cases, device="cuda", timeout_s=MESH_TIMEOUT_S)
+        run_wall = time.perf_counter() - t0
+        params, config, plan, _ = load_checkpoint(one_root, dev)
+        f32 = map_params(params, lambda t: t.float())
+        _, want_hist = recovery_train(f32, dataclasses.replace(config, dtype="float32"), plan,
+                                      layers, train, **rkw)
+        del f32
+        torch.cuda.empty_cache()
+        want_loss = np.array([v for _, v in want_hist["train_loss"]])
+        worst, reps = 0.0, out[0]["recover"]["replicated"]
+        for rank, r in enumerate(out):
+            got_loss = np.array([v for _, v in r["recover"]["history"]["train_loss"]])
+            if got_loss.shape != want_loss.shape:
+                raise AssertionError("mesh: the recovery ran another number of steps")
+            worst = max(worst, float(np.max(np.abs(got_loss / want_loss - 1))))
+            if r["recover"]["replicated"].keys() != reps.keys() or not all(
+                    np.array_equal(v, reps[k]) for k, v in r["recover"]["replicated"].items()):
+                raise AssertionError(f"mesh: rank {rank}'s replicated tensors drifted")
+        print(f"mesh: recovery in fp32 on {dp * tp} ranks, {len(train)} micro-batches of 4 rows, "
+              f"{len(want_loss)} optimizer steps: losses "
+              f"{[v for _, v in out[0]['recover']['history']['train_loss']]} against one "
+              f"process's {want_loss.tolist()}, max relative diff {worst:.3e} (tol "
+              f"{MESH_LOSS_RTOL}); {len(reps)} replicated tensors bit-equal on every rank")
+        if worst > MESH_LOSS_RTOL:
+            raise AssertionError("mesh: the recovery's losses left the single process's")
+
+        n_route = config.num_hidden_layers
+        launches = {"paged": 0, "chunk": 0}
+        for rank, r in enumerate(out):
+            srv = r["serve"]
+            for label in ("plain", "speculative"):
+                e = srv[label]
+                want_dec = n_route * (e["decode_steps"])
+                want_chunk = n_route * e["macro_steps"]
+                if (e["decode"], e["chunk"]) != (want_dec, want_chunk) or e["route"] != "kernel" \
+                        or e["pool_kv_heads"] != config.num_key_value_heads // tp:
+                    raise AssertionError(f"mesh: rank {rank} {label}: launches "
+                                         f"{(e['decode'], e['chunk'])} not {(want_dec, want_chunk)}"
+                                         f" or the route {e['route']}")
+                launches["paged"] += e["decode"]
+                launches["chunk"] += e["chunk"]
+                if e["streams"] != out[0]["serve"][label]["streams"]:
+                    raise AssertionError(f"mesh: rank {rank} served other {label} tokens")
+        for label in ("plain", "speculative"):
+            e = out[0]["serve"][label]
+            bad, report = hold_to_plain(torch, params, config, plan,
+                                        list(zip(prompts, e["streams"])), dev)
+            steps = e["macro_steps"] or e["decode_steps"]
+            print(f"mesh: TP-{tp} serving, {label}: {len(prompts)} requests of "
+                  f"{MESH_MAX_TOKENS} tokens in {e['seconds']:.2f} s ({e['decode_steps']} decode "
+                  f"steps, {e['macro_steps']} macro-steps, "
+                  f"{e['decode_seconds'] * 1e3 / max(steps, 1):.1f} ms a "
+                  f"{'macro-step' if e['macro_steps'] else 'decode step'}; "
+                  f"{n_route} K3 launches a decode step "
+                  f"and {n_route} K4 a macro-step on each rank, {e['pool_kv_heads']} KV heads a "
+                  f"rank's pool; 4 ranks share the card); tokens against the single-process "
+                  f"teacher-forced forward: {report}")
+            if bad:
+                raise AssertionError(f"mesh: TP serving ({label}) left the plain forward")
+        del params
+        torch.cuda.empty_cache()
+        # the mesh's ranks and the single-process twin, both the CLI's path
+        flash = {k: one_flash[k] + sum(r["flash"][k] for r in ranks) for k in ("fwd", "dkv", "dq")}
+        print(f"mesh: backend gloo, world {dp * tp}; per-rank launches: "
+              f"{[(r['rank'], r['flash']) for r in ranks]} (K1f, K1k, K1q), "
+              f"{[(i, r['serve']['plain']['decode'] + r['serve']['speculative']['decode'], r['serve']['speculative']['chunk']) for i, r in enumerate(out)]} "
+              f"(K3, K4); recovery and serving launch {run_wall:.1f} s; phase "
+              f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+        return errs, {**flash, **launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -4620,7 +4911,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
                                            "evaluate", "recover", "hf", "phi3serve",
-                                           "features", "mixtral", "families"],
+                                           "features", "mixtral", "families", "mesh"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -4667,6 +4958,9 @@ def main(argv=None) -> int:
         print(phase_flash_timing(torch, FLASH_TIMING_SHAPES[256]))
         print(phase_families(torch, card, dev))
         return 0
+    if args.only == "mesh":
+        print(phase_mesh(torch, card, dev))
+        return 0
     if args.only == "mixtral":
         print(phase_kernel(torch, hds=(128,)), phase_kernel_timing(torch, *MIXTRAL_TIMING))
         print(phase_chunk(torch, hds=(128,)), phase_chunk_timing(torch, *MIXTRAL_TIMING))
@@ -4699,9 +4993,10 @@ def main(argv=None) -> int:
     paged_launches, spec_launches, served, features = phase_slice(torch, card, dev)
     flash_launches, fused_compress_launches, evaluated, recovered, from_hf = phase_compress(
         torch, card, dev)
-    phi3, phi3_served = phase_phi3(torch, card, dev)
+    phi3, phi3_served = phase_phi3(torch, card, dev, layers=PHI3_LAYERS)
     mixtral, mixtral_served = phase_mixtral(torch, card, dev)
-    families, families_served = phase_families(torch, card, dev)
+    families, families_served = phase_families(torch, card, dev, mistral_layers=MISTRAL_LAYERS)
+    mesh_err, mesh = phase_mesh(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu", "safetensors"))
@@ -4714,16 +5009,18 @@ def main(argv=None) -> int:
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
          "launches": paged_launches + from_hf["paged"] + phi3_served["paged"]
-         + features["paged"] + mixtral_served["paged"] + families_served["paged"],
-         "max_abs_err": paged_err, **paged, "hd96": paged96, "hd128": paged128},
+         + features["paged"] + mixtral_served["paged"] + families_served["paged"]
+         + mesh["paged"],
+         "max_abs_err": max(paged_err, mesh_err["paged"]), **paged, "hd96": paged96,
+         "hd128": paged128},
         # library_ms: no single PyTorch call reads a page table; the timing line
         # above has one decode launch per chunk position beside it
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
          "launches": spec_launches["chunk"] + phi3_served["chunk"] + features["chunk"]
-         + mixtral_served["chunk"] + families_served["chunk"],
-         "max_abs_err": chunk_err,
+         + mixtral_served["chunk"] + families_served["chunk"] + mesh["chunk"],
+         "max_abs_err": max(chunk_err, mesh_err["chunk"]),
          **chunk, "hd96": chunk96, "hd128": chunk128},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
         # launches: the two compressions, the evaluation slice, the HF route,
@@ -4733,22 +5030,22 @@ def main(argv=None) -> int:
         {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
          "launches": flash_launches["fwd"] + evaluated["fwd"] + from_hf["fwd"] + phi3["fwd"]
-         + mixtral["fwd"] + families["fwd"],
-         "max_abs_err": flash_err["fwd"], **flash["fwd"], "hd96": flash96["fwd"],
+         + mixtral["fwd"] + families["fwd"] + mesh["fwd"],
+         "max_abs_err": max(flash_err["fwd"], mesh_err["fwd"]), **flash["fwd"], "hd96": flash96["fwd"],
          "hd128": flash128["fwd"], "hd256": flash256["fwd"]},
         # the bf16 backward's bodies: a launch is flash_dkv_mma_kernel and its
         # group sum flash_dkv_reduce_kernel; library_ms is the whole SDPA backward
         {"name": "flash_dkv_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:305",
          "launches": flash_launches["dkv"] + from_hf["dkv"] + phi3["dkv"] + mixtral["dkv"]
-         + families["dkv"],
-         "max_abs_err": flash_err["dkv"], **flash["dkv"], "hd96": flash96["dkv"],
+         + families["dkv"] + mesh["dkv"],
+         "max_abs_err": max(flash_err["dkv"], mesh_err["dkv"]), **flash["dkv"], "hd96": flash96["dkv"],
          "hd128": flash128["dkv"], "hd256": flash256["dkv"]},
         {"name": "flash_dq_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:344",
          "launches": flash_launches["dq"] + from_hf["dq"] + phi3["dq"] + mixtral["dq"]
-         + families["dq"],
-         "max_abs_err": flash_err["dq"], **flash["dq"], "hd96": flash96["dq"],
+         + families["dq"] + mesh["dq"],
+         "max_abs_err": max(flash_err["dq"], mesh_err["dq"]), **flash["dq"], "hd96": flash96["dq"],
          "hd128": flash128["dq"], "hd256": flash256["dq"]},
         # launches: prefill of the fused serving variant, the flagged compression,
         # the evaluation slice and the recovery slice's bf16 runs; the bf16 body

@@ -15,8 +15,10 @@ sweeps, the prefix split, resume snapshots, remat, the gram SVDs;
 GRASP low-rank projections) over a paged KV cache with decode attention in a
 hand-written CUDA kernel (``csrc/paged_attention.cu``; ``grasp-serve-torch``),
 for every model family of the JAX package (LLaMA, Qwen2, Phi-3, Mistral,
-Gemma, Gemma-2, Mixtral). Multi-device paths (meshes, ``--dp``/``--tp``, the
-``hybrid`` projection kind) raise ``NotImplementedError``.
+Gemma, Gemma-2, Mixtral), and a ``("data", "model")`` device mesh
+(``parallel``: ``--dp``/``--tp``, recovery, tensor- and expert-parallel
+serving). The pipeline with its ``hybrid`` projection kind, sequence
+parallelism and ring attention raise ``NotImplementedError`` or are absent.
 """
 
 from grasp_tpu_torch.configs import GraspConfig, ModelConfig  # noqa: F401

@@ -30,13 +30,27 @@ def save_checkpoint(path: str, params: Any, config: ModelConfig, plan: ModelPlan
                     redundant_layers: Optional[list] = None,
                     layer_importances: Optional[list] = None,
                     extra: Optional[Dict[str, Any]] = None,
-                    params_file: str = PARAMS_FILE) -> str:
+                    params_file: str = PARAMS_FILE, mesh=None) -> str:
     """Save params + JSON metadata. The meta write is the commit point:
     params go down first (to ``params_file`` in ``path``), then the meta,
     which names that file, is written to a temp file and ``os.replace``d
     into place. A caller that alternates two ``params_file`` names never
-    touches the file the committed meta points at."""
+    touches the file the committed meta points at.
+
+    mesh: ``params`` are this rank's shards (parallel.mesh.shard_params);
+    every rank calls, the whole tree is gathered, rank 0 writes it, and
+    every rank returns once it is written: the checkpoint a single process
+    with the same params writes."""
     path = os.path.abspath(path)
+    if mesh is not None:
+        from grasp_tpu_torch.parallel.mesh import gather_params
+
+        params = gather_params(params, mesh, config)
+        if mesh.rank == 0:
+            save_checkpoint(path, params, config, plan, rank_dict, redundant_layers,
+                            layer_importances, extra, params_file)
+        mesh.barrier()
+        return path
     os.makedirs(path, exist_ok=True)
     flat = {k: v.detach().contiguous() for k, v in flatten_params(params).items()}
     tmp_params = os.path.join(path, params_file + ".tmp")

@@ -11,8 +11,11 @@ SVD (``--svd_method gram``); ``--recovery`` then fine-tunes the redundant
 layers on a local Alpaca-format ``--data_path`` (GRASP*, train/recover.py:
 trainer state under ``<save_path>_trainer``, the result saved as
 ``<save_path>_recovered``); ``--evaluate`` evaluates the compressed (or
-recovered) model after the save (``--eval_ppl``, ``--eval_tasks``). Meshes
-are not ported yet and raise NotImplementedError.
+recovered) model after the save (``--eval_ppl``, ``--eval_tasks``). ``--dp N
+--tp M`` runs all of it on a mesh of N x M ranks (parallel/launch.py: the
+ranks are spawned here, or are torchrun's), calibration rows over the data
+axis and the model tensor-parallel over the model axis; rank 0 writes the
+checkpoints and evaluates the gathered model.
 
 ``grasp-evaluate-torch``: perplexity (``--eval_ppl``), zero/few-shot tasks or
 LongBench (``--eval_tasks``) of a model, written to ``--results_json``.
@@ -160,9 +163,10 @@ def _compress_parser() -> argparse.ArgumentParser:
                    help="crash-resume directory: the engine snapshots its state there after "
                         "block influence and every round; a rerun with the same directory "
                         "goes on at the first round not done")
-    # meshes: parsed so that a grasp-compress command line carries over; they raise
-    p.add_argument("--dp", type=int, default=1)
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel mesh axis: calibration/recovery batches shard over it")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh axis: Megatron-style sharding of the projections")
     p.add_argument("--export_hf_dir", type=str, default=None,
                    help="also write the compressed model as an HF checkpoint directory "
                         "(config.json + model.safetensors, low-rank projections merged "
@@ -203,19 +207,41 @@ def _compress_parser() -> argparse.ArgumentParser:
 
 def compress_main(argv=None) -> int:
     """``grasp-compress-torch``: compress a model and save the checkpoint."""
+    compress_run(argv)
+    return 0
+
+
+def compress_run(argv=None) -> dict:
+    """``grasp-compress-torch`` with ``argv``; rank 0's record of the run:
+    the summary, and each module's selection importances and indices
+    (``GraspEngine.importance_log``, ``indices_log``)."""
     args = _compress_parser().parse_args(argv)
     setup_logger(args.log_file)
-    if args.dp * args.tp > 1:
-        raise NotImplementedError("grasp-compress-torch does not support --dp/--tp yet")
     # the recovery data is read before the compression, so that a missing file
     # fails at once rather than after the sweeps
     recovery_rows = _recovery_rows(args.data_path) if args.recovery else None
+    if args.dp * args.tp > 1:
+        from grasp_tpu_torch.parallel.launch import launch
+
+        return launch(_compress_rank, args.dp, args.tp, args, recovery_rows,
+                      device=torch.device(args.device).type)[0]
+    return _compress(args, recovery_rows)
+
+
+def _compress_rank(mesh, args, recovery_rows) -> dict:
+    """One rank of a ``--dp/--tp`` run; rank 0 logs."""
+    if mesh.rank == 0:
+        setup_logger(args.log_file)
+    return _compress(args, recovery_rows, mesh)
+
+
+def _compress(args, recovery_rows, mesh=None) -> dict:
     from grasp_tpu_torch.checkpoints import save_checkpoint
     from grasp_tpu_torch.configs import GraspConfig
     from grasp_tpu_torch.core.engine import GraspEngine
     from grasp_tpu_torch.data.loader import get_calibration_batches
 
-    device = torch.device(args.device)
+    device = torch.device(args.device) if mesh is None else mesh.device
     config, params, plan, tokenizer = load_model(args.model_name_or_path, device=device,
                                                  dtype=args.dtype, seed=args.seed)
     batches = get_calibration_batches(
@@ -240,7 +266,8 @@ def compress_main(argv=None) -> int:
         remat=args.remat,
     )
     engine = GraspEngine(params, config, plan, svd_method=args.svd_method, device=device,
-                         remat=args.remat)
+                         remat=args.remat, mesh=mesh)
+    del params
     summary = engine.run(batches, cfg, resume_dir=args.compress_resume_dir)
     logger.info("summary: %s", json.dumps(summary))
 
@@ -253,18 +280,26 @@ def compress_main(argv=None) -> int:
     save_checkpoint(save_path, engine.params, config, engine.plan,
                     rank_dict=engine.rank_dict, redundant_layers=engine.redundant_layers,
                     layer_importances=engine.layer_importances,
-                    extra={"grasp_config": vars(args), "summary": summary})
+                    extra={"grasp_config": vars(args), "summary": summary}, mesh=mesh)
     logger.info("checkpoint saved to %s", save_path)
-    if args.export_hf_dir:
+    writer = mesh is None or mesh.rank == 0
+    whole = engine.params
+    if mesh is not None and (args.export_hf_dir or args.recovery or args.evaluate):
+        from grasp_tpu_torch.parallel.mesh import gather_params
+
+        whole = gather_params(engine.params, mesh, config)
+    if args.export_hf_dir and writer:
         from grasp_tpu_torch.models.hf_io import save_hf_checkpoint
 
-        save_hf_checkpoint(engine.params, config, args.export_hf_dir, merge=True)
+        save_hf_checkpoint(whole, config, args.export_hf_dir, merge=True)
         logger.info("HF export written to %s", args.export_hf_dir)
     if args.recovery:
-        engine.params = _run_recovery(engine, config, tokenizer, args, save_path, recovery_rows)
-    if args.evaluate:
-        _run_evaluation(engine.params, config, engine.plan, tokenizer, args)
-    return 0
+        whole = _run_recovery(engine, whole, config, tokenizer, args, save_path, recovery_rows,
+                              mesh)
+    if args.evaluate and writer:  # a mesh evaluates the gathered model on rank 0
+        _run_evaluation(whole, config, engine.plan, tokenizer, args)
+    return {"summary": summary, "importances": dict(engine.importance_log),
+            "indices": dict(engine.indices_log)}
 
 
 def _recovery_rows(data_path: str) -> list:
@@ -307,27 +342,33 @@ def recovery_batches(rows: list, tokenizer, args):
     return batches(order[val_n:]), batches(order[:val_n]) or None
 
 
-def _run_recovery(engine, config, tokenizer, args, save_path: str, rows: list):
-    """GRASP* recovery of the compressed model on ``rows`` (grasp_tpu/cli.py's
-    ``--recovery``): accumulation ``train_batch_size // micro_batch_size``,
-    trainer state under ``<save_path>_trainer``; saves
-    ``<save_path>_recovered`` with the history and returns its params."""
+def _run_recovery(engine, params, config, tokenizer, args, save_path: str, rows: list,
+                  mesh=None):
+    """GRASP* recovery of the compressed model ``params`` (whole) on ``rows``
+    (grasp_tpu/cli.py's ``--recovery``): accumulation ``train_batch_size //
+    micro_batch_size``, trainer state under ``<save_path>_trainer``; saves
+    ``<save_path>_recovered`` with the history and returns its whole params
+    (gathered on a mesh)."""
     from grasp_tpu_torch.checkpoints import save_checkpoint
     from grasp_tpu_torch.train.recover import recovery_train
 
     train_batches, val_batches = recovery_batches(rows, tokenizer, args)
     params, history = recovery_train(
-        engine.params, config, engine.plan, engine.redundant_layers, train_batches, val_batches,
+        params, config, engine.plan, engine.redundant_layers, train_batches, val_batches,
         num_epochs=args.num_epochs, learning_rate=args.learning_rate,
         accum_steps=max(args.train_batch_size // args.micro_batch_size, 1),
         remat=args.remat, eval_every=args.eval_every, output_dir=save_path + "_trainer",
         save_total_limit=args.save_total_limit,
-        resume_from_checkpoint=args.resume_from_checkpoint)
+        resume_from_checkpoint=args.resume_from_checkpoint, mesh=mesh)
     save_checkpoint(save_path + "_recovered", params, config, engine.plan,
                     rank_dict=engine.rank_dict, redundant_layers=engine.redundant_layers,
                     layer_importances=engine.layer_importances,
-                    extra={"recovery_history": history})
+                    extra={"recovery_history": history}, mesh=mesh)
     logger.info("recovered checkpoint saved to %s_recovered", save_path)
+    if mesh is not None:
+        from grasp_tpu_torch.parallel.mesh import gather_params
+
+        params = gather_params(params, mesh, config)
     return params
 
 

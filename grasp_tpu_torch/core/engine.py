@@ -30,10 +30,22 @@ before its sweep; with ``svd_method="gram_device"`` selection runs after it
 on the gram basis without the larger singular factor
 (:meth:`_select_compile_one_ufree`).
 
+A device mesh (``mesh=``, parallel/mesh.py) runs the whole pipeline over
+``dp x tp`` ranks: params are tensor-parallel from construction and each
+newly built projection is placed by the same rules; calibration rows split
+over the data axis (a batch whose rows do not divide runs on data index 0
+alone, so it counts once); losses divide by the batch's global label count,
+gradients and block-influence sums add over the data group, and dense
+gradients are assembled over the model group for selection; the SVD stacks
+spread over every rank (``ops.svd.svd(mesh=)``). Every rank selects from the
+same numbers and holds the same indices. Choices that decide which
+collectives run (the auto prefix mode, the auto sweep chunk) are rank 0's.
+The fused low-rank flag and int4 weights on a mesh raise NotImplementedError
+(ROADMAP.md, P10b).
+
 Not ported (ROADMAP.md, never ported): ``prefix="cache_host"`` and the
 bandwidth-driven choice of it, growing sweep chunks, base parking, compile
-prefetch, the fused one-dispatch sweeps, stacked gram groups; a device mesh
-raises NotImplementedError.
+prefetch, the fused one-dispatch sweeps, stacked gram groups.
 
 Mixtral-family layers: "mlp" names the MoE block's stacked expert parts
 w1/w2/w3 (``model.layers.N.block_sparse_moe.w1``), one module a part for all
@@ -68,6 +80,7 @@ from grasp_tpu_torch.models.llama import (
     default_plan,
     forward,
     hf_causal_lm_loss,
+    hf_causal_lm_loss_sum,
     plan_set,
     torch_dtype,
 )
@@ -75,6 +88,7 @@ from grasp_tpu_torch.models.moe import MOE_PARTS
 from grasp_tpu_torch.ops.saliency import (
     adaptive_rank_selection,
     bi_from_hiddens,
+    bi_sums_from_hiddens,
     choose_prune_layers,
     preserve_rank,
     select_topk,
@@ -89,6 +103,13 @@ from grasp_tpu_torch.ops.svd import (
     truncate_svd,
     ufree_sigma_saliency,
     ufree_truncate,
+)
+from grasp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    gather_leaf,
+    shard_leaf,
+    data_rows,
+    shard_params,
 )
 
 logger = logging.getLogger("grasp_tpu_torch")
@@ -137,17 +158,26 @@ def parse_module_name(name: str) -> Tuple[int, str, str]:
 
 
 class GraspEngine:
-    """Holds (params, plan, config) on one device and runs the compression stages."""
+    """Holds (params, plan, config) on one device, or this rank's shards of
+    them on a mesh, and runs the compression stages."""
 
     def __init__(self, params: Params, config: ModelConfig, plan: Optional[ModelPlan] = None,
                  svd_method: str = "auto", device: Union[str, torch.device] = "cuda",
-                 remat: bool = False):
+                 remat: bool = False, mesh=None):
         """remat: recompute each layer's activations in the sweeps' backward
-        instead of keeping them (``GraspConfig.remat`` turns it on as well)."""
+        instead of keeping them (``GraspConfig.remat`` turns it on as well).
+        mesh: a parallel.mesh.Mesh; ``params`` are the full tree, sharded
+        here, and the engine runs on the mesh's device."""
         if svd_method not in _SVD_METHODS:
             raise ValueError(f"unknown svd method {svd_method!r}")
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = torch.device(device) if mesh is None else mesh.device
         self.params = map_params(params, lambda t: t.detach().to(self.device))
+        if mesh is not None:
+            if config.use_pallas_lowrank:
+                raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
+                                          "(ROADMAP.md, P10b)")
+            self.params = shard_params(self.params, mesh, config)
         self.config = config
         # the model's own config: self.config may gain the flash switch of
         # the sweeps, which resume snapshots must not record
@@ -169,6 +199,8 @@ class GraspEngine:
         self.indices_log: Dict[str, np.ndarray] = {}  # accumulated across run() rounds
         self.rank_dict: Dict[str, int] = {}
         self.grasp_values_dict: Dict[str, Dict[str, list]] = {}
+        # each selected module's importances, unrounded (fp32, host)
+        self.importance_log: Dict[str, np.ndarray] = {}
         self.grasp_layer_grads: Dict[str, torch.Tensor] = {}
         self.prefix_mode = "off"  # the prefix mode the last dense pipeline resolved to
 
@@ -184,12 +216,54 @@ class GraspEngine:
         self.stage_counts[name] = self.stage_counts.get(name, 0) + 1
 
     def _place_batch(self, batch: Batch) -> Dict[str, Optional[torch.Tensor]]:
-        """A calibration batch (numpy or tensors) as int64 tensors on the device."""
+        """A calibration batch (numpy or tensors) as int64 tensors on the
+        device; on a mesh, this rank's rows (:meth:`_counted`)."""
+        rows = data_rows(int(np.shape(batch["input_ids"])[0]), self.mesh)
+
         def place(v):
             t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
-            return t.to(self.device).long()
+            return (t if rows is None else t[rows]).to(self.device).long()
 
         return {k: None if v is None else place(v) for k, v in batch.items()}
+
+    def _counted(self, batch: Batch) -> bool:
+        """Whether this rank runs ``batch``: every rank of a mesh runs its
+        rows of a batch whose rows divide over the data axis; one that does
+        not divide is replicated, and data index 0 alone runs it, so that it
+        counts once."""
+        mesh = self.mesh
+        if mesh is None or mesh.dp == 1:
+            return True
+        n = int(np.shape(batch["input_ids"])[0])
+        return data_rows(n, mesh) is not None or mesh.data_index == 0
+
+    def _kernel_path(self, name: str) -> str:
+        """The dotted params path of one projection's kernel (a stacked
+        expert part's is its experts-dict key)."""
+        layer_id, group, proj = parse_module_name(name)
+        if group == _MOE_GROUP:
+            return f"layers.{layer_id}.moe.experts.{proj}"
+        return f"layers.{layer_id}.{group}.{proj}.kernel"
+
+    def _full(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of a projection's kernel (or its gradient) from
+        this rank's part."""
+        if self.mesh is None:
+            return t
+        return gather_leaf(self._kernel_path(name), t, self.config, self.mesh)
+
+    def _local(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole new kernel (or stacked expert factor)."""
+        if self.mesh is None:
+            return t
+        return shard_leaf(self._kernel_path(name), t, self.config, self.mesh)
+
+    def _agree(self, value):
+        """Rank 0's choice on every rank (a choice that decides which
+        collectives run)."""
+        if self.mesh is None:
+            return value
+        return type(value)(self.mesh.agree(value))
 
     # ------------------------------------------------------------------
     # param-tree helpers
@@ -215,10 +289,12 @@ class GraspEngine:
             moe = self.params["layers"][layer_id]["moe"]
             ex = {k: v for k, v in moe["experts"].items()
                   if k not in (proj, proj + "_a", proj + "_b")}
+            # new stacked tensors are whole: a mesh shards their [E] axis
             if kind == "dense":
-                ex[proj] = new_params["kernel"]
+                ex[proj] = self._local(name, new_params["kernel"])
             else:
-                ex[proj + "_a"], ex[proj + "_b"] = new_params["in_kernel"], new_params["out_kernel"]
+                ex[proj + "_a"] = self._local(name, new_params["in_kernel"])
+                ex[proj + "_b"] = self._local(name, new_params["out_kernel"])
             moe["experts"] = ex
             return
         self.params["layers"][layer_id][group][proj] = new_params
@@ -247,7 +323,8 @@ class GraspEngine:
                 for proj, kind in zip(PROJ_ORDER, layer_plan) if kind == "svd"]
 
     def param_counts(self) -> Tuple[int, int]:
-        """(total, trainable): trainable = S leaves of svd modules."""
+        """(total, trainable): trainable = S leaves of svd modules (this
+        rank's tensors on a mesh)."""
         total = sum(t.numel() for t in flatten_params(self.params).values())
         trainable = sum(self._get_proj(n)["s"].numel() for n in self.svd_module_names())
         return total, trainable
@@ -273,20 +350,48 @@ class GraspEngine:
             if calibration_batches is None:
                 raise ValueError("please provide hidden_states or calibration batches to "
                                  "compute block influence")
-            with torch.no_grad():
-                for batch in calibration_batches:
-                    batch = self._place_batch(batch)
-                    out = forward(self.params, batch["input_ids"], config=self.config,
-                                  plan=self.plan, attention_mask=batch.get("attention_mask"),
-                                  output_hidden_states=True)
-                    scores = bi_from_hiddens(out["hidden_states"], num_prune_layers, angular)
-                    scores = scores.cpu().numpy()
-                    importances[: len(scores)] += scores
+            if self.mesh is not None:
+                self._mesh_bi(importances, num_prune_layers, calibration_batches, angular)
+            else:
+                with torch.no_grad():
+                    for batch in calibration_batches:
+                        batch = self._place_batch(batch)
+                        out = forward(self.params, batch["input_ids"], config=self.config,
+                                      plan=self.plan, attention_mask=batch.get("attention_mask"),
+                                      output_hidden_states=True)
+                        scores = bi_from_hiddens(out["hidden_states"], num_prune_layers, angular)
+                        scores = scores.cpu().numpy()
+                        importances[: len(scores)] += scores
         # scores exist for indices [0, L+1-n); zeros beyond, as in the reference
         self.layer_importances = importances.tolist()
         self.redundant_layers = choose_prune_layers(importances, num_prune_layers, angular)
         self._stage("bi_sweep", t_stage)
         return self.layer_importances, self.redundant_layers
+
+    def _mesh_bi(self, importances: np.ndarray, num_prune_layers: int,
+                  calibration_batches: Iterable[Batch], angular: bool) -> None:
+        """Block influence on a mesh: each rank's per-layer sums over its
+        rows, added over the data group once for all batches, each batch's
+        divided by its global row count (the single-device mean)."""
+        batches = list(calibration_batches)
+        n_scores = self.config.num_hidden_layers + 1 - (num_prune_layers if angular else 1)
+        sums = torch.zeros(len(batches), n_scores, dtype=torch.float32, device=self.device)
+        counts = []
+        with torch.no_grad():
+            for i, batch in enumerate(batches):
+                shape = np.shape(batch["input_ids"])
+                counts.append(shape[0] if angular else shape[0] * shape[1])
+                if not self._counted(batch):
+                    continue
+                local = self._place_batch(batch)
+                out = forward(self.params, local["input_ids"], config=self.config,
+                              plan=self.plan, attention_mask=local.get("attention_mask"),
+                              output_hidden_states=True, mesh=self.mesh)
+                sums[i] = bi_sums_from_hiddens(out["hidden_states"], num_prune_layers, angular)
+        self.mesh.all_reduce(sums, DATA_AXIS)
+        for i, count in enumerate(counts):
+            scores = (sums[i] / count).cpu().numpy()
+            importances[: len(scores)] += scores
 
     def remove_layers(self, layers_to_remove: Optional[List[int]] = None, angular: bool = False,
                       num_prune_layers: Optional[int] = None) -> List[int]:
@@ -331,15 +436,17 @@ class GraspEngine:
 
     def _svd_of_dense(self, names: List[str]) -> Dict[str, SvdFactors]:
         """SVD of the named dense kernels in the [out, in] layout; kernels of
-        one shape are stacked into one batched call."""
+        one shape are stacked into one batched call (on a mesh the whole
+        kernels, the stack spread over every rank)."""
         t_stage = time.time()
         by_shape: Dict[Tuple[int, ...], List[str]] = {}
+        kernels = {n: self._full(n, self._get_proj(n)["kernel"]) for n in names}
         for n in names:
-            by_shape.setdefault(tuple(self._get_proj(n)["kernel"].shape), []).append(n)
+            by_shape.setdefault(tuple(kernels[n].shape), []).append(n)
         out: Dict[str, SvdFactors] = {}
         for group in by_shape.values():
-            stack = torch.stack([self._get_proj(n)["kernel"].mT.float() for n in group])
-            u, s, vh = svd(stack, method=self.svd_method)
+            stack = torch.stack([kernels[n].mT.float() for n in group])
+            u, s, vh = svd(stack, method=self.svd_method, mesh=self.mesh)
             for i, n in enumerate(group):
                 out[n] = (u[i], s[i], vh[i])
         self._stage("svd", t_stage)
@@ -396,7 +503,7 @@ class GraspEngine:
         with torch.no_grad():
             h0 = forward(self._prefix_params(), batch["input_ids"], config=self.config,
                          plan=self.plan, attention_mask=batch.get("attention_mask"),
-                         stop_layer=self._prefix_layer)["hidden"]
+                         stop_layer=self._prefix_layer, mesh=self.mesh)["hidden"]
         self._stage("prefix_fwd", t_stage)
         if self._prefix_cache is not None:
             self._prefix_cache[i] = h0
@@ -409,12 +516,17 @@ class GraspEngine:
         free device memory beside a reserve of 6 GiB, else "recompute"."""
         if self.device.type != "cuda":
             return "recompute"
+        if self.mesh is not None:  # the choice decides which collectives run
+            return ("recompute", "cache")[self._agree(int(self._choose_cache(calibration_batches)))]
+        return "cache" if self._choose_cache(calibration_batches) else "recompute"
+
+    def _choose_cache(self, calibration_batches: Sequence[Batch]) -> bool:
         rows = sum(int(np.shape(b["input_ids"])[0]) for b in calibration_batches)
         seq = int(np.shape(calibration_batches[0]["input_ids"])[-1])
         itemsize = torch_dtype(self.config.dtype).itemsize
         need = rows * seq * self.config.hidden_size * itemsize
         free, _ = torch.cuda.mem_get_info(self.device)
-        return "cache" if need < free - _PREFIX_RESERVE else "recompute"
+        return need < free - _PREFIX_RESERVE
 
     def _resolve_prefix(self, mode: str, p_min: int, calibration_batches: Sequence[Batch]) -> str:
         if mode == "auto":
@@ -429,23 +541,41 @@ class GraspEngine:
         """Sum over batches of dLoss/d(leaf): every leaf is a trainable copy
         of one projection's ``key`` tensor, everything else is frozen. With
         ``start_layer`` the forward starts from the prefix's boundary
-        activation (:meth:`_prefix_hidden`)."""
+        activation (:meth:`_prefix_hidden`). On a mesh each rank's rows'
+        loss divides by the batch's global label count and the sums add over
+        the data group; a leaf's sum is this rank's part of it."""
         params = self._with_leaves(leaves, key)
         names = list(leaves)
         totals = {n: torch.zeros_like(leaves[n]) for n in names}
         total_loss, nbatches = 0.0, 0
         for i, batch in enumerate(calibration_batches):
+            if not self._counted(batch):
+                nbatches += 1
+                continue
+            n_valid = None
+            if self.mesh is not None:  # the whole batch's shifted labels
+                n_valid = max(int((np.asarray(batch["labels"])[:, 1:] != -100).sum()), 1)
             batch = self._place_batch(batch)
             h0 = self._prefix_hidden(i, batch) if start_layer else None
             logits = forward(params, batch["input_ids"], config=self.config, plan=self.plan,
                              attention_mask=batch.get("attention_mask"), remat=self.remat,
-                             start_layer=start_layer, hidden_in=h0)["logits"]
-            loss = hf_causal_lm_loss(logits, batch["labels"])
+                             start_layer=start_layer, hidden_in=h0, mesh=self.mesh)["logits"]
+            if n_valid is None:
+                loss = hf_causal_lm_loss(logits, batch["labels"])
+            else:
+                loss = hf_causal_lm_loss_sum(logits, batch["labels"]) / n_valid
             grads = torch.autograd.grad(loss, [leaves[n] for n in names])
             for n, g in zip(names, grads):
                 totals[n] += g
             total_loss += float(loss.detach())
             nbatches += 1
+        if self.mesh is not None:
+            for n in names:
+                self.mesh.all_reduce(totals[n], DATA_AXIS)
+            # the batches' losses: this rank's parts, added over the data group
+            total_loss = float(self.mesh.all_reduce(
+                torch.tensor([total_loss], dtype=torch.float64, device=self.mesh.device),
+                DATA_AXIS))
         logger.info("gradient sweep: %d batches, mean loss %.4f", nbatches,
                     total_loss / max(nbatches, 1))
         return totals
@@ -475,6 +605,7 @@ class GraspEngine:
         t_stage = time.time()
         leaves = {n: self._get_proj(n)["kernel"].detach().requires_grad_() for n in names}
         totals = self._sweep(leaves, "kernel", calibration_batches, start_layer=sl)
+        totals = {n: self._full(n, g) for n, g in totals.items()}  # whole, for selection
         self._stage("grad_sweep", t_stage)
         return totals
 
@@ -535,6 +666,11 @@ class GraspEngine:
         and always off the card."""
         if self.device.type != "cuda":
             return 0
+        if self.mesh is not None:  # the choice decides which collectives run
+            return self._agree(self._chunk_layers(layer_names))
+        return self._chunk_layers(layer_names)
+
+    def _chunk_layers(self, layer_names: List[Tuple[int, List[str]]]) -> int:
         _, limit = torch.cuda.mem_get_info(self.device)
         params_bytes = sum(t.numel() * t.element_size()
                            for t in flatten_params(self.params).values())
@@ -619,6 +755,7 @@ class GraspEngine:
                     "not supported: per-expert ranks would be ragged; use a fixed "
                     "compression_ratio")
             indices = np.asarray(adaptive_rank_selection(importance_np, threshold_ratio))
+        self.importance_log[n] = importance_np
         self.grasp_values_dict[n] = {
             "svd_importance": np.round(importance_np, 3).tolist(),
             "svd_value": np.round(s.detach().cpu().numpy(), 3).tolist(),
@@ -634,6 +771,8 @@ class GraspEngine:
         bias = self._get_proj(n).get("bias")
         if merge:
             new: Params = {"kernel": merge_svd(ut, st, vht).mT.to(dtype).contiguous()}
+            if parse_module_name(n)[1] != _MOE_GROUP:  # _set_proj places expert parts
+                new["kernel"] = self._local(n, new["kernel"])
             kind = "dense"
         else:
             in_kernel, out_kernel = lowrank_factors(ut, st, vht, sigma_fuse)
@@ -663,7 +802,7 @@ class GraspEngine:
         factor: the eigendecomposition (``sel_eigh``), the importances
         (``sel_importance``) and the kept columns (``sel_truncate``).
         grad_kernel: dL/d(kernel) in the [in, out] layout."""
-        kernel = self._get_proj(n)["kernel"]  # [in, out]
+        kernel = self._full(n, self._get_proj(n)["kernel"])  # [in, out]
         w = kernel.mT
         t_sub = time.time()
         s, basis, side = gram_basis(w)
@@ -745,9 +884,10 @@ class GraspEngine:
                         layer_importances=self.layer_importances,
                         extra={"resume": RESUME_TAG,
                                "done_rounds": [list(r) for r in self._done_rounds]},
-                        params_file=nxt)
+                        params_file=nxt, mesh=self.mesh)
         self._snap_slot = nxt
-        if cur and cur != nxt:  # a kill here leaves a file nobody names
+        writer = self.mesh is None or self.mesh.rank == 0  # rank 0 writes and removes
+        if writer and cur and cur != nxt:  # a kill here leaves a file nobody names
             try:
                 os.remove(os.path.join(resume_dir, cur))
             except FileNotFoundError:
@@ -771,6 +911,8 @@ class GraspEngine:
         params, config, plan, meta = load_checkpoint(resume_dir, self.device)
         if config.to_json() != self._model_config.to_json():
             raise ValueError("resume snapshot was written for a different model config")
+        if self.mesh is not None:
+            params = shard_params(params, self.mesh, config)
         self.params = params
         self.plan = plan
         self.rank_dict = dict(meta.get("rank_dict", {}))

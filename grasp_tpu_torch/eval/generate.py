@@ -54,11 +54,14 @@ def _stop_ids(eos_token_id: Optional[int], extra: Sequence[int] = ()) -> List[in
 
 class Generator:
     """Greedy generation from one prompt (:meth:`greedy`) or a batch of
-    left-padded prompts (:meth:`greedy_batch`) on the device of ``params``."""
+    left-padded prompts (:meth:`greedy_batch`) on the device of ``params``.
+    ``mesh``: ``params`` tensor-parallel on it (parallel.mesh.shard_params);
+    every rank generates the same tokens."""
 
     def __init__(self, params: Params, config: ModelConfig, plan: Optional[ModelPlan] = None,
-                 device_loop: bool = True, quantized_kv: bool = False):
+                 device_loop: bool = True, quantized_kv: bool = False, mesh=None):
         self.params = params
+        self.mesh = mesh
         self.config = config
         self.plan = plan or default_plan(config)
         self.device_loop = device_loop
@@ -76,16 +79,16 @@ class Generator:
         padded = torch.zeros((1, s_pad), dtype=torch.long)
         padded[0, :s] = torch.as_tensor(ids, dtype=torch.long)
         cache = init_kv_cache(self.config, 1, cache_len, device=self.device,
-                              quantized=self.quantized_kv)
+                              quantized=self.quantized_kv, mesh=self.mesh)
         logits, cache = prefill(self.params, padded.to(self.device), cache, config=self.config,
-                                plan=self.plan)
+                                plan=self.plan, mesh=self.mesh)
         return s, cache_len, logits[0, s - 1], cache
 
     def _decode(self, toks: torch.Tensor, cache, index: int, **kw) -> torch.Tensor:
         """One decode step of ``toks`` [B] at cache slot ``index``; the last
         logits [B, V]."""
         logits, _ = decode_step(self.params, toks[:, None], cache, index, config=self.config,
-                                plan=self.plan, **kw)
+                                plan=self.plan, mesh=self.mesh, **kw)
         return logits[:, 0]
 
     @torch.no_grad()
@@ -143,10 +146,11 @@ class Generator:
             length_mask[i, s_pad - n: s_pad] = 1
         dev = self.device
         length_mask = length_mask.to(dev)
-        cache = init_kv_cache(self.config, b, cache_len, device=dev, quantized=self.quantized_kv)
+        cache = init_kv_cache(self.config, b, cache_len, device=dev, quantized=self.quantized_kv,
+                              mesh=self.mesh)
         logits, cache = prefill(self.params, padded.to(dev), cache, config=self.config,
                                 plan=self.plan, length_mask=length_mask,
-                                positions=positions.to(dev))
+                                positions=positions.to(dev), mesh=self.mesh)
         toks = torch.argmax(logits[:, s_pad - 1], dim=-1)
 
         stops = torch.tensor(_stop_ids(eos_token_id), dtype=torch.long, device=dev)

@@ -25,6 +25,14 @@ layer in the backward on request (``remat``), and the int8 KV cache
 (``init_kv_cache(quantized=True)``), and the Mixtral family's sparse-MoE
 layers (models/moe.py) in place of the dense MLP. The ``hybrid`` projection
 kind raises NotImplementedError.
+
+Tensor parallelism (parallel/mesh.py): every body takes ``mesh=`` and params
+sharded by ``parallel.mesh.shard_params``. A layer then runs its local heads
+(counted from the local shapes), column-parallel q/k/v/gate/up on its columns,
+row-parallel o/down on its rows with one ``all_reduce`` over the model group
+after each, the vocab-parallel embedding (ids outside the rank's rows give
+zeros, then an ``all_reduce``) and the logits assembled over the model group.
+Without a mesh the code path and its bits are unchanged.
 """
 
 from __future__ import annotations
@@ -42,6 +50,18 @@ from grasp_tpu_torch.models.moe import init_moe_params, moe_apply
 from grasp_tpu_torch.ops.flash_attention import flash_attention
 from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
 from grasp_tpu_torch.ops.quant import _absmax_scale, quant_matmul, quant_matmul_int4
+from grasp_tpu_torch.parallel.mesh import (
+    COLUMN_PROJS,
+    Mesh,
+    kv_replicas,
+    local_heads,
+    proj_span,
+    tp_enter,
+    tp_gather,
+    tp_reduce,
+    tp_replica,
+    tp_split,
+)
 
 Params = Dict[str, Any]
 
@@ -206,10 +226,33 @@ def mlp_act(config: ModelConfig):
     raise ValueError(f"unsupported hidden_act: {act!r}")
 
 
-def embed_lookup(params: Params, ids: torch.Tensor, config: ModelConfig) -> torch.Tensor:
+def tensor_parallel(params: Params, config: ModelConfig, mesh: Optional[Mesh]) -> Optional[Mesh]:
+    """The mesh a body runs ``params`` on, or None: the mesh when it has
+    more than one model rank. Params sharded for a model axis (a
+    vocab-parallel embedding) without one, or whole params on one, raise."""
+    tp = mesh if mesh is not None and mesh.tp > 1 else None
+    rows = params["embed_tokens"]["weight"].shape[0] if "embed_tokens" in params else None
+    if rows is not None and (rows != config.vocab_size) != (tp is not None):
+        raise ValueError(f"an embedding of {rows} rows for a vocabulary of "
+                         f"{config.vocab_size} on {mesh}: shard the params with "
+                         "parallel.mesh.shard_params and pass the mesh that sharded them")
+    return tp
+
+
+def embed_lookup(params: Params, ids: torch.Tensor, config: ModelConfig,
+                 tp: Optional[Mesh] = None) -> torch.Tensor:
     """Token embeddings; Gemma scales them by sqrt(hidden) with the normalizer
-    rounded to the embedding's dtype first (HF GemmaModel.forward)."""
-    h = params["embed_tokens"]["weight"][ids]
+    rounded to the embedding's dtype first (HF GemmaModel.forward). With
+    ``tp`` the table holds this rank's rows of the vocabulary: other ids
+    give zeros, and the model group's sum is the lookup."""
+    w = params["embed_tokens"]["weight"]
+    if tp is None:
+        h = w[ids]
+    else:
+        local = ids - tp.model_index * w.shape[0]
+        inside = (local >= 0) & (local < w.shape[0])
+        h = w[torch.where(inside, local, 0)]
+        h = tp_reduce(torch.where(inside[..., None], h, torch.zeros_like(h)), tp)
     if config.scale_embeddings:
         h = h * torch.tensor(config.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
     return h
@@ -306,6 +349,97 @@ def proj_apply(x: torch.Tensor, p: Params, kind: str, use_fused: bool = False) -
     raise ValueError(f"unknown projection kind {kind!r}")
 
 
+def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: ModelConfig,
+                   tp: Mesh) -> torch.Tensor:
+    """One projection of a tensor-parallel layer. Column-parallel
+    (q/k/v/gate/up): ``x`` is the whole (entered) input, the result this
+    rank's columns; row-parallel (o/down): ``x`` is this rank's columns of
+    the input, the result the whole output (one ``all_reduce``, the bias
+    after it). Sharded kernels are local already; replicated low-rank and
+    SVD factors take this rank's columns (or rows) on the split side and
+    enter the rank's work as a whole (parallel.mesh's gradient rule)."""
+    col = proj in COLUMN_PROJS
+    span = proj_span(proj, config, tp)
+    bias = p.get("bias")
+    if any(k.endswith("_q4") for k in p):
+        raise NotImplementedError("int4 weights on a mesh are not supported yet "
+                                  "(ROADMAP.md, P10b)")
+    if kind == DENSE:
+        if "kernel_q" in p:
+            y = quant_matmul(x, p["kernel_q"], p["kernel_scale"])
+        else:
+            w = p["kernel"]
+            if proj in ("k_proj", "v_proj") and kv_replicas(config, tp.tp) > 1:
+                w = tp_replica(w, 1, span, config.kv_dim, tp)
+                if bias is not None:
+                    bias = tp_replica(bias, 0, span, config.kv_dim, tp)
+            y = torch.matmul(x, w)
+    elif kind == LOWRANK:
+        if "in_kernel_q" in p:
+            a, a_s, b, b_s = (p["in_kernel_q"], p["in_kernel_scale"], p["out_kernel_q"],
+                              p["out_kernel_scale"])
+            if col:
+                y = quant_matmul(quant_matmul(x, a, a_s), tp_split(b, 1, span, tp),
+                                 tp_split(b_s, 1, span, tp))
+            else:
+                h = tp_reduce(quant_matmul(x, tp_split(a, 0, span, tp), a_s), tp)
+                return _biased(quant_matmul(h, b, b_s), bias)
+        elif col:
+            y = torch.matmul(torch.matmul(x, tp_enter(p["in_kernel"], tp)),
+                             tp_split(p["out_kernel"], 1, span, tp))
+        else:
+            h = tp_reduce(torch.matmul(x, tp_split(p["in_kernel"], 0, span, tp)), tp)
+            return _biased(torch.matmul(h, p["out_kernel"]), bias)
+    elif kind == SVD:
+        u, sv, vh = p["u"], p["s"], p["vh"]
+        if col:
+            h = torch.matmul(x, tp_enter(vh, tp).to(x.dtype).T)
+            h = h * tp_enter(sv, tp).to(h.dtype)
+            y = torch.matmul(h, tp_split(u, 0, span, tp).to(x.dtype).T)
+        else:
+            h = tp_reduce(torch.matmul(x, tp_split(vh, 1, span, tp).to(x.dtype).T), tp)
+            h = h * sv.to(h.dtype)
+            return _biased(torch.matmul(h, u.to(x.dtype).T), bias)
+    elif kind == HYBRID:
+        raise NotImplementedError(f"grasp_tpu_torch does not support {kind!r} projections yet")
+    else:
+        raise ValueError(f"unknown projection kind {kind!r}")
+    if not col:
+        y = tp_reduce(y, tp)
+    return _biased(y, bias)
+
+
+def _biased(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    return y + bias if bias is not None else y
+
+
+def attn_qkv(x: torch.Tensor, ap: Params, kinds: Dict[str, str], config: ModelConfig,
+             fused: bool = False, tp: Optional[Mesh] = None):
+    """q, k, v [B, heads, S, hd] of the normed input x [B, S, d]; the head
+    counts are those of the local shapes (this rank's heads under ``tp``)."""
+    b, s, _ = x.shape
+    hd = config.head_dim_
+    if tp is None:
+        outs = [proj_apply(x, ap[n], kinds[n], fused) for n in ("q_proj", "k_proj", "v_proj")]
+    else:
+        if fused:
+            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
+                                      "(ROADMAP.md, P10b)")
+        xin = tp_enter(x, tp)
+        outs = [_tp_proj_apply(xin, ap[n], kinds[n], n, config, tp)
+                for n in ("q_proj", "k_proj", "v_proj")]
+    return tuple(t.reshape(b, s, -1, hd).transpose(1, 2) for t in outs)
+
+
+def attn_out(attn: torch.Tensor, ap: Params, kinds: Dict[str, str], config: ModelConfig,
+             fused: bool = False, tp: Optional[Mesh] = None) -> torch.Tensor:
+    """o_proj of the attention output [B, S, heads * hd] (this rank's heads
+    under ``tp``, the model group's sum the result)."""
+    if tp is None:
+        return proj_apply(attn, ap["o_proj"], kinds["o_proj"], fused)
+    return _tp_proj_apply(attn, ap["o_proj"], kinds["o_proj"], "o_proj", config, tp)
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     """Gemma-2's logit cap, cap * tanh(x / cap); the identity for cap None."""
     return x if cap is None else cap * torch.tanh(x / cap)
@@ -364,13 +498,16 @@ def attention_scale(config: ModelConfig) -> float:
 
 
 def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
-                      kinds: Dict[str, str], config: ModelConfig) -> torch.Tensor:
+                      kinds: Dict[str, str], config: ModelConfig,
+                      tp: Optional[Mesh] = None) -> torch.Tensor:
     """The post-attention half of a decoder layer, shared by every decode
     body. h: the residual stream before the attention add; attn: the o_proj
     output. A Gemma-2 layer (it holds ``pre_feedforward_layernorm``) takes
     its sandwich norms: post_attention_layernorm on the attention output
     before the residual add, pre/post_feedforward_layernorm around the MLP
-    (HF Gemma2DecoderLayer). Returns the stream after the MLP residual."""
+    (HF Gemma2DecoderLayer). Returns the stream after the MLP residual.
+    ``tp``: gate/up column-parallel, down row-parallel (one ``all_reduce``),
+    or the experts of this rank (models/moe.py)."""
     sandwich = "pre_feedforward_layernorm" in lp
     if sandwich:
         attn = norm(attn, lp["post_attention_layernorm"]["weight"], config)
@@ -378,12 +515,22 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
     pre_mlp = lp["pre_feedforward_layernorm" if sandwich else "post_attention_layernorm"]
     x = norm(h, pre_mlp["weight"], config)
     if "moe" in lp:  # Mixtral-family sparse MoE block
-        return h + moe_apply(x, lp["moe"], config)
+        return h + moe_apply(x, lp["moe"], config, tp=tp)
     mp = lp["mlp"]
     fused = config.use_pallas_lowrank
-    gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"], fused)
-    up = proj_apply(x, mp["up_proj"], kinds["up_proj"], fused)
-    out = proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
+    if tp is None:
+        gate = proj_apply(x, mp["gate_proj"], kinds["gate_proj"], fused)
+        up = proj_apply(x, mp["up_proj"], kinds["up_proj"], fused)
+        out = proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
+    else:
+        if fused:
+            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
+                                      "(ROADMAP.md, P10b)")
+        xin = tp_enter(x, tp)
+        gate = _tp_proj_apply(xin, mp["gate_proj"], kinds["gate_proj"], "gate_proj", config, tp)
+        up = _tp_proj_apply(xin, mp["up_proj"], kinds["up_proj"], "up_proj", config, tp)
+        out = _tp_proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"],
+                             "down_proj", config, tp)
     if "post_feedforward_layernorm" in lp:
         out = norm(out, lp["post_feedforward_layernorm"]["weight"], config)
     return h + out
@@ -409,22 +556,21 @@ def _takes_flash_route(config: ModelConfig, q: torch.Tensor, causal_full_sequenc
 def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
                    cos: torch.Tensor, sin: torch.Tensor, mask: Optional[torch.Tensor],
                    config: ModelConfig, kv: Optional[Dict[str, torch.Tensor]] = None,
-                   cache_index: int = 0, flash_ok: bool = False):
+                   cache_index: int = 0, flash_ok: bool = False, tp: Optional[Mesh] = None):
     """One decoder layer. With ``kv``, the new K/V are written into the cache
     in place at [cache_index, cache_index + S) and attention reads the whole
     cache under ``mask``. ``flash_ok``: the layer's flash rule holds
     (:func:`flash_layer_ok`: the mask is purely causal over this call), so a
-    CUDA full-sequence call may take the flash-attention kernels."""
+    CUDA full-sequence call may take the flash-attention kernels. ``tp``: the
+    mesh of tensor-parallel params (this rank's heads)."""
     b, s, _ = h.shape
-    nh, nkv, hd = config.num_attention_heads, config.num_key_value_heads, config.head_dim_
     kinds = dict(zip(PROJ_ORDER, layer_plan))
     fused = config.use_pallas_lowrank
 
     x = norm(h, lp["input_layernorm"]["weight"], config)
     ap = lp["self_attn"]
-    q = proj_apply(x, ap["q_proj"], kinds["q_proj"], fused).reshape(b, s, nh, hd).transpose(1, 2)
-    k = proj_apply(x, ap["k_proj"], kinds["k_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
-    v = proj_apply(x, ap["v_proj"], kinds["v_proj"], fused).reshape(b, s, nkv, hd).transpose(1, 2)
+    q, k, v = attn_qkv(x, ap, kinds, config, fused, tp)
+    nh, nkv = q.shape[1], k.shape[1]
     q, k = apply_rope(q, k, cos, sin)
 
     quantized = kv is not None and "k_scale" in kv
@@ -447,15 +593,30 @@ def _layer_forward(lp: Params, layer_plan: LayerPlan, h: torch.Tensor,
                                attention_scale(config))
     else:
         attn = _attention(q, k, v, mask, nh // nkv, scale=attention_scale(config), cap=cap)
-    attn = attn.transpose(1, 2).reshape(b, s, nh * hd)
-    attn = proj_apply(attn, ap["o_proj"], kinds["o_proj"], fused)
-    return attn_mlp_residual(h, attn, lp, kinds, config), kv
+    attn = attn.transpose(1, 2).reshape(b, s, -1)
+    attn = attn_out(attn, ap, kinds, config, fused, tp)
+    return attn_mlp_residual(h, attn, lp, kinds, config, tp), kv
 
 
-def _lm_logits(h: torch.Tensor, params: Params, cap: Optional[float] = None) -> torch.Tensor:
+def _lm_logits(h: torch.Tensor, params: Params, cap: Optional[float] = None,
+               tp: Optional[Mesh] = None) -> torch.Tensor:
     """Final projection to the vocabulary (tied or separate head); ``cap`` is
-    Gemma-2's final logit softcap."""
+    Gemma-2's final logit softcap. With ``tp`` the head (or the tied table)
+    holds this rank's vocabulary columns, and the whole vocabulary's logits
+    are assembled over the model group, equal on every rank."""
     head = params.get("lm_head")
+    if tp is not None:
+        if head is not None and "kernel_q4" in head:
+            raise NotImplementedError("int4 weights on a mesh are not supported yet "
+                                      "(ROADMAP.md, P10b)")
+        hin = tp_enter(h, tp)
+        if head is None:
+            logits = torch.matmul(hin, params["embed_tokens"]["weight"].T)
+        elif "kernel_q" in head:
+            logits = quant_matmul(hin, head["kernel_q"], head["kernel_scale"])
+        else:
+            logits = dense_apply(hin, head["kernel"])
+        return softcap(tp_gather(logits, -1, tp), cap)
     if head is None:
         logits = torch.matmul(h, params["embed_tokens"]["weight"].T)
     elif "kernel_q" in head:
@@ -467,10 +628,11 @@ def _lm_logits(h: torch.Tensor, params: Params, cap: Optional[float] = None) -> 
     return softcap(logits, cap)
 
 
-def final_logits(h: torch.Tensor, params: Params, config: ModelConfig) -> torch.Tensor:
+def final_logits(h: torch.Tensor, params: Params, config: ModelConfig,
+                 tp: Optional[Mesh] = None) -> torch.Tensor:
     """The final norm, the head and the final softcap of every decode body."""
     return _lm_logits(norm(h, params["norm"]["weight"], config), params,
-                      config.final_logit_softcapping)
+                      config.final_logit_softcapping, tp)
 
 
 def _causal_mask(s: int, t: int, offset: int, device,
@@ -519,7 +681,8 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
             positions: Optional[torch.Tensor] = None,
             output_hidden_states: bool = False, remat: bool = False, start_layer: int = 0,
             stop_layer: Optional[int] = None,
-            hidden_in: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+            hidden_in: Optional[torch.Tensor] = None,
+            mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """Full-sequence forward. Returns {"logits": [B, S, V]} and, if asked,
     "hidden_states": the inputs of the decoder layers run plus the final-norm
     output (HF semantics). With ``config.use_flash_attention`` and CUDA
@@ -533,15 +696,18 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
     ``start_layer > 0``, ``hidden_in`` is that layer's input instead of the
     embedding. ``remat`` recomputes each layer's activations in the backward
     (``torch.utils.checkpoint``) instead of keeping them, as the JAX package's
-    ``jax.checkpoint``; it changes no value."""
+    ``jax.checkpoint``; it changes no value. ``mesh``: the mesh of params
+    sharded by ``parallel.mesh.shard_params`` (hidden states and logits are
+    whole on every rank)."""
     plan = plan or default_plan(config)
+    tp = tensor_parallel(params, config, mesh)
     b, s = input_ids.shape
     if start_layer > 0:
         if hidden_in is None:
             raise ValueError("start_layer > 0 needs hidden_in")
         h = hidden_in
     else:
-        h = embed_lookup(params, input_ids, config)
+        h = embed_lookup(params, input_ids, config, tp)
     if positions is None:
         positions = torch.arange(s, device=input_ids.device)[None, :].expand(b, s)
     cos, sin = rope_cos_sin(positions, config.head_dim_, config.rope_theta,
@@ -559,7 +725,7 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
         def layer(lp, h_, layer_plan=plan[li], mask=masks[li],
                   flash_ok=flash_layer_ok(config, li, s, attention_mask is not None)):
             return _layer_forward(lp, layer_plan, h_, cos, sin, mask, config,
-                                  flash_ok=flash_ok)[0]
+                                  flash_ok=flash_ok, tp=tp)[0]
 
         if checkpointed:
             h = checkpoint(layer, params["layers"][li], h, use_reentrant=False)
@@ -568,7 +734,7 @@ def forward(params: Params, input_ids: torch.Tensor, *, config: ModelConfig,
     if stop_layer is not None:
         return {"hidden": h}
     h = norm(h, params["norm"]["weight"], config)
-    out: Dict[str, Any] = {"logits": _lm_logits(h, params, config.final_logit_softcapping)}
+    out: Dict[str, Any] = {"logits": _lm_logits(h, params, config.final_logit_softcapping, tp)}
     if output_hidden_states:
         hidden_states.append(h)
         out["hidden_states"] = hidden_states
@@ -609,13 +775,13 @@ def hf_causal_lm_loss_sum(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def init_kv_cache(config: ModelConfig, batch: int, max_len: int, *, device,
-                  dtype: Optional[torch.dtype] = None,
-                  quantized: bool = False) -> List[Dict[str, torch.Tensor]]:
-    """Dense per-layer KV cache, k/v [batch, nkv, max_len, hd].
-    ``quantized``: k/v are int8 with one fp32 absmax scale per (batch, head,
-    position), ``k_scale``/``v_scale`` [batch, nkv, max_len, 1]; attention
-    then runs on the int8 values (:func:`_attention_q8`)."""
-    shape = (batch, config.num_key_value_heads, max_len, config.head_dim_)
+                  dtype: Optional[torch.dtype] = None, quantized: bool = False,
+                  mesh: Optional[Mesh] = None) -> List[Dict[str, torch.Tensor]]:
+    """Dense per-layer KV cache, k/v [batch, nkv, max_len, hd] (``mesh``:
+    this rank's KV heads). ``quantized``: k/v are int8 with one fp32 absmax
+    scale per (batch, head, position), ``k_scale``/``v_scale`` [batch, nkv,
+    max_len, 1]; attention then runs on the int8 values (:func:`_attention_q8`)."""
+    shape = (batch, local_heads(config, mesh)[1], max_len, config.head_dim_)
     if quantized:
         def plane(last, dt, fill):
             return torch.full(shape[:-1] + (last,), fill, dtype=dt, device=device)
@@ -644,17 +810,20 @@ def _forward_with_cache(params: Params, input_ids: torch.Tensor,
                         cache: List[Dict[str, torch.Tensor]], cache_index: int, *,
                         config: ModelConfig, plan: ModelPlan,
                         length_mask: Optional[torch.Tensor] = None,
-                        positions: Optional[torch.Tensor] = None):
+                        positions: Optional[torch.Tensor] = None,
+                        mesh: Optional[Mesh] = None):
     """Run ``s`` tokens through the model, writing KV at [cache_index, ...)
     of ``cache`` in place. Returns (logits [B, s, V], cache).
 
     length_mask: optional [B, T] validity of cache slots; positions:
     optional [B, s] RoPE positions (default cache_index + arange(s)). Each
-    layer attends under its own window (:func:`_layer_masks`)."""
+    layer attends under its own window (:func:`_layer_masks`). ``mesh``: as
+    :func:`forward`'s, with a cache of this rank's KV heads."""
     b, s = input_ids.shape
     t = cache[0]["k"].shape[2]
     dev = input_ids.device
-    h = embed_lookup(params, input_ids, config)
+    tp = tensor_parallel(params, config, mesh)
+    h = embed_lookup(params, input_ids, config, tp)
     if positions is None:
         positions = (torch.arange(s, device=dev)[None, :] + cache_index).expand(b, s)
     cos, sin = rope_cos_sin(positions, config.head_dim_, config.rope_theta,
@@ -663,21 +832,23 @@ def _forward_with_cache(params: Params, input_ids: torch.Tensor,
     masks = _layer_masks(config, s, t, cache_index, dev, pad)
     for li in range(config.num_hidden_layers):
         h, _ = _layer_forward(params["layers"][li], plan[li], h, cos, sin, masks[li], config,
-                              kv=cache[li], cache_index=cache_index)
-    return final_logits(h, params, config), cache
+                              kv=cache[li], cache_index=cache_index, tp=tp)
+    return final_logits(h, params, config, tp), cache
 
 
-def prefill(params, input_ids, cache, *, config, plan, length_mask=None, positions=None):
+def prefill(params, input_ids, cache, *, config, plan, length_mask=None, positions=None,
+            mesh=None):
     """Process the whole prompt at cache position 0. Returns (logits, cache)."""
     return _forward_with_cache(params, input_ids, cache, 0, config=config, plan=plan,
-                               length_mask=length_mask, positions=positions)
+                               length_mask=length_mask, positions=positions, mesh=mesh)
 
 
 def decode_step(params, token_ids, cache, cache_index: int, *, config, plan,
-                length_mask=None, positions=None):
+                length_mask=None, positions=None, mesh=None):
     """One-token decode: token_ids [B, 1] written at slot cache_index."""
     return _forward_with_cache(params, token_ids, cache, cache_index, config=config,
-                               plan=plan, length_mask=length_mask, positions=positions)
+                               plan=plan, length_mask=length_mask, positions=positions,
+                               mesh=mesh)
 
 
 # ---------------------------------------------------------------------------

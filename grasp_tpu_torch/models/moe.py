@@ -16,6 +16,12 @@ compression engine's MoE round; parts it did not compress stay dense); int8
 [E, G, out] (ops/quant.py's ``quantize_model_weights``). Low-rank and
 quantized parts in one block raise NotImplementedError, as in the JAX
 package.
+
+Expert parallelism (``tp``, a mesh of params sharded by
+``parallel.mesh.shard_params``): each model rank holds E / tp stacked experts
+and runs them on every token with its columns of the combine matrix; the
+model group's sum is the block's output. Int4 experts on a mesh raise
+NotImplementedError (ROADMAP.md, P10b).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from grasp_tpu_torch.configs import ModelConfig
+from grasp_tpu_torch.parallel.mesh import even_span, tp_enter, tp_reduce, tp_split
 
 MOE_PARTS = ("w1", "w2", "w3")  # HF Mixtral naming: w1 gate, w2 down, w3 up
 
@@ -116,14 +123,14 @@ def _part_mm(ex: Dict[str, torch.Tensor], part: str, xin: torch.Tensor) -> torch
                               f"({sorted(ex)}); GRASP low-rank experts do not quantize")
 
 
-def moe_apply(x: torch.Tensor, mp: Dict[str, Any], config: ModelConfig) -> torch.Tensor:
+def moe_apply(x: torch.Tensor, mp: Dict[str, Any], config: ModelConfig, tp=None) -> torch.Tensor:
     """Sparse-MoE MLP, x [B, S, D] -> [B, S, D]:
 
         y_t = sum_e combine[t, e] * (silu(x_t w1_e) * (x_t w3_e)) w2_e
 
     silu in fp32, cast back before the product with the up projection; the
     combine weights applied after the down projection, as one contraction
-    over the experts."""
+    over the experts. ``tp``: this rank's experts (see the module's note)."""
     b, s, d = x.shape
     xt = x.reshape(b * s, d)
     logits = torch.matmul(xt.float(), mp["gate"]["kernel"].float())
@@ -132,8 +139,16 @@ def moe_apply(x: torch.Tensor, mp: Dict[str, Any], config: ModelConfig) -> torch
     if (any(p + "_a" in ex for p in MOE_PARTS)
             and any(p + "_q" in ex or p + "_q4" in ex for p in MOE_PARTS)):
         raise NotImplementedError("experts mixing GRASP low-rank and quantized parts")
+    if tp is not None:
+        if any(k.endswith("_q4") for k in ex):
+            raise NotImplementedError("int4 experts on a mesh are not supported yet "
+                                      "(ROADMAP.md, P10b)")
+        combine = tp_split(combine, 1, even_span(config.num_local_experts, tp), tp)
+        xt = tp_enter(xt, tp)
     g = _part_mm(ex, "w1", xt)
     u = _part_mm(ex, "w3", xt)
     h = F.silu(g.float()).to(x.dtype) * u
     y = torch.einsum("etd,te->td", _part_mm(ex, "w2", h), combine)
+    if tp is not None:
+        y = tp_reduce(y, tp)
     return y.reshape(b, s, d)

@@ -34,12 +34,9 @@ def block_influence(input_hidden_state: torch.Tensor, output_hidden_state: torch
     return _influence(x, y, angular)
 
 
-def bi_from_hiddens(hiddens: Sequence[torch.Tensor], num_prune_layers: int = 1,
-                    angular: bool = False) -> torch.Tensor:
-    """Mean block influence of every layer from L+1 hidden states [B, S, D]:
-    for i in [0, L+1-n), block_influence(h[i], h[i+n]) with n =
-    num_prune_layers if angular else 1; angular keeps the last token only.
-    Returns [L+1-n] float32; callers sum over batches."""
+def _bi_rows(hiddens: Sequence[torch.Tensor], num_prune_layers: int,
+             angular: bool) -> torch.Tensor:
+    """Block influence of every row of every layer pair: [L+1-n, N] fp32."""
     n = num_prune_layers if angular else 1
     h = torch.stack(list(hiddens), dim=0)  # [L+1, B, S, D]
     if angular:
@@ -47,7 +44,24 @@ def bi_from_hiddens(hiddens: Sequence[torch.Tensor], num_prune_layers: int = 1,
     d = h.shape[-1]
     x = h[:-n].reshape(h.shape[0] - n, -1, d).float()
     y = h[n:].reshape(h.shape[0] - n, -1, d).float()
-    return _influence(x, y, angular).mean(dim=-1)
+    return _influence(x, y, angular)
+
+
+def bi_from_hiddens(hiddens: Sequence[torch.Tensor], num_prune_layers: int = 1,
+                    angular: bool = False) -> torch.Tensor:
+    """Mean block influence of every layer from L+1 hidden states [B, S, D]:
+    for i in [0, L+1-n), block_influence(h[i], h[i+n]) with n =
+    num_prune_layers if angular else 1; angular keeps the last token only.
+    Returns [L+1-n] float32; callers sum over batches."""
+    return _bi_rows(hiddens, num_prune_layers, angular).mean(dim=-1)
+
+
+def bi_sums_from_hiddens(hiddens: Sequence[torch.Tensor], num_prune_layers: int = 1,
+                         angular: bool = False) -> torch.Tensor:
+    """:func:`bi_from_hiddens`' per-layer sums over the rows instead of
+    their means: [L+1-n] float32, to be added over a mesh's data ranks and
+    divided by the global count of rows (B * S, or B when angular)."""
+    return _bi_rows(hiddens, num_prune_layers, angular).sum(dim=-1)
 
 
 def choose_prune_layers(layer_importances, num_prune_layers: int, angular: bool = False) -> list:

@@ -90,7 +90,8 @@ def _gram_svd(wf: torch.Tensor, on_device: bool) -> Tuple[torch.Tensor, torch.Te
         return u, s, basis.transpose(-1, -2)
 
 
-def svd(w: torch.Tensor, method: str = "auto") -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def svd(w: torch.Tensor, method: str = "auto",
+        mesh=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Thin SVD of ``w`` ([..., out, in]) in float32, on ``w``'s device.
 
     method: "device" — ``torch.linalg.svd`` where the tensor lives (batched
@@ -104,7 +105,12 @@ def svd(w: torch.Tensor, method: str = "auto") -> Tuple[torch.Tensor, torch.Tens
     of a projection's selected indices unlike an fp64 SVD's; the float64 SVD
     selects as fp64 does and took less time than fp32 ``gesvd``
     (scripts/svd_agreement_torch.py, NVIDIA H100 80GB HBM3 at 700 W). The JAX
-    package likewise never auto-chooses its imprecise on-device SVD."""
+    package likewise never auto-chooses its imprecise on-device SVD.
+
+    ``mesh`` (parallel.mesh.Mesh): a stack of matrices is spread over every
+    rank (:func:`_svd_sharded`), each factored by the same method."""
+    if mesh is not None and mesh.size > 1 and w.dim() > 2:
+        return _svd_sharded(w, method, mesh)
     w = w.float()
     if method == "auto":
         method = "device"
@@ -120,6 +126,32 @@ def svd(w: torch.Tensor, method: str = "auto") -> Tuple[torch.Tensor, torch.Tens
     if method in ("gram", "gram_device"):
         return _gram_svd(w, on_device=method == "gram_device")
     raise ValueError(f"unknown svd method {method!r}")
+
+
+def _svd_sharded(w: torch.Tensor, method: str,
+                 mesh) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`svd` of a stack [..., out, in] with its matrices spread over
+    every rank of ``mesh``: the stack (every rank holds all of it) is padded
+    to a multiple of the ranks, rank r factors its contiguous share by the
+    single-device method, and every rank gathers every share. Each matrix's
+    factors are those :func:`svd` gives it in the unsharded call wherever a
+    batched call factors its matrices one by one (LAPACK on the CPU)."""
+    lead = w.shape[:-2]
+    flat = w.reshape(-1, *w.shape[-2:])
+    n, size = flat.shape[0], mesh.size
+    per = -(-n // size)
+    start = min(mesh.rank * per, n)
+    mine = flat[start:min(start + per, n)]
+    m, k = flat.shape[-2], flat.shape[-1]
+    r = min(m, k)
+    dev = w.device
+    u = torch.zeros(per, m, r, dtype=torch.float32, device=dev)
+    s = torch.zeros(per, r, dtype=torch.float32, device=dev)
+    vh = torch.zeros(per, r, k, dtype=torch.float32, device=dev)
+    if mine.shape[0]:
+        u[:mine.shape[0]], s[:mine.shape[0]], vh[:mine.shape[0]] = svd(mine, method)
+    parts = [torch.cat(mesh.all_gather(x, None), dim=0)[:n] for x in (u, s, vh)]
+    return tuple(x.reshape(*lead, *x.shape[1:]) for x in parts)
 
 
 def gram_basis(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, str]:

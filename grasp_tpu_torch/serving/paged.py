@@ -38,6 +38,10 @@ engine donated them to its jitted step instead.
   frequency penalties, min_p) over per-row token counts and bias rows kept on
   the engine's device; guided decoding masks each pick to the tokens a
   grammar DFA (:mod:`grasp_tpu_torch.serving.guided`) can consume.
+- ``mesh``: tensor-parallel params (parallel.mesh.shard_params). Each rank's
+  pool holds its KV heads, the kernels run on its query heads, and the ranks
+  submit and step in lockstep: every rank samples the same assembled logits
+  with the same seeded generators, so their streams agree.
 """
 
 from __future__ import annotations
@@ -62,15 +66,18 @@ from grasp_tpu_torch.models.llama import (
     apply_rope,
     attention_scale,
     attn_mlp_residual,
+    attn_out,
+    attn_qkv,
     default_plan,
     embed_lookup,
     final_logits,
     init_kv_cache,
     norm,
-    proj_apply,
     rope_cos_sin,
+    tensor_parallel,
     torch_dtype,
 )
+from grasp_tpu_torch.parallel.mesh import Mesh, local_heads
 from grasp_tpu_torch.ops.paged_attention import (
     kernel_shape_error,
     paged_attention,
@@ -94,7 +101,8 @@ class PagePool:
     order is the JAX allocator's, step for step."""
 
     def __init__(self, config: ModelConfig, num_pages: int, page_size: int = 128, *,
-                 device, dtype: Optional[torch.dtype] = None, quantized: bool = False):
+                 device, dtype: Optional[torch.dtype] = None, quantized: bool = False,
+                 num_kv_heads: Optional[int] = None):
         self.config = config
         self.num_pages = num_pages
         self.page_size = page_size
@@ -102,8 +110,8 @@ class PagePool:
         dtype = torch.int8 if quantized else (dtype or torch_dtype(config.dtype))
         # [L, nkv, P, ps, hd]: each layer's slice is the kernel's
         # [num_kv_heads, total_pages, page_size, head_dim]
-        shape = (config.num_hidden_layers, config.num_key_value_heads, num_pages,
-                 page_size, config.head_dim_)
+        shape = (config.num_hidden_layers, num_kv_heads or config.num_key_value_heads,
+                 num_pages, page_size, config.head_dim_)
         self.k_pages = torch.zeros(shape, dtype=dtype, device=device)
         self.v_pages = torch.zeros(shape, dtype=dtype, device=device)
         self.k_scales = self.v_scales = None
@@ -178,14 +186,16 @@ def _full_layers(config: ModelConfig) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype):
+def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype,
+                heads: Optional[tuple] = None):
     """("kernel" | "gather", reason): the attention route of every paged
     decode and verify body over a table of ``capacity`` slots and pools of
     ``pool_dtype``. The kernels (K3, K4) attend to every slot up to the
     query's own, uncapped, over fp pages, at the head layouts they take; the
     rest is the gather route, as in the JAX engine. A window of at least the
     table's capacity masks nothing (slot > pos - w follows from slot <
-    capacity <= w), so it keeps the kernel."""
+    capacity <= w), so it keeps the kernel. ``heads``: (query, KV) heads of
+    a tensor-parallel rank (default the config's)."""
     if pool_dtype == torch.int8:
         return "gather", "int8 pages: no kernel reads them"
     if config.attn_logit_softcapping is not None:
@@ -196,15 +206,15 @@ def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype):
     if short:
         return "gather", (f"a sliding window of {short[0]} slots is shorter than the "
                           f"table's {capacity}")
-    why = kernel_shape_error(config.num_attention_heads, config.num_key_value_heads,
-                             config.head_dim_)
+    nh, nkv = heads or (config.num_attention_heads, config.num_key_value_heads)
+    why = kernel_shape_error(nh, nkv, config.head_dim_)
     if why is not None:
         return "gather", why
     return "kernel", (f"fp pages, no softcap, every window covers the table's {capacity} "
                       f"slots, head_dim {config.head_dim_}")
 
 
-def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
+def _paged_decode_fn(config: ModelConfig, plan: ModelPlan, mesh: Optional[Mesh] = None):
     """Build the one-token decode over the page pool.
 
     (params, toks [B], k_pages, v_pages, tables [B, P] i32, pos [B], live [B],
@@ -216,15 +226,17 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
     :func:`paged_route`'s route for the table and pools of the call; each
     layer's window bias and the softcap apply on the gather route. The pools
     are arguments, so one body serves a second pool (the draft's, in
-    speculative serving)."""
-    nh = config.num_attention_heads
+    speculative serving). ``mesh``: tensor-parallel params, pools of this
+    rank's KV heads."""
+    nh = local_heads(config, mesh)[0]
 
     def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
         L, nkv, _, page_size, hd = k_pages.shape
         b = toks.shape[0]
+        tp = tensor_parallel(params, config, mesh)
         cos, sin = rope_cos_sin(pos[:, None], hd, config.rope_theta,
                                 scaling=config.rope_scaling)  # [B, 1, hd]
-        h = embed_lookup(params, toks, config)[:, None, :]  # [B, 1, d]
+        h = embed_lookup(params, toks, config, tp)[:, None, :]  # [B, 1, d]
 
         alive = live > 0
         logical = (pos // page_size).long()
@@ -235,7 +247,7 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
         phys = torch.where(alive, phys, 0)
         lengths = torch.where(alive, pos + 1, 1).to(torch.int32)
         scale = attention_scale(config)
-        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype)
+        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype, (nh, nkv))
 
         for li in range(config.num_hidden_layers):
             lp = params["layers"][li]
@@ -244,9 +256,7 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
             ap = lp["self_attn"]
             # as in the JAX engine, the fused low-rank flag is not threaded
             # through: decode rows stay below that kernel's 256-row threshold
-            q = proj_apply(x, ap["q_proj"], kinds["q_proj"]).reshape(b, 1, nh, hd).transpose(1, 2)
-            k = proj_apply(x, ap["k_proj"], kinds["k_proj"]).reshape(b, 1, nkv, hd).transpose(1, 2)
-            v = proj_apply(x, ap["v_proj"], kinds["v_proj"]).reshape(b, 1, nkv, hd).transpose(1, 2)
+            q, k, v = attn_qkv(x, ap, kinds, config, tp=tp)
             q, k = apply_rope(q, k, cos, sin)
 
             # torch applies the integer index first, so unlike numpy/JAX the
@@ -268,10 +278,10 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan):
                     q1[:, None], k_pages[li], v_pages[li], lengths, tables, scale,
                     window=config.layer_window(li), cap=config.attn_logit_softcapping,
                     k_scales=ks, v_scales=vs)[:, 0]
-            attn = proj_apply(attn.reshape(b, 1, nh * hd), ap["o_proj"], kinds["o_proj"])
-            h = attn_mlp_residual(h, attn, lp, kinds, config)
+            attn = attn_out(attn.reshape(b, 1, nh * hd), ap, kinds, config, tp=tp)
+            h = attn_mlp_residual(h, attn, lp, kinds, config, tp)
 
-        return final_logits(h, params, config)[:, 0, :]
+        return final_logits(h, params, config, tp)[:, 0, :]
 
     return fn
 
@@ -486,7 +496,7 @@ class ServingEngine:
                  *, device, num_pages: int = 64, page_size: int = 128, max_batch: int = 8,
                  max_pages_per_seq: int = 8, eos_token_id=None, quantized_kv: bool = False,
                  prefix_cache: bool = False, prefill_chunk: Optional[int] = None,
-                 tokenizer=None):
+                 tokenizer=None, mesh: Optional[Mesh] = None):
         if prefill_chunk is not None and (prefill_chunk <= 0 or prefill_chunk % page_size):
             raise ValueError(f"prefill_chunk={prefill_chunk} must be a positive multiple "
                              f"of page_size={page_size}")
@@ -494,9 +504,13 @@ class ServingEngine:
         self.config = config
         self.plan = plan or default_plan(config)
         self.device = torch.device(device)
+        self.mesh = mesh
+        tensor_parallel(params, config, mesh)  # sharded params need their mesh
+        self.heads = local_heads(config, mesh)
         self.pool = PagePool(config, num_pages, page_size, device=self.device,
-                             quantized=quantized_kv)
-        self.route = paged_route(config, max_pages_per_seq * page_size, self.pool.k_pages.dtype)
+                             quantized=quantized_kv, num_kv_heads=self.heads[1])
+        self.route = paged_route(config, max_pages_per_seq * page_size, self.pool.k_pages.dtype,
+                                 self.heads)
         # a full-attention layer reads every slot, so pages recycle only
         # when every layer slides
         self._window_recycle = None if _full_layers(config) else config.sliding_window
@@ -528,7 +542,7 @@ class ServingEngine:
         self._grammars: Dict[str, object] = {}  # guided_regex -> CompiledGrammar
         self._token_bytes = None
         self._eos_mask: Optional[torch.Tensor] = None
-        self._decode = _paged_decode_fn(config, self.plan)
+        self._decode = _paged_decode_fn(config, self.plan, mesh)
         self._pending: List[_Request] = []
         self._live: List[Optional[_Request]] = [None] * max_batch
         self._finished: List[_Request] = []
@@ -843,7 +857,7 @@ class ServingEngine:
         ids = np.zeros((1, s_pad - prefix_len), np.int64)
         ids[0, :s - prefix_len] = req.prompt[prefix_len:]
         logits, cache = _forward_with_cache(params, torch.from_numpy(ids).to(self.device), cache,
-                                            prefix_len, config=config, plan=plan)
+                                            prefix_len, config=config, plan=plan, mesh=self.mesh)
         _build_scatter(pool, cache, self._ids(req.pages[hits:s_pad // ps]), prefix_len)
         return logits
 
@@ -858,7 +872,7 @@ class ServingEngine:
         those values and scales verbatim), its first slots gathered from the
         cached pages ``shared``."""
         cache = init_kv_cache(config, 1, s_pad, device=self.device, dtype=pool.k_pages.dtype,
-                              quantized=pool.quantized)
+                              quantized=pool.quantized, mesh=self.mesh)
         if shared:
             _build_gather(pool, cache, self._ids(shared))
         return cache
@@ -936,7 +950,7 @@ class ServingEngine:
         ids[0, :n_real] = req.prompt[f:f + n_real]
         logits, adm.cache = _forward_with_cache(
             self.params, torch.from_numpy(ids).to(self.device), adm.cache, f,
-            config=self.config, plan=self.plan)
+            config=self.config, plan=self.plan, mesh=self.mesh)
         adm.filled = f + c
         if adm.filled < adm.s_pad:
             return False

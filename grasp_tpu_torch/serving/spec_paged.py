@@ -62,13 +62,16 @@ from grasp_tpu_torch.models.llama import (
     apply_rope,
     attention_scale,
     attn_mlp_residual,
+    attn_out,
+    attn_qkv,
     default_plan,
     embed_lookup,
     final_logits,
     norm,
-    proj_apply,
     rope_cos_sin,
+    tensor_parallel,
 )
+from grasp_tpu_torch.parallel.mesh import local_heads
 from grasp_tpu_torch.ops.paged_attention import paged_attention_chunk, paged_attention_gather
 from grasp_tpu_torch.serving.paged import (
     _MAX_TOP_K,
@@ -86,7 +89,7 @@ from grasp_tpu_torch.serving.paged import (
 from grasp_tpu_torch.serving.speculative import speculative_accept
 
 
-def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
+def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int, mesh=None):
     """Build the batched multi-token paged forward (the verify step).
 
     (params, toks [B, chunk], k_pages, v_pages, tables [B, P] i32, pos [B],
@@ -103,15 +106,17 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
     window and the softcap; int8 pools take the gather route, the chunk's
     K/V quantized per position exactly as the single-token scatter quantizes
     them. Dead rows (live=0) write on the null page 0 and attend from a base
-    length of 1."""
-    nh = config.num_attention_heads
+    length of 1. ``mesh``: tensor-parallel params, pools of this rank's KV
+    heads."""
+    nh = local_heads(config, mesh)[0]
 
     def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
         L, nkv, _, page_size, hd = k_pages.shape
         b = toks.shape[0]
+        tp = tensor_parallel(params, config, mesh)
         positions = pos[:, None] + torch.arange(chunk, device=toks.device)[None, :]  # [B, C]
         cos, sin = rope_cos_sin(positions, hd, config.rope_theta, scaling=config.rope_scaling)
-        h = embed_lookup(params, toks, config)  # [B, C, d]
+        h = embed_lookup(params, toks, config, tp)  # [B, C, d]
 
         alive = live > 0
         logical = (positions // page_size).long()
@@ -121,16 +126,14 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
         of = (positions % page_size).long().reshape(-1)
         base = torch.where(alive, pos + 1, 1).to(torch.int32)
         scale = attention_scale(config)
-        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype)
+        route, _ = paged_route(config, tables.shape[1] * page_size, k_pages.dtype, (nh, nkv))
 
         for li in range(config.num_hidden_layers):
             lp = params["layers"][li]
             kinds = dict(zip(PROJ_ORDER, plan[li]))
             x = norm(h, lp["input_layernorm"]["weight"], config)
             ap = lp["self_attn"]
-            q = proj_apply(x, ap["q_proj"], kinds["q_proj"]).reshape(b, chunk, nh, hd).transpose(1, 2)
-            k = proj_apply(x, ap["k_proj"], kinds["k_proj"]).reshape(b, chunk, nkv, hd).transpose(1, 2)
-            v = proj_apply(x, ap["v_proj"], kinds["v_proj"]).reshape(b, chunk, nkv, hd).transpose(1, 2)
+            q, k, v = attn_qkv(x, ap, kinds, config, tp=tp)
             q, k = apply_rope(q, k, cos, sin)
 
             # torch applies the integer index first, so the [B * C] dim of
@@ -153,10 +156,10 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int):
                                               window=config.layer_window(li),
                                               cap=config.attn_logit_softcapping,
                                               k_scales=ks, v_scales=vs)
-            attn = proj_apply(attn.reshape(b, chunk, nh * hd), ap["o_proj"], kinds["o_proj"])
-            h = attn_mlp_residual(h, attn, lp, kinds, config)
+            attn = attn_out(attn.reshape(b, chunk, nh * hd), ap, kinds, config, tp=tp)
+            h = attn_mlp_residual(h, attn, lp, kinds, config, tp)
 
-        return final_logits(h, params, config)
+        return final_logits(h, params, config, tp)
 
     return fn
 
@@ -198,7 +201,8 @@ class _Penalties:
         return torch.where(self.flags & ~self.eos_mask[toks] & (ns >= 0), ns, states)
 
 
-def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int = _MAX_TOP_K):
+def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int = _MAX_TOP_K,
+                    mesh=None):
     """Build the draft phase: gamma + 1 one-token paged decodes on the draft
     pool, each next token fed to the following step on the device, nothing
     synchronised with the host. Step gamma (the last) only lands d_gamma's
@@ -216,7 +220,7 @@ def _draft_multi_fn(config: ModelConfig, plan: ModelPlan, gamma: int, max_k: int
     (params, tok0 [B], k_pages, v_pages, tables, pos0 [B], live [B],
     k_scales=None, v_scales=None, reqs=(), pen=None) -> (drafts [B, gamma],
     q_probs [B, gamma, V] fp32, or None for an all-greedy batch)."""
-    body = _paged_decode_fn(config, plan)
+    body = _paged_decode_fn(config, plan, mesh)
 
     def fn(params, tok0, k_pages, v_pages, tables, pos0, live, k_scales=None, v_scales=None,
            reqs=(), pen=None):
@@ -339,15 +343,17 @@ class SpeculativeServingEngine(ServingEngine):
         if not any(c.sliding_window is None or _full_layers(c) for c in (config, draft_config)):
             self._window_recycle = max(config.sliding_window, draft_config.sliding_window)
         self._lazy_pages = False
+        tensor_parallel(draft_params, draft_config, self.mesh)
+        dheads = local_heads(draft_config, self.mesh)
         self.draft_route = paged_route(draft_config, self.max_pages_per_seq * self.pool.page_size,
-                                       self.pool.k_pages.dtype)
+                                       self.pool.k_pages.dtype, dheads)
         # the tables index both pools; pages are allocated, shared and freed
         # through self.pool alone, the draft pool's own allocator stays unused
         self.dpool = PagePool(draft_config, self.pool.num_pages, self.pool.page_size,
-                              device=self.device, quantized=quantized)
+                              device=self.device, quantized=quantized, num_kv_heads=dheads[1])
         self._gtables = None  # (grammar ids, trans, accept, state offsets) of a mixed batch
-        self._dmulti = _draft_multi_fn(draft_config, self.dplan, self.gamma)
-        self._verify = _paged_verify_fn(config, self.plan, self.gamma + 1)
+        self._dmulti = _draft_multi_fn(draft_config, self.dplan, self.gamma, mesh=self.mesh)
+        self._verify = _paged_verify_fn(config, self.plan, self.gamma + 1, self.mesh)
         self._accept = _accept_fn(self.gamma, _MAX_TOP_K)
         self.macro_steps = 0
         self.last_stats: Dict[str, float] = {"chunks": 0, "drafted": 0, "accepted": 0}

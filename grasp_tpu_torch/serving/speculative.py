@@ -96,13 +96,14 @@ class SpeculativeGenerator:
 
     The two may have different configs and plans (a GRASP-compressed draft of
     the same family, say) but must share the vocabulary. ``quantized_kv``:
-    both caches are int8 (``init_kv_cache(quantized=True)``)."""
+    both caches are int8 (``init_kv_cache(quantized=True)``). ``mesh``: both
+    models' params tensor-parallel on it (parallel.mesh.shard_params)."""
 
     def __init__(self, target_params: Params, target_config: ModelConfig,
                  draft_params: Params, draft_config: ModelConfig,
                  target_plan: Optional[ModelPlan] = None,
                  draft_plan: Optional[ModelPlan] = None, gamma: int = 4,
-                 quantized_kv: bool = False, *, device):
+                 quantized_kv: bool = False, *, device, mesh=None):
         if target_config.vocab_size != draft_config.vocab_size:
             raise ValueError("draft and target must share a vocabulary")
         self.tparams, self.tconfig = target_params, target_config
@@ -112,6 +113,7 @@ class SpeculativeGenerator:
         self.gamma = int(gamma)
         self.quantized_kv = quantized_kv
         self.device = torch.device(device)
+        self.mesh = mesh
         self.last_stats: Dict[str, float] = {}
 
     # ------------------------------------------------------------------
@@ -127,11 +129,13 @@ class SpeculativeGenerator:
         padded[0, :s] = ids[0]
         tp = torch.from_numpy(padded).to(self.device)
         tcache = init_kv_cache(self.tconfig, 1, cache_len, device=self.device,
-                               quantized=self.quantized_kv)
+                               quantized=self.quantized_kv, mesh=self.mesh)
         dcache = init_kv_cache(self.dconfig, 1, cache_len, device=self.device,
-                               quantized=self.quantized_kv)
-        tlogits, tcache = prefill(self.tparams, tp, tcache, config=self.tconfig, plan=self.tplan)
-        _, dcache = prefill(self.dparams, tp, dcache, config=self.dconfig, plan=self.dplan)
+                               quantized=self.quantized_kv, mesh=self.mesh)
+        tlogits, tcache = prefill(self.tparams, tp, tcache, config=self.tconfig, plan=self.tplan,
+                                  mesh=self.mesh)
+        _, dcache = prefill(self.dparams, tp, dcache, config=self.dconfig, plan=self.dplan,
+                            mesh=self.mesh)
         return tlogits[0, s - 1], tcache, dcache, s
 
     def _loop(self, first_tok: int, tcache, dcache, start_pos: int, max_new: int,
@@ -156,7 +160,8 @@ class SpeculativeGenerator:
             drafts, qs = [], []
             for i in range(gamma + 1):
                 logits, dcache = decode_step(self.dparams, dtok, dcache, pos + i,
-                                             config=self.dconfig, plan=self.dplan)
+                                             config=self.dconfig, plan=self.dplan,
+                                             mesh=self.mesh)
                 if i == gamma:
                     break
                 nxt, q_i = pick_draft(logits[0, 0])
@@ -168,7 +173,8 @@ class SpeculativeGenerator:
             # target verify: one (gamma + 1)-token forward
             verify_in = torch.cat([torch.tensor([tok], device=dev), drafts_t])[None, :]
             tlogits, tcache = _forward_with_cache(self.tparams, verify_in, tcache, pos,
-                                                  config=self.tconfig, plan=self.tplan)
+                                                  config=self.tconfig, plan=self.tplan,
+                                                  mesh=self.mesh)
             a, last = accept(drafts_t, None if qs[0] is None else torch.stack(qs), tlogits[0])
 
             # emitted chunk: d_1..d_a, then the correction (or bonus) token

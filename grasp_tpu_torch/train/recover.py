@@ -29,8 +29,17 @@ two give equal updates. A model whose config has ``use_pallas_lowrank`` runs
 each low-rank projection of 256 rows or more on CUDA through the fused kernel
 (ops/lowrank.py), whose backward is plain products.
 
-Not ported: ``mesh=`` raises NotImplementedError; ``scan_layers``,
-``split_layers`` and ``_auto_scan_layers`` are XLA machinery.
+On a mesh (``mesh=``, parallel/mesh.py) the params are tensor-parallel and
+each batch's rows split over the data axis (a batch whose rows do not divide
+runs on data index 0 alone): each rank's loss divides by the whole batch's
+label count, gradients and losses add over the data group, the global norm
+counts every leaf once over the model group, and each rank keeps the
+optimizer state of its own shards. Checkpoints hold the whole tree (gathered,
+written by rank 0) and load into any mesh or none; ``recovery_train`` returns
+this rank's shards.
+
+Not ported: ``scan_layers``, ``split_layers`` and ``_auto_scan_layers`` are
+XLA machinery.
 """
 
 from __future__ import annotations
@@ -53,6 +62,16 @@ from grasp_tpu_torch.models.llama import (
     forward,
     hf_causal_lm_loss,
     hf_causal_lm_loss_sum,
+)
+from grasp_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    data_rows,
+    gather_flat,
+    gather_params,
+    replicas,
+    shard_flat,
+    shard_params,
 )
 
 logger = logging.getLogger("grasp_tpu_torch")
@@ -141,11 +160,14 @@ def make_schedule(learning_rate: float, total_steps: int,
     return schedule
 
 
-def clip_by_global_norm(grads: Grads, max_norm: float) -> Grads:
+def clip_by_global_norm(grads: Grads, max_norm: float,
+                        total: Optional[torch.Tensor] = None) -> Grads:
     """``optax.clip_by_global_norm``: ``g`` where the global norm is below
     ``max_norm``, else ``g / norm * max_norm``; leaves summed in order, each
-    in its own dtype. No host sync."""
-    total = sum(torch.sum(g * g) for g in grads.values())
+    in its own dtype. No host sync. ``total``: the squared norm, where the
+    caller sums it (over a mesh: :func:`mesh_sumsq`)."""
+    if total is None:
+        total = sum(torch.sum(g * g) for g in grads.values())
     norm = torch.sqrt(total)
     return {p: torch.where(norm < max_norm, g, (g / norm.to(g.dtype)) * max_norm)
             for p, g in grads.items()}
@@ -174,6 +196,8 @@ class Optimizer:
     def __init__(self, schedule: Callable[[int], np.float32], mask: Optional[Params] = None,
                  accum_steps: int = 1):
         self.schedule, self.mask, self.accum_steps = schedule, mask, accum_steps
+        # the squared global norm of a gradient dict, where it spans a mesh
+        self.sumsq: Optional[Callable[[Grads], torch.Tensor]] = None
 
     def paths(self, params) -> List[str]:
         """The trainable leaves' dotted paths, in leaf order."""
@@ -205,7 +229,8 @@ class Optimizer:
                          "inner": inner}
 
     def _adamw(self, grads: Grads, state: Dict[str, Any]) -> Tuple[Grads, Dict[str, Any]]:
-        g = clip_by_global_norm({p: grads[p] for p in state["mu"]}, MAX_GRAD_NORM)
+        g = {p: grads[p] for p in state["mu"]}
+        g = clip_by_global_norm(g, MAX_GRAD_NORM, None if self.sumsq is None else self.sumsq(g))
         t = state["count"] + 1
         mu = {p: (1 - B1) * g[p] + B1 * m for p, m in state["mu"].items()}
         nu = {p: (1 - B2) * (g[p] ** 2) + B2 * v for p, v in state["nu"].items()}
@@ -269,17 +294,80 @@ def _subtree_split(params: Params, redundant: Tuple[int, ...]):
     return {str(li): params["layers"][li] for li in redundant}, merge
 
 
+def mesh_sumsq(mesh, config: ModelConfig) -> Callable[[Grads], torch.Tensor]:
+    """The squared global norm of a gradient dict on ``mesh``: each leaf
+    counted once over the model group (a replicated leaf by model index 0, a
+    KV head that several ranks hold by the first of them), summed there.
+    Every data rank holds the same (data-reduced) gradients."""
+
+    def sumsq(grads: Grads) -> torch.Tensor:
+        parts = []
+        for p, g in grads.items():
+            rep = replicas(p, g, config, mesh)
+            if rep == 1 or mesh.model_index % rep == 0:
+                parts.append(torch.sum(g * g))
+        total = sum(parts) if parts else torch.zeros((), device=mesh.device)
+        return mesh.all_reduce(torch.as_tensor(total).float().reshape(()).clone(), MODEL_AXIS)
+
+    return sumsq
+
+
+def _mesh_loss_grads(mesh, logits, train, merge, params, paths, input_ids, labels,
+                     attention_mask, accumulate: bool):
+    """One step's loss and gradients on a mesh: this rank's rows (dim 1 of
+    an accumulation group), the CE sums over the whole batch's label count,
+    both added over the data group."""
+    dim = 1 if accumulate else 0
+    rows = data_rows(int(labels.shape[dim]), mesh)
+    if accumulate:
+        n_items = torch.clamp((labels != -100).sum(), min=1).float()
+    else:
+        n_items = torch.clamp((labels[:, 1:] != -100).sum(), min=1)
+
+    def local(x):
+        if x is None or rows is None:
+            return x
+        return x[:, rows] if accumulate else x[rows]
+
+    ids, lab, am = local(input_ids), local(labels), local(attention_mask)
+    if not accumulate and (rows is not None or mesh.data_index == 0):
+        loss, grads = _value_and_grad(
+            lambda tr: hf_causal_lm_loss_sum(logits(merge(tr, params), ids, am), lab) / n_items,
+            train, paths)
+    elif rows is not None or mesh.data_index == 0:
+        grads, ce_total = {}, torch.zeros((), dtype=torch.float32, device=labels.device)
+        for i in range(ids.shape[0]):
+            am_i = None if am is None else am[i]
+            ce, g = _value_and_grad(
+                lambda tr: hf_causal_lm_loss_sum(logits(merge(tr, params), ids[i], am_i), lab[i]),
+                train, paths)
+            grads = {p: grads[p] + x for p, x in g.items()} if grads else g
+            ce_total = ce_total + ce
+        grads = {p: (g.float() / n_items).to(g.dtype) for p, g in grads.items()}
+        loss = ce_total / n_items
+    else:  # a batch that does not divide counts on data index 0 alone
+        leaves = dict(_leaf_paths(train))
+        grads = {p: torch.zeros_like(leaves[p]) for p in paths}
+        loss = torch.zeros((), dtype=torch.float32, device=labels.device)
+    for g in grads.values():
+        mesh.all_reduce(g, DATA_AXIS)
+    return mesh.all_reduce(loss.float().clone(), DATA_AXIS), grads
+
+
 def _make_step(config: ModelConfig, plan: ModelPlan, optimizer: Optimizer, remat: bool,
-               accumulate: bool, redundant: Optional[Tuple[int, ...]] = None) -> Callable:
+               accumulate: bool, redundant: Optional[Tuple[int, ...]] = None,
+               mesh=None) -> Callable:
     """One optimizer step: ``step(params, opt_state, input_ids, labels,
     attention_mask) -> (params, opt_state, loss)``. ``accumulate``: the
     inputs are a stacked group [accum, micro_bs, seq], token-weighted: the
     CE sums over shifted positions divided by the group's count of unshifted
     labels, gradients summed in the parameters' dtype and divided in fp32.
-    ``redundant``: the optimizer runs over that subtree."""
+    ``redundant``: the optimizer runs over that subtree. ``mesh``: params
+    of this rank, the whole batch given (:func:`_mesh_loss_grads`)."""
 
     def logits(p, ids, am):
-        return forward(p, ids, config=config, plan=plan, attention_mask=am, remat=remat)["logits"]
+        return forward(p, ids, config=config, plan=plan, attention_mask=am, remat=remat,
+                       mesh=mesh)["logits"]
 
     def step(params, opt_state, input_ids, labels, attention_mask):
         if redundant is None:
@@ -287,7 +375,10 @@ def _make_step(config: ModelConfig, plan: ModelPlan, optimizer: Optimizer, remat
         else:
             train, merge = _subtree_split(params, redundant)
         paths = optimizer.paths(train)
-        if not accumulate:
+        if mesh is not None:
+            loss, grads = _mesh_loss_grads(mesh, logits, train, merge, params, paths, input_ids,
+                                           labels, attention_mask, accumulate)
+        elif not accumulate:
             loss, grads = _value_and_grad(
                 lambda tr: hf_causal_lm_loss(logits(merge(tr, params), input_ids, attention_mask),
                                              labels), train, paths)
@@ -377,12 +468,25 @@ def stack_micro_batches(
     return {"input_ids": ids, "labels": labels, "attention_mask": mask}
 
 
-def make_eval_step(config: ModelConfig, plan: ModelPlan) -> Callable:
+def make_eval_step(config: ModelConfig, plan: ModelPlan, mesh=None) -> Callable:
+    """The mean CE of one batch; on a mesh from this rank's params and rows,
+    over the whole batch's label count, added over the data group."""
     def step(params, input_ids, labels, attention_mask):
         with torch.no_grad():
-            logits = forward(params, input_ids, config=config, plan=plan,
-                             attention_mask=attention_mask)["logits"]
-            return hf_causal_lm_loss(logits, labels)
+            if mesh is None:
+                logits = forward(params, input_ids, config=config, plan=plan,
+                                 attention_mask=attention_mask)["logits"]
+                return hf_causal_lm_loss(logits, labels)
+            n = torch.clamp((labels[:, 1:] != -100).sum(), min=1)
+            rows = data_rows(int(labels.shape[0]), mesh)
+            loss = torch.zeros((), dtype=torch.float32, device=labels.device)
+            if rows is not None or mesh.data_index == 0:
+                sl = slice(None) if rows is None else rows
+                am = None if attention_mask is None else attention_mask[sl]
+                logits = forward(params, input_ids[sl], config=config, plan=plan,
+                                 attention_mask=am, mesh=mesh)["logits"]
+                loss = hf_causal_lm_loss_sum(logits, labels[sl]) / n
+            return mesh.all_reduce(loss.float().clone(), DATA_AXIS)
 
     return step
 
@@ -392,9 +496,20 @@ def make_eval_step(config: ModelConfig, plan: ModelPlan) -> Callable:
 # ---------------------------------------------------------------------------
 
 
+def _map_moments(state, fn):
+    """``state`` with ``fn`` applied to each dict of leaves keyed by path
+    (the moments and the accumulator), ints kept."""
+    if isinstance(state, dict) and state and all(torch.is_tensor(v) for v in state.values()):
+        return fn(state)
+    if isinstance(state, dict):
+        return {k: _map_moments(v, fn) for k, v in state.items()}
+    return state
+
+
 def save_train_state(
     output_dir: str, step: int, params: Params, opt_state, history: Dict[str, Any],
-    save_total_limit: int = 3, opt_step: Optional[int] = None,
+    save_total_limit: int = 3, opt_step: Optional[int] = None, mesh=None,
+    config: Optional[ModelConfig] = None,
 ) -> str:
     """Save params and optimizer state (``step_N/state.pt``, one
     ``torch.save``) and {step, opt_step, history} (``train_meta.json``) under
@@ -403,8 +518,20 @@ def save_train_state(
 
     opt_step: the optimizer-step counter at save time, so that a resumed
     token-weighted run keeps the eval/save/log cadence even when epoch-tail
-    flushes made partial groups."""
+    flushes made partial groups.
+
+    mesh (with ``config``): ``params`` and ``opt_state`` are this rank's
+    shards; every rank calls, the whole state is gathered and rank 0 writes
+    it, so that it loads into any mesh or none."""
     path = os.path.abspath(os.path.join(output_dir, f"step_{step}"))
+    if mesh is not None:
+        params = gather_params(params, mesh, config)
+        opt_state = _map_moments(opt_state, lambda d: gather_flat(d, mesh, config))
+        if mesh.rank == 0:
+            save_train_state(output_dir, step, params, opt_state, history, save_total_limit,
+                             opt_step)
+        mesh.barrier()
+        return path
     os.makedirs(path, exist_ok=True)
     detach = lambda x: x.detach().contiguous() if torch.is_tensor(x) else x  # noqa: E731
     torch.save({"params": {k: detach(v) for k, v in flatten_params(params).items()},
@@ -434,14 +561,23 @@ def _like(saved, template, where: str = "opt"):
     return type(template)(saved)
 
 
-def load_train_state(path: str, opt_state_template,
-                     device=None) -> Tuple[Params, Any, int, Dict[str, Any]]:
+def load_train_state(path: str, opt_state_template, device=None, mesh=None,
+                     config: Optional[ModelConfig] = None
+                     ) -> Tuple[Params, Any, int, Dict[str, Any]]:
     """Restore (params, opt_state, step, history) saved by save_train_state.
 
     opt_state_template: a freshly initialized optimizer state; the saved one
     must have its structure, and takes its dtypes and device. ``device``:
-    where the params go (default: the template's device)."""
+    where the params go (default: the template's device). ``mesh`` (with
+    ``config``): this rank's shards of both, the template its own."""
     path = os.path.abspath(path)
+    if mesh is not None:
+        state = torch.load(os.path.join(path, "state.pt"), map_location=mesh.device,
+                           weights_only=True)
+        meta = load_train_meta(path)
+        params = shard_params(unflatten_params(state["params"]), mesh, config)
+        opt = _map_moments(state["opt"], lambda d: shard_flat(d, mesh, config))
+        return params, _like(opt, opt_state_template), int(meta["step"]), meta["history"]
     if device is None:
         tensors = [x for _, x in _leaf_paths(opt_state_template) if torch.is_tensor(x)]
         device = tensors[0].device if tensors else "cpu"
@@ -491,7 +627,9 @@ def recovery_train(
     grad_scope: str = "full",
 ) -> Tuple[Params, Dict[str, Any]]:
     """Run GRASP* recovery training on the params' device; returns
-    (new_params, history).
+    (new_params, history). ``mesh``: ``params`` are the whole tree, trained
+    tensor-parallel and data-parallel on the mesh's device; new_params are
+    this rank's shards (``parallel.mesh.gather_params`` assembles them).
 
     train_batches: iterable of numpy {"input_ids", "labels",
     "attention_mask"} (labels -100 where masked; the loss shifts internally
@@ -510,7 +648,10 @@ def recovery_train(
     and step, and fast-forwards the data stream.
     """
     if mesh is not None:
-        raise NotImplementedError("grasp_tpu_torch does not support recovery on a mesh yet")
+        if config.use_pallas_lowrank:
+            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
+                                      "(ROADMAP.md, P10b)")
+        params = shard_params(map_params(params, lambda t: t.to(mesh.device)), mesh, config)
     dev = params["embed_tokens"]["weight"].device
     mask = trainable_mask(params, redundant_layers)
     total, trainable = count_trainable(params, mask)
@@ -539,14 +680,16 @@ def recovery_train(
         accum_steps=1 if token_weighted else accum_steps,
         mask=None if grad_scope == "layers" else mask,
     )
+    if mesh is not None:
+        optimizer.sumsq = mesh_sumsq(mesh, config)
     if grad_scope == "layers":
         redundant = tuple(sorted({int(i) for i in redundant_layers}))
         opt_state = optimizer.init(_subtree_split(params, redundant)[0])
-        train_step = _make_step(config, plan, optimizer, remat, token_weighted, redundant)
+        train_step = _make_step(config, plan, optimizer, remat, token_weighted, redundant, mesh)
     else:
         opt_state = optimizer.init(params)
-        train_step = _make_step(config, plan, optimizer, remat, token_weighted)
-    eval_step = make_eval_step(config, plan) if val_batches else None
+        train_step = _make_step(config, plan, optimizer, remat, token_weighted, mesh=mesh)
+    eval_step = make_eval_step(config, plan, mesh) if val_batches else None
 
     history: Dict[str, Any] = {"train_loss": [], "eval_loss": []}
     start_step = 0
@@ -557,7 +700,8 @@ def recovery_train(
             if found is None:
                 raise FileNotFoundError(f"no step_N checkpoints under {ckpt!r}")
             ckpt = found
-        params, opt_state, start_step, history = load_train_state(ckpt, opt_state, device=dev)
+        params, opt_state, start_step, history = load_train_state(ckpt, opt_state, device=dev,
+                                                                  mesh=mesh, config=config)
         resumed_opt_step = load_train_meta(ckpt).get("opt_step")
         logger.info("resumed from %s at micro-step %d", ckpt, start_step)
 
@@ -592,7 +736,7 @@ def recovery_train(
         if output_dir:
             path = save_train_state(
                 output_dir, step_i, params, opt_state, history,
-                save_total_limit=save_total_limit, opt_step=opt_i,
+                save_total_limit=save_total_limit, opt_step=opt_i, mesh=mesh, config=config,
             )
             if eval_step and ev < best[0]:
                 best = (ev, path)
@@ -647,6 +791,7 @@ def recovery_train(
         if best[0] < final_ev:
             logger.info("loading best checkpoint %s (eval %.4f < final %.4f)",
                         best[1], best[0], final_ev)
-            params, _, _, _ = load_train_state(best[1], opt_state, device=dev)
+            params, _, _, _ = load_train_state(best[1], opt_state, device=dev, mesh=mesh,
+                                               config=config)
 
     return params, history

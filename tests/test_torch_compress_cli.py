@@ -14,6 +14,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from grasp_tpu import configs as jconfigs
 from grasp_tpu.data import loader as jloader
@@ -26,6 +27,7 @@ from grasp_tpu_torch.data.tokenizer import ByteTokenizer, load_tokenizer
 from grasp_tpu_torch.models import llama as tl
 from grasp_tpu_torch.models.convert import params_from_numpy, params_to_numpy
 from grasp_tpu_torch.native import write_token_file
+from grasp_tpu_torch.parallel.launch import free_port
 from grasp_tpu_torch.ops.saliency import preserve_rank
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -71,13 +73,28 @@ def test_compress_main_on_the_cpu_writes_a_checkpoint_that_the_server_loads(tmp_
                                    [["--export_hf_dir", "x"]], [["--tp", "2"], ["--dp", "2"]]],
                          ids=lambda f: f[0][0])
 def test_compress_main_refuses_what_is_not_ported(flags, tmp_path, monkeypatch):
-    """Meshes raise NotImplementedError; --recovery runs, and refuses
-    recovery data that is not a local file or directory with the JAX CLI's
+    """--dp/--tp, refused until the mesh was ported, now launch their ranks
+    (tests/test_torch_parallel_train.py runs them); under torchrun's
+    environment a world of one rank cannot hold a mesh of two, a ValueError
+    as grasp_tpu's make_mesh raises. --recovery runs, and refuses recovery
+    data that is not a local file or directory with the JAX CLI's
     FileNotFoundError (before it compresses). --export_hf_dir, refused until
     the HF export was ported, now writes the merged HF checkpoint after the
     port checkpoint."""
     monkeypatch.chdir(tmp_path)
     for flag in flags:
+        if flag[0] in ("--dp", "--tp"):
+            for name, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                                ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", str(free_port()))):
+                monkeypatch.setenv(name, value)
+            try:
+                with pytest.raises(ValueError, match="incompatible with 1 ranks"):
+                    compress_main(["--model_name_or_path", "tiny", "--device", "cpu",
+                                   "--dataset_name", "synthetic"] + flag)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+            continue
         if flag[0] == "--export_hf_dir":
             assert compress_main(["--model_name_or_path", "tiny", "--device", "cpu",
                                   "--dataset_name", "synthetic", "--num_prune_layers", "1",
@@ -86,9 +103,7 @@ def test_compress_main_refuses_what_is_not_ported(flags, tmp_path, monkeypatch):
             assert sorted(os.listdir(flag[1])) == ["config.json", "model.safetensors"]
             assert os.path.exists(os.path.join("ck", tckpt.META_NAME))
             continue
-        error, match = ((FileNotFoundError, "not found locally") if flag[0] == "--recovery"
-                        else (NotImplementedError, flag[0][:4]))
-        with pytest.raises(error, match=match):
+        with pytest.raises(FileNotFoundError, match="not found locally"):
             compress_main(["--model_name_or_path", "tiny", "--device", "cpu",
                            "--dataset_name", "synthetic"] + flag)
 

@@ -20,10 +20,11 @@ from grasp_tpu.configs import GraspConfig as JGraspConfig
 from grasp_tpu.core.engine import GraspEngine as JEngine
 from grasp_tpu.models import init_params
 from grasp_tpu.models import llama as jl
-from grasp_tpu_torch.cli import compress_main
 from grasp_tpu_torch.configs import GraspConfig
 from grasp_tpu_torch.core.engine import GraspEngine, module_name, parse_module_name
 from grasp_tpu_torch.models import llama as tl
+from grasp_tpu_torch.ops.quant import quantize_model_weights
+from grasp_tpu_torch.parallel.mesh import Mesh
 from torch_parity import calibration_batches, port_config, small_config, to_port
 from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
@@ -158,9 +159,15 @@ def test_unported_options_raise_and_remove_layers():
                       moe_config, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         moe.compress_block(0, "mlp", ["down_proj"])
-    for flag in (["--dp", "2"], ["--tp", "2"]):  # --export_hf_dir runs: test_torch_hf_cli.py
-        with pytest.raises(NotImplementedError, match=flag[0][:4]):
-            compress_main(["--model_name_or_path", "tiny", "--device", "cpu"] + flag)
+    # a mesh runs the engine (tests/test_torch_parallel_engine.py), but not
+    # the fused low-rank flag or int4 weights yet; --export_hf_dir runs:
+    # test_torch_hf_cli.py
+    mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
+    fused = dataclasses.replace(teng.config, use_pallas_lowrank=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GraspEngine(teng.params, fused, device="cpu", mesh=mesh)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        GraspEngine(quantize_model_weights(teng.params, bits=4), teng.config, mesh=mesh)
     with pytest.raises(ValueError):
         teng.compress_round(0, "mlp", ["q_proj"], batches, GraspConfig())
     assert teng.compress_round(0, "mlp", None, batches, GraspConfig()) is True

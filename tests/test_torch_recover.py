@@ -9,6 +9,8 @@ tolerances of ``tests/test_recover_subtree.py``) and the frozen leaves
 ``torch.equal`` to the start.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import pytest
 import torch
 
 from grasp_tpu.train import recover as jr
+from grasp_tpu_torch.parallel.mesh import Mesh
 from grasp_tpu_torch.train import recover as tr
 from torch_parity import (RECOVER_LAYERS, one_torch_thread, port_config,  # noqa: F401
                           recover_compressed, to_port)
@@ -240,7 +243,12 @@ def test_subtree_steps_match_jax_and_the_full_scope(compressed, accumulate):
 def test_recovery_train_refuses_bad_arguments(compressed):
     _, pconfig, jparams, plan = compressed
     params = to_port(jparams)
-    for kw, error in (({"grad_scope": "nope"}, ValueError), ({"accum_mode": "sum"}, ValueError),
-                      ({"mesh": object()}, NotImplementedError)):
+    # a mesh trains (tests/test_torch_parallel_train.py), but not through the
+    # fused low-rank flag yet
+    fused = dataclasses.replace(pconfig, use_pallas_lowrank=True)
+    mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
+    for kw, error, config in (({"grad_scope": "nope"}, ValueError, pconfig),
+                              ({"accum_mode": "sum"}, ValueError, pconfig),
+                              ({"mesh": mesh}, NotImplementedError, fused)):
         with pytest.raises(error):
-            tr.recovery_train(params, pconfig, plan, RECOVER_LAYERS, [], **kw)
+            tr.recovery_train(params, config, plan, RECOVER_LAYERS, [], **kw)

@@ -36,10 +36,10 @@ POOL = dict(num_pages=96, page_size=16, max_batch=4, max_pages_per_seq=8)
 
 @pytest.fixture(scope="module")
 def models():
-    """(jax config, jax params, port config, port params) of a target of 4
-    layers and a draft of 2."""
+    """(jax config, jax params, port config, port params) of a target of 2
+    layers and a draft of 1."""
     out = []
-    for layers, seed in ((4, 0), (2, 7)):
+    for layers, seed in ((2, 0), (1, 7)):
         config = ModelConfig.tiny(num_hidden_layers=layers, vocab_size=128)
         params = init_params(jax.random.PRNGKey(seed), config)
         out.append((config, params, port_config(config), to_port(params)))
