@@ -197,6 +197,24 @@ Phases, each of which raises on failure (exit code != 0):
    compressed checkpoint served TP-2 through the engine API, plain (K3, 22
    launches a decode step on each rank) and with an int8 draft at gamma 4
    (K4, 22 a macro-step), held to the single-process teacher-forced forward.
+18. The rest of parallel/ on ranks that share the card (gloo): K2, K5 and
+   K5d against their plain versions at a TP-2 rank's shapes; (a) ring
+   attention at TinyLlama's heads (32 over 4 KV heads of 64) over 8192
+   tokens on 4 ranks in fp32 and bf16 against one rank's plain attention;
+   (b) ``seq_parallel_logits`` of TinyLlama-1.1B at full width and depth over
+   4096 tokens on 4 ranks in fp32 and bf16 against one rank's forward, then
+   ``seq_parallel_loss`` and its gradients with remat and two
+   ``make_seq_parallel_train_step`` steps at 4 of its 22 layers (the
+   gradients' traffic through the host) against one rank, no kernel launched
+   on these paths (none in JAX's either); (c) the serving slice's compressed
+   TinyLlama-1.1B hybridized (``hybridize_layers``) in 2 stages of 11
+   layers, 4 microbatches of 256 rows: the loss in bf16 through K2 against
+   the plain products, in fp32 with its gradients against one rank, one
+   masked AdamW step (structural zeros kept), K2's launches on each stage as
+   derived; (d) the checkpoint served TP-2 through the engine API with int4
+   weights (K5, then K5d under ``GRASP_INT4_KERNEL=dma``; K3) and with
+   ``use_pallas_lowrank`` (K2 in prefill), launches on each rank as derived,
+   tokens held to the single-process teacher-forced forward.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
@@ -204,12 +222,12 @@ and paged kernels' times at head_dim 96 under "hd96", at 128 under "hd128",
 the flash kernels' at 256 under "hd256");
 then the card's line; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX, of grasp_tpu or of safetensors. ``--only
-flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh``
+flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh|seqpipe``
 runs one part while developing and prints no result lines (phi3serve: the
 paged kernels at head_dim 96 and phase 13 with its serving; features: phase
 14 alone; mixtral: the paged kernels and the flash timing at head_dim 128,
 then phase 15; families: the flash timing at head_dim 256, then phase 16;
-mesh: phase 17).
+mesh: phase 17; seqpipe: phase 18).
 """
 
 import argparse
@@ -4870,6 +4888,545 @@ def phase_mesh(torch, card, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# Phase 18: ring attention, sequence parallelism, the pipeline and TP int4 /
+# fused serving on ranks that share the card (gloo)
+RING_SHAPE = (1, 32, 4, 8192, 64)  # TinyLlama's attention heads over 8192 tokens, 4 ranks
+SEQ_LEN = 4096  # seq_parallel_logits: TinyLlama-1.1B at full depth over 4 ranks
+SEQ_GRAD_LAYERS = 4  # the gradient check and the train step: the first 4 of 22 layers
+SEQ_GRAD_RTOL = 1e-3  # fp32 gradients, max |diff| over the leaf's max |grad|
+SEQ_LR = 1e-3
+PIPE_STAGES, PIPE_MICRO, PIPE_ROWS = 2, 4, (4, 256)  # 4 microbatches of 1 row of 256 tokens
+PIPE_LOSS_RTOL = {"float32": 1e-4, "bfloat16": 1e-2}
+PIPE_GRAD_RTOL = 1e-3
+SEQPIPE_PROMPT_LENS = (70, 130, 300, 600)
+SEQPIPE_MAX_TOKENS = 16
+SEQPIPE_TIMEOUT_S = 900
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _plain_attention(torch, q, k, v):
+    """One rank's causal attention over the whole sequence, eight query
+    heads at a time (the scores of all 32 at 8192 tokens take 8.6 GB)."""
+    from grasp_tpu_torch.models.llama import _attention, _causal_mask
+
+    groups = q.shape[1] // k.shape[1]
+    mask = _causal_mask(q.shape[2], q.shape[2], 0, q.device)
+    outs = []
+    with torch.no_grad():
+        for h0 in range(0, q.shape[1], 8):
+            kv = slice(h0 // groups, (h0 + 8) // groups)
+            outs.append(_attention(q[:, h0:h0 + 8], k[:, kv], v[:, kv], mask, groups))
+    return torch.cat(outs, dim=1)
+
+
+def _leaf_rel(torch, got, want):
+    """max |got - want| over max |want| (0 for an all-zero want and got)."""
+    d = (got.float() - want.float()).abs().max().item()
+    m = want.float().abs().max().item()
+    return d / m if m else d
+
+
+def _seqpipe_ring_and_seq(mesh, ids_np, labels_np):
+    """One rank of phase 18 (a) and (b) on a 4 x 1 mesh, the sequence over
+    the data axis: ring attention at TinyLlama's heads over RING_SHAPE's
+    8192 tokens in fp32 and bf16; seq_parallel_logits of TinyLlama-1.1B at
+    full depth over SEQ_LEN tokens in fp32 and bf16; seq_parallel_loss and
+    its gradients with remat and two train steps at SEQ_GRAD_LAYERS layers
+    in fp32. Rank 0 holds each against one rank's plain run in its own
+    process. Every kernel's launches over the sequence-parallel calls
+    (none: JAX's sequence-parallel layer runs no Pallas kernel either)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from grasp_tpu_torch import ModelConfig
+    from grasp_tpu_torch.models.convert import map_params
+    from grasp_tpu_torch.models.llama import forward, hf_causal_lm_loss, init_params
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+    from grasp_tpu_torch.parallel.ring_attention import context_parallel_attention
+    from grasp_tpu_torch.parallel.seq_parallel import (make_seq_parallel_train_step,
+                                                       seq_parallel_logits, seq_parallel_loss)
+    from grasp_tpu_torch.train.recover import Optimizer, _leaf_paths, _value_and_grad
+
+    dev, lead = mesh.device, mesh.rank == 0
+    out = {"rank": mesh.rank, "launches": 0}
+
+    def timed(fn):
+        mesh.barrier()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            y = fn()
+        _sync(torch, dev)
+        return y, time.perf_counter() - t0
+
+    def counted(fn):
+        fused_lowrank.launches = 0
+        for name in flash_attention.launches:
+            flash_attention.launches[name] = 0
+        y = fn()
+        out["launches"] += fused_lowrank.launches + sum(flash_attention.launches.values())
+        return y
+
+    # (a) ring attention
+    b, nh, nkv, s, hd = RING_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(1818)
+    q, k, v = (torch.randn(b, n, s, hd, generator=gen, device=dev) for n in (nh, nkv, nkv))
+    rings = {}
+    for dt in ("float32", "bfloat16"):
+        qd, kd, vd = (t.to(getattr(torch, dt)) for t in (q, k, v))
+        rings[dt], out[f"ring_{dt}_s"] = counted(lambda: timed(
+            lambda: context_parallel_attention(qd, kd, vd, mesh, num_kv_groups=nh // nkv)))
+        if not lead:
+            del rings[dt]
+    if lead:
+        want = _plain_attention(torch, q, k, v)
+        want16 = _plain_attention(torch, *(t.bfloat16() for t in (q, k, v)))
+        out["ring"] = {"fp32": (rings["float32"] - want).abs().max().item(),
+                       "bf16": (rings["bfloat16"].float() - want).abs().max().item(),
+                       "drift": (want16.float() - want).abs().max().item(),
+                       "finite": all(torch.isfinite(t).all().item() for t in rings.values())}
+        del want, want16
+    del q, k, v, rings
+    torch.cuda.empty_cache()
+
+    # (b) sequence-parallel logits at full depth
+    config = dataclasses.replace(ModelConfig.tinyllama_1_1b(), dtype="float32")
+    params = init_params(torch.Generator(device=dev).manual_seed(18), config, device=dev)
+    ids = torch.as_tensor(ids_np, device=dev)
+    labels = torch.as_tensor(labels_np, device=dev)
+    single32 = None
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(config, dtype=dt)
+        p = params if dt == "float32" else map_params(params, lambda t: t.bfloat16())
+        logits, out[f"seq_{dt}_s"] = counted(lambda: timed(
+            lambda: seq_parallel_logits(p, ids, mesh, c)))
+        if lead:
+            with torch.no_grad():
+                single = forward(p, ids, config=c)["logits"].float()
+            if single32 is None:
+                single32 = single
+            out[f"seq_{dt}"] = {"err": (logits.float() - single32).abs().max().item(),
+                                "drift": (single - single32).abs().max().item(),
+                                "finite": torch.isfinite(logits).all().item(),
+                                "shape": tuple(logits.shape)}
+            del single
+        del logits, p
+        torch.cuda.empty_cache()
+    del single32
+
+    # (b) the loss and its gradients with remat, then train steps, cut in depth
+    gc_ = dataclasses.replace(config, num_hidden_layers=SEQ_GRAD_LAYERS)
+    gp = {**params, "layers": params["layers"][:SEQ_GRAD_LAYERS]}
+    del params
+    paths = [p for p, _ in _leaf_paths(gp)]
+    mesh.barrier()
+    t0 = time.perf_counter()
+    loss, grads = counted(lambda: _value_and_grad(
+        lambda t: seq_parallel_loss(t, ids, labels, mesh, gc_, remat=True), gp, paths))
+    _sync(torch, dev)
+    out["grad_s"] = time.perf_counter() - t0
+    out["loss"] = float(loss)
+    if lead:
+        want_loss, want = _value_and_grad(
+            lambda t: hf_causal_lm_loss(forward(t, ids, config=gc_)["logits"], labels), gp, paths)
+        out["grads"] = {"loss_rel": abs(float(loss) / float(want_loss) - 1),
+                        "worst": max((_leaf_rel(torch, grads[p], want[p]), p) for p in paths),
+                        "leaves": len(paths)}
+        del want
+    del grads
+    torch.cuda.empty_cache()
+    opt = Optimizer(lambda _: np.float32(SEQ_LR), clip=None)
+    step = make_seq_parallel_train_step(gc_, None, opt, mesh, remat=True)
+    state, losses = opt.init(gp), []
+    for _ in range(2):
+        gp, state, l_ = counted(lambda: step(gp, state, ids, labels))
+        losses.append(float(l_))
+    out["train_losses"] = losses
+    return out
+
+
+def _int4_products_tp(params, config, tp):
+    """(group size, output width) of every int4 product a tensor-parallel
+    rank's forward runs (models.llama._tp_proj_apply at this rank's
+    shapes): column-parallel kernels and factors as held, a row-parallel
+    kernel at the whole contraction's group size, the lm_head's columns."""
+    from grasp_tpu_torch.parallel.mesh import COLUMN_PROJS, int4_in_features, proj_span
+
+    def geometry(packed, scale):
+        return 2 * packed.shape[0] // scale.shape[0], packed.shape[1]
+
+    out = []
+    for layer in params["layers"]:
+        for group in ("self_attn", "mlp"):
+            for name, p in layer.get(group, {}).items():
+                col, (r0, r1) = name in COLUMN_PROJS, proj_span(name, config, tp)
+                if "kernel_q4" in p:
+                    packed, scale = p["kernel_q4"], p["kernel_scale"]
+                    if col:
+                        out.append(geometry(packed, scale))
+                    else:
+                        rows = int4_in_features(name, config) + 2 * packed.shape[0] - (r1 - r0)
+                        out.append((rows // scale.shape[0], packed.shape[1]))
+                if "in_kernel_q4" in p:
+                    out.append(geometry(p["in_kernel_q4"], p["in_kernel_scale"]))
+                    b, b_s = p["out_kernel_q4"], p["out_kernel_scale"]
+                    out.append((geometry(b, b_s)[0], r1 - r0 if col else b.shape[1]))
+    head = params.get("lm_head", {})
+    if "kernel_q4" in head:
+        out.append(geometry(head["kernel_q4"], head["kernel_scale"]))
+    return out
+
+
+def _seqpipe_pipe_and_serve(mesh, ckpt, prompts):
+    """One rank of phase 18 (c) and (d) on a one-axis "pipe" mesh of
+    PIPE_STAGES ranks: the smoke's compressed TinyLlama-1.1B hybridized and
+    laid out in stages, its loss over PIPE_MICRO microbatches in bf16 with
+    use_pallas_lowrank (K2) and with plain products, in fp32 with its
+    gradients (against one rank's forward in this process, the rank's own
+    stage and the replicated leaves) and one masked AdamW step; then, on a
+    1 x 2 tensor-parallel mesh of the same ranks, ``ckpt`` served through
+    the engine API with int4 weights (K5, then K5d under
+    GRASP_INT4_KERNEL=dma; K3) and with use_pallas_lowrank (K2 in prefill).
+    Each kernel's launches beside the count derived from its rule."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from grasp_tpu_torch.checkpoints import load_checkpoint
+    from grasp_tpu_torch.models.convert import flatten_params, map_params
+    from grasp_tpu_torch.models.llama import (ATTN_PROJS, DENSE, PROJ_ORDER, forward,
+                                              hf_causal_lm_loss)
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul
+    from grasp_tpu_torch.ops.lowrank import FUSED_MIN_ROWS, fused_lowrank, rank_chunks
+    from grasp_tpu_torch.ops.paged_attention import paged_attention
+    from grasp_tpu_torch.ops.quant import quantize_model_weights, takes_int4_kernel
+    from grasp_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from grasp_tpu_torch.parallel.pipeline import (dehybridize_layers, hybrid_grad_mask,
+                                                   hybridize_layers, make_pipeline_loss,
+                                                   make_pp_train_step, shard_pipeline_params,
+                                                   to_pipeline_params)
+    from grasp_tpu_torch.serving.paged import ServingEngine
+    from grasp_tpu_torch.train.recover import (Optimizer, _leaf_paths, _value_and_grad,
+                                               _with_leaves)
+
+    dev, lead = mesh.device, mesh.rank == 0
+    stage = mesh.axis_index("pipe")
+    out = {"rank": mesh.rank, "stage": stage}
+
+    # (c) the pipeline
+    config, params, plan = build_flagship(torch, dev)
+    hp, layer_plan, spec = hybridize_layers(params, plan)
+    if lead:
+        back, orig = flatten_params(dehybridize_layers(hp, spec)), flatten_params(params)
+        out["dehybridized_equal"] = back.keys() == orig.keys() and all(
+            torch.equal(back[k], orig[k]) for k in orig)
+    del params
+    n_layers = config.num_hidden_layers
+    depth = n_layers // PIPE_STAGES
+    rng = np.random.default_rng(180)
+    ids = torch.as_tensor(rng.integers(3, config.vocab_size, PIPE_ROWS), device=dev)
+    labels = torch.as_tensor(rng.integers(3, config.vocab_size, PIPE_ROWS), device=dev)
+    labels[:, :8] = -100
+    rows = PIPE_ROWS[0] // PIPE_MICRO * PIPE_ROWS[1]
+    pairs = [hp["layers"][0]["self_attn" if p in ATTN_PROJS else "mlp"][p] for p in PROJ_ORDER]
+    per_forward = depth * sum(len(rank_chunks(m["in_kernel"].shape[1])) for m in pairs
+                              if "in_kernel" in m) * (rows >= FUSED_MIN_ROWS)
+    out["derived_k2"] = PIPE_MICRO * per_forward
+    out["layer_plan"] = layer_plan
+    k2 = dataclasses.replace(config, use_pallas_lowrank=True)
+    pp = shard_pipeline_params(to_pipeline_params(hp, PIPE_STAGES), mesh)
+    losses, launches = {}, {}
+    for label, c in (("bf16_k2", k2), ("bf16_plain", config)):
+        fused_lowrank.launches = 0
+        losses[label] = float(make_pipeline_loss(c, layer_plan, mesh, PIPE_MICRO)(
+            pp, ids, labels))
+        launches[label] = fused_lowrank.launches
+    del pp
+    hp32 = map_params(hp, lambda t: t.float())
+    del hp
+    torch.cuda.empty_cache()
+    c32 = dataclasses.replace(k2, dtype="float32")
+    pp = shard_pipeline_params(to_pipeline_params(hp32, PIPE_STAGES), mesh)
+    fused_lowrank.launches = 0
+    mesh.barrier()
+    t0 = time.perf_counter()
+    loss32, grads = make_pipeline_loss(c32, layer_plan, mesh, PIPE_MICRO).value_and_grad(
+        pp, ids, labels)
+    _sync(torch, dev)
+    out["grad_s"] = time.perf_counter() - t0
+    launches["fp32_grads"] = fused_lowrank.launches
+    losses["fp32"] = float(loss32)
+    hplan = (layer_plan,) * n_layers
+    lpaths = [p for p, _ in _leaf_paths(hp32)]
+    want_loss, want = _value_and_grad(
+        lambda t: hf_causal_lm_loss(forward(t, ids, config=c32, plan=hplan)["logits"], labels),
+        hp32, lpaths)
+    losses["fp32_one_rank"] = float(want_loss)
+    local = flatten_params(shard_pipeline_params(
+        to_pipeline_params(_with_leaves(hp32, lambda p, x: want[p]), PIPE_STAGES), mesh))
+    del want
+    got = flatten_params(grads)
+    out["grads"] = {"worst": max((_leaf_rel(torch, got[p], local[p]), p) for p in local),
+                    "leaves": len(local), "same_keys": got.keys() == local.keys()}
+    del grads, got, local
+    torch.cuda.empty_cache()
+    opt = Optimizer(lambda _: np.float32(1e-3), clip=None, weight_decay=1e-4)
+    mask = to_pipeline_params(hybrid_grad_mask(hp32, spec), PIPE_STAGES)
+    step = make_pp_train_step(c32, layer_plan, opt, mesh, PIPE_MICRO, grad_mask=mask)
+    fused_lowrank.launches = 0
+    stepped, _, step_loss = step(pp, opt.init(pp), ids, labels)
+    launches["step"] = fused_lowrank.launches
+    losses["step"] = float(step_loss)
+    zeros, moved = True, False
+    for j in range(depth):
+        for pi, (kind, r) in enumerate(spec[stage * depth + j]):
+            proj = PROJ_ORDER[pi]
+            grp = "self_attn" if proj in ATTN_PROJS else "mlp"
+            new, old = stepped["stages"][grp][proj], pp["stages"][grp][proj]
+            if kind == DENSE:
+                zeros &= not new["in_kernel"][0, j].any() and not new["out_kernel"][0, j].any()
+                moved |= not torch.equal(new["kernel"][0, j], old["kernel"][0, j])
+            else:
+                zeros &= not new["kernel"][0, j].any()
+                zeros &= not new["in_kernel"][0, j][:, r:].any()
+                zeros &= not new["out_kernel"][0, j][r:].any()
+                moved |= not torch.equal(new["in_kernel"][0, j], old["in_kernel"][0, j])
+    out["step_zeros_kept"], out["step_moved"] = bool(zeros), bool(moved)
+    out["losses"], out["launches"] = losses, launches
+    del pp, stepped, hp32, mask, opt
+    torch.cuda.empty_cache()
+
+    # (d) TP-2 serving of the checkpoint through the engine API
+    tp = make_mesh((1, PIPE_STAGES), device=dev, timeout_s=SEQPIPE_TIMEOUT_S)
+    params, config, plan, _ = load_checkpoint(ckpt, dev)
+    q4 = shard_params(quantize_model_weights(params, bits=4), tp, config)
+    local = shard_params(params, tp, config)
+    kw = dict(device=dev, num_pages=256, page_size=128, max_batch=8, max_pages_per_seq=16,
+              mesh=tp)
+    serve = {}
+    for label, weights, cfg, env in (
+            ("int4", q4, config, None), ("int4_dma", q4, config, "dma"),
+            ("fused", local, dataclasses.replace(config, use_pallas_lowrank=True), None)):
+        if env:
+            os.environ["GRASP_INT4_KERNEL"] = env
+        try:
+            eng = ServingEngine(weights, cfg, plan, **kw)
+            int4_matmul.launches.update(grid=0, dma=0)
+            paged_attention.launches = fused_lowrank.launches = 0
+            rids = [eng.submit(p, SEQPIPE_MAX_TOKENS) for p in prompts]
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                res = eng.run()
+            _sync(torch, dev)
+            secs = time.perf_counter() - t0
+        finally:
+            os.environ.pop("GRASP_INT4_KERNEL", None)
+        steps = eng.decode_steps
+        got = {"grid": int4_matmul.launches["grid"], "dma": int4_matmul.launches["dma"],
+               "paged": paged_attention.launches, "fused": fused_lowrank.launches}
+        want = {"grid": 0, "dma": 0, "paged": config.num_hidden_layers * steps, "fused": 0}
+        for gs, out_f in _int4_products_tp(weights, cfg, tp):
+            if takes_int4_kernel(kw["max_batch"], gs):
+                want["dma" if env == "dma" and out_f % 128 == 0 else "grid"] += steps
+        if cfg.use_pallas_lowrank:
+            n_pairs = sum("in_kernel" in p for layer in weights["layers"]
+                          for group in ("self_attn", "mlp") for p in layer[group].values())
+            want["fused"] = n_pairs * sum(-(-len(p) // kw["page_size"]) * kw["page_size"]
+                                          >= FUSED_MIN_ROWS for p in prompts)
+        serve[label] = {"streams": [res[r] for r in rids], "got": got, "want": want,
+                        "steps": steps, "seconds": secs, "route": eng.route[0],
+                        "decode_seconds": eng.decode_seconds}
+        del eng
+    out["serve"] = serve
+    return out
+
+
+def _seqpipe_kernels_at_local_shapes(torch, dev):
+    """K2 at a TP-2 rank's shapes under use_pallas_lowrank (a column-parallel
+    gate/up pair on its 2816 output columns, a row-parallel down pair on its
+    2816 input rows; 256 rows, rank 150) and K5/K5d at a rank's decode
+    shapes (q_proj's 1024 columns, down_proj's 2816 rows in 22 groups, the
+    lm_head's 16000 columns; 8 rows), against their plain versions in fp32
+    and bf16. Returns the worst absolute errors."""
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank, fused_lowrank_plain
+
+    gen = torch.Generator(device=dev).manual_seed(1819)
+    worst = {"fused": 0.0, "grid": 0.0, "dma": 0.0}
+    lines = []
+    for m, k, r, n in ((256, 2048, 150, 2816), (256, 2816, 150, 2048)):
+        for name in ("float32", "bfloat16"):
+            dt = getattr(torch, name)
+            x = torch.randn(m, k, generator=gen, device=dev).to(dt)
+            a = (torch.randn(k, r, generator=gen, device=dev) * k ** -0.5).to(dt)
+            b = (torch.randn(r, n, generator=gen, device=dev) * r ** -0.5).to(dt)
+            with torch.no_grad():
+                got, want = fused_lowrank(x, a, b), fused_lowrank_plain(x, a, b)
+            rel = _rel_err(got, want)
+            worst["fused"] = max(worst["fused"], (got.float() - want.float()).abs().max().item())
+            lines.append(f"K2 {m}x{k}x{r}x{n} {name} {rel:.2e}")
+            if rel > LOWRANK_RTOL[name]:
+                raise AssertionError(f"seqpipe: K2 disagrees at a rank's shape {(m, k, r, n)}")
+    for in_f, out_f in ((2048, 1024), (2816, 2048), (2048, 16000)):
+        packed, scale = _int4_weight(torch, gen, dev, in_f, out_f)
+        for name in ("float32", "bfloat16"):
+            rtol, atol, atol_rel = INT4_TOL[name]
+            x = torch.randn(8, in_f, generator=gen, device=dev).to(getattr(torch, name))
+            want = int4_matmul_plain(x, packed, scale)
+            bound = atol + atol_rel * want.float().abs().max().item() + rtol * want.float().abs()
+            for variant in ("grid", "dma"):
+                got = int4_matmul(x, packed, scale, kernel=variant)
+                diff = (got.float() - want.float()).abs()
+                worst[variant] = max(worst[variant], diff.max().item())
+                if not bool((diff <= bound).all().item()):
+                    raise AssertionError(f"seqpipe: int4 {variant} disagrees at a rank's shape "
+                                         f"{(in_f, out_f)} {name}")
+            lines.append(f"K5/K5d {in_f}x{out_f} {name} ok")
+    print(f"seqpipe: kernels at a TP-2 rank's shapes against their plain versions: "
+          f"{'; '.join(lines)}; worst abs {worst}")
+    return worst
+
+
+def phase_seqpipe(torch, card, dev):
+    """Phase 18: the rest of parallel/ on ranks that share the card (gloo).
+    (a) ring attention and (b) sequence parallelism on 4 ranks against one
+    rank's plain run; (c) the pipeline of the smoke's compressed TinyLlama
+    (hybridized, 2 stages of 11 layers, 4 microbatches of 256 rows) through
+    K2, and (d) TP-2 serving with int4 weights (K5, K5d, K3) and with
+    use_pallas_lowrank (K2 in prefill), on 2 ranks, held to the
+    single-process teacher-forced forward. Returns the kernels' errors at a
+    rank's shapes and the launches summed over the ranks."""
+    import numpy as np
+
+    from grasp_tpu_torch.checkpoints import load_checkpoint, save_checkpoint
+    from grasp_tpu_torch.ops.quant import quantize_model_weights
+    from grasp_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    errs = _seqpipe_kernels_at_local_shapes(torch, dev)
+    rng = np.random.default_rng(18)
+    ids = rng.integers(3, 32000, (1, SEQ_LEN))
+    labels = rng.integers(3, 32000, (1, SEQ_LEN))
+    labels[:, :16] = -100
+    t0 = time.perf_counter()
+    ranks = launch(_seqpipe_ring_and_seq, 4, 1, ids, labels, device="cuda",
+                   timeout_s=SEQPIPE_TIMEOUT_S)
+    lead = ranks[0]
+    ring, tol_bf16 = lead["ring"], max(TOL["bfloat16"], lead["ring"]["drift"])
+    print(f"seqpipe (a): ring attention, {RING_SHAPE[1]} query heads over {RING_SHAPE[2]} KV "
+          f"heads of {RING_SHAPE[4]}, {RING_SHAPE[3]} tokens over 4 ranks, against one rank's "
+          f"plain attention in fp32: fp32 max abs {ring['fp32']:.3e} (tol {TOL['float32']}), "
+          f"bf16 {ring['bf16']:.3e} (tol {tol_bf16:.3e}: the larger of {TOL['bfloat16']} and "
+          f"the plain bf16 attention's own drift {ring['drift']:.3e}); seconds a call (rank 0) "
+          f"fp32 {lead['ring_float32_s']:.3f}, bf16 {lead['ring_bfloat16_s']:.3f}")
+    if not ring["finite"] or ring["fp32"] > TOL["float32"] or ring["bf16"] > tol_bf16:
+        raise AssertionError("seqpipe: ring attention disagrees with the plain attention")
+    for dt in ("float32", "bfloat16"):
+        sp = lead[f"seq_{dt}"]
+        tol = TOL[dt] if dt == "float32" else max(TOL[dt], 2 * sp["drift"])
+        print(f"seqpipe (b): seq_parallel_logits of TinyLlama-1.1B (22 layers) over "
+              f"{SEQ_LEN} tokens on 4 ranks, {dt}: logits {sp['shape']} against one rank's "
+              f"fp32 forward max abs {sp['err']:.3e} (tol {tol:.3e}"
+              + ("" if dt == "float32" else f": the larger of {TOL[dt]} and twice one rank's "
+                 f"bf16 forward's drift {sp['drift']:.3e}") + f"), {lead[f'seq_{dt}_s']:.2f} s")
+        if not sp["finite"] or sp["err"] > tol or sp["shape"] != (1, SEQ_LEN, 32000):
+            raise AssertionError(f"seqpipe: seq_parallel_logits ({dt}) left the forward")
+    g = lead["grads"]
+    train = [r["train_losses"] for r in ranks]
+    print(f"seqpipe (b): seq_parallel_loss with remat at {SEQ_GRAD_LAYERS} of 22 layers (the "
+          f"gradients' traffic through the host), fp32: loss {lead['loss']:.6f}, relative to "
+          f"one rank's {g['loss_rel']:.2e} (tol {MESH_LOSS_RTOL}); {g['leaves']} gradients, "
+          f"worst max|diff| over max|grad| {g['worst'][0]:.2e} at {g['worst'][1]} (tol "
+          f"{SEQ_GRAD_RTOL}), {lead['grad_s']:.2f} s; two train steps (Adam {SEQ_LR}): losses "
+          f"{train[0]}, equal on every rank {all(t == train[0] for t in train)}; kernel "
+          f"launches on the sequence-parallel calls {[r['launches'] for r in ranks]} (none, "
+          f"as in JAX); launch {time.perf_counter() - t0:.1f} s")
+    if (g["loss_rel"] > MESH_LOSS_RTOL or g["worst"][0] > SEQ_GRAD_RTOL
+            or any(t != train[0] for t in train) or not train[0][1] < train[0][0]
+            or any(r["launches"] for r in ranks)):
+        raise AssertionError("seqpipe: sequence-parallel loss, gradients or steps failed")
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_seqpipe_", dir=os.path.join(ROOT, "build"))
+    try:
+        config, params, plan = build_flagship(torch, dev)
+        save_checkpoint(root, params, config, plan)
+        del params
+        torch.cuda.empty_cache()
+        prng = np.random.default_rng(1800)
+        prompts = [prng.integers(3, 32000, size=n).tolist() for n in SEQPIPE_PROMPT_LENS]
+        t0 = time.perf_counter()
+        ranks = launch(_seqpipe_pipe_and_serve, PIPE_STAGES, 1, root, prompts, device="cuda",
+                       timeout_s=SEQPIPE_TIMEOUT_S, axis_names=("pipe",))
+        wall = time.perf_counter() - t0
+        lead = ranks[0]
+        launches = {"fused": 0, "paged": 0, "grid": 0, "dma": 0}
+        for r in ranks:
+            ls, la = r["losses"], r["launches"]
+            rel16 = abs(ls["bf16_k2"] / ls["bf16_plain"] - 1)
+            rel32 = abs(ls["fp32"] / ls["fp32_one_rank"] - 1)
+            print(f"seqpipe (c), stage {r['stage']}: layer plan {r['layer_plan']}; loss bf16 "
+                  f"through K2 {ls['bf16_k2']:.6f} against the plain products "
+                  f"{ls['bf16_plain']:.6f} (relative {rel16:.2e}, tol "
+                  f"{PIPE_LOSS_RTOL['bfloat16']}); fp32 {ls['fp32']:.6f} against one rank's "
+                  f"{ls['fp32_one_rank']:.6f} ({rel32:.2e}, tol {PIPE_LOSS_RTOL['float32']}); "
+                  f"{r['grads']['leaves']} gradients of its part, worst "
+                  f"{r['grads']['worst'][0]:.2e} at {r['grads']['worst'][1]} (tol "
+                  f"{PIPE_GRAD_RTOL}), {r['grad_s']:.2f} s; "
+                  f"masked AdamW step: loss {ls['step']:.6f}, structural zeros kept "
+                  f"{r['step_zeros_kept']}, params moved {r['step_moved']}; K2 launches {la}, "
+                  f"derived {r['derived_k2']} a forward (bf16 plain 0)")
+            want = {"bf16_k2": r["derived_k2"], "bf16_plain": 0, "fp32_grads": r["derived_k2"],
+                    "step": r["derived_k2"]}
+            if (la != want or rel16 > PIPE_LOSS_RTOL["bfloat16"]
+                    or rel32 > PIPE_LOSS_RTOL["float32"] or r["grads"]["worst"][0] > PIPE_GRAD_RTOL
+                    or not r["grads"]["same_keys"] or not r["step_zeros_kept"]
+                    or not r["step_moved"] or ls["fp32"] != ranks[0]["losses"]["fp32"]):
+                raise AssertionError(f"seqpipe: the pipeline failed on stage {r['stage']}")
+            launches["fused"] += sum(la.values())
+        if not lead["dehybridized_equal"]:
+            raise AssertionError("seqpipe: dehybridize_layers did not give the tree back")
+        params, config, plan, _ = load_checkpoint(root, dev)
+        held = {"int4": quantize_model_weights(params, bits=4), "fused": params}
+        for label in ("int4", "int4_dma", "fused"):
+            for r in ranks:
+                e = r["serve"][label]
+                print(f"seqpipe (d), TP-2 rank {r['rank']}, {label}: {len(prompts)} requests of "
+                      f"{SEQPIPE_MAX_TOKENS} tokens, {e['steps']} decode steps in "
+                      f"{e['seconds']:.2f} s ({e['decode_seconds'] * 1e3 / max(e['steps'], 1):.1f}"
+                      f" ms a step), route {e['route']}; launches {e['got']}, derived {e['want']}")
+                if (e["got"] != e["want"] or e["route"] != "kernel" or not e["steps"]
+                        or e["streams"] != lead["serve"][label]["streams"]):
+                    raise AssertionError(f"seqpipe: TP-2 {label} serving: launches or streams")
+                for key in launches:
+                    launches[key] += e["got"][key]
+            bad, report = hold_to_plain(torch, held["fused" if label == "fused" else "int4"],
+                                        config, plan, list(zip(prompts,
+                                                               lead["serve"][label]["streams"])),
+                                        dev)
+            print(f"seqpipe (d), {label}: served tokens against the single-process "
+                  f"teacher-forced forward: {report}")
+            if bad:
+                raise AssertionError(f"seqpipe: TP-2 {label} serving left the plain forward")
+        if not launches["grid"] or not launches["dma"] or not launches["fused"]:
+            raise AssertionError("seqpipe: a kernel of the path never launched")
+        del params, held
+        torch.cuda.empty_cache()
+        print(f"seqpipe: pipeline and serving launch {wall:.1f} s; launches over the ranks "
+              f"{launches}; phase 18 {time.perf_counter() - t_phase:.1f} s; card {card}")
+        return errs, launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -4911,7 +5468,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
                                            "evaluate", "recover", "hf", "phi3serve",
-                                           "features", "mixtral", "families", "mesh"],
+                                           "features", "mixtral", "families", "mesh",
+                                           "seqpipe"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -4961,6 +5519,9 @@ def main(argv=None) -> int:
     if args.only == "mesh":
         print(phase_mesh(torch, card, dev))
         return 0
+    if args.only == "seqpipe":
+        print(phase_seqpipe(torch, card, dev))
+        return 0
     if args.only == "mixtral":
         print(phase_kernel(torch, hds=(128,)), phase_kernel_timing(torch, *MIXTRAL_TIMING))
         print(phase_chunk(torch, hds=(128,)), phase_chunk_timing(torch, *MIXTRAL_TIMING))
@@ -4997,6 +5558,7 @@ def main(argv=None) -> int:
     mixtral, mixtral_served = phase_mixtral(torch, card, dev)
     families, families_served = phase_families(torch, card, dev, mistral_layers=MISTRAL_LAYERS)
     mesh_err, mesh = phase_mesh(torch, card, dev)
+    seqpipe_err, seqpipe = phase_seqpipe(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu", "safetensors"))
@@ -5010,7 +5572,7 @@ def main(argv=None) -> int:
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
          "launches": paged_launches + from_hf["paged"] + phi3_served["paged"]
          + features["paged"] + mixtral_served["paged"] + families_served["paged"]
-         + mesh["paged"],
+         + mesh["paged"] + seqpipe["paged"],
          "max_abs_err": max(paged_err, mesh_err["paged"]), **paged, "hd96": paged96,
          "hd128": paged128},
         # library_ms: no single PyTorch call reads a page table; the timing line
@@ -5048,24 +5610,25 @@ def main(argv=None) -> int:
          "max_abs_err": max(flash_err["dq"], mesh_err["dq"]), **flash["dq"], "hd96": flash96["dq"],
          "hd128": flash128["dq"], "hd256": flash256["dq"]},
         # launches: prefill of the fused serving variant, the flagged compression,
-        # the evaluation slice and the recovery slice's bf16 runs; the bf16 body
-        # (the fp32 inputs of phase_lowrank take lowrank_fused_kernel)
+        # the evaluation slice, the recovery slice's bf16 runs and phase 18's
+        # pipeline stages and TP-2 prefill; the bf16 body (the fp32 inputs of
+        # phase_lowrank and phase 18's fp32 pipeline take lowrank_fused_kernel)
         {"name": "lowrank_fused_mma_kernel", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
          "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"]
-         + recovered["fused"] + features["fused"],
-         "max_abs_err": lowrank_err, **lowrank},
+         + recovered["fused"] + features["fused"] + seqpipe["fused"],
+         "max_abs_err": max(lowrank_err, seqpipe_err["fused"]), **lowrank},
         {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:198",
          "launches": served["int4"]["grid"] + mixtral_served["int4"]["grid"]
-         + families_served["int4"]["grid"],
-         "max_abs_err": int4_err["grid"], **int4["grid"]},
+         + families_served["int4"]["grid"] + seqpipe["grid"],
+         "max_abs_err": max(int4_err["grid"], seqpipe_err["grid"]), **int4["grid"]},
         {"name": "int4_matmul_dma", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:139",
          "launches": served["int4"]["dma"] + mixtral_served["int4"]["dma"]
-         + families_served["int4"]["dma"],
-         "max_abs_err": int4_err["dma"], **int4["dma"]},
+         + families_served["int4"]["dma"] + seqpipe["dma"],
+         "max_abs_err": max(int4_err["dma"], seqpipe_err["dma"]), **int4["dma"]},
         {"name": "quantize_int8_stochastic", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/quantize_int8.cu",
          "replaces": "grasp_tpu/ops/quant.py:311",

@@ -17,8 +17,9 @@ hand-written CUDA kernel (``csrc/paged_attention.cu``; ``grasp-serve-torch``),
 for every model family of the JAX package (LLaMA, Qwen2, Phi-3, Mistral,
 Gemma, Gemma-2, Mixtral), and a ``("data", "model")`` device mesh
 (``parallel``: ``--dp``/``--tp``, recovery, tensor- and expert-parallel
-serving). The pipeline with its ``hybrid`` projection kind, sequence
-parallelism and ring attention raise ``NotImplementedError`` or are absent.
+serving, int4 weights and the fused low-rank kernel on it), the GPipe
+pipeline with its ``hybrid`` projection kind, sequence parallelism and ring
+attention. Not ported yet: ``perf.py``.
 """
 
 from grasp_tpu_torch.configs import GraspConfig, ModelConfig  # noqa: F401

@@ -40,8 +40,8 @@ gradients are assembled over the model group for selection; the SVD stacks
 spread over every rank (``ops.svd.svd(mesh=)``). Every rank selects from the
 same numbers and holds the same indices. Choices that decide which
 collectives run (the auto prefix mode, the auto sweep chunk) are rank 0's.
-The fused low-rank flag and int4 weights on a mesh raise NotImplementedError
-(ROADMAP.md, P10b).
+With ``use_pallas_lowrank`` the compiled pairs take the fused kernel at each
+rank's shapes (models/llama.py's tensor-parallel rule).
 
 Not ported (ROADMAP.md, never ported): ``prefix="cache_host"`` and the
 bandwidth-driven choice of it, growing sweep chunks, base parking, compile
@@ -174,9 +174,6 @@ class GraspEngine:
         self.device = torch.device(device) if mesh is None else mesh.device
         self.params = map_params(params, lambda t: t.detach().to(self.device))
         if mesh is not None:
-            if config.use_pallas_lowrank:
-                raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
-                                          "(ROADMAP.md, P10b)")
             self.params = shard_params(self.params, mesh, config)
         self.config = config
         # the model's own config: self.config may gain the flash switch of

@@ -23,8 +23,9 @@ of the full-sequence forward (ops/flash_attention.py), which also runs a
 range of layers (the compression engine's prefix split) and recomputes each
 layer in the backward on request (``remat``), and the int8 KV cache
 (``init_kv_cache(quantized=True)``), and the Mixtral family's sparse-MoE
-layers (models/moe.py) in place of the dense MLP. The ``hybrid`` projection
-kind raises NotImplementedError.
+layers (models/moe.py) in place of the dense MLP. The ``hybrid`` kind, which
+only the pipeline builds (parallel/pipeline.py's ``hybridize_layers``), is a
+dense kernel plus a low-rank pair on one input, the bias added once.
 
 Tensor parallelism (parallel/mesh.py): every body takes ``mesh=`` and params
 sharded by ``parallel.mesh.shard_params``. A layer then runs its local heads
@@ -32,7 +33,13 @@ sharded by ``parallel.mesh.shard_params``. A layer then runs its local heads
 row-parallel o/down on its rows with one ``all_reduce`` over the model group
 after each, the vocab-parallel embedding (ids outside the rank's rows give
 zeros, then an ``all_reduce``) and the logits assembled over the model group.
-Without a mesh the code path and its bits are unchanged.
+Int4 weights run at the rank's shapes (:func:`int4_row_product` for the
+row-parallel ones); under ``use_pallas_lowrank`` a low-rank pair that takes
+the fused kernel runs it on the rank's columns of ``out_kernel``
+(column-parallel) or on its input columns and rows of ``in_kernel`` with one
+``all_reduce`` of the output (row-parallel). A hybrid slot takes the dense
+rule for its kernel and the low-rank rule for its pair. Without a mesh the
+code path and its bits are unchanged.
 """
 
 from __future__ import annotations
@@ -48,11 +55,12 @@ from torch.utils.checkpoint import checkpoint
 from grasp_tpu_torch.configs import ModelConfig
 from grasp_tpu_torch.models.moe import init_moe_params, moe_apply
 from grasp_tpu_torch.ops.flash_attention import flash_attention
-from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply
+from grasp_tpu_torch.ops.lowrank import dense_apply, lowrank_apply, svd_apply, takes_fused
 from grasp_tpu_torch.ops.quant import _absmax_scale, quant_matmul, quant_matmul_int4
 from grasp_tpu_torch.parallel.mesh import (
     COLUMN_PROJS,
     Mesh,
+    int4_in_features,
     kv_replicas,
     local_heads,
     proj_span,
@@ -322,7 +330,8 @@ def apply_rope(q: torch.Tensor, k: torch.Tensor, cos: torch.Tensor,
 def proj_apply(x: torch.Tensor, p: Params, kind: str, use_fused: bool = False) -> torch.Tensor:
     """One projection. Quantized weights (``*_q`` int8, ``*_q4`` packed int4,
     see ops/quant.py) take the quantized products; ``use_fused`` lets an
-    unquantized low-rank pair take the fused kernel (ops/lowrank.py)."""
+    unquantized low-rank pair take the fused kernel (ops/lowrank.py).
+    ``hybrid``: ``x @ kernel + (x @ in_kernel) @ out_kernel``, then the bias."""
     bias = p.get("bias")
     if kind == DENSE:
         if "kernel_q" in p:
@@ -345,28 +354,68 @@ def proj_apply(x: torch.Tensor, p: Params, kind: str, use_fused: bool = False) -
     if kind == SVD:
         return svd_apply(x, p["u"], p["s"], p["vh"], bias)
     if kind == HYBRID:
-        raise NotImplementedError(f"grasp_tpu_torch does not support {kind!r} projections yet")
+        y = dense_apply(x, p["kernel"]) + lowrank_apply(x, p["in_kernel"], p["out_kernel"],
+                                                        use_fused=use_fused)
+        return y + bias if bias is not None else y
     raise ValueError(f"unknown projection kind {kind!r}")
 
 
+def int4_row_product(x: torch.Tensor, rows: torch.Tensor, scale: torch.Tensor, r0: int,
+                     gs: int) -> torch.Tensor:
+    """``x @ dequant`` of a row-parallel rank's part of an int4 weight: ``x``
+    [..., n] the input columns [r0, r0 + n) of the whole, ``rows`` the packed
+    rows that hold them [n / 2, out], ``scale`` the whole weight's scales
+    [groups, out], ``gs`` its group size. The product takes the scale rows
+    of the groups that the columns touch; where the columns start or end
+    inside a group, the packed rows and ``x`` are padded to the group's
+    edges with zeros (a zero nibble dequantizes to zero), so the int4
+    kernel runs as on a whole weight."""
+    n = x.shape[-1]
+    if r0 % 2 or n % 2:
+        raise ValueError(f"int4 rows {r0}:{r0 + n} do not split into whole bytes")
+    g0, g1 = r0 // gs, -(-(r0 + n) // gs)
+    lead, width = r0 - g0 * gs, (g1 - g0) * gs
+    if lead or width != n:
+        packed = rows.new_zeros((width // 2, rows.shape[1]))
+        packed[lead // 2:lead // 2 + n // 2] = rows
+        rows, x = packed, F.pad(x, (lead, width - lead - n))
+    return quant_matmul_int4(x, rows, scale[g0:g1])
+
+
 def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: ModelConfig,
-                   tp: Mesh) -> torch.Tensor:
+                   tp: Mesh, fused: bool = False) -> torch.Tensor:
     """One projection of a tensor-parallel layer. Column-parallel
     (q/k/v/gate/up): ``x`` is the whole (entered) input, the result this
     rank's columns; row-parallel (o/down): ``x`` is this rank's columns of
     the input, the result the whole output (one ``all_reduce``, the bias
     after it). Sharded kernels are local already; replicated low-rank and
     SVD factors take this rank's columns (or rows) on the split side and
-    enter the rank's work as a whole (parallel.mesh's gradient rule)."""
+    enter the rank's work as a whole (parallel.mesh's gradient rule).
+    ``fused``: a low-rank pair that takes the fused kernel at this call's
+    rows (``ops.lowrank.takes_fused``) runs it on this rank's columns of
+    ``out_kernel``, or, row-parallel, on its rows of ``in_kernel`` with the
+    output reduced. A hybrid slot is its dense half plus its low-rank half,
+    each by its rule, the bias added once."""
     col = proj in COLUMN_PROJS
     span = proj_span(proj, config, tp)
     bias = p.get("bias")
-    if any(k.endswith("_q4") for k in p):
-        raise NotImplementedError("int4 weights on a mesh are not supported yet "
-                                  "(ROADMAP.md, P10b)")
+    if kind == HYBRID:
+        y = (_tp_proj_apply(x, {"kernel": p["kernel"]}, DENSE, proj, config, tp)
+             + _tp_proj_apply(x, {"in_kernel": p["in_kernel"], "out_kernel": p["out_kernel"]},
+                              LOWRANK, proj, config, tp, fused))
+        return _biased(y, bias)
     if kind == DENSE:
         if "kernel_q" in p:
             y = quant_matmul(x, p["kernel_q"], p["kernel_scale"])
+        elif "kernel_q4" in p:
+            packed, scale = p["kernel_q4"], p["kernel_scale"]
+            if col:
+                y = quant_matmul_int4(x, packed, scale)
+            else:
+                n = (span[1] - span[0]) // 2
+                # the rank's rows, then the quantizer's padding: the whole contraction
+                in_pad = int4_in_features(proj, config) + 2 * (packed.shape[0] - n)
+                y = int4_row_product(x, packed[:n], scale, span[0], in_pad // scale.shape[0])
         else:
             w = p["kernel"]
             if proj in ("k_proj", "v_proj") and kv_replicas(config, tp.tp) > 1:
@@ -384,9 +433,24 @@ def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: Mod
             else:
                 h = tp_reduce(quant_matmul(x, tp_split(a, 0, span, tp), a_s), tp)
                 return _biased(quant_matmul(h, b, b_s), bias)
+        elif "in_kernel_q4" in p:
+            a, a_s, b, b_s = (p["in_kernel_q4"], p["in_kernel_scale"], p["out_kernel_q4"],
+                              p["out_kernel_scale"])
+            if col:
+                y = quant_matmul_int4(quant_matmul_int4(x, a, a_s),
+                                      b[:, span[0]:span[1]].contiguous(),
+                                      b_s[:, span[0]:span[1]].contiguous())
+            else:
+                rows = a[span[0] // 2:span[1] // 2]
+                h = tp_reduce(int4_row_product(x, rows, a_s, span[0],
+                                               2 * a.shape[0] // a_s.shape[0]), tp)
+                return _biased(quant_matmul_int4(h, b, b_s), bias)
         elif col:
-            y = torch.matmul(torch.matmul(x, tp_enter(p["in_kernel"], tp)),
-                             tp_split(p["out_kernel"], 1, span, tp))
+            y = lowrank_apply(x, tp_enter(p["in_kernel"], tp),
+                              tp_split(p["out_kernel"], 1, span, tp), use_fused=fused)
+        elif takes_fused(x, fused):
+            y = lowrank_apply(x, tp_split(p["in_kernel"], 0, span, tp),
+                              tp_enter(p["out_kernel"], tp), use_fused=True)
         else:
             h = tp_reduce(torch.matmul(x, tp_split(p["in_kernel"], 0, span, tp)), tp)
             return _biased(torch.matmul(h, p["out_kernel"]), bias)
@@ -400,8 +464,6 @@ def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: Mod
             h = tp_reduce(torch.matmul(x, tp_split(vh, 1, span, tp).to(x.dtype).T), tp)
             h = h * sv.to(h.dtype)
             return _biased(torch.matmul(h, u.to(x.dtype).T), bias)
-    elif kind == HYBRID:
-        raise NotImplementedError(f"grasp_tpu_torch does not support {kind!r} projections yet")
     else:
         raise ValueError(f"unknown projection kind {kind!r}")
     if not col:
@@ -422,11 +484,8 @@ def attn_qkv(x: torch.Tensor, ap: Params, kinds: Dict[str, str], config: ModelCo
     if tp is None:
         outs = [proj_apply(x, ap[n], kinds[n], fused) for n in ("q_proj", "k_proj", "v_proj")]
     else:
-        if fused:
-            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
-                                      "(ROADMAP.md, P10b)")
         xin = tp_enter(x, tp)
-        outs = [_tp_proj_apply(xin, ap[n], kinds[n], n, config, tp)
+        outs = [_tp_proj_apply(xin, ap[n], kinds[n], n, config, tp, fused)
                 for n in ("q_proj", "k_proj", "v_proj")]
     return tuple(t.reshape(b, s, -1, hd).transpose(1, 2) for t in outs)
 
@@ -437,7 +496,7 @@ def attn_out(attn: torch.Tensor, ap: Params, kinds: Dict[str, str], config: Mode
     under ``tp``, the model group's sum the result)."""
     if tp is None:
         return proj_apply(attn, ap["o_proj"], kinds["o_proj"], fused)
-    return _tp_proj_apply(attn, ap["o_proj"], kinds["o_proj"], "o_proj", config, tp)
+    return _tp_proj_apply(attn, ap["o_proj"], kinds["o_proj"], "o_proj", config, tp, fused)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
@@ -523,14 +582,12 @@ def attn_mlp_residual(h: torch.Tensor, attn: torch.Tensor, lp: Params,
         up = proj_apply(x, mp["up_proj"], kinds["up_proj"], fused)
         out = proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"], fused)
     else:
-        if fused:
-            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
-                                      "(ROADMAP.md, P10b)")
         xin = tp_enter(x, tp)
-        gate = _tp_proj_apply(xin, mp["gate_proj"], kinds["gate_proj"], "gate_proj", config, tp)
-        up = _tp_proj_apply(xin, mp["up_proj"], kinds["up_proj"], "up_proj", config, tp)
+        gate = _tp_proj_apply(xin, mp["gate_proj"], kinds["gate_proj"], "gate_proj", config, tp,
+                              fused)
+        up = _tp_proj_apply(xin, mp["up_proj"], kinds["up_proj"], "up_proj", config, tp, fused)
         out = _tp_proj_apply(mlp_act(config)(gate) * up, mp["down_proj"], kinds["down_proj"],
-                             "down_proj", config, tp)
+                             "down_proj", config, tp, fused)
     if "post_feedforward_layernorm" in lp:
         out = norm(out, lp["post_feedforward_layernorm"]["weight"], config)
     return h + out
@@ -606,14 +663,13 @@ def _lm_logits(h: torch.Tensor, params: Params, cap: Optional[float] = None,
     are assembled over the model group, equal on every rank."""
     head = params.get("lm_head")
     if tp is not None:
-        if head is not None and "kernel_q4" in head:
-            raise NotImplementedError("int4 weights on a mesh are not supported yet "
-                                      "(ROADMAP.md, P10b)")
         hin = tp_enter(h, tp)
         if head is None:
             logits = torch.matmul(hin, params["embed_tokens"]["weight"].T)
         elif "kernel_q" in head:
             logits = quant_matmul(hin, head["kernel_q"], head["kernel_scale"])
+        elif "kernel_q4" in head:
+            logits = quant_matmul_int4(hin, head["kernel_q4"], head["kernel_scale"])
         else:
             logits = dense_apply(hin, head["kernel"])
         return softcap(tp_gather(logits, -1, tp), cap)

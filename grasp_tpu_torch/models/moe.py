@@ -20,8 +20,8 @@ package.
 Expert parallelism (``tp``, a mesh of params sharded by
 ``parallel.mesh.shard_params``): each model rank holds E / tp stacked experts
 and runs them on every token with its columns of the combine matrix; the
-model group's sum is the block's output. Int4 experts on a mesh raise
-NotImplementedError (ROADMAP.md, P10b).
+model group's sum is the block's output. Every expert form shards the same
+way, int4 experts included (their scales [E, G, out] with them).
 """
 
 from __future__ import annotations
@@ -140,9 +140,6 @@ def moe_apply(x: torch.Tensor, mp: Dict[str, Any], config: ModelConfig, tp=None)
             and any(p + "_q" in ex or p + "_q4" in ex for p in MOE_PARTS)):
         raise NotImplementedError("experts mixing GRASP low-rank and quantized parts")
     if tp is not None:
-        if any(k.endswith("_q4") for k in ex):
-            raise NotImplementedError("int4 experts on a mesh are not supported yet "
-                                      "(ROADMAP.md, P10b)")
         combine = tp_split(combine, 1, even_span(config.num_local_experts, tp), tp)
         xt = tp_enter(xt, tp)
     g = _part_mm(ex, "w1", xt)

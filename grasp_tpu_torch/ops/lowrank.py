@@ -232,6 +232,13 @@ def fused_lowrank(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Te
 fused_lowrank.launches = 0
 
 
+def takes_fused(x: torch.Tensor, use_fused: bool) -> bool:
+    """The dispatch rule of :func:`lowrank_apply`: the flag, 256 rows or
+    more, CUDA tensors."""
+    rows = x.numel() // max(x.shape[-1], 1)
+    return use_fused and rows >= FUSED_MIN_ROWS and x.device.type == "cuda"
+
+
 def lowrank_apply(x: torch.Tensor, in_kernel: torch.Tensor, out_kernel: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, use_fused: bool = False) -> torch.Tensor:
     """Compiled GRASP low-rank projection: y = (x @ in_kernel) @ out_kernel
@@ -240,8 +247,7 @@ def lowrank_apply(x: torch.Tensor, in_kernel: torch.Tensor, out_kernel: torch.Te
     use_fused=True sends calls of 256 rows or more on CUDA tensors through
     :func:`fused_lowrank` (any rank); decode-sized calls
     and CPU tensors keep the two plain products, where the flag is inert."""
-    rows = x.numel() // max(x.shape[-1], 1)
-    if use_fused and rows >= FUSED_MIN_ROWS and x.device.type == "cuda":
+    if takes_fused(x, use_fused):
         # autograd and the model's views hand over strided tensors
         y = fused_lowrank(x.contiguous(), in_kernel.contiguous(), out_kernel.contiguous())
     else:

@@ -24,9 +24,10 @@ import queue
 import socket
 import time
 import traceback
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
-from grasp_tpu_torch.parallel.mesh import DEFAULT_TIMEOUT_S, Mesh, distributed_init, make_mesh
+from grasp_tpu_torch.parallel.mesh import (DATA_AXIS, DEFAULT_TIMEOUT_S, MODEL_AXIS, Mesh,
+                                           distributed_init, make_mesh)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -38,23 +39,26 @@ def free_port() -> int:
 
 
 def _start(dp: int, tp: int, device: str, timeout_s: float, address: Optional[str] = None,
-           world: Optional[int] = None, rank: Optional[int] = None) -> Mesh:
+           world: Optional[int] = None, rank: Optional[int] = None,
+           axis_names: Tuple[str, ...] = (DATA_AXIS, MODEL_AXIS)) -> Mesh:
     dev, reason = distributed_init(address, world, rank, device=device, timeout_s=timeout_s)
-    mesh = make_mesh((dp, tp), device=dev, timeout_s=timeout_s)
+    shape = (dp * tp,) if len(axis_names) == 1 else (dp, tp)
+    mesh = make_mesh(shape, device=dev, timeout_s=timeout_s, axis_names=axis_names)
     if mesh.rank == 0:
-        print(f"mesh: data {dp} x model {tp} = {mesh.size} ranks, backend {mesh.backend} "
-              f"({reason})", flush=True)
+        axes = " x ".join(f"{k} {v}" for k, v in mesh.shape.items())
+        print(f"mesh: {axes} = {mesh.size} ranks, backend {mesh.backend} ({reason})",
+              flush=True)
     return mesh
 
 
 def _worker(rank: int, world: int, dp: int, tp: int, address: str, device: str,
-            timeout_s: float, fn: Callable, args, kwargs, out) -> None:
+            timeout_s: float, axis_names, fn: Callable, args, kwargs, out) -> None:
     import torch
     import torch.distributed as dist
 
     torch.set_num_threads(1)
     try:
-        mesh = _start(dp, tp, device, timeout_s, address, world, rank)
+        mesh = _start(dp, tp, device, timeout_s, address, world, rank, axis_names)
         result = fn(mesh, *args, **kwargs)
         out.put((rank, "ok", result))
     except BaseException:
@@ -66,13 +70,17 @@ def _worker(rank: int, world: int, dp: int, tp: int, address: str, device: str,
 
 
 def launch(fn: Callable[..., Any], dp: int, tp: int, *args, device: str = "cuda",
-           timeout_s: float = DEFAULT_TIMEOUT_S, **kwargs) -> List[Any]:
+           timeout_s: float = DEFAULT_TIMEOUT_S,
+           axis_names: Tuple[str, ...] = (DATA_AXIS, MODEL_AXIS), **kwargs) -> List[Any]:
     """``fn(mesh, *args, **kwargs)`` on each of ``dp * tp`` ranks; their
     results in rank order (under torchrun: this rank's alone). ``fn`` and its
     arguments are pickled: a module-level function of an importable module.
-    ``timeout_s`` bounds every collective and the whole run's wait."""
+    ``timeout_s`` bounds every collective and the whole run's wait.
+    ``axis_names`` of one name (``("pipe",)``) makes a one-axis mesh of the
+    ``dp * tp`` ranks."""
+    axis_names = tuple(axis_names)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        mesh = _start(dp, tp, device, timeout_s)
+        mesh = _start(dp, tp, device, timeout_s, axis_names=axis_names)
         return [fn(mesh, *args, **kwargs)]
     import multiprocessing as mp
 
@@ -81,7 +89,7 @@ def launch(fn: Callable[..., Any], dp: int, tp: int, *args, device: str = "cuda"
     out = ctx.Queue()
     address = f"127.0.0.1:{free_port()}"
     procs = [ctx.Process(target=_worker, args=(r, world, dp, tp, address, device, timeout_s,
-                                               fn, args, kwargs, out))
+                                               axis_names, fn, args, kwargs, out))
              for r in range(world)]
     # the workers import the package from the repository root; a spawned
     # process takes the environment at its start, which is restored after

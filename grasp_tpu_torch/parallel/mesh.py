@@ -29,14 +29,26 @@ tensor that a rank uses inside its shard of the work passes through
 slice of one through :func:`tp_split`, so each replicated tensor's gradient
 is whole and equal on every rank, and each sharded tensor's is its shard.
 
+Int4 weights shard like their kernel: ``kernel_q4`` by the projection's
+rule, its ``[groups, out]`` scale as ``kernel_scale`` (with the output
+columns of a column-parallel projection, whole for a row-parallel one, as in
+JAX). A row-parallel rank holds the packed rows of its input columns
+followed by the quantizer's zero padding rows, so that every rank's shard
+has one shape and tells the group size; a forward takes the scale rows of
+the groups it touches and pads a group that the shard splits with zero rows
+(``models.llama.int4_row_product``).
+
+A mesh may also be one axis named ``"pipe"`` (``make_mesh((n,),
+axis_names=("pipe",))``, JAX's ``Mesh(devices, ("pipe",))``), whose stages
+exchange activations with :func:`ppermute` and point-to-point sends
+(parallel/pipeline.py). Sequence parallelism rotates K/V blocks around an
+axis with :func:`ppermute` (parallel/ring_attention.py).
+
 The backend: ranks on distinct CUDA devices take NCCL; ranks that share a
 device (NCCL refuses them: "Duplicate GPU detected") or run on the CPU take
-gloo, which takes CUDA tensors and stages them through the host
-(:func:`backend_for`). Every collective here is a broadcast, all_reduce or
-all_gather, which both take.
-
-Int4 weights and the fused low-rank flag on a mesh raise NotImplementedError
-(ROADMAP.md, P10b).
+gloo, which takes CUDA tensors in its collectives and stages them through
+the host (:func:`backend_for`). Point-to-point messages of CUDA tensors on
+gloo are staged through host buffers here.
 """
 
 from __future__ import annotations
@@ -50,16 +62,12 @@ import torch.distributed as dist
 
 from grasp_tpu_torch.configs import ModelConfig
 
-DATA_AXIS, MODEL_AXIS = "data", "model"
+DATA_AXIS, MODEL_AXIS, PIPE_AXIS = "data", "model", "pipe"
 # models.llama's column-parallel projections (models.llama imports this module)
 COLUMN_PROJS = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj")
 DEFAULT_TIMEOUT_S = 600.0
 
 Spec = Tuple[Optional[str], ...]  # one mesh axis (or None) per dimension; () replicates
-
-
-def _refuse(what: str):
-    return NotImplementedError(f"{what} on a mesh is not supported yet (ROADMAP.md, P10b)")
 
 
 # ---------------------------------------------------------------------------
@@ -121,18 +129,24 @@ def distributed_init(coordinator_address: Optional[str] = None,
 class Mesh:
     """A ("data", "model") mesh of ``dp x tp`` ranks, one process each, seen
     from this rank: its coordinates, its device and the process groups of
-    its data row and model column (None where an axis has one rank)."""
-
-    axis_names = (DATA_AXIS, MODEL_AXIS)
+    its data row and model column (None where an axis has one rank). A
+    one-axis mesh (``axis_names=("pipe",)``) is the first axis alone, of
+    ``dp`` ranks, with ``tp`` 1."""
 
     def __init__(self, dp: int, tp: int, rank: int, device: torch.device, backend: str,
-                 data_group=None, model_group=None):
+                 data_group=None, model_group=None,
+                 axis_names: Tuple[str, ...] = (DATA_AXIS, MODEL_AXIS)):
         self.dp, self.tp, self.rank = dp, tp, rank
         self.device, self.backend = device, backend
         self.data_group, self.model_group = data_group, model_group
+        self.axis_names = tuple(axis_names)
+        if len(self.axis_names) == 1 and tp != 1:
+            raise ValueError(f"a one-axis mesh {self.axis_names} has no model axis (tp {tp})")
 
     @property
     def shape(self) -> Dict[str, int]:
+        if len(self.axis_names) == 1:
+            return {self.axis_names[0]: self.dp}
         return {DATA_AXIS: self.dp, MODEL_AXIS: self.tp}
 
     @property
@@ -147,9 +161,20 @@ class Mesh:
     def model_index(self) -> int:
         return self.rank % self.tp
 
+    def axis_index(self, axis: str) -> int:
+        """This rank's position along ``axis`` (``jax.lax.axis_index``)."""
+        self.shape[axis]  # noqa: B018  (an axis of another mesh raises KeyError)
+        return self.model_index if axis == MODEL_AXIS else self.data_index
+
+    def axis_rank(self, axis: str, index: int) -> int:
+        """The global rank at position ``index`` of this rank's ``axis`` group."""
+        if axis == MODEL_AXIS:
+            return self.data_index * self.tp + index
+        return index * self.tp + self.model_index
+
     def __repr__(self) -> str:
-        return (f"Mesh(data={self.dp}, model={self.tp}, rank={self.rank}, "
-                f"device={self.device}, backend={self.backend})")
+        axes = ", ".join(f"{k}={v}" for k, v in self.shape.items())
+        return f"Mesh({axes}, rank={self.rank}, device={self.device}, backend={self.backend})"
 
     # -- collectives --------------------------------------------------------
 
@@ -189,6 +214,59 @@ class Mesh:
         if self.size > 1:
             dist.barrier()
 
+    def _staged(self, t: torch.Tensor) -> bool:
+        """Whether a point-to-point message of ``t`` goes through a host
+        buffer: CUDA tensors on gloo."""
+        return self.backend == "gloo" and t.device.type == "cuda"
+
+    def send(self, t: torch.Tensor, axis: str, dst: int, tag: int = 0):
+        """Post ``t`` to position ``dst`` of this rank's ``axis`` group
+        without waiting: a handle whose ``wait()`` returns once it is sent
+        (the handle keeps the buffer alive)."""
+        buf = t.detach().contiguous()
+        if self._staged(buf):
+            buf = buf.cpu()
+        return _Sent(dist.isend(buf, self.axis_rank(axis, dst), tag=tag), buf)
+
+    def recv(self, like: torch.Tensor, axis: str, src: int, tag: int = 0) -> torch.Tensor:
+        """A tensor of ``like``'s shape, dtype and device from position
+        ``src`` of this rank's ``axis`` group (blocking)."""
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if self._staged(like) else like.device)
+        dist.recv(buf, self.axis_rank(axis, src), tag=tag)
+        return buf.to(like.device)
+
+    def ppermute(self, t: torch.Tensor, axis: str, perm) -> torch.Tensor:
+        """``jax.lax.ppermute`` over one axis's group: ``perm`` holds (source,
+        destination) positions; each source's ``t`` lands on its destination,
+        and a position that no pair sends to gets zeros. Every send and
+        receive is posted at once and then waited on, so a ring cannot
+        deadlock."""
+        idx = self.axis_index(axis)
+        pairs = [(int(a), int(b)) for a, b in perm]
+        if len({a for a, _ in pairs}) != len(pairs) or len({b for _, b in pairs}) != len(pairs):
+            raise ValueError(f"ppermute needs distinct sources and destinations, got {pairs}")
+        out = torch.zeros_like(t)
+        src = t.detach().contiguous()
+        if self._staged(src):
+            src = src.cpu()
+        buf = torch.empty_like(src)
+        ops, received = [], False
+        for a, b in pairs:
+            if a == idx and b == idx:
+                out.copy_(t)
+            elif a == idx:
+                ops.append(dist.P2POp(dist.isend, src, self.axis_rank(axis, b)))
+            elif b == idx:
+                ops.append(dist.P2POp(dist.irecv, buf, self.axis_rank(axis, a)))
+                received = True
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        if received:
+            out.copy_(buf)
+        return out
+
     def _comm_device(self) -> torch.device:
         return self.device if self.backend == "nccl" else torch.device("cpu")
 
@@ -200,22 +278,45 @@ class Mesh:
         n = self.shape[axis]
         if n == 1:
             return False
-        return self.data_group if axis == DATA_AXIS else self.model_group
+        return self.model_group if axis == MODEL_AXIS else self.data_group
 
 
-def make_mesh(shape: Optional[Tuple[int, int]] = None, device=None,
-              timeout_s: float = DEFAULT_TIMEOUT_S) -> Mesh:
-    """This rank's ("data", "model") mesh over the process group that
-    :func:`distributed_init` joined (one rank without one).
+class _Sent:
+    """A posted send and the buffer it reads."""
 
-    shape=None is (world, 1), pure data parallel; ``d * m`` must equal the
-    world size, else ValueError. Every rank calls it with the same shape:
-    the groups of each axis are made collectively, each of whose
-    collectives fails after ``timeout_s``."""
+    def __init__(self, req, buf):
+        self.req, self.buf = req, buf
+
+    def wait(self) -> None:
+        self.req.wait()
+
+
+def make_mesh(shape: Optional[Tuple[int, ...]] = None, device=None,
+              timeout_s: float = DEFAULT_TIMEOUT_S,
+              axis_names: Tuple[str, ...] = (DATA_AXIS, MODEL_AXIS)) -> Mesh:
+    """This rank's mesh over the process group that :func:`distributed_init`
+    joined (one rank without one).
+
+    ("data", "model"): shape=None is (world, 1), pure data parallel; ``d *
+    m`` must equal the world size, else ValueError. One axis (``axis_names``
+    of one name, such as ``("pipe",)``): shape=None or ``(world,)``. Every
+    rank calls it with the same shape: the groups of each axis are made
+    collectively, each of whose collectives fails after ``timeout_s``."""
     world = dist.get_world_size() if dist.is_initialized() else 1
     rank = dist.get_rank() if dist.is_initialized() else 0
+    axis_names = tuple(axis_names)
+    if len(axis_names) == 1:
+        shape = (world,) if shape is None else tuple(shape)
+        if len(shape) != 1:
+            raise ValueError(f"a one-axis mesh {axis_names} takes a shape of one size, "
+                             f"got {shape}")
+        shape = (shape[0], 1)
+    elif axis_names != (DATA_AXIS, MODEL_AXIS):
+        raise ValueError(f"a mesh's axes are ('data', 'model') or one axis, got {axis_names}")
     if shape is None:
         shape = (world, 1)
+    if len(shape) != 2:
+        raise ValueError(f"mesh shape {tuple(shape)} incompatible with {world} ranks")
     d, m = (int(x) for x in shape)
     if d < 1 or m < 1 or d * m != world:
         raise ValueError(f"mesh shape {tuple(shape)} incompatible with {world} ranks")
@@ -235,7 +336,7 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, device=None,
             g = dist.new_group([i * m + j for j in range(m)], timeout=timeout)
             if rank // m == i:
                 model_group = g
-    return Mesh(d, m, rank, device, backend, data_group, model_group)
+    return Mesh(d, m, rank, device, backend, data_group, model_group, axis_names)
 
 
 # ---------------------------------------------------------------------------
@@ -244,28 +345,32 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, device=None,
 
 
 class _Enter(torch.autograd.Function):
-    """Identity; the gradient is summed over the model group."""
+    """Identity; the gradient is summed over one axis's group (a replicated
+    input of work split over that axis: shard_map's transpose of a ``P()``
+    input)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
+    def forward(ctx, x, mesh, axis):
+        ctx.meta = (mesh, axis)
         return x.view_as(x)
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.mesh.all_reduce(g.contiguous().clone(), MODEL_AXIS), None
+        mesh, axis = ctx.meta
+        return mesh.all_reduce(g.contiguous().clone(), axis), None, None
 
 
 class _Reduce(torch.autograd.Function):
-    """Sum over the model group; the gradient passes unchanged."""
+    """Sum over one axis's group; the gradient passes unchanged (each rank
+    differentiates the same total, which its part enters once)."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        return mesh.all_reduce(x.contiguous().clone(), MODEL_AXIS)
+    def forward(ctx, x, mesh, axis):
+        return mesh.all_reduce(x.contiguous().clone(), axis)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return g, None, None
 
 
 class _Split(torch.autograd.Function):
@@ -288,18 +393,18 @@ class _Split(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """The model group's shards concatenated along ``dim``; the gradient is
-    this rank's part of the (equal) whole gradient."""
+    """One axis's shards concatenated along ``dim`` in position order; the
+    gradient is this rank's part of the (equal) whole gradient."""
 
     @staticmethod
-    def forward(ctx, x, dim, mesh):
-        ctx.meta = (dim, x.shape[dim], mesh.model_index)
-        return torch.cat(mesh.all_gather(x, MODEL_AXIS), dim=dim)
+    def forward(ctx, x, dim, mesh, axis):
+        ctx.meta = (dim, x.shape[dim], mesh.axis_index(axis))
+        return torch.cat(mesh.all_gather(x, axis), dim=dim)
 
     @staticmethod
     def backward(ctx, g):
         dim, n, idx = ctx.meta
-        return g.narrow(dim, idx * n, n).contiguous(), None, None
+        return g.narrow(dim, idx * n, n).contiguous(), None, None, None
 
 
 class _Replica(torch.autograd.Function):
@@ -326,16 +431,34 @@ def _grad_path(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
 
+def axis_enter(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """A replicated tensor entering this rank's share of work split over ``axis``."""
+    return _Enter.apply(x, mesh, axis) if _grad_path(x) else x
+
+
+def axis_sum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """``jax.lax.psum`` of ``x`` over ``axis``."""
+    if _grad_path(x):
+        return _Reduce.apply(x, mesh, axis)
+    return mesh.all_reduce(x.contiguous().clone(), axis)
+
+
+def axis_gather(x: torch.Tensor, dim: int, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The whole tensor from the shards of ``axis``'s group along ``dim``
+    (``out_specs`` that shard ``dim`` over ``axis``)."""
+    if _grad_path(x):
+        return _Gather.apply(x, dim % x.dim(), mesh, axis)
+    return torch.cat(mesh.all_gather(x, axis), dim=dim)
+
+
 def tp_enter(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A replicated tensor entering this rank's shard of the work."""
-    return _Enter.apply(x, mesh) if _grad_path(x) else x
+    return axis_enter(x, mesh, MODEL_AXIS)
 
 
 def tp_reduce(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """The sum of the model group's partial results."""
-    if _grad_path(x):
-        return _Reduce.apply(x, mesh)
-    return mesh.all_reduce(x.contiguous().clone(), MODEL_AXIS)
+    return axis_sum(x, mesh, MODEL_AXIS)
 
 
 def tp_split(t: torch.Tensor, dim: int, span: Tuple[int, int], mesh: Mesh) -> torch.Tensor:
@@ -348,9 +471,7 @@ def tp_split(t: torch.Tensor, dim: int, span: Tuple[int, int], mesh: Mesh) -> to
 
 def tp_gather(x: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
     """The whole tensor from the model group's shards along ``dim``."""
-    if _grad_path(x):
-        return _Gather.apply(x, dim % x.dim(), mesh)
-    return torch.cat(mesh.all_gather(x, MODEL_AXIS), dim=dim)
+    return axis_gather(x, dim, mesh, MODEL_AXIS)
 
 
 def tp_replica(t: torch.Tensor, dim: int, span: Tuple[int, int], full: int,
@@ -359,6 +480,30 @@ def tp_replica(t: torch.Tensor, dim: int, span: Tuple[int, int], full: int,
     if _grad_path(t):
         return _Replica.apply(t, dim % t.dim(), span[0], full, mesh)
     return t
+
+
+class _PPermute(torch.autograd.Function):
+    """:meth:`Mesh.ppermute`; the gradient goes back along the inverse
+    permutation (JAX's transpose of ppermute)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, perm):
+        ctx.meta = (mesh, axis, [(b, a) for a, b in perm])
+        return mesh.ppermute(t, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, inverse = ctx.meta
+        return mesh.ppermute(g.contiguous(), axis, inverse), None, None, None
+
+
+def ppermute(t: torch.Tensor, mesh: Mesh, axis: str, perm) -> torch.Tensor:
+    """``jax.lax.ppermute(t, axis, perm)`` over ``mesh``'s ``axis`` group,
+    differentiable (:class:`_PPermute`)."""
+    perm = [(int(a), int(b)) for a, b in perm]
+    if _grad_path(t):
+        return _PPermute.apply(t, mesh, axis, perm)
+    return mesh.ppermute(t, axis, perm)
 
 
 # ---------------------------------------------------------------------------
@@ -504,27 +649,58 @@ def param_specs(params: Dict[str, Any], config: ModelConfig) -> Dict[str, Any]:
     return _walk(params, lambda path, t: leaf_spec(path, t.dim()))
 
 
+ROW_PROJS = ("o_proj", "down_proj")
+
+
 def _rule(path: str, t: torch.Tensor, config: ModelConfig, mesh: Mesh):
     """(dim, span of the full length or None for an even share, replicas)
-    of a leaf sharded over the model axis, or None for a replicated one."""
+    of a leaf sharded over the model axis, or None for a replicated one;
+    span "int4_rows" for a row-parallel int4 kernel (:func:`int4_row_span`)."""
     spec = leaf_spec(path, t.dim())
     if MODEL_AXIS not in spec or mesh.tp == 1:
         return None
-    if path.endswith("_q4"):
-        raise _refuse("int4 weights")
     parts = path.split(".")
     dim = spec.index(MODEL_AXIS)
+    if len(parts) >= 2 and parts[-2] in ROW_PROJS and parts[-1] == "kernel_q4":
+        return dim, "int4_rows", 1
     if len(parts) >= 2 and parts[-2] in ("k_proj", "v_proj"):
         return dim, kv_span(config, mesh), kv_replicas(config, mesh.tp)
     return dim, None, 1
 
 
+def int4_in_features(proj: str, config: ModelConfig) -> int:
+    """The input width of a row-parallel projection."""
+    return config.q_dim if proj == "o_proj" else config.intermediate_size
+
+
+def int4_row_span(proj: str, packed_rows: int, config: ModelConfig,
+                  mesh: Mesh) -> Tuple[int, int]:
+    """The byte rows [start, stop) of ``proj``'s packed int4 kernel
+    (``packed_rows`` rows whole) that hold a row-parallel rank's input
+    columns; the rows from half the input width to the end are the
+    quantizer's zero padding. A span that starts or ends inside a byte
+    raises ValueError."""
+    in_f = int4_in_features(proj, config)
+    r0, r1 = proj_span(proj, config, mesh)
+    if r0 % 2 or r1 % 2 or 2 * packed_rows < in_f:
+        raise ValueError(f"an int4 {proj} of {packed_rows} packed rows for an input of {in_f} "
+                         f"does not split into whole bytes over {mesh.tp} model ranks "
+                         f"(rows {r0}:{r1} of rank {mesh.model_index})")
+    return r0 // 2, r1 // 2
+
+
 def shard_leaf(path: str, t: torch.Tensor, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
-    """This rank's part of the whole leaf at ``path`` (a copy), or the leaf."""
+    """This rank's part of the whole leaf at ``path`` (a copy), or the leaf.
+    A row-parallel int4 kernel's part is its rows followed by the padding
+    rows, alike on every rank (:func:`int4_row_span`)."""
     rule = _rule(path, t, config, mesh)
     if rule is None:
         return t
     dim, span, _ = rule
+    if span == "int4_rows":
+        proj = path.split(".")[-2]
+        b0, b1 = int4_row_span(proj, t.shape[0], config, mesh)
+        return torch.cat([t[b0:b1], t[int4_in_features(proj, config) // 2:]]).contiguous()
     start, stop = span or even_span(t.shape[dim], mesh)
     return t.narrow(dim, start, stop - start).clone()
 
@@ -534,14 +710,18 @@ def gather_leaf(path: str, t: torch.Tensor, config: ModelConfig, mesh: Mesh) -> 
     rule = _rule(path, t, config, mesh)
     if rule is None:
         return t
-    dim, _, rep = rule
-    return torch.cat(mesh.all_gather(t, MODEL_AXIS)[::rep], dim=dim)
+    dim, span, rep = rule
+    parts = mesh.all_gather(t, MODEL_AXIS)[::rep]
+    if span == "int4_rows":
+        r0, r1 = proj_span(path.split(".")[-2], config, mesh)
+        n = (r1 - r0) // 2
+        return torch.cat([p[:n] for p in parts] + [parts[-1][n:]])
+    return torch.cat(parts, dim=dim)
 
 
 def shard_params(params: Dict[str, Any], mesh: Mesh, config: ModelConfig) -> Dict[str, Any]:
     """This rank's tree from the full one: each sharded leaf a contiguous
-    copy of its slice, each replicated leaf shared with ``params``. Int4
-    weights raise NotImplementedError."""
+    copy of its slice, each replicated leaf shared with ``params``."""
     if mesh.tp > 1:
         local_heads(config, mesh)  # the head counts must divide
     return _walk(params, lambda path, t: shard_leaf(path, t, config, mesh))

@@ -40,9 +40,9 @@ def _plan(plan):
 
 def forward_logits(mesh: Mesh, params_np, config_json: str, ids: np.ndarray, plan=None,
                    quantize_bits: Optional[int] = None) -> Dict[str, Any]:
-    """The tensor-parallel forward's logits (equal on every rank) and each
-    sharded leaf's local shape; ``quantize_bits`` quantizes the whole tree
-    (ops/quant.py) before it is sharded."""
+    """The tensor- or expert-parallel forward's logits (equal on every rank)
+    and each sharded leaf's local shape; ``quantize_bits`` quantizes the
+    whole tree (ops/quant.py) before it is sharded."""
     from grasp_tpu_torch.models.llama import forward
     from grasp_tpu_torch.ops.quant import quantize_model_weights
 
@@ -105,8 +105,8 @@ def sharded_svd(mesh: Mesh, w: np.ndarray, method: str = "device") -> Dict[str, 
 def serve_streams(mesh: Mesh, params_np, config_json: str, plan, prompts: Dict[str, Any],
                   target_np) -> Dict[str, Any]:
     """The serving surface on tensor-parallel params, greedy streams: the
-    ``Generator``, the paged engine and the int8 ``Generator`` on the
-    compressed ``params_np`` (its ``plan``); ``SpeculativeGenerator`` and
+    ``Generator``, the paged engine and the int8 and int4 ``Generator``s on
+    the compressed ``params_np`` (its ``plan``); ``SpeculativeGenerator`` and
     the speculative paged engine with the dense ``target_np`` verifying and
     the compressed model drafting, and one sampled row of the latter.
     ``prompts``: each case's prompts (the JAX serving tests' cases)."""
@@ -135,6 +135,9 @@ def serve_streams(mesh: Mesh, params_np, config_json: str, plan, prompts: Dict[s
     q8 = shard_params(quantize_model_weights(params_from_numpy(params_np, dev), bits=8), mesh,
                       config)
     out["quantized"] = Generator(q8, config, plan, mesh=mesh).greedy(prompts["quantized"], 5)
+    q4 = shard_params(quantize_model_weights(params_from_numpy(params_np, dev), bits=4), mesh,
+                      config)
+    out["int4"] = Generator(q4, config, plan, mesh=mesh).greedy(prompts["int4"], 5)
     spec = SpeculativeServingEngine(target, config, model, config, draft_plan=plan, gamma=2,
                                     device=dev, num_pages=64, page_size=8, max_batch=2,
                                     max_pages_per_seq=6, mesh=mesh)
@@ -235,14 +238,155 @@ def serve_checkpoint(mesh: Mesh, path: str, prompts: List[List[int]], max_new: i
     return out
 
 
-def moe_logits(mesh: Mesh, params_np, config_json: str, ids: np.ndarray, plan=None,
-               bits: Optional[int] = None) -> Dict[str, Any]:
-    """Expert-parallel logits (``bits``: experts quantized first; int4 on a
-    mesh raises, reported as ``refused``)."""
-    try:
-        return forward_logits(mesh, params_np, config_json, ids, plan, quantize_bits=bits)
-    except NotImplementedError as e:
-        return {"refused": str(e)}
+def _numpy_flat(tree) -> Dict[str, np.ndarray]:
+    return {p: t.detach().float().cpu().numpy() for p, t in flatten_params(tree).items()}
+
+
+def ring_run(mesh: Mesh, q: np.ndarray, k: np.ndarray, v: np.ndarray, causal: bool = True,
+             window: Optional[int] = None, softcap: Optional[float] = None,
+             dtype: Optional[str] = None) -> Dict[str, Any]:
+    """``context_parallel_attention`` of whole q [B, nh, S, hd] and k/v [B,
+    nkv, S, hd] over the data axis (``dtype``: cast first), whole on every
+    rank, as fp32."""
+    from grasp_tpu_torch.parallel.ring_attention import context_parallel_attention
+
+    dt = getattr(torch, dtype) if dtype else None
+    q, k, v = (torch.as_tensor(x, device=mesh.device) for x in (q, k, v))
+    if dt is not None:
+        q, k, v = q.to(dt), k.to(dt), v.to(dt)
+    with torch.no_grad():
+        out = context_parallel_attention(q, k, v, mesh, causal=causal,
+                                         num_kv_groups=q.shape[1] // k.shape[1], window=window,
+                                         softcap=softcap)
+    return {"out": out.float().cpu().numpy()}
+
+
+def seq_parallel_run(mesh: Mesh, params_np, config_json: str, ids: np.ndarray, plan=None,
+                     labels: Optional[np.ndarray] = None, grads: bool = False,
+                     remat: bool = False, train_steps: int = 0, learning_rate: float = 5e-3,
+                     dtype: Optional[str] = None) -> Dict[str, Any]:
+    """Sequence parallelism over the data axis: the logits of ``ids`` (whole
+    on every rank); with ``grads`` the loss against ``labels`` and the
+    gradients of every leaf (rank 0); with ``train_steps`` that many steps
+    of ``make_seq_parallel_train_step`` with ``optax.adam(learning_rate)``
+    (``train.recover.Optimizer``, no clip), their losses and the params
+    after them (rank 0)."""
+    import dataclasses
+
+    from grasp_tpu_torch.parallel.seq_parallel import (make_seq_parallel_train_step,
+                                                       seq_parallel_logits, seq_parallel_loss)
+    from grasp_tpu_torch.train.recover import Optimizer, _leaf_paths, _value_and_grad
+
+    config = _config(config_json)
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+    params = params_from_numpy(params_np, mesh.device,
+                               None if dtype is None else getattr(torch, dtype))
+    plan = _plan(plan)
+    ids_t = torch.as_tensor(ids, device=mesh.device)
+    out: Dict[str, Any] = {}
+    with torch.no_grad():
+        out["logits"] = seq_parallel_logits(params, ids_t, mesh, config, plan).float().cpu().numpy()
+    if labels is not None:
+        lab = torch.as_tensor(labels, device=mesh.device)
+        if grads:
+            loss, g = _value_and_grad(
+                lambda tree: seq_parallel_loss(tree, ids_t, lab, mesh, config, plan,
+                                               remat=remat),
+                params, [p for p, _ in _leaf_paths(params)])
+            out["loss"] = float(loss)
+            if mesh.rank == 0:
+                out["grads"] = {p: t.float().cpu().numpy() for p, t in g.items()}
+        if train_steps:
+            opt = Optimizer(lambda _: np.float32(learning_rate), clip=None)
+            step = make_seq_parallel_train_step(config, plan, opt, mesh, remat=remat)
+            state, p, losses = opt.init(params), params, []
+            for _ in range(train_steps):
+                p, state, loss = step(p, state, ids_t, lab)
+                losses.append(float(loss))
+            out["losses"] = losses
+            if mesh.rank == 0:
+                out["params"] = _numpy_flat(p)
+    return out
+
+
+def pipeline_run(mesh: Mesh, params_np, config_json: str, ids: np.ndarray, labels: np.ndarray,
+                 plan=None, microbatches: int = 4, remat: bool = False, hybrid: bool = False,
+                 grads: bool = False, steps: Sequence[tuple] = (), learning_rate: float = 1e-3,
+                 weight_decay: float = 1e-4, dtype: Optional[str] = None) -> Dict[str, Any]:
+    """The GPipe pipeline on a "pipe" mesh: the params laid out in stages
+    (``hybrid``: ``hybridize_layers`` first), the loss; with ``grads`` this
+    rank's gradients (its stage, the replicated leaves); with ``steps`` (ids,
+    labels of each) ``make_pp_train_step`` with ``optax.adamw(learning_rate)``
+    (weight decay ``weight_decay``, no clip; a hybrid plan's
+    ``hybrid_grad_mask``), the losses and this rank's params after them.
+    Flat numpy trees keyed by path; the fused low-rank kernel's launches."""
+    import dataclasses
+
+    from grasp_tpu_torch.models.llama import plan_from_params
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+    from grasp_tpu_torch.parallel.pipeline import (hybrid_grad_mask, hybridize_layers,
+                                                   make_pipeline_loss, make_pp_train_step,
+                                                   shard_pipeline_params, to_pipeline_params,
+                                                   uniform_layer_plan)
+    from grasp_tpu_torch.train.recover import Optimizer
+
+    config = _config(config_json)
+    if dtype is not None:
+        config = dataclasses.replace(config, dtype=dtype)
+    params = params_from_numpy(params_np, mesh.device,
+                               None if dtype is None else getattr(torch, dtype))
+    plan = _plan(plan) or plan_from_params(params, config)
+    n_stages = mesh.shape["pipe"]
+    mask = None
+    if hybrid:
+        params, layer_plan, spec = hybridize_layers(params, plan)
+        mask = to_pipeline_params(hybrid_grad_mask(params, spec), n_stages)
+    else:
+        layer_plan = uniform_layer_plan(plan)
+    pp = shard_pipeline_params(to_pipeline_params(params, n_stages), mesh)
+    del params
+    loss_fn = make_pipeline_loss(config, layer_plan, mesh, microbatches, remat)
+    ids_t = torch.as_tensor(ids, device=mesh.device)
+    lab_t = torch.as_tensor(labels, device=mesh.device)
+    out: Dict[str, Any] = {"layer_plan": layer_plan, "stage": mesh.axis_index("pipe")}
+    fused_lowrank.launches = 0
+    out["loss"] = float(loss_fn(pp, ids_t, lab_t))
+    out["launches"] = {"loss": fused_lowrank.launches}
+    if grads:
+        fused_lowrank.launches = 0
+        loss, g = loss_fn.value_and_grad(pp, ids_t, lab_t)
+        out["launches"]["grads"] = fused_lowrank.launches
+        out["grad_loss"] = float(loss)
+        out["grads"] = _numpy_flat(g)
+    if steps:
+        opt = Optimizer(lambda _: np.float32(learning_rate), clip=None,
+                        weight_decay=weight_decay)
+        step = make_pp_train_step(config, layer_plan, opt, mesh, microbatches, remat,
+                                  grad_mask=mask)
+        state, losses = opt.init(pp), []
+        for s_ids, s_lab in steps:
+            pp, state, loss = step(pp, state, torch.as_tensor(s_ids, device=mesh.device),
+                                   torch.as_tensor(s_lab, device=mesh.device))
+            losses.append(float(loss))
+        out["losses"] = losses
+        out["params"] = _numpy_flat(pp)
+    return out
+
+
+def stack_stages(parts: Sequence[Dict[str, np.ndarray]], num_layers: int) -> Dict[str, Any]:
+    """Every rank's flat pipeline tree (stage order) as one flat tree of the
+    plain layout: ``layers.<i>.<path>`` from each ``stages.<path>``, the
+    replicated leaves from the first part."""
+    out: Dict[str, Any] = {}
+    for path, x in parts[0].items():
+        if not path.startswith("stages."):
+            out[path] = x
+            continue
+        whole = np.concatenate([p[path] for p in parts]).reshape(num_layers, *x.shape[2:])
+        for i in range(num_layers):
+            out[f"layers.{i}.{path[len('stages.'):]}"] = whole[i]
+    return out
 
 
 def run_cases(mesh: Mesh, cases: Sequence[tuple]) -> Dict[str, Any]:

@@ -181,12 +181,16 @@ def _scalar(value, like: torch.Tensor) -> torch.Tensor:
 
 class Optimizer:
     """What ``make_optimizer``'s optax chain computes, in this order: drop the
-    frozen leaves' gradients, clip by the global norm, AdamW (:data:`B1`,
-    :data:`B2`, :data:`EPS` outside the square root, eps_root 0, bias
-    corrections ``mu / (1 - b1^t)``, weight decay 0.0) scaled by the negated
-    learning rate at the count before the increment. With ``accum_steps >
-    1``, ``optax.MultiSteps``: the running mean ``acc + (g - acc) / (n + 1)``
-    of the micro-batches' gradients, given to AdamW once a group is full.
+    frozen leaves' gradients, clip by the global norm (``clip``, None: no
+    clip), AdamW (:data:`B1`, :data:`B2`, :data:`EPS` outside the square
+    root, eps_root 0, bias corrections ``mu / (1 - b1^t)``, then
+    ``weight_decay`` times the parameter added, optax's
+    ``add_decayed_weights``) scaled by the negated learning rate at the
+    count before the increment. ``Optimizer(lambda _: lr, clip=None,
+    weight_decay=1e-4)`` is ``optax.adamw(lr)``; with weight decay 0.0,
+    ``optax.adam(lr)``. With ``accum_steps > 1``, ``optax.MultiSteps``: the
+    running mean ``acc + (g - acc) / (n + 1)`` of the micro-batches'
+    gradients, given to AdamW once a group is full.
 
     ``mask``: a boolean tree over the params the optimizer is given; only the
     True leaves train (None: every leaf). Gradients and updates are dicts
@@ -194,8 +198,10 @@ class Optimizer:
     which ``torch.save`` writes."""
 
     def __init__(self, schedule: Callable[[int], np.float32], mask: Optional[Params] = None,
-                 accum_steps: int = 1):
+                 accum_steps: int = 1, clip: Optional[float] = MAX_GRAD_NORM,
+                 weight_decay: float = 0.0):
         self.schedule, self.mask, self.accum_steps = schedule, mask, accum_steps
+        self.clip, self.weight_decay = clip, weight_decay
         # the squared global norm of a gradient dict, where it spans a mesh
         self.sumsq: Optional[Callable[[Grads], torch.Tensor]] = None
 
@@ -218,28 +224,33 @@ class Optimizer:
         path. Between accumulation boundaries the updates are empty.
         ``params`` is optax's argument, which weight decay 0.0 leaves unread."""
         if self.accum_steps == 1:
-            return self._adamw(grads, state)
+            return self._adamw(grads, state, params)
         n = state["mini_step"]
         acc = {p: a + (grads[p] - a) / _scalar(n + 1, a) for p, a in state["acc"].items()}
         if n + 1 < self.accum_steps:
             return {}, {**state, "mini_step": n + 1, "acc": acc}
-        updates, inner = self._adamw(acc, state["inner"])
+        updates, inner = self._adamw(acc, state["inner"], params)
         return updates, {"mini_step": 0, "gradient_step": state["gradient_step"] + 1,
                          "acc": {p: torch.zeros_like(a) for p, a in acc.items()},
                          "inner": inner}
 
-    def _adamw(self, grads: Grads, state: Dict[str, Any]) -> Tuple[Grads, Dict[str, Any]]:
+    def _adamw(self, grads: Grads, state: Dict[str, Any],
+               params) -> Tuple[Grads, Dict[str, Any]]:
         g = {p: grads[p] for p in state["mu"]}
-        g = clip_by_global_norm(g, MAX_GRAD_NORM, None if self.sumsq is None else self.sumsq(g))
+        if self.clip is not None:
+            g = clip_by_global_norm(g, self.clip, None if self.sumsq is None else self.sumsq(g))
         t = state["count"] + 1
         mu = {p: (1 - B1) * g[p] + B1 * m for p, m in state["mu"].items()}
         nu = {p: (1 - B2) * (g[p] ** 2) + B2 * v for p, v in state["nu"].items()}
         bc1 = np.float32(1) - np.float32(B1) ** np.float32(t)
         bc2 = np.float32(1) - np.float32(B2) ** np.float32(t)
         step = -self.schedule(state["count"])
+        leaves = dict(_leaf_paths(params)) if self.weight_decay else {}
         updates = {}
         for p in mu:
             u = (mu[p] / _scalar(bc1, mu[p])) / (torch.sqrt(nu[p] / _scalar(bc2, nu[p])) + EPS)
+            if self.weight_decay:
+                u = u + _scalar(np.float32(self.weight_decay), u) * leaves[p]
             updates[p] = _scalar(step, u) * u
         return updates, {"count": t, "mu": mu, "nu": nu}
 
@@ -648,9 +659,6 @@ def recovery_train(
     and step, and fast-forwards the data stream.
     """
     if mesh is not None:
-        if config.use_pallas_lowrank:
-            raise NotImplementedError("use_pallas_lowrank on a mesh is not supported yet "
-                                      "(ROADMAP.md, P10b)")
         params = shard_params(map_params(params, lambda t: t.to(mesh.device)), mesh, config)
     dev = params["embed_tokens"]["weight"].device
     mask = trainable_mask(params, redundant_layers)

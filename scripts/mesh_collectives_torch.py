@@ -14,7 +14,14 @@ Starts ``--world`` processes on ``cuda:0`` and asks, in this order:
    compression sweep on TinyLlama-1.1B under ``--dp 2 --tp 2`` (8 rows of
    2047 tokens of hidden 2048: 67 MB in bf16, 134 MB in fp32) and of a
    decode step (one row's hidden), median of 5 after one warm-up, over the
-   whole world and over pairs of ranks (the model groups of a 2 x 2 mesh).
+   whole world and over pairs of ranks (the model groups of a 2 x 2 mesh);
+4. whether gloo's point-to-point ``isend``/``irecv`` take a CUDA tensor
+   directly (two ranks; the answer, an error or a crash, is recorded);
+5. what ``parallel.mesh.Mesh.ppermute`` (CUDA tensors staged through host
+   buffers) costs for one step of the ring over the whole world at ring
+   attention's K/V block of TinyLlama-1.1B (2 x 4 KV heads x 2048 tokens x
+   64 in bf16 and fp32), and a pipeline stage's send and receive of 256 rows
+   of hidden 2048 in fp32, median of 5 after one warm-up.
 
 Prints the card's line and one JSON record, and writes it to ``--out``.
 Needs a CUDA device.
@@ -134,6 +141,70 @@ def _gloo_worker(rank: int, world: int, port: int, q) -> None:
     dist.destroy_process_group()
 
 
+def _p2p_probe(rank: int, world: int, port: int, q) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    x = torch.full((8,), float(rank + 1), device="cuda")
+    try:
+        req = dist.isend(x, 1) if rank == 0 else dist.irecv(x, 0)
+        req.wait()
+        torch.cuda.synchronize()
+        q.put((rank, "ok" if float(x[0]) == 1.0 else "wrong value", float(x[0])))
+    except Exception as e:  # the answer is the error: record it
+        q.put((rank, "error", f"{type(e).__name__}: {str(e)[:300]}"))
+    dist.destroy_process_group()
+
+
+P2P_SIZES = {  # name -> (shape, dtype name)
+    "ring_kv_bf16_2x1x4x2048x64": ((2, 1, 4, 2048, 64), "bfloat16"),
+    "ring_kv_fp32_2x1x4x2048x64": ((2, 1, 4, 2048, 64), "float32"),
+    "stage_fp32_256x2048": ((1, 256, 2048), "float32"),
+}
+
+
+def _ppermute_worker(rank: int, world: int, port: int, q) -> None:
+    import torch
+
+    from grasp_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    dev, _ = distributed_init(f"127.0.0.1:{port}", world, rank, device="cuda", timeout_s=120)
+    mesh = make_mesh((world, 1), device=dev, timeout_s=120)
+    ring = [(j, (j + 1) % world) for j in range(world)]
+    out = {"rank": rank, "ms": {}}
+    for name, (shape, dt) in P2P_SIZES.items():
+        x = torch.full(shape, float(rank), dtype=getattr(torch, dt), device=dev)
+        times = []
+        for i in range(6):
+            mesh.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name.startswith("stage"):  # rank r sends to r + 1, receives from r - 1
+                sent = mesh.send(x, "data", rank + 1, tag=i) if rank + 1 < world else None
+                if rank:
+                    y = mesh.recv(x, "data", rank - 1, tag=i)
+                if sent is not None:
+                    sent.wait()
+            else:
+                y = mesh.ppermute(x, "data", ring)
+            torch.cuda.synchronize()
+            if i:
+                times.append((time.perf_counter() - t) * 1e3)
+        if rank:
+            assert float(y.flatten()[0]) == float(rank - 1)
+        times.sort()
+        out["ms"][name] = {"median": times[len(times) // 2], "min": times[0],
+                           "max": times[-1], "bytes": x.numel() * x.element_size()}
+    q.put(out)
+    mesh.barrier()
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
 def _run(target, world: int, timeout: float):
     import multiprocessing as mp
 
@@ -175,12 +246,19 @@ def main(argv=None) -> int:
     gloo, codes = _run(_gloo_worker, args.world, 600)
     record["gloo_exit_codes"] = codes
     record["gloo"] = sorted(gloo, key=lambda r: r["rank"])
+    p2p, p2p_codes = _run(_p2p_probe, 2, 120)
+    record["gloo_isend_irecv_cuda"] = {"answers": sorted(p2p), "exit_codes": p2p_codes}
+    perm, perm_codes = _run(_ppermute_worker, args.world, 600)
+    record["ppermute_exit_codes"] = perm_codes
+    record["ppermute_staged"] = sorted(perm, key=lambda r: r["rank"])
+    codes = codes + perm_codes
+    ok = len(gloo) == args.world and len(perm) == args.world
     print(card)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)
     with open(args.out, "w") as f:
         json.dump(record, f, indent=1)
     print(json.dumps(record))
-    return 0 if all(c == 0 for c in codes) and len(gloo) == args.world else 1
+    return 0 if all(c == 0 for c in codes) and ok else 1
 
 
 if __name__ == "__main__":

@@ -159,15 +159,14 @@ def test_unported_options_raise_and_remove_layers():
                       moe_config, device="cpu")
     with pytest.raises(NotImplementedError, match="MoE"):
         moe.compress_block(0, "mlp", ["down_proj"])
-    # a mesh runs the engine (tests/test_torch_parallel_engine.py), but not
-    # the fused low-rank flag or int4 weights yet; --export_hf_dir runs:
-    # test_torch_hf_cli.py
+    # a mesh runs the engine (tests/test_torch_parallel_engine.py), with the
+    # fused low-rank flag and int4 weights too, once refused; --export_hf_dir
+    # runs: test_torch_hf_cli.py
     mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
     fused = dataclasses.replace(teng.config, use_pallas_lowrank=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraspEngine(teng.params, fused, device="cpu", mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraspEngine(quantize_model_weights(teng.params, bits=4), teng.config, mesh=mesh)
+    assert GraspEngine(teng.params, fused, device="cpu", mesh=mesh).config.use_pallas_lowrank
+    q4 = GraspEngine(quantize_model_weights(teng.params, bits=4), teng.config, mesh=mesh)
+    assert q4.params["layers"][0]["self_attn"]["q_proj"]["kernel_q4"].shape[1] == 128
     with pytest.raises(ValueError):
         teng.compress_round(0, "mlp", ["q_proj"], batches, GraspConfig())
     assert teng.compress_round(0, "mlp", None, batches, GraspConfig()) is True

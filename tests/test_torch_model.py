@@ -146,15 +146,22 @@ def test_unported_architecture_features_raise():
 
 
 def test_unported_paths_raise(models):
-    """The hybrid projection kind and quantized low-rank experts still raise;
-    longrope, which raised here before, gives grasp_tpu's tables in both
-    regimes."""
+    """Quantized low-rank experts still raise; the hybrid projection kind
+    and longrope, which raised here before, give grasp_tpu's values (the
+    hybrid kind: dense plus low-rank on one input, the bias once)."""
     config, trees = models
     tp = to_port(trees["dense"][0])
-    x = torch.zeros(1, config.hidden_size)
-    q_proj = tp["layers"][0]["self_attn"]["q_proj"]
-    with pytest.raises(NotImplementedError):
-        tl.proj_apply(x, q_proj, "hybrid")
+    rng = np.random.default_rng(5)
+    d = config.hidden_size
+    x = rng.standard_normal((3, d)).astype(np.float32)
+    hybrid = {"kernel": (rng.standard_normal((d, 8)) / np.sqrt(d)).astype(np.float32),
+              "in_kernel": (rng.standard_normal((d, 4)) / np.sqrt(d)).astype(np.float32),
+              "out_kernel": (rng.standard_normal((4, 8)) / 2).astype(np.float32),
+              "bias": rng.standard_normal(8).astype(np.float32)}
+    got = tl.proj_apply(torch.from_numpy(x), {k: torch.from_numpy(v) for k, v in hybrid.items()},
+                        "hybrid")
+    want = jl.proj_apply(jnp.asarray(x), {k: jnp.asarray(v) for k, v in hybrid.items()}, "hybrid")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
     # GRASP low-rank experts have no quantized form (in either package)
     lowrank_moe = {"gate": {"kernel": torch.zeros(config.hidden_size, 2)},
                    "experts": {"w1_a": torch.zeros(2, config.hidden_size, 1),

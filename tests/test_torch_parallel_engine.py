@@ -190,15 +190,40 @@ def test_backend_rule_and_a_failing_rank():
 
 
 def test_what_a_mesh_refuses():
-    """Int4 weights and the fused low-rank flag raise NotImplementedError
-    naming ROADMAP.md; params sharded for a model axis need their mesh."""
+    """Params sharded for a model axis need their mesh (ValueError). Int4
+    weights shard, and the engine takes the fused low-rank flag on a mesh.
+    A row-parallel int4 shard that splits a group (o_proj's one group of
+    64 rows over two ranks; down_proj's 128 rows, one group of 128) runs:
+    each rank's part, padded with zero rows to the group's edges, gives the
+    whole product's share, and the parts put together are the whole
+    weight. A shard that would split a byte (178 rows over two ranks)
+    raises ValueError (ROADMAP.md, queue 2)."""
+    from grasp_tpu_torch.models.llama import int4_row_product
+    from grasp_tpu_torch.ops.quant import quant_matmul_int4
+
     config = port_config(_config())
     params = to_port(init_params(jax.random.PRNGKey(0), _config()))
-    mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        shard_params(quantize_model_weights(params, bits=4), mesh, config)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraspEngine(params, dataclasses.replace(config, use_pallas_lowrank=True), mesh=mesh)
-    local = shard_params(params, mesh, config)
+    meshes = [Mesh(1, 2, r, torch.device("cpu"), "none") for r in (0, 1)]
+    q4 = quantize_model_weights(params, bits=4)
+    parts = [shard_params(q4, m, config) for m in meshes]
+    x = torch.randn(3, 64, generator=torch.Generator().manual_seed(0))
+    for proj, grp, n in (("o_proj", "self_attn", 64), ("down_proj", "mlp", 128)):
+        whole = q4["layers"][0][grp][proj]
+        mine = [p["layers"][0][grp][proj]["kernel_q4"] for p in parts]
+        assert [tuple(t.shape) for t in mine] == [(n // 4, 64)] * 2
+        assert torch.equal(torch.cat(mine), whole["kernel_q4"])
+        xs = x if n == 64 else torch.randn(3, n, generator=torch.Generator().manual_seed(1))
+        got = sum(int4_row_product(xs[:, r * n // 2:(r + 1) * n // 2], mine[r],
+                                   whole["kernel_scale"], r * n // 2, n) for r in (0, 1))
+        want = quant_matmul_int4(xs, whole["kernel_q4"], whole["kernel_scale"])
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    odd = dataclasses.replace(_config(), intermediate_size=178)
+    big = quantize_model_weights(to_port(init_params(jax.random.PRNGKey(0), odd)), bits=4)
+    with pytest.raises(ValueError, match="whole bytes"):
+        shard_params(big, meshes[1], port_config(odd))
+    engine = GraspEngine(params, dataclasses.replace(config, use_pallas_lowrank=True),
+                         mesh=meshes[0], device="cpu")
+    assert engine.params["layers"][0]["self_attn"]["q_proj"]["kernel"].shape == (64, 32)
+    local = shard_params(params, meshes[0], config)
     with pytest.raises(ValueError, match="shard_params"):
         forward(local, torch.zeros((1, 4), dtype=torch.long), config=config)

@@ -8,8 +8,9 @@ The tiny Mixtral of tests/test_moe_compress.py (4 experts, top-2, 3 layers)
 on a 1 x 4 mesh: each rank holds one expert of every layer and runs it on
 every token; the combine sums over the model group. Tolerances are the JAX
 tests': dense rtol 2e-5, atol 2e-6; int8 rtol 2e-5, atol 2e-5; the
-GRASP-compressed experts rtol 2e-4, atol 2e-4. Int4 experts on a mesh are
-refused (NotImplementedError naming ROADMAP.md), where grasp_tpu runs them.
+GRASP-compressed experts rtol 2e-4, atol 2e-4; int4 (experts and
+projections, the row-parallel o_proj splitting its one group of 64 rows over
+the four ranks) rtol 2e-5, atol 2e-5, as the JAX test holds both bit widths.
 """
 
 import jax
@@ -44,10 +45,10 @@ def setup():
     ids = np.random.default_rng(11).integers(1, config.vocab_size, (2, 21))
     base = dict(params_np=jax.tree.map(np.asarray, params),
                 config_json=port_config(config).to_json(), ids=ids)
-    cases = [("dense", "moe_logits", base),
-             ("int8", "moe_logits", dict(base, bits=8)),
-             ("int4", "moe_logits", dict(base, bits=4)),
-             ("compressed", "moe_logits", dict(
+    cases = [("dense", "forward_logits", base),
+             ("int8", "forward_logits", dict(base, quantize_bits=8)),
+             ("int4", "forward_logits", dict(base, quantize_bits=4)),
+             ("compressed", "forward_logits", dict(
                  base, params_np=jax.tree.map(np.asarray, engine.params), plan=engine.plan,
                  ids=np.asarray(batches[0]["input_ids"])))]
     runs = {}
@@ -73,13 +74,14 @@ def test_expert_parallel_forward_matches(setup):
 
 
 def test_expert_parallel_quantized_forward_matches(setup):
-    """int8 experts (w*_q / w*_scale stacked [E, ...]) shard their expert
-    axis; int4 ones are refused on a mesh."""
+    """int8 and int4 experts (w*_q / w*_q4 / w*_scale stacked [E, ...]) shard
+    their expert axis, as in JAX's test of both bit widths."""
     config, params, _, ids, _, runs = setup
-    q = quantize_model_weights(params, bits=8)
-    want = np.asarray(forward(q, jnp.asarray(ids), config=config)["logits"])
-    _hold(runs["int8"], want, rtol=2e-5, atol=2e-5)
-    assert all("ROADMAP" in r["refused"] for r in runs["int4"])
+    for bits in (8, 4):
+        q = quantize_model_weights(params, bits=bits)
+        want = np.asarray(forward(q, jnp.asarray(ids), config=config)["logits"])
+        _hold(runs[f"int{bits}"], want, rtol=2e-5, atol=2e-5)
+    assert runs["int4"][0]["shapes"]["layers.0.moe.experts.w1_q4"][0] == 1
 
 
 def test_moe_compressed_expert_parallel_forward(setup):

@@ -40,7 +40,7 @@ def setup():
         return [rng.integers(1, config.vocab_size, size=(n,)).astype(np.int32) for n in lens]
 
     cases = {"greedy": prompts(9)[0], "paged": prompts(5, 12), "speculative": prompts(7)[0],
-             "quantized": prompts(8)[0], "spec_paged": prompts(6, 11)}
+             "quantized": prompts(8)[0], "spec_paged": prompts(6, 11), "int4": prompts(10)[0]}
     kw = dict(params_np=jax.tree.map(np.asarray, engine.params),
               config_json=port_config(config).to_json(), plan=engine.plan, prompts=cases,
               target_np=jax.tree.map(np.asarray, params))
@@ -83,6 +83,18 @@ def test_tp_sharded_quantized_decode_matches(setup):
     q8 = quantize_model_weights(engine.params, bits=8)
     _every_rank(ranks, "quantized", Generator(q8, config, engine.plan)
                 .greedy(cases["quantized"], 5))
+
+
+def test_tp_sharded_int4_decode_matches(setup):
+    """int4 weights shard like their kernels: the row-parallel ones take
+    their packed rows and the scale rows of the groups they touch, padded
+    to whole groups where a rank's rows split one (down_proj's 176 rows, two
+    groups of 128, over four ranks of 44; o_proj's one group of 64 over
+    four); the lm_head's columns are vocab-parallel. Decode is
+    token-identical to the unsharded int4 model's."""
+    config, _, engine, cases, ranks = setup
+    q4 = quantize_model_weights(engine.params, bits=4)
+    _every_rank(ranks, "int4", Generator(q4, config, engine.plan).greedy(cases["int4"], 5))
 
 
 def test_tp_sharded_spec_paged_engine_matches(setup):

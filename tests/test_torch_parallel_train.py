@@ -7,8 +7,11 @@ tests/test_multihost.py).
 One 2 x 2 launch runs every forward and recovery case of the module:
 
 - the dense and the GRASP-compressed model's logits within rtol 1e-4, atol
-  1e-5 of JAX's single-device forward, and the int8 model's (its
-  ``kernel_q`` sharded like its kernel) likewise;
+  1e-5 of JAX's single-device forward, and the int8 and int4 models' (their
+  ``kernel_q`` / ``kernel_q4`` sharded like their kernel) likewise; the
+  compressed model with ``use_pallas_lowrank`` (the flag inert on the CPU,
+  as in JAX) and hybridized (parallel/pipeline.py's ``hybrid`` kind: the
+  dense rule for the kernel, the low-rank rule for the pair) likewise;
 - ``recovery_train(mesh=)`` on the compressed 4-layer tiny model of
   tests/test_recover_subtree.py (layers 1 and 2 trainable, token-weighted
   accumulation of 2): per-step losses within rtol 1e-5 of JAX's
@@ -38,6 +41,7 @@ from grasp_tpu.core.engine import GraspEngine
 from grasp_tpu.models import forward as jforward
 from grasp_tpu.models import init_params
 from grasp_tpu.ops.quant import quantize_model_weights as jquantize
+from grasp_tpu.parallel.pipeline import hybridize_layers as jhybridize
 from grasp_tpu.train import recover as jr
 from grasp_tpu_torch.checkpoints import load_checkpoint
 from grasp_tpu_torch.cli import compress_run
@@ -88,6 +92,8 @@ def setup(tmp_path_factory):
     qconfig = ModelConfig.tiny(num_hidden_layers=2)
     qparams = init_params(jax.random.PRNGKey(0), qconfig)
     qids = rng.integers(0, qconfig.vocab_size, (4, 8))
+    hparams, hlayer, _ = jhybridize(engine.params, engine.plan)
+    hplan = (hlayer,) * config.num_hidden_layers
     rconfig, rparams, rplan = recover_compressed()
     best, again = tmp_path_factory.mktemp("best"), tmp_path_factory.mktemp("resume")
     recover = dict(params_np=jax.tree.map(np.asarray, rparams),
@@ -104,6 +110,16 @@ def setup(tmp_path_factory):
         ("int8", "forward_logits", dict(params_np=jax.tree.map(np.asarray, qparams),
                                         config_json=port_config(qconfig).to_json(), ids=qids,
                                         quantize_bits=8)),
+        ("int4", "forward_logits", dict(params_np=jax.tree.map(np.asarray, qparams),
+                                        config_json=port_config(qconfig).to_json(), ids=qids,
+                                        quantize_bits=4)),
+        ("fused", "forward_logits", dict(
+            params_np=jax.tree.map(np.asarray, engine.params), ids=ids, plan=engine.plan,
+            config_json=port_config(config).to_json().replace(
+                '"use_pallas_lowrank": false', '"use_pallas_lowrank": true'))),
+        ("hybrid", "forward_logits", dict(params_np=jax.tree.map(np.asarray, hparams),
+                                          config_json=port_config(config).to_json(), ids=ids,
+                                          plan=hplan)),
         ("recover", "recover_run", recover),
         ("best", "recover_run", dict(recover, val_batches=_recover_batches(2, seed=5),
                                      kwargs=dict(saving, output_dir=str(best)))),
@@ -117,7 +133,7 @@ def setup(tmp_path_factory):
         for name, result in got.items():
             runs.setdefault(name, []).append(result)
     return {"config": config, "params": params, "ids": ids, "engine": engine,
-            "qconfig": qconfig, "qparams": qparams, "qids": qids,
+            "qconfig": qconfig, "qparams": qparams, "qids": qids, "hybrid": (hparams, hplan),
             "recover": (rconfig, rparams, rplan), "runs": runs, "best": best}
 
 
@@ -162,6 +178,38 @@ def test_shard_quantized_params(setup):
     full = np.shape(q["layers"][0]["mlp"]["up_proj"]["kernel_q"])
     assert got["shapes"]["layers.0.mlp.up_proj.kernel_q"] == (full[0], full[1] // 2)
     assert got["shapes"]["layers.0.mlp.up_proj.kernel_scale"] == (1, full[1] // 2)
+    np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
+
+
+def test_sharded_int4_params(setup):
+    """kernel_q4 shards like its kernel: column-parallel columns with their
+    scale columns; row-parallel o_proj/down_proj the packed rows of the
+    rank's input columns (o_proj: 32 of one group of 64, the group split
+    between the two model ranks) with the scale whole. The int4 forward
+    matches the single device's."""
+    q = jquantize(setup["qparams"], bits=4)
+    ref = np.asarray(jforward(q, jnp.asarray(setup["qids"]), config=setup["qconfig"])["logits"])
+    got = _logits_equal_on_every_rank(setup["runs"]["int4"])
+    up = np.shape(q["layers"][0]["mlp"]["up_proj"]["kernel_q4"])
+    assert got["shapes"]["layers.0.mlp.up_proj.kernel_q4"] == (up[0], up[1] // 2)
+    assert got["shapes"]["layers.0.self_attn.o_proj.kernel_q4"] == (16, 64)
+    assert got["shapes"]["layers.0.self_attn.o_proj.kernel_scale"] == (1, 64)
+    np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
+
+
+def test_sharded_forward_fused_flag_and_hybrid(setup):
+    """The compressed model under ``use_pallas_lowrank`` on the mesh, and
+    its hybridized form (every slot dense plus low-rank, zeros where unused),
+    against JAX's forward of the same trees."""
+    engine = setup["engine"]
+    ref = np.asarray(jforward(engine.params, jnp.asarray(setup["ids"]), config=setup["config"],
+                              plan=engine.plan)["logits"])
+    got = _logits_equal_on_every_rank(setup["runs"]["fused"])
+    np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
+    hparams, hplan = setup["hybrid"]
+    ref = np.asarray(jforward(hparams, jnp.asarray(setup["ids"]), config=setup["config"],
+                              plan=hplan)["logits"])
+    got = _logits_equal_on_every_rank(setup["runs"]["hybrid"])
     np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
 
 

@@ -243,12 +243,15 @@ def test_subtree_steps_match_jax_and_the_full_scope(compressed, accumulate):
 def test_recovery_train_refuses_bad_arguments(compressed):
     _, pconfig, jparams, plan = compressed
     params = to_port(jparams)
-    # a mesh trains (tests/test_torch_parallel_train.py), but not through the
-    # fused low-rank flag yet
-    fused = dataclasses.replace(pconfig, use_pallas_lowrank=True)
-    mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
     for kw, error, config in (({"grad_scope": "nope"}, ValueError, pconfig),
-                              ({"accum_mode": "sum"}, ValueError, pconfig),
-                              ({"mesh": mesh}, NotImplementedError, fused)):
+                              ({"accum_mode": "sum"}, ValueError, pconfig)):
         with pytest.raises(error):
             tr.recovery_train(params, config, plan, RECOVER_LAYERS, [], **kw)
+    # a mesh trains (tests/test_torch_parallel_train.py), through the fused
+    # low-rank flag too, which it refused before: no batches, no step
+    fused = dataclasses.replace(pconfig, use_pallas_lowrank=True)
+    mesh = Mesh(1, 2, 0, torch.device("cpu"), "none")
+    local, history = tr.recovery_train(params, fused, plan, RECOVER_LAYERS, [], mesh=mesh)
+    assert history["train_loss"] == []
+    whole = params["layers"][0]["self_attn"]["q_proj"]["kernel"].shape[1]
+    assert local["layers"][0]["self_attn"]["q_proj"]["kernel"].shape[1] == whole // 2

@@ -1,6 +1,11 @@
 """Shared set-up of the grasp_tpu_torch parity tests: one small model
 (head_dim 64, GQA 2) whose weights go through both packages."""
 
+import hashlib
+import os
+import pickle
+import tempfile
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,17 +38,53 @@ def calibration_batches(config: ModelConfig, n: int = 3, seq: int = 16, seed: in
     return [{"input_ids": r[:, :-1].copy(), "labels": r[:, 1:].copy()} for r in rows]
 
 
+_RUNS = {}
+
+
+def _session_cached(key: str, run):
+    """``run()``'s (params, plan), run once per test session and config:
+    the JAX engine is deterministic, so every caller gets the same weights,
+    while the engine's compiles (most of a small module's time) are paid
+    once. Under xdist the workers share the result through a file of the
+    session's own (``PYTEST_XDIST_TESTRUNUID``); each call returns a fresh
+    tree of fresh arrays."""
+    session = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    path = None
+    if key not in _RUNS and session is not None:
+        root = os.path.join(tempfile.gettempdir(), f"grasp_parity_{session}")
+        path = os.path.join(root, hashlib.sha1(key.encode()).hexdigest() + ".pkl")
+        if os.path.exists(path):
+            with open(path, "rb") as f:
+                stored = pickle.load(f)
+            if stored[0] == key:
+                _RUNS[key] = stored[1]
+    if key not in _RUNS:
+        params, plan = run()
+        _RUNS[key] = (jax.tree.map(np.asarray, params), plan)
+        if path is not None:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}"
+            with open(tmp, "wb") as f:
+                pickle.dump((key, _RUNS[key]), f)
+            os.replace(tmp, path)
+    params, plan = _RUNS[key]
+    return jax.tree.map(jnp.array, params), plan
+
+
 def grasp_compressed(config: ModelConfig):
     """(jax params, plan) after a real GRASP run: one layer compressed."""
-    engine = GraspEngine(init_params(jax.random.PRNGKey(0), config), config)
-    rng = np.random.default_rng(7)
-    batches = [{
-        "input_ids": jnp.asarray(rng.integers(0, config.vocab_size, (1, 16))),
-        "labels": jnp.asarray(rng.integers(0, config.vocab_size, (1, 16))),
-    }]
-    engine.run(batches, GraspConfig(num_prune_layers=1, compression_ratio=0.4))
-    assert any("lowrank" in layer for layer in engine.plan)
-    return engine.params, engine.plan
+    def run():
+        engine = GraspEngine(init_params(jax.random.PRNGKey(0), config), config)
+        rng = np.random.default_rng(7)
+        batches = [{
+            "input_ids": jnp.asarray(rng.integers(0, config.vocab_size, (1, 16))),
+            "labels": jnp.asarray(rng.integers(0, config.vocab_size, (1, 16))),
+        }]
+        engine.run(batches, GraspConfig(num_prune_layers=1, compression_ratio=0.4))
+        assert any("lowrank" in layer for layer in engine.plan)
+        return engine.params, engine.plan
+
+    return _session_cached("grasp_compressed " + config.to_json(), run)
 
 
 def to_port(jax_params, device="cpu", dtype=None):
@@ -70,15 +111,19 @@ def recover_compressed():
     tests/test_recover_subtree.py, layers 1 and 2 low-rank (the redundant
     layers that recovery trains)."""
     config = ModelConfig.tiny(num_hidden_layers=4)
-    engine = GraspEngine(init_params(jax.random.PRNGKey(0), config), config)
-    rng = np.random.default_rng(3)
-    batches = [{
-        "input_ids": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
-        "labels": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
-    }]
-    engine.run(batches, GraspConfig(num_prune_layers=2, compression_ratio=0.4,
-                                    layers_id=RECOVER_LAYERS))
-    return config, engine.params, engine.plan
+
+    def run():
+        engine = GraspEngine(init_params(jax.random.PRNGKey(0), config), config)
+        rng = np.random.default_rng(3)
+        batches = [{
+            "input_ids": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
+            "labels": jnp.asarray(rng.integers(0, config.vocab_size, (2, 16))),
+        }]
+        engine.run(batches, GraspConfig(num_prune_layers=2, compression_ratio=0.4,
+                                        layers_id=RECOVER_LAYERS))
+        return engine.params, engine.plan
+
+    return (config, *_session_cached("recover_compressed " + config.to_json(), run))
 
 
 ALPACA_WORDS = ("water stone light river cloud salt iron tree glass paper metal wind fire "
