@@ -117,7 +117,7 @@ Phases, each of which raises on failure (exit code != 0):
    sequential run; the fp32 export read back torch.equal to the merged
    params; ``grasp-serve-torch`` on the export (K3 once per layer per decode
    step, tokens against a teacher-forced plain forward).
-13. Phi-3-mini-4k at full width (hidden 3072, 32 heads of 96; 8 of its 32
+13. Phi-3-mini-4k at full width (hidden 3072, 32 heads of 96; 4 of its 32
    layers in the whole run, all 32 under ``--only phi3serve`` and ``--only
    hf``; random weights from a seed) through an HF directory with fused
    qkv_proj / gate_up_proj: the import torch.equal to the unfused weights,
@@ -153,7 +153,7 @@ Phases, each of which raises on failure (exit code != 0):
 
 15. Mixtral-8x7B at full width (hidden 4096, 8 SwiGLU experts of 14336 with
    top-2 routing, 32 query heads over 8 KV heads of 128, vocab 32000; depth
-   cut to 4 of 32 layers, 6.07 B parameters, 12.1 GB in bf16; random weights
+   cut to 2 of 32 layers, 3.16 B parameters, 6.3 GB in bf16; random weights
    from a seed) through an HF directory (``model_type: mixtral``, a tensor
    per expert): the import torch.equal, ``grasp-compress-torch`` with one
    layer and default targets (the stacked experts' round and the attention
@@ -174,7 +174,7 @@ Phases, each of which raises on failure (exit code != 0):
    tied head) through K1f, K1k and K1q at head_dim 256, the gradients by
    route against fp32, served plain and with ``--quantize int4`` through the
    gather route (K3 0), its merged export re-imported and its perplexity
-   flash against plain; (b) Mistral-7B (window 4096; 8 of its 32 layers in
+   flash against plain; (b) Mistral-7B (window 4096; 4 of its 32 layers in
    the whole run, all 32 under ``--only families``) served
    over a table its window covers (K3, K4 under ``--speculative int8``), the
    same requests and one prompt of 6000 tokens over 8192 slots (the gather
@@ -215,6 +215,21 @@ Phases, each of which raises on failure (exit code != 0):
    weights (K5, then K5d under ``GRASP_INT4_KERNEL=dma``; K3) and with
    ``use_pallas_lowrank`` (K2 in prefill), launches on each rank as derived,
    tokens held to the single-process teacher-forced forward.
+19. ``grasp_tpu_torch.perf`` at TinyLlama-1.1B's full width and depth in
+   bf16: (a) ``count_params`` (1,100,048,384) and ``estimate_forward_flops``
+   at 2047 tokens, dense and compressed, against a count from the shapes;
+   (b) ``device_memory`` against the params' bytes and ``reset_hbm_peak``;
+   (c) ``forward_device_benchmark`` at 8 x 2047 with labels through K1f (22
+   launches a captured forward), one CUDA graph of the chain beside the same
+   chain run eagerly, a replay held to the eager chain's value; (d)
+   ``decode_device_benchmark`` at batch 1 and 8 on bf16 and int4 weights
+   (K5; K5d under ``GRASP_INT4_KERNEL=dma`` at batch 8; 161 int4 launches a
+   captured step, 147 + 14 under dma), graph beside eager; (e)
+   ``generation_benchmark`` of the fused compressed model (K2, 14 a
+   prefill); (f) ``trace`` around an eager int4 decode step and a flash
+   forward, the kernels in the file counted against the launch counts, and
+   around one graph replay. The record's launches add each graph's captured
+   launches once for every replay.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
@@ -223,11 +238,11 @@ the flash kernels' at 256 under "hd256");
 then the card's line; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX, of grasp_tpu or of safetensors. ``--only
 flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh|seqpipe``
-runs one part while developing and prints no result lines (phi3serve: the
+(or ``perf``) runs one part while developing and prints no result lines (phi3serve: the
 paged kernels at head_dim 96 and phase 13 with its serving; features: phase
 14 alone; mixtral: the paged kernels and the flash timing at head_dim 128,
 then phase 15; families: the flash timing at head_dim 256, then phase 16;
-mesh: phase 17; seqpipe: phase 18).
+mesh: phase 17; seqpipe: phase 18; perf: phase 19).
 """
 
 import argparse
@@ -451,7 +466,7 @@ def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
 # through, query heads, kv heads, head_dim, pages in the pool). TinyLlama's
 # 22 layers' pools together exceed the L2 cache, as in decode; one call at
 # Phi-3's heads already reads 70 MB of live K/V, so 4 slices do; Mixtral's
-# 4 layers (32 query heads over 8 of 128) are its whole served depth.
+# heads (32 query heads over 8 of 128) in 4 layer slices.
 TINYLLAMA_TIMING = (22, 32, 4, 64, 256)
 PHI3_TIMING = (4, 32, 32, 96, 129)
 MIXTRAL_TIMING = (4, 32, 8, 128, 129)
@@ -3584,7 +3599,7 @@ HF_SHARDS = 2
 PHI3_SEED = 42
 # Phi-3-mini-4k's depth in the whole smoke (its time limit); --only phi3serve
 # and --only hf run all 32 layers
-PHI3_LAYERS = 8
+PHI3_LAYERS = 4
 PHI3_ARGS = ["--dataset_name", "synthetic", "--num_prune_layers", "2", "--compression_ratio",
              "0.9", "--num_samples", "16", "--seq_len", "2048", "--dtype", "bfloat16"]
 
@@ -4015,7 +4030,9 @@ def phase_phi3(torch, card, dev, layers=None):
         shutil.rmtree(root, ignore_errors=True)
 
 
-MIXTRAL_LAYERS = 4  # of 32: about 12.1 GB in bf16 at full width, and as much again on disk
+# of 32: about 6.3 GB in bf16 at full width, and as much again on disk (4
+# layers until the whole smoke outgrew its time limit)
+MIXTRAL_LAYERS = 2
 MIXTRAL_SEED = 42
 MIXTRAL_RATIO = 0.9
 MIXTRAL_ROWS, MIXTRAL_ROWS_A_BATCH = 8, 2
@@ -4257,7 +4274,8 @@ def phase_mixtral(torch, card, dev):
 # phase 16: the model families of P9 (Gemma-1, Mistral's window, Gemma-2),
 # random weights from FAMILY_SEED written as an HF directory of each family
 FAMILY_SEED = 42
-# Mistral-7B runs at full depth (32 layers, 14.5 GB in bf16); Gemma-2-9B's
+# Mistral-7B runs at full depth (32 layers, 14.5 GB in bf16) under --only
+# families; Gemma-2-9B's
 # depth cut: 4 of 42 layers (2 sliding, 2 full)
 GEMMA2_LAYERS = 4
 # Mistral's window-covered table (32 pages of 128 = its window of 4096: the
@@ -4265,7 +4283,7 @@ GEMMA2_LAYERS = 4
 # 6000 tokens and 256 new ones; Gemma-2's long prompt passes its window
 MISTRAL_KERNEL_PAGES = 32
 # Mistral-7B's depth in the whole smoke (its time limit; --only families runs 32)
-MISTRAL_LAYERS = 8
+MISTRAL_LAYERS = 4
 MISTRAL_LONG = (64, 6000, 256)
 GEMMA2_LONG = (40, 4500, 32)
 
@@ -5427,6 +5445,335 @@ def phase_seqpipe(torch, card, dev):
         shutil.rmtree(root, ignore_errors=True)
 
 
+PERF_FWD = (8, 2047)  # the forward's rows and tokens: the compression's calibration batch
+PERF_DECODE = {"cache_len": 512, "prefill_len": 64, "k_small": 32, "k_large": 96}
+# the decode batches of each weight form: K5d (GRASP_INT4_KERNEL=dma) at the
+# serving batch only, the phase's time limit
+PERF_BATCHES = {"bf16": (1, 8), "int4": (1, 8), "int4 dma": (8,)}
+PERF_REPS = 3  # rounds of graph replays, each length in turns
+PERF_EAGER_REPS = 1  # rounds of the eager chains: host-bound, seconds each
+PERF_GEN = {"prompt_len": 256, "gen_len": 64, "warmup": 1, "iters": 2}
+# TinyLlama-1.1B: 22 layers of 44,044,288, two tables of 65,536,000, the final norm
+TINYLLAMA_PARAMS = 22 * 44_044_288 + 2 * 65_536_000 + 2_048
+# a captured chain's fp32 sum against the same chain run eagerly (the same
+# kernels on the same inputs; the relative slack covers a library product
+# that picks another algorithm inside a capture)
+GRAPH_EAGER_RTOL = 1e-3
+BF16_PEAK = 989e12  # FLOP/s, NVIDIA's data sheet (H100 SXM, dense)
+# one caching-allocator block: the peak right after a reset is the bytes in use
+ALLOC_BLOCK = 2 << 20
+
+
+def _perf_zero():
+    """Set the launch counts of the kernels phase 19 reaches to 0."""
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+
+    flash_attention.launches["fwd"] = fused_lowrank.launches = 0
+    int4_matmul.launches.update(grid=0, dma=0)
+
+
+def _perf_counts():
+    from grasp_tpu_torch.ops.flash_attention import flash_attention
+    from grasp_tpu_torch.ops.int4_matmul import int4_matmul
+    from grasp_tpu_torch.ops.lowrank import fused_lowrank
+
+    return {"fwd": flash_attention.launches["fwd"], "fused": fused_lowrank.launches,
+            "grid": int4_matmul.launches["grid"], "dma": int4_matmul.launches["dma"]}
+
+
+def _perf_flops(config, lowrank_layers, s):
+    """The forward's FLOPs over ``s`` tokens from the shapes alone: each
+    projection in x out multiply-adds a token (r x (in + out) in the
+    ``lowrank_layers``, at build_flagship's ranks), the scores and values
+    over the causal half (nh x hd x s a token a layer), the lm head."""
+    from grasp_tpu_torch.ops.saliency import preserve_rank
+
+    d, f, q = config.hidden_size, config.intermediate_size, config.q_dim
+    kv = config.kv_dim
+    shapes = ((d, q), (d, kv), (d, kv), (q, d), (d, f), (d, f), (f, d))
+    macs = config.hidden_size * config.vocab_size
+    for li in range(config.num_hidden_layers):
+        for in_f, out_f in shapes:
+            if li in lowrank_layers:
+                macs += max(preserve_rank(in_f, out_f, 0.9), 8) * (in_f + out_f)
+            else:
+                macs += in_f * out_f
+        macs += q * s
+    return 2 * macs * s
+
+
+def _graph_runs(got, captured, reps):
+    """Launches that ran in a chain_seconds call of graphs: the counts moved
+    at each length's eager step and capture, but a capture runs nothing and
+    each of the reps + 1 replays runs what was captured (the counters count
+    Python calls, so a replay moves none)."""
+    return {k: got[k] - captured[k] + captured[k] * (reps + 1) for k in got}
+
+
+def _add(total, more):
+    for k in total:
+        total[k] += more[k]
+
+
+def _trace_kernels(path, names):
+    """Kernel events in a profiler trace whose name holds each of ``names``."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e["name"] for e in events if str(e.get("cat", "")).lower() == "kernel"]
+    return len(kernels), {n: sum(n in k for k in kernels) for n in names}
+
+
+def _hold_graph_to_eager(torch, perf, chain, k, label):
+    """One capture of ``chain.run(k)`` replayed once against the same chain
+    run eagerly: the graph computes what the eager chain computes."""
+    graph, out = perf.capture_chain(chain, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    got, want = float(out), float(chain.run(k))
+    rel = abs(got - want) / max(abs(want), 1e-30)
+    print(f"perf {label}: the {k}-step chain captured and replayed {got:.6e}, run eagerly "
+          f"{want:.6e} (relative {rel:.2e}, tol {GRAPH_EAGER_RTOL})")
+    if not math.isfinite(got) or rel > GRAPH_EAGER_RTOL:
+        raise AssertionError(f"perf {label}: the CUDA graph left the eager chain")
+
+
+def phase_perf(torch, card, dev):
+    """Phase 19: grasp_tpu_torch.perf at TinyLlama-1.1B's full width and
+    depth in bf16 (random weights from a seed): (a) the parameter count and
+    the forward's FLOPs, dense and in the serving slice's compressed form,
+    against the shapes; (b) device memory against the params' bytes and the
+    peak's reset; (c) forward_device_benchmark at 8 x 2047 with labels through
+    K1f, the chain captured as one CUDA graph, beside the same chain run
+    eagerly; (d) decode_device_benchmark at batch 1 and 8 on bf16 weights
+    and on int4 weights (K5; K5d under GRASP_INT4_KERNEL=dma at batch 8),
+    beside the eager chain; (e) generation_benchmark on the fused compressed model
+    (K2 in prefill); (f) trace around an eager int4 decode step and a flash
+    forward, read back against the launch counts, and around one graph
+    replay. Launch counts held to counts derived from the dispatch rules;
+    returns the launches that ran (graph replays included)."""
+    import dataclasses
+
+    import numpy as np
+
+    from grasp_tpu_torch import ModelConfig, perf
+    from grasp_tpu_torch.eval.generate import Generator
+    from grasp_tpu_torch.models.convert import flatten_params
+    from grasp_tpu_torch.models.llama import init_params
+    from grasp_tpu_torch.ops.lowrank import FUSED_MIN_ROWS
+    from grasp_tpu_torch.ops.quant import quantize_model_weights, takes_int4_kernel
+
+    t_phase = time.perf_counter()
+    ran = {"fwd": 0, "fused": 0, "grid": 0, "dma": 0}
+    base = dataclasses.replace(ModelConfig.tinyllama_1_1b(), dtype="bfloat16")
+    flash_config = dataclasses.replace(base, use_flash_attention=True)
+    dense = init_params(torch.Generator(device=dev).manual_seed(19), base, device=dev)
+    config, params, plan = build_flagship(torch, dev)
+    n_layers = config.num_hidden_layers
+    lowrank_layers = {n_layers - 2, n_layers - 1}
+
+    # (a) counts
+    s = PERF_FWD[1]
+    n_dense = perf.count_params(dense)
+    est_dense = perf.estimate_forward_flops(dense, base, seq_len=s)
+    est_comp = perf.estimate_forward_flops(params, config, plan, seq_len=s)
+    want_dense, want_comp = _perf_flops(base, set(), s), _perf_flops(config, lowrank_layers, s)
+    print(f"perf (a): count_params {n_dense:,} (want {TINYLLAMA_PARAMS:,}); forward FLOPs at "
+          f"{s} tokens dense {est_dense['flops']:.6e} (from the shapes {want_dense:.6e}), "
+          f"compressed {est_comp['flops']:.6e} ({want_comp:.6e}), params "
+          f"{est_comp['params']:,}")
+    if (n_dense != TINYLLAMA_PARAMS or est_dense["params"] != n_dense
+            or est_dense["flops"] != want_dense or est_comp["flops"] != want_comp):
+        raise AssertionError("perf: the counts differ from the shapes")
+
+    # (b) memory
+    dense_bytes = sum(t.numel() * t.element_size() for t in flatten_params(dense).values())
+    mem = perf.device_memory()
+    perf.reset_hbm_peak()
+    after = perf.device_memory()
+    print(f"perf (b): device_memory {mem} with the dense params' {dense_bytes:,} bytes live; "
+          f"after reset_hbm_peak {after}")
+    if (mem["bytes_in_use"] < dense_bytes or mem["peak_bytes_in_use"] < mem["bytes_in_use"]
+            or abs(after["peak_bytes_in_use"] - after["bytes_in_use"]) > ALLOC_BLOCK
+            or mem["bytes_limit"] < mem["peak_bytes_in_use"]):
+        raise AssertionError("perf: device memory out of order")
+
+    # (c) the forward through K1f, one CUDA graph against the eager chain
+    rng = np.random.default_rng(19)
+    ids = torch.as_tensor(rng.integers(3, base.vocab_size, PERF_FWD), device=dev)
+    labels = torch.as_tensor(rng.integers(3, base.vocab_size, PERF_FWD), device=dev)
+    ks = (1, 5)
+    _perf_zero()
+    fwd = perf.forward_device_benchmark(dense, flash_config, ids, labels=labels,
+                                        k_small=ks[0], k_large=ks[1], reps=PERF_REPS)
+    got = _perf_counts()
+    captured = {"fwd": n_layers * sum(ks), "fused": 0, "grid": 0, "dma": 0}
+    want = dict(captured, fwd=n_layers * (len(ks) + sum(ks)))  # an eager step, the capture
+    if got != want:
+        raise AssertionError(f"perf (c): launches {got}, derived {want} (22 a forward)")
+    _add(ran, _graph_runs(got, captured, PERF_REPS))
+    chain = perf.forward_chain(dense, flash_config, ids, labels=labels)
+    _perf_zero()
+    eager = perf.chain_seconds(chain, ks, PERF_EAGER_REPS, graph=False)
+    _hold_graph_to_eager(torch, perf, chain, 1, "(c) forward")
+    got = _perf_counts()
+    # an eager step, the eager chains, then the check's eager step, capture and
+    # eager chain: its capture counted and ran nothing, its replay the reverse
+    want_fwd = n_layers * (1 + PERF_EAGER_REPS * sum(ks) + 3)
+    if got["fwd"] != want_fwd:
+        raise AssertionError(f"perf (c): eager launches {got}, derived {want_fwd}")
+    _add(ran, got)
+    eager_fwd = (eager[1] - eager[0]) / (ks[1] - ks[0])
+    flops = est_dense["flops"] * PERF_FWD[0]
+    print(f"perf (c): forward of {PERF_FWD[0]} x {s} with labels through K1f (22 a forward, "
+          f"as derived): one CUDA graph {fwd['fwd_s_device'] * 1e3:.2f} ms a forward "
+          f"({flops / fwd['fwd_s_device'] / 1e12:.1f} TFLOP/s, "
+          f"{flops / fwd['fwd_s_device'] / BF16_PEAK:.1%} of {BF16_PEAK / 1e12:.0f}; "
+          f"overhead {fwd['per_call_overhead_ms']:.3f} ms a call); eager "
+          f"{eager_fwd * 1e3:.2f} ms ({eager[0] * 1e3:.2f} and {eager[1] * 1e3:.2f} ms at k "
+          f"{ks}); bound {flops / BF16_PEAK * 1e3:.2f} ms by operations; card {card}")
+    del chain
+
+    print(f"perf (a) to (c): {time.perf_counter() - t_phase:.1f} s")
+
+    # (d) decode, bf16 and int4, one CUDA graph against the eager chain
+    t0 = time.perf_counter()
+    int4 = quantize_model_weights(params, bits=4)
+    pd = PERF_DECODE
+    steps = pd["k_small"] + pd["k_large"]
+    for label, weights, dma in (("bf16", params, False), ("int4", int4, False),
+                                ("int4 dma", int4, True)):
+        if dma:
+            os.environ["GRASP_INT4_KERNEL"] = "dma"
+        try:
+            for batch in PERF_BATCHES[label]:
+                def per_call(rows):
+                    """int4 launches of one forward of ``rows`` rows, by the
+                    dispatch rule (at most 64 rows and a group size that is a
+                    multiple of 128; dma for output widths that are multiples
+                    of 128 under GRASP_INT4_KERNEL=dma)."""
+                    out = {"fwd": 0, "fused": 0, "grid": 0, "dma": 0}
+                    for gs, out_f in _int4_projections(weights):
+                        if takes_int4_kernel(rows, gs):
+                            out["dma" if dma and out_f % 128 == 0 else "grid"] += 1
+                    return out
+
+                step, pre = per_call(batch), per_call(batch * pd["prefill_len"])
+                _perf_zero()
+                res = perf.decode_device_benchmark(weights, config, plan, reps=PERF_REPS,
+                                                   batch=batch, **pd)
+                got = _perf_counts()
+                captured = {k: v * steps for k, v in step.items()}
+                want = {k: pre[k] + 2 * step[k] + captured[k] for k in step}
+                if got != want:
+                    raise AssertionError(f"perf (d) {label} batch {batch}: launches {got}, "
+                                         f"derived {want}")
+                _add(ran, _graph_runs({k: got[k] - pre[k] for k in got}, captured, PERF_REPS))
+                _add(ran, pre)
+                _perf_zero()
+                chain = perf.decode_chain(weights, config, plan, cache_len=pd["cache_len"],
+                                          prefill_len=pd["prefill_len"], batch=batch)
+                eager = perf.chain_seconds(chain, (pd["k_small"], pd["k_large"]),
+                                           PERF_EAGER_REPS, graph=False)
+                _hold_graph_to_eager(torch, perf, chain, 4, f"(d) {label} batch {batch}")
+                got = _perf_counts()
+                # the prefill, an eager step, the eager chains, the check's eager
+                # step, capture (counted, ran nothing; its replay the reverse) and chain
+                want = {k: pre[k] + step[k] * (1 + PERF_EAGER_REPS * steps + 1 + 2 * 4)
+                        for k in step}
+                if got != want:
+                    raise AssertionError(f"perf (d) {label} batch {batch}: eager launches "
+                                         f"{got}, derived {want}")
+                _add(ran, got)
+                eager_tok = (eager[1] - eager[0]) / (pd["k_large"] - pd["k_small"])
+                graph_tok = res["decode_ms_per_token_device"] / 1e3
+                print(f"perf (d) {label}, batch {batch}: one CUDA graph "
+                      f"{graph_tok * 1e3:.3f} ms a step ({res['decode_tokens_per_s_aggregate']:.0f}"
+                      f" tokens/s over the batch, overhead {res['per_call_overhead_ms']:.3f} ms a "
+                      f"call), eager {eager_tok * 1e3:.3f} ms a step ({eager[0] * 1e3:.1f} and "
+                      f"{eager[1] * 1e3:.1f} ms at k {pd['k_small']} and {pd['k_large']}): the "
+                      f"graph takes {graph_tok / eager_tok:.1%} of the eager time; int4 launches "
+                      f"a step {dict((k, step[k]) for k in ('grid', 'dma'))}, as derived")
+                del chain
+        finally:
+            if dma:
+                del os.environ["GRASP_INT4_KERNEL"]
+
+    print(f"perf (d): {time.perf_counter() - t0:.1f} s")
+
+    # (e) generation through K2 in prefill
+    t0 = time.perf_counter()
+    fused_config = dataclasses.replace(config, use_pallas_lowrank=True)
+    pairs = sum("in_kernel" in p for layer in params["layers"]
+                for group in ("self_attn", "mlp") for p in layer[group].values())
+    _perf_zero()
+    gen = perf.generation_benchmark(params, fused_config, plan, **PERF_GEN)
+    got = _perf_counts()
+    n_gen = PERF_GEN["warmup"] + PERF_GEN["iters"]
+    prompt = np.random.default_rng(0).integers(0, config.vocab_size, size=(PERF_GEN["prompt_len"],))
+    plain = Generator(params, config, plan).greedy(prompt, PERF_GEN["gen_len"])
+    want_fused = pairs * n_gen if PERF_GEN["prompt_len"] >= FUSED_MIN_ROWS else 0
+    print(f"perf (e): generation_benchmark on the fused compressed model: {gen}; K2 launches "
+          f"{got['fused']} (derived {want_fused}: {pairs} a prefill x {n_gen}); tokens "
+          f"{gen['tokens_generated']} against the plain greedy stream's {len(plain)} x "
+          f"{PERF_GEN['iters']}; {time.perf_counter() - t0:.1f} s")
+    if (got != {"fwd": 0, "fused": want_fused, "grid": 0, "dma": 0}
+            or gen["tokens_generated"] != len(plain) * PERF_GEN["iters"]
+            or not gen["decode_tokens_per_s"] > 0 or not gen["peak_hbm_gib"] > 0):
+        raise AssertionError("perf (e): generation launches or tokens")
+    _add(ran, got)
+
+    # (f) traces, read back
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_perf_", dir=os.path.join(ROOT, "build"))
+    try:
+        _perf_zero()
+        chain4 = perf.decode_chain(int4, config, plan, batch=1)  # a prefill of 64 rows: K5
+        fwd_chain = perf.forward_chain(dense, flash_config, ids[:1])
+        _add(ran, _perf_counts())
+        names = ("int4_grid_mma_kernel", "flash_fwd_mma_kernel")
+        _perf_zero()
+        with perf.trace(os.path.join(root, "eager")) as log_dir:
+            chain4.run(1)
+            fwd_chain.run(1)
+            torch.cuda.synchronize()
+        got = _perf_counts()
+        (path,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        total, seen = _trace_kernels(path, names)
+        want = {"int4_grid_mma_kernel": got["grid"], "flash_fwd_mma_kernel": got["fwd"]}
+        print(f"perf (f): trace of one eager int4 decode step and one flash forward: "
+              f"{total} kernels, by name {seen}, launch counts {want}; "
+              f"{os.path.getsize(path):,} bytes")
+        if seen != want or not got["grid"] or not got["fwd"]:
+            raise AssertionError("perf (f): the trace does not show the kernels launched")
+        _add(ran, got)
+        _perf_zero()
+        graph, _ = perf.capture_chain(chain4, 2)  # its eager step and capture: not traced
+        with perf.trace(os.path.join(root, "graph")) as log_dir:
+            graph.replay()
+            torch.cuda.synchronize()
+        got = _perf_counts()
+        (path,) = [os.path.join(log_dir, f) for f in os.listdir(log_dir)]
+        total, seen = _trace_kernels(path, names)
+        step = sum(takes_int4_kernel(1, gs) for gs, _ in _int4_projections(int4))
+        if got["grid"] != 3 * step:
+            raise AssertionError(f"perf (f): graph launches {got}, derived {3 * step}")
+        _add(ran, got)  # the capture counted and ran nothing, the replay the reverse
+        print(f"perf (f): trace of one replay of a 2-step int4 decode graph: {total} kernels, "
+              f"int4_grid_mma_kernel {seen['int4_grid_mma_kernel']} of the {2 * step} the "
+              f"graph holds (the profiler shows a replay "
+              f"{'kernel by kernel' if seen['int4_grid_mma_kernel'] == 2 * step else 'otherwise'})")
+        del graph, chain4, fwd_chain
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del dense, params, int4
+    torch.cuda.empty_cache()
+    print(f"perf: launches that ran in phase 19 (graph replays included) {ran}; phase 19 "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card}")
+    return ran
+
+
 def drive_quantizer(torch, dev):
     """The stochastic quantizer as its users call it: every projection
     kernel of a model layer and the lm_head (TinyLlama-1.1B's shapes, bf16)
@@ -5469,7 +5816,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
                                            "evaluate", "recover", "hf", "phi3serve",
                                            "features", "mixtral", "families", "mesh",
-                                           "seqpipe"],
+                                           "seqpipe", "perf"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -5522,12 +5869,23 @@ def main(argv=None) -> int:
     if args.only == "seqpipe":
         print(phase_seqpipe(torch, card, dev))
         return 0
+    if args.only == "perf":
+        print(phase_perf(torch, card, dev))
+        return 0
     if args.only == "mixtral":
         print(phase_kernel(torch, hds=(128,)), phase_kernel_timing(torch, *MIXTRAL_TIMING))
         print(phase_chunk(torch, hds=(128,)), phase_chunk_timing(torch, *MIXTRAL_TIMING))
         print(phase_flash_timing(torch, FLASH_TIMING_SHAPES[128]))
         print(phase_mixtral(torch, card, dev))
         return 0
+    parts, t_part = {}, [time.perf_counter()]
+
+    def part(label):
+        """Seconds since the previous part, printed before the record: what
+        the next phase has to budget against the time limit."""
+        now = time.perf_counter()
+        parts[label], t_part[0] = round(now - t_part[0], 1), now
+
     paged_err = phase_kernel(torch)
     paged = phase_kernel_timing(torch, *TINYLLAMA_TIMING)
     paged96 = phase_kernel_timing(torch, *PHI3_TIMING)
@@ -5551,15 +5909,29 @@ def main(argv=None) -> int:
     lowrank_err, int4_err, quant_err = phase_lowrank(torch), phase_int4(torch), phase_quantizer(torch)
     lowrank, int4, quant = (phase_lowrank_timing(torch), phase_int4_timing(torch),
                             phase_quantizer_timing(torch))
+    part("kernels")
     paged_launches, spec_launches, served, features = phase_slice(torch, card, dev)
+    part("serving")
     flash_launches, fused_compress_launches, evaluated, recovered, from_hf = phase_compress(
         torch, card, dev)
+    part("compress, evaluate, recover, hf")
     phi3, phi3_served = phase_phi3(torch, card, dev, layers=PHI3_LAYERS)
+    part("phi3")
     mixtral, mixtral_served = phase_mixtral(torch, card, dev)
+    part("mixtral")
     families, families_served = phase_families(torch, card, dev, mistral_layers=MISTRAL_LAYERS)
+    part("families")
     mesh_err, mesh = phase_mesh(torch, card, dev)
+    part("mesh")
     seqpipe_err, seqpipe = phase_seqpipe(torch, card, dev)
+    part("seqpipe")
+    # phase 19's launches that ran: a CUDA graph's captured launches once for
+    # every replay (the .launches counters count Python calls, so a replay
+    # moves none; phase_perf adds them)
+    perf_ran = phase_perf(torch, card, dev)
     quant_launches = drive_quantizer(torch, dev)
+    part("perf, quantizer")
+    print(f"smoke: seconds by part after the build {parts}, {sum(parts.values()):.1f} in all")
     bad = sorted(m for m in sys.modules
                  if m.split(".")[0] in ("jax", "jaxlib", "grasp_tpu", "safetensors"))
     if bad:
@@ -5592,7 +5964,7 @@ def main(argv=None) -> int:
         {"name": "flash_fwd_mma_kernel", "route": "cuda", "source": flash_src,
          "replaces": "grasp_tpu/ops/pallas_attention.py:138",
          "launches": flash_launches["fwd"] + evaluated["fwd"] + from_hf["fwd"] + phi3["fwd"]
-         + mixtral["fwd"] + families["fwd"] + mesh["fwd"],
+         + mixtral["fwd"] + families["fwd"] + mesh["fwd"] + perf_ran["fwd"],
          "max_abs_err": max(flash_err["fwd"], mesh_err["fwd"]), **flash["fwd"], "hd96": flash96["fwd"],
          "hd128": flash128["fwd"], "hd256": flash256["fwd"]},
         # the bf16 backward's bodies: a launch is flash_dkv_mma_kernel and its
@@ -5610,24 +5982,25 @@ def main(argv=None) -> int:
          "max_abs_err": max(flash_err["dq"], mesh_err["dq"]), **flash["dq"], "hd96": flash96["dq"],
          "hd128": flash128["dq"], "hd256": flash256["dq"]},
         # launches: prefill of the fused serving variant, the flagged compression,
-        # the evaluation slice, the recovery slice's bf16 runs and phase 18's
-        # pipeline stages and TP-2 prefill; the bf16 body (the fp32 inputs of
-        # phase_lowrank and phase 18's fp32 pipeline take lowrank_fused_kernel)
+        # the evaluation slice, the recovery slice's bf16 runs, phase 18's
+        # pipeline stages and TP-2 prefill and phase 19's generation; the bf16
+        # body (the fp32 inputs of phase_lowrank and phase 18's fp32 pipeline
+        # take lowrank_fused_kernel)
         {"name": "lowrank_fused_mma_kernel", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/lowrank_fused.cu",
          "replaces": "grasp_tpu/ops/pallas_lowrank.py:65",
          "launches": served["fused"]["fused"] + fused_compress_launches + evaluated["fused"]
-         + recovered["fused"] + features["fused"] + seqpipe["fused"],
+         + recovered["fused"] + features["fused"] + seqpipe["fused"] + perf_ran["fused"],
          "max_abs_err": max(lowrank_err, seqpipe_err["fused"]), **lowrank},
         {"name": "int4_matmul_grid", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:198",
          "launches": served["int4"]["grid"] + mixtral_served["int4"]["grid"]
-         + families_served["int4"]["grid"] + seqpipe["grid"],
+         + families_served["int4"]["grid"] + seqpipe["grid"] + perf_ran["grid"],
          "max_abs_err": max(int4_err["grid"], seqpipe_err["grid"]), **int4["grid"]},
         {"name": "int4_matmul_dma", "route": "cuda", "source": int4_src,
          "replaces": "grasp_tpu/ops/pallas_int4.py:139",
          "launches": served["int4"]["dma"] + mixtral_served["int4"]["dma"]
-         + families_served["int4"]["dma"] + seqpipe["dma"],
+         + families_served["int4"]["dma"] + seqpipe["dma"] + perf_ran["dma"],
          "max_abs_err": max(int4_err["dma"], seqpipe_err["dma"]), **int4["dma"]},
         {"name": "quantize_int8_stochastic", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/quantize_int8.cu",

@@ -19,7 +19,9 @@ Gemma, Gemma-2, Mixtral), and a ``("data", "model")`` device mesh
 (``parallel``: ``--dp``/``--tp``, recovery, tensor- and expert-parallel
 serving, int4 weights and the fused low-rank kernel on it), the GPipe
 pipeline with its ``hybrid`` projection kind, sequence parallelism and ring
-attention. Not ported yet: ``perf.py``.
+attention; and ``perf`` (parameter and FLOP counts, device memory, profiler
+traces, generation throughput, and decode and forward times of one CUDA
+graph), imported as ``grasp_tpu_torch.perf`` as the JAX package's is.
 """
 
 from grasp_tpu_torch.configs import GraspConfig, ModelConfig  # noqa: F401

@@ -41,6 +41,9 @@ Every entry point takes a model from a grasp_tpu_torch checkpoint directory
 (``config.json`` + ``*.safetensors`` or ``pytorch_model*.bin``; its tokenizer
 where it holds one, else the byte-level tokenizer) or a named architecture
 preset with random weights made from ``--seed``.
+
+``python -m grasp_tpu_torch.cli`` runs ``grasp-compress-torch``, as ``python
+-m grasp_tpu.cli`` runs ``grasp-compress``.
 """
 
 from __future__ import annotations
@@ -550,4 +553,4 @@ def serve_main(argv=None, block: bool = True):
 
 
 if __name__ == "__main__":
-    sys.exit(serve_main())
+    sys.exit(compress_main())
