@@ -9,19 +9,26 @@ Phases, each of which raises on failure (exit code != 0):
 2. build: compiles grasp_tpu_torch/csrc/*.cu with nvcc (sm_90a) into build/.
 3. paged kernel: the paged-attention decode kernel against its plain PyTorch
    version on the same inputs, at TinyLlama's decode shape, at head_dim 128
-   and at Phi-3's heads (32 MHA heads of 96), then at groups of 1 to 16 at
-   head_dim 64, 96 and 128 with lengths on both sides of every edge of the
-   launch plan's ranges, in float32 and bfloat16, within stated tolerances
-   and torch.equal to itself run to run; then both timed with CUDA events at
+   and at Phi-3's heads (32 MHA heads of 96), Gemma-7B's (16 MHA heads of
+   256) and Gemma-2B's (8 over 1 of 256), then at groups of 1 to 16 at
+   head_dim 64, 96, 128 and 256 with lengths on both sides of every edge of
+   the launch plan's ranges; over int8 pages (the engine's quantizer; the
+   plain version dequantizes) at Mistral-7B's and Gemma-7B's heads and the
+   groups at head_dim 128 and 256 (the layouts of jax's TPU paged-attention
+   kernel, K7); in float32 and bfloat16, within stated tolerances and
+   torch.equal to itself run to run; then both timed with CUDA events at
    TinyLlama's, Phi-3's and Mixtral-8x7B's decode shapes (head_dim 64, 96
-   and 128). Then the chunk kernel of
+   and 128), Gemma-7B's and Gemma-2B's (256) and over int8 pages at
+   Mistral-7B's and Gemma-7B's. Then the chunk kernel of
    speculative verification against its plain version and, row by row with
    torch.equal, against the decode kernel at each row's own length (head_dim
-   64, 96 and 128, float32 and bfloat16, groups of 1 to 16, chunks of 1, 2, 5
+   64, 96, 128 and 256, int8 pages at 128 and 256, float32 and bfloat16,
+   groups of 1 to 16, chunks of 1, 2, 5
    and 9, pages of 16 and 128 slots, lengths across tile, page and range
-   edges, a dead row, the verify step's shape at TinyLlama's and Phi-3's
-   heads); and timed at all three against its plain version and against one
-   decode launch per chunk position.
+   edges, a dead row, the verify step's shape at TinyLlama's, Phi-3's,
+   Gemma-7B's, Gemma-2B's and, over int8 pages, Mistral-7B's and Gemma-7B's
+   heads); and timed at the same shapes as the decode kernel against its
+   plain version and against one decode launch per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at ten
    shapes (head_dim 64, 96, 128 and 256, the last in groups of 8 and 1) in
@@ -66,7 +73,8 @@ Phases, each of which raises on failure (exit code != 0):
    against the plain engine's on the same requests. Then with
    ``--quantized_kv``, alone and with speculation: tokens against a
    teacher-forced forward through the int8 dense cache, and neither paged
-   kernel launched.
+   kernel launched (int8 pages at head_dim 64 take the gather route, as in
+   JAX).
 9. compression slice: ``grasp-compress-torch`` on a dense TinyLlama-1.1B at
    full width and depth with 16 synthetic calibration rows of 2047 tokens
    (2 layers, ratio 0.9). Checks the chosen layers, every rank, the plan, the
@@ -172,11 +180,12 @@ Phases, each of which raises on failure (exit code != 0):
    served route printed and held (``serving.paged.paged_route``): (a)
    Gemma-2B (18 layers, 8 query heads over 1 KV head of 256, vocab 256000,
    tied head) through K1f, K1k and K1q at head_dim 256, the gradients by
-   route against fp32, served plain and with ``--quantize int4`` through the
-   gather route (K3 0), its merged export re-imported and its perplexity
-   flash against plain; (b) Mistral-7B (window 4096; 4 of its 32 layers in
-   the whole run, all 32 under ``--only families``) served
-   over a table its window covers (K3, K4 under ``--speculative int8``), the
+   route against fp32, served plain and with ``--quantize int4`` through K3
+   at head_dim 256 (18 launches a decode step), its merged export re-imported
+   and its perplexity flash against plain; (b) Mistral-7B (window 4096; 4 of
+   its 32 layers in the whole run, all 32 under ``--only families``) served
+   over a table its window covers (K3, K4 under ``--speculative int8``; K3's
+   and K4's int8 bodies under ``--quantized_kv``, alone and speculating), the
    same requests and one prompt of 6000 tokens over 8192 slots (the gather
    route, live pages at most ceil(4096 / 128) + 2), in bf16 and its export
    in fp32 (K3's fp32 body; the gather route); bf16 tokens beyond the
@@ -224,25 +233,41 @@ Phases, each of which raises on failure (exit code != 0):
    chain run eagerly, a replay held to the eager chain's value; (d)
    ``decode_device_benchmark`` at batch 1 and 8 on bf16 and int4 weights
    (K5; K5d under ``GRASP_INT4_KERNEL=dma`` at batch 8; 161 int4 launches a
-   captured step, 147 + 14 under dma), graph beside eager; (e)
+   captured step, 147 + 14 under dma), graph beside eager, and a longrope
+   decode chain across its original context in one CUDA graph, bit-equal to
+   the eager chain (the factors are chosen on the device); (e)
    ``generation_benchmark`` of the fused compressed model (K2, 14 a
    prefill); (f) ``trace`` around an eager int4 decode step and a flash
    forward, the kernels in the file counted against the launch counts, and
    around one graph replay. The record's launches add each graph's captured
    launches once for every replay.
+20. Gemma-7B at full width (hidden 3072, 16 MHA heads of 256, intermediate
+   24576, vocab 256000, tied head; 4 of its 28 layers in the whole run, all
+   28 under ``--only gemma7b``; random weights from a seed, the last two
+   layers low-rank as in 5) saved as a port checkpoint and served by
+   ``grasp-serve-torch`` as in 5 through K3 at head_dim 256 (a launch a layer
+   a decode step), with ``--quantized_kv`` through K3's int8 body and with
+   ``--speculative int8 --gamma 4`` through K4 at head_dim 256, every token
+   held to the teacher-forced forward.
 
 The third line from the end is a JSON record of each kernel (launches in its
 slice's run, error against the plain version, times, bound; the flash
 and paged kernels' times at head_dim 96 under "hd96", at 128 under "hd128",
-the flash kernels' at 256 under "hd256");
+the flash kernels' at 256 under "hd256"; the paged kernels' at Gemma-7B's
+heads under "hd256", Gemma-2B's under "hd256_gemma2b", over int8 pages at
+Mistral-7B's under "int8_hd128" and at Gemma-7B's under "int8_hd256", each
+with its error against the plain version, and the JAX call site they also
+stand in for under "also_replaces");
 then the card's line; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX, of grasp_tpu or of safetensors. ``--only
 flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh|seqpipe``
-(or ``perf``) runs one part while developing and prints no result lines (phi3serve: the
+(or ``perf``, ``gemma7b``) runs one part while developing and prints no result lines
+(phi3serve: the
 paged kernels at head_dim 96 and phase 13 with its serving; features: phase
 14 alone; mixtral: the paged kernels and the flash timing at head_dim 128,
 then phase 15; families: the flash timing at head_dim 256, then phase 16;
-mesh: phase 17; seqpipe: phase 18; perf: phase 19).
+mesh: phase 17; seqpipe: phase 18; perf: phase 19; gemma7b: the paged
+kernels at head_dim 256, fp and int8 pages, then phase 20).
 """
 
 import argparse
@@ -267,6 +292,21 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # tolerance of kernel vs plain version: the summation order differs (fp32
 # accumulation in both); bfloat16 outputs keep ~3 significant digits
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# int8 pages in bfloat16: the kernel rounds P, the value scale and their
+# product to bf16 before P V (the JAX gather route's order), where the plain
+# version dequantizes the pages in fp32; their bf16 outputs may then sit one
+# bf16 step apart, at most 2^-7 of the largest output's magnitude (a row of
+# one slot returns that slot's V: 0.03125 at a magnitude of 4 to 8)
+INT8_BF16_REL = 2 ** -7
+
+
+def _tol(dtype_name, quantized, want):
+    """The tolerance of a kernel against its plain version's output ``want``."""
+    if quantized and dtype_name == "bfloat16":
+        return max(TOL[dtype_name], INT8_BF16_REL * want.float().abs().max().item())
+    return TOL[dtype_name]
+
+
 # served token vs teacher-forced plain forward: the largest logit minus the
 # served token's logit (bf16 logits of magnitude ~4 have an ulp of 1/64)
 GAP_TOL = 0.125
@@ -311,7 +351,8 @@ def phase_build():
     report, and show from the compiled code (cuobjdump -sass) that every
     tensor-core kernel (flash forward, dQ, dK/dV at head_dim 64, 96, 128 and 256;
     fused low-rank; both bf16 int4 kernels at 1, 2, 4 and 8 n-tiles; bf16
-    paged decode and chunk at head_dim 64, 96 and 128) holds HMMA instructions."""
+    paged decode and chunk over fp pages at head_dim 64, 96, 128 and 256 and
+    over int8 pages at 128 and 256) holds HMMA instructions."""
     from grasp_tpu_torch.ops._build import build, find_nvcc, load_library
 
     t0 = time.perf_counter()
@@ -347,7 +388,8 @@ def phase_build():
     want |= {f"lowrank_fused_mma_kernel<{rc},false>" for rc in range(1, 9)}
     want.add("lowrank_fused_mma_kernel<8,true>")  # the rank chunks of a rank above 256
     want |= {f"{family}<{nt}>" for family in families[4:6] for nt in (1, 2, 4, 8)}
-    want |= {f"{family}<{hd}>" for family in families[6:] for hd in (64, 96, 128)}
+    want |= {f"{family}<{hd},false>" for family in families[6:] for hd in (64, 96, 128, 256)}
+    want |= {f"{family}<{hd},true>" for family in families[6:] for hd in INT8_HDS}
     if not want <= set(hmma) or min(hmma.values()) == 0:
         raise AssertionError("a tensor-core kernel is missing or was compiled without HMMA")
 
@@ -369,6 +411,17 @@ def _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, ps, pps, num_pages, leng
     return q, k, v, lens, tables.contiguous()
 
 
+def _int8_pages(torch, k, v):
+    """int8 pools of k and v [layers, nkv, P, ps, hd] by the engine's own
+    quantizer (one fp32 absmax scale per slot and head, models.llama
+    ._quantize_kv): (k8, v8, k_scales, v_scales), the scales [layers, nkv,
+    P, ps, 1]."""
+    from grasp_tpu_torch.models.llama import _quantize_kv
+
+    (k8, ks), (v8, vs) = _quantize_kv(k), _quantize_kv(v)
+    return k8, v8, ks, vs
+
+
 def _split_edge_lengths(split_slots, capacity):
     """Lengths on both sides of every range edge of the split plan, two
     ranges and the full table."""
@@ -380,18 +433,29 @@ def _split_edge_lengths(split_slots, capacity):
 
 # Phi-3-mini-4k's heads (query heads, kv heads, head_dim): 32 MHA heads of 96
 PHI3_HEADS = (32, 32, 96)
+# Gemma-7B's (16 MHA heads of 256), Gemma-2B's (8 over 1 of 256), Mistral-7B's
+# (32 over 8 of 128)
+GEMMA7B_HEADS = (16, 16, 256)
+GEMMA2B_HEADS = (8, 1, 256)
+MISTRAL_HEADS = (32, 8, 128)
 # query heads a kv head that both paged kernels are held at, at every head_dim
 PAGED_GROUPS = (1, 4, 8, 16)
+# head_dims of the kernels' int8-page bodies: where jax's TPU kernel reads
+# int8 pages in place (grasp_tpu/serving/paged.py: head_dim % 128 == 0)
+INT8_HDS = (128, 256)
 
 
-def phase_kernel(torch, hds=(64, 96, 128)):
+def phase_kernel(torch, hds=(64, 96, 128, 256), int8_hds=INT8_HDS):
     """The decode kernel against its plain version within TOL: TinyLlama's
     decode shape, head_dim 128 and Phi-3's heads (32 MHA heads of 96) with
     lengths across tile and page edges and a dead row, Phi-3's heads again on
-    both sides of every edge of the plan's ranges; then groups of 1, 4, 8 and
-    16 at each head_dim with lengths on both sides of every range edge. Every
-    call runs twice and must be torch.equal to itself. ``hds``: the head_dims
-    to hold. Returns the worst error."""
+    both sides of every edge of the plan's ranges, Gemma-7B's and Gemma-2B's
+    heads (head_dim 256); then groups of 1, 4, 8 and 16 at each head_dim with
+    lengths on both sides of every range edge. Over int8 pages (the engine's
+    quantizer; the plain version dequantizes them) at ``int8_hds``:
+    Mistral-7B's and Gemma-7B's heads and the groups. Every call runs twice
+    and must be torch.equal to itself. ``hds``: the head_dims to hold over fp
+    pages. Returns the worst error."""
     from grasp_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_reference, paged_plan)
 
@@ -399,36 +463,49 @@ def phase_kernel(torch, hds=(64, 96, 128)):
     gen = torch.Generator(device=dev).manual_seed(1234)
     lengths = [1, 127, 128, 129, 2048, 0, 1000, 2047]  # 0: dead row on null page 0
     nh96, nkv96, _ = PHI3_HEADS
-    cases = [(64, 32, 4, lengths), (128, 32, 8, lengths), (96, nh96, nkv96, lengths)]
+    cases = [(64, 32, 4, lengths, False), (128, 32, 8, lengths, False),
+             (96, nh96, nkv96, lengths, False), (256, *GEMMA7B_HEADS[:2], lengths, False),
+             (256, *GEMMA2B_HEADS[:2], lengths, False), (128, *MISTRAL_HEADS[:2], lengths, True),
+             (256, *GEMMA7B_HEADS[:2], lengths, True)]
     split96 = paged_plan(128, 16, 96, 1, torch.bfloat16).split_slots
-    cases.append((96, nh96, nkv96, _split_edge_lengths(split96, 2048) + [0]))
-    for hd in (64, 96, 128):
+    cases.append((96, nh96, nkv96, _split_edge_lengths(split96, 2048) + [0], False))
+    for hd, quantized in [(hd, False) for hd in (64, 96, 128, 256)] + [
+            (hd, True) for hd in INT8_HDS]:
         for gqa in PAGED_GROUPS:
-            split = paged_plan(128, 16, hd, gqa, torch.bfloat16).split_slots
-            cases.append((hd, 2 * gqa, 2, _split_edge_lengths(split, 2048)))
+            split = paged_plan(128, 16, hd, gqa, torch.bfloat16,
+                               torch.int8 if quantized else None).split_slots
+            cases.append((hd, 2 * gqa, 2, _split_edge_lengths(split, 2048), quantized))
     worst = {"float32": 0.0, "bfloat16": 0.0}
-    for hd, nh, nkv, lens_case in (c for c in cases if c[0] in hds):
+    for hd, nh, nkv, lens_case, quantized in cases:
+        if hd not in (int8_hds if quantized else hds):
+            continue
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
             q, k, v, lens, tables = _pages_case(torch, gen, dev, dtype, len(lens_case), nh, nkv,
                                                 hd, 128, 16, 16 * len(lens_case) + 1, lens_case)
+            scales = {}
+            if quantized:
+                k, v, ks, vs = _int8_pages(torch, k, v)
+                scales = {"k_scales": ks[0], "v_scales": vs[0]}
             scale = hd ** -0.5
-            got = paged_attention(q, k[0], v[0], lens, tables, scale)
-            again = paged_attention(q, k[0], v[0], lens, tables, scale)
-            want = paged_attention_reference(q, k[0], v[0], lens, tables, scale)
+            got = paged_attention(q, k[0], v[0], lens, tables, scale, **scales)
+            again = paged_attention(q, k[0], v[0], lens, tables, scale, **scales)
+            want = paged_attention_reference(q, k[0], v[0], lens, tables, scale, **scales)
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             same = torch.equal(got, again)
-            ok = torch.isfinite(got).all().item() and err <= TOL[dtype_name] and same
-            print(f"kernel vs plain: hd={hd} nh={nh} nkv={nkv} {dtype_name}, {len(lens_case)} "
+            tol = _tol(dtype_name, quantized, want)
+            ok = torch.isfinite(got).all().item() and err <= tol and same
+            print(f"kernel vs plain: hd={hd} nh={nh} nkv={nkv} {dtype_name}"
+                  f"{' over int8 pages' if quantized else ''}, {len(lens_case)} "
                   f"rows of lengths {min(lens_case)}..{max(lens_case)}: max_abs_err={err:.3e} "
-                  f"(tol {TOL[dtype_name]:g}), equal run to run: {same} "
+                  f"(tol {tol:g}), equal run to run: {same} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"paged attention kernel disagrees: hd={hd} nh={nh} "
-                                     f"nkv={nkv} {dtype_name}")
+                                     f"nkv={nkv} {dtype_name} int8 pages {quantized}")
             worst[dtype_name] = max(worst[dtype_name], err)
-            del q, k, v
+            del q, k, v, scales
     print(f"kernel vs plain, worst: float32 {worst['float32']:.3e}, bfloat16 "
           f"{worst['bfloat16']:.3e}")
     return max(worst.values())
@@ -466,47 +543,84 @@ def _time_ms(torch, fn, n_layers, iters, run_ahead=False):
 # through, query heads, kv heads, head_dim, pages in the pool). TinyLlama's
 # 22 layers' pools together exceed the L2 cache, as in decode; one call at
 # Phi-3's heads already reads 70 MB of live K/V, so 4 slices do; Mixtral's
-# heads (32 query heads over 8 of 128) in 4 layer slices.
+# heads (32 query heads over 8 of 128) in 4 layer slices, and Mistral-7B's
+# (the same heads) over int8 pages; Gemma-7B's 94 MB of live K/V (47 MB over
+# int8 pages) in 2 and 4 slices; Gemma-2B's 6 MB a call in its 18.
 TINYLLAMA_TIMING = (22, 32, 4, 64, 256)
 PHI3_TIMING = (4, 32, 32, 96, 129)
 MIXTRAL_TIMING = (4, 32, 8, 128, 129)
+GEMMA7B_TIMING = (2, *GEMMA7B_HEADS, 129)
+GEMMA7B_INT8_TIMING = (4, *GEMMA7B_HEADS, 129)
+GEMMA2B_TIMING = (18, *GEMMA2B_HEADS, 129)
 
 
-def phase_kernel_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
-    """Kernel and plain version at a served decode shape: B=8, bf16,
+def _timing_pools(torch, gen, dev, nh, nkv, hd, num_pages, n_layers, lengths, quantized,
+                  c_len=None):
+    """The timed inputs at a served shape: q ([8, nh, hd], or [8, c_len, nh,
+    hd]) and bf16 or int8 pools of ``n_layers`` layer slices; returns (q,
+    k, v, lengths, tables, {layer: scales kwargs})."""
+    q, k, v, lens, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
+                                        128, 16, num_pages, lengths, layers=n_layers)
+    if c_len is not None:
+        q = torch.randn(8, c_len, nh, hd, generator=gen, device=dev).bfloat16()
+    scales = {li: {} for li in range(n_layers)}
+    if quantized:
+        k, v, ks, vs = _int8_pages(torch, k, v)
+        scales = {li: {"k_scales": ks[li], "v_scales": vs[li]} for li in range(n_layers)}
+    return q, k, v, lens, tables, scales
+
+
+def _kv_bytes(rows, nkv, hd, quantized):
+    """Bytes of ``rows`` live K and V rows of every kv head: bf16, or int8
+    with an fp32 scale a row."""
+    return 2 * rows * nkv * (hd + 4 if quantized else hd * 2)
+
+
+def phase_kernel_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256, quantized=False):
+    """Kernel and plain version at a served decode shape: B=8, bf16 q,
     lengths of the slice's prompts 32 tokens into decoding, pages of 128, 16
-    a row (TinyLlama's heads by default). Turns: plain, kernel, kernel,
-    plain, each after the idle spin; reports the mean of each pair."""
+    a row (TinyLlama's heads by default), bf16 or (``quantized``) int8
+    pages. The timed inputs are held to the plain version first. Turns:
+    plain, kernel, kernel, plain, each after the idle spin; reports the mean
+    of each pair."""
     from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_reference
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(99)
     lengths = [n + 32 for n in PROMPT_LENS]
-    q, k, v, lens, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
-                                        128, 16, num_pages, lengths, layers=n_layers)
+    q, k, v, lens, tables, scales = _timing_pools(torch, gen, dev, nh, nkv, hd, num_pages,
+                                                  n_layers, lengths, quantized)
     scale = hd ** -0.5
 
     def kern(li):
-        paged_attention(q, k[li], v[li], lens, tables, scale)
+        return paged_attention(q, k[li], v[li], lens, tables, scale, **scales[li])
 
     def plain(li):
-        paged_attention_reference(q, k[li], v[li], lens, tables, scale)
+        return paged_attention_reference(q, k[li], v[li], lens, tables, scale, **scales[li])
+
+    want = plain(0)
+    err = (kern(0).float() - want.float()).abs().max().item()
+    if err > _tol("bfloat16", quantized, want):
+        raise AssertionError(f"paged attention kernel disagrees on the timed inputs: hd={hd} "
+                             f"int8 pages {quantized}, max_abs_err {err:.3e}")
 
     p1 = _time_ms(torch, plain, n_layers, 20, run_ahead=True)
     k1 = _time_ms(torch, kern, n_layers, 20, run_ahead=True)
     k2 = _time_ms(torch, kern, n_layers, 20, run_ahead=True)
     p2 = _time_ms(torch, plain, n_layers, 20, run_ahead=True)
-    # least time for this call: the live K and V rows, q and the output moved
-    # once at 3.35 TB/s, against q.k and p.v (2 flops each per element) at the
-    # bf16 tensor-core peak
+    # least time for this call: the live K and V rows (and their scales), q
+    # and the output moved once at 3.35 TB/s, against q.k and p.v (2 flops
+    # each per element) at the bf16 tensor-core peak
     live = sum(lengths)
-    nbytes = (2 * live * nkv * hd * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+    nbytes = (_kv_bytes(live, nkv, hd, quantized) + 2 * q.numel() * 2 + lens.numel() * 4
               + tables.numel() * 4)
     rec = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **_bound(nbytes, 4 * live * nh * hd),
-           "library_ms": None}
-    print(f"kernel timing (B=8 nh={nh} nkv={nkv} hd={hd} bf16, lengths {lengths}): "
-          f"kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms" + _shares(rec))
-    del q, k, v
+           "library_ms": None, "max_abs_err": err}
+    print(f"kernel timing (B=8 nh={nh} nkv={nkv} hd={hd} bf16, "
+          f"{'int8' if quantized else 'bf16'} pages, lengths {lengths}): max_abs_err against "
+          f"the plain version {err:.3e}; kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} "
+          f"ms" + _shares(rec))
+    del q, k, v, scales
     torch.cuda.empty_cache()
     return rec
 
@@ -531,97 +645,121 @@ SERVED_CHUNK_BASES = (70, 127, 128, 632, 1532, 0, 2044, 1000)
 SPLIT_EDGE_CHUNK_BASES = (252, 254, 255, 256, 508, 1020, 1788, 2043)
 
 
-def _chunk_compare(torch, q, k, v, base, tables, scale):
+def _chunk_compare(torch, q, k, v, base, tables, scale, **scales):
     """One chunk-kernel call held against its plain version and, row by row
-    with torch.equal, against the decode kernel at length base + c. Returns
-    (max abs error against the plain version, chunk positions that differ)."""
+    with torch.equal, against the decode kernel at length base + c; int8
+    pages pass their ``k_scales``/``v_scales``. Returns (max abs error
+    against the plain version, chunk positions that differ, the tolerance
+    in bf16: ``_tol`` of the plain version's output)."""
     from grasp_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_chunk, paged_attention_chunk_reference)
 
-    got = paged_attention_chunk(q, k, v, base, tables, scale)
-    want = paged_attention_chunk_reference(q, k, v, base, tables, scale)
+    got = paged_attention_chunk(q, k, v, base, tables, scale, **scales)
+    want = paged_attention_chunk_reference(q, k, v, base, tables, scale, **scales)
     unequal = []
     for c in range(q.shape[1]):
-        single = paged_attention(q[:, c].contiguous(), k, v, base + c, tables, scale)
+        single = paged_attention(q[:, c].contiguous(), k, v, base + c, tables, scale, **scales)
         if not torch.equal(got[:, c], single):
             unequal.append(c)
     torch.cuda.synchronize()
     if not torch.isfinite(got).all().item():
         raise AssertionError("paged attention chunk kernel: non-finite output")
-    return (got.float() - want.float()).abs().max().item(), unequal
+    return ((got.float() - want.float()).abs().max().item(), unequal,
+            _tol("bfloat16", bool(scales), want))
 
 
-def phase_chunk(torch, hds=(64, 96, 128)):
+def phase_chunk(torch, hds=(64, 96, 128, 256), int8_hds=INT8_HDS):
     """The chunk kernel against its plain version within TOL, and against the
     decode kernel with torch.equal: row (b, c) is the decode kernel's output
     at length base[b] + c. A grid of small cases, then the verify step's own
-    shape at TinyLlama's heads and at Phi-3's (32 MHA heads of 96). ``hds``:
-    the head_dims to hold. Returns the worst error against the plain
-    version."""
+    shape at TinyLlama's heads, Phi-3's (32 MHA heads of 96), Gemma-7B's and
+    Gemma-2B's (head_dim 256); over int8 pages at ``int8_hds`` the grid and
+    Mistral-7B's and Gemma-7B's heads. ``hds``: the head_dims to hold over fp
+    pages. Returns the worst error against the plain version."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     b, nkv = len(CHUNK_BASES), 2
     worst, cases, rows = 0.0, 0, 0
-    for hd in hds:
+    for hd, quantized in [(hd, False) for hd in hds] + [(hd, True) for hd in int8_hds]:
         for dtype_name in ("float32", "bfloat16"):
             dtype = getattr(torch, dtype_name)
-            unequal, errs = [], []
+            unequal, errs, over = [], [], []
             for gqa in PAGED_GROUPS:
                 for ps, pps in ((16, 16), (128, 2)):
                     _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nkv * gqa, nkv,
                                                         hd, ps, pps, b * pps + 1, CHUNK_BASES)
+                    scales = {}
+                    if quantized:
+                        k, v, ks, vs = _int8_pages(torch, k, v)
+                        scales = {"k_scales": ks[0], "v_scales": vs[0]}
                     for c_len in CHUNK_LENS:
                         q = torch.randn(b, c_len, nkv * gqa, hd, generator=gen,
                                         device=dev).to(dtype)
-                        err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5)
+                        err, bad, tol = _chunk_compare(torch, q, k[0], v[0], base, tables,
+                                                       hd ** -0.5, **scales)
+                        tol = tol if dtype_name == "bfloat16" else TOL[dtype_name]
                         unequal += [(gqa, ps, c_len, c) for c in bad]
                         errs.append(err)
+                        over += [(gqa, ps, c_len, err, tol)] if err > tol else []
                         cases += 1
                         rows += b * c_len
-            ok = not unequal and max(errs) <= TOL[dtype_name]
-            print(f"chunk kernel: hd={hd} {dtype_name}, gqa {PAGED_GROUPS}, pages of 16 and "
+            ok = not unequal and not over
+            tol_text = (f"tol {TOL[dtype_name]:g}" if not (quantized and dtype_name == "bfloat16")
+                        else f"tol the larger of {TOL[dtype_name]:g} and {INT8_BF16_REL:g} of "
+                             f"the plain output's max; beyond it {over[:4]}")
+            print(f"chunk kernel: hd={hd} {dtype_name}{' over int8 pages' if quantized else ''}, "
+                  f"gqa {PAGED_GROUPS}, pages of 16 and "
                   f"128, chunks {CHUNK_LENS}, {b} rows of base lengths {CHUNK_BASES}: max_abs_err "
-                  f"against the plain version {max(errs):.3e} (tol {TOL[dtype_name]:g}); rows "
+                  f"against the plain version {max(errs):.3e} ({tol_text}); rows "
                   f"unequal to the decode kernel at length base + c: {len(unequal)} "
                   f"{unequal[:4]} {'ok' if ok else 'FAIL'}")
             if not ok:
-                raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}")
+                raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}"
+                                     f" int8 pages {quantized}")
             worst = max(worst, max(errs))
     c_len = SPEC_GAMMA + 1
-    shapes = [s for s in ((32, 4, 64), PHI3_HEADS) if s[2] in hds]
-    for (nh, nkv, hd), dtype_name, bases in itertools.product(
+    shapes = [(s, False) for s in ((32, 4, 64), PHI3_HEADS, GEMMA7B_HEADS, GEMMA2B_HEADS)
+              if s[2] in hds]
+    shapes += [(s, True) for s in (MISTRAL_HEADS, GEMMA7B_HEADS) if s[2] in int8_hds]
+    for ((nh, nkv, hd), quantized), dtype_name, bases in itertools.product(
             shapes, ("float32", "bfloat16"), (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)):
         dtype = getattr(torch, dtype_name)
         b = len(bases)
         _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, 128, 16, 256,
                                             bases)
+        scales = {}
+        if quantized:
+            k, v, ks, vs = _int8_pages(torch, k, v)
+            scales = {"k_scales": ks[0], "v_scales": vs[0]}
         q = torch.randn(b, c_len, nh, hd, generator=gen, device=dev).to(dtype)
-        err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5)
-        ok = not bad and err <= TOL[dtype_name]
+        err, bad, tol = _chunk_compare(torch, q, k[0], v[0], base, tables, hd ** -0.5, **scales)
+        tol = tol if dtype_name == "bfloat16" else TOL[dtype_name]
+        ok = not bad and err <= tol
         print(f"chunk kernel at the verify step's shape: B={b} C={c_len} nh={nh} nkv={nkv} "
-              f"hd={hd} {dtype_name}, pages of 128, 16 per row, base lengths "
+              f"hd={hd} {dtype_name}{' over int8 pages' if quantized else ''}, pages of 128, 16 "
+              f"per row, base lengths "
               f"{bases}: max_abs_err against the plain version {err:.3e} (tol "
-              f"{TOL[dtype_name]:g}); chunk positions unequal to the decode kernel: {bad} "
+              f"{tol:g}); chunk positions unequal to the decode kernel: {bad} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"paged attention chunk kernel disagrees at the verify step's "
-                                 f"shape: hd={hd} {dtype_name}")
+                                 f"shape: hd={hd} {dtype_name} int8 pages {quantized}")
         worst = max(worst, err)
         cases += 1
         rows += b * c_len
-        del q, k, v
+        del q, k, v, scales
     print(f"chunk kernel: {cases} cases, {rows} rows, every row bit-equal to the decode kernel")
     return worst
 
 
-def phase_chunk_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
+def phase_chunk_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256, quantized=False):
     """The chunk kernel, its plain version and one decode launch per chunk
-    position on the same inputs, at the verify step's shape: B=8, bf16, the
-    slice's lengths, a chunk of gamma + 1 = 5 (TinyLlama's heads by default).
-    Turns: plain, kernel, decode launches, decode launches, kernel, plain,
-    each after the idle spin. Bound: every K/V row a query of the chunk sees
-    read once, q and the output moved once, at 3.35 TB/s, against q.k and
-    p.v at the bf16 peak."""
+    position on the same inputs, at the verify step's shape: B=8, bf16 q,
+    the slice's lengths, a chunk of gamma + 1 = 5 (TinyLlama's heads by
+    default), bf16 or (``quantized``) int8 pages. Turns: plain, kernel,
+    decode launches, decode launches, kernel, plain, each after the idle
+    spin. Bound: every K/V row a query of the chunk sees read once, q and the
+    output moved once, at 3.35 TB/s, against q.k and p.v at the bf16 peak."""
     from grasp_tpu_torch.ops.paged_attention import (
         paged_attention, paged_attention_chunk, paged_attention_chunk_reference)
 
@@ -629,25 +767,24 @@ def phase_chunk_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
     gen = torch.Generator(device=dev).manual_seed(98)
     lengths = [n + 32 for n in PROMPT_LENS]
     c_len = SPEC_GAMMA + 1
-    _, k, v, base, tables = _pages_case(torch, gen, dev, torch.bfloat16, 8, nh, nkv, hd,
-                                        128, 16, num_pages, lengths, layers=n_layers)
-    q = torch.randn(8, c_len, nh, hd, generator=gen, device=dev).bfloat16()
+    q, k, v, base, tables, scales = _timing_pools(torch, gen, dev, nh, nkv, hd, num_pages,
+                                                  n_layers, lengths, quantized, c_len=c_len)
     singles = [(q[:, c].contiguous(), base + c) for c in range(c_len)]
     scale = hd ** -0.5
 
     def kern(li):
-        paged_attention_chunk(q, k[li], v[li], base, tables, scale)
+        paged_attention_chunk(q, k[li], v[li], base, tables, scale, **scales[li])
 
     def plain(li):
-        paged_attention_chunk_reference(q, k[li], v[li], base, tables, scale)
+        paged_attention_chunk_reference(q, k[li], v[li], base, tables, scale, **scales[li])
 
     def decodes(li):
         for q_c, lens_c in singles:
-            paged_attention(q_c, k[li], v[li], lens_c, tables, scale)
+            paged_attention(q_c, k[li], v[li], lens_c, tables, scale, **scales[li])
 
     # the timed inputs themselves, held as phase_chunk holds its cases
-    err, bad = _chunk_compare(torch, q, k[0], v[0], base, tables, scale)
-    if bad or err > TOL["bfloat16"]:
+    err, bad, tol = _chunk_compare(torch, q, k[0], v[0], base, tables, scale, **scales[0])
+    if bad or err > tol:
         raise AssertionError(f"paged attention chunk kernel disagrees on the timed inputs: "
                              f"max_abs_err {err:.3e}, chunk positions unequal to the decode "
                              f"kernel {bad}")
@@ -658,19 +795,40 @@ def phase_chunk_timing(torch, n_layers, nh=32, nkv=4, hd=64, num_pages=256):
     mean = {name: sum(xs) / len(xs) for name, xs in t.items()}
     kv_rows = sum(n + c_len - 1 for n in lengths)
     pairs = sum(n + c for n in lengths for c in range(c_len))  # (query, slot) pairs per head
-    nbytes = (2 * kv_rows * nkv * hd * 2 + 2 * q.numel() * 2 + base.numel() * 4
+    nbytes = (_kv_bytes(kv_rows, nkv, hd, quantized) + 2 * q.numel() * 2 + base.numel() * 4
               + tables.numel() * 4)
     rec = {"ms": mean["kernel"], "plain_ms": mean["plain"],
            **_bound(nbytes, 4 * pairs * nh * hd), "library_ms": None,
-           "decodes_ms": mean["decodes"]}
-    print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, base lengths "
+           "decodes_ms": mean["decodes"], "max_abs_err": err}
+    print(f"chunk kernel timing (B=8 C={c_len} nh={nh} nkv={nkv} hd={hd} bf16, "
+          f"{'int8' if quantized else 'bf16'} pages, base lengths "
           f"{lengths}), ms per call, two turns each: "
           + ", ".join(f"{name} {xs[0]:.4f}/{xs[1]:.4f}" for name, xs in t.items())
           + f"; {c_len} decode launches over one chunk launch: "
             f"{mean['decodes'] / mean['kernel']:.2f}x" + _shares(rec))
-    del q, k, v, singles
+    del q, k, v, singles, scales
     torch.cuda.empty_cache()
     return rec
+
+
+# the JAX engine's call of jax's own TPU paged-attention kernel, which the paged
+# kernels stand in for at head_dim 128 and 256 over fp and int8 pages
+K7_SITE = ("grasp_tpu/serving/paged.py:306 (jax.experimental.pallas.ops.tpu.paged_attention, "
+           "its pl.pallas_call at paged_attention_kernel.py:628)")
+
+
+def phase_k7_timing(torch, timing, gemma2b=True):
+    """``timing`` (phase_kernel_timing or phase_chunk_timing) at the layouts
+    of jax's paged-attention route: Gemma-7B's heads over bf16 pages
+    ("hd256") and over int8 pages ("int8_hd256"), Mistral-7B's over int8
+    pages ("int8_hd128") and, with ``gemma2b``, Gemma-2B's over bf16 pages
+    ("hd256_gemma2b"). Returns {key: record}."""
+    out = {"hd256": timing(torch, *GEMMA7B_TIMING)}
+    if gemma2b:
+        out["hd256_gemma2b"] = timing(torch, *GEMMA2B_TIMING)
+        out["int8_hd128"] = timing(torch, *MIXTRAL_TIMING, quantized=True)
+    out["int8_hd256"] = timing(torch, *GEMMA7B_INT8_TIMING, quantized=True)
+    return out
 
 
 # (B, nh, nkv, S, hd, scale): the calibration shape of TinyLlama-1.1B, a ragged
@@ -1360,19 +1518,20 @@ def check_against_plain(torch, params, config, plan, served, dev, quantized_kv=F
             sum(len(g) for g, _ in gaps))
 
 
-def _bf16_drift(torch, params, config, plan, served, dev, gaps):
+def _bf16_drift(torch, params, config, plan, served, dev, gaps, quantized_kv=False):
     """How far bf16 rounding alone moves the served tokens' gaps: the
     teacher-forced forward of a dense bf16 model (``gaps``, from
     _served_gaps) run again in fp32 on the same weights, each cast up
-    exactly. Returns (the largest |bf16 gap - fp32 gap| over the served
-    tokens, the largest fp32 gap)."""
+    exactly (through the int8 dense cache with ``quantized_kv``). Returns
+    (the largest |bf16 gap - fp32 gap| over the served tokens, the largest
+    fp32 gap)."""
     import dataclasses
 
     from grasp_tpu_torch.models.convert import map_params
 
     p32 = map_params(params, lambda t: t.float() if t.is_floating_point() else t)
     gaps32 = _served_gaps(torch, p32, dataclasses.replace(config, dtype="float32"), plan,
-                          served, dev)
+                          served, dev, quantized_kv)
     del p32
     torch.cuda.empty_cache()
     drift = max((g16 - g32).abs().max().item() for (g16, _), (g32, _) in zip(gaps, gaps32))
@@ -1497,20 +1656,22 @@ def _routed_witness(torch, params, config, plan, served, dev):
     return explained, tied / max(total, 1)
 
 
-def hold_to_plain(torch, params, config, plan, served, dev):
-    """The served tokens against a teacher-forced plain forward: (whether
-    they fail, a report). Every token within GAP_TOL of the largest logit;
-    in bf16, a dense model's within twice the bf16 drift where that is
-    larger (_bf16_drift), and a MoE model's beyond it only where a router
-    near tie explains it (_routed_witness)."""
-    gaps = _served_gaps(torch, params, config, plan, served, dev)
+def hold_to_plain(torch, params, config, plan, served, dev, quantized_kv=False):
+    """The served tokens against a teacher-forced plain forward (through the
+    int8 dense cache with ``quantized_kv``): (whether they fail, a report).
+    Every token within GAP_TOL of the largest logit; in bf16, a dense
+    model's within twice the bf16 drift where that is larger (_bf16_drift),
+    and a MoE model's beyond it only where a router near tie explains it
+    (_routed_witness)."""
+    gaps = _served_gaps(torch, params, config, plan, served, dev, quantized_kv)
     gap = max(g.max().item() for g, _ in gaps)
     match, total = sum(int(m.sum().item()) for _, m in gaps), sum(len(g) for g, _ in gaps)
     report = f"argmax agrees at {match}/{total} positions, max logit gap {gap:.4f}"
     if config.dtype != "bfloat16" or (gap <= GAP_TOL and not config.num_local_experts):
         return gap > GAP_TOL, report + f" (tol {GAP_TOL})"
     if not config.num_local_experts:
-        drift, worst32 = _bf16_drift(torch, params, config, plan, served, dev, gaps)
+        drift, worst32 = _bf16_drift(torch, params, config, plan, served, dev, gaps,
+                                     quantized_kv)
         tol = max(GAP_TOL, 2 * drift)
         return gap > tol, (
             f"{report}, beyond {GAP_TOL}: the same forward in fp32 puts the served tokens at a "
@@ -1777,8 +1938,8 @@ def serve_speculative(torch, card, dev, ckpt_root, tag="serve", agreement=SPEC_A
             raise AssertionError(f"{label}: served tokens disagree with the plain forward")
 
         # the same requests through the plain engine over the same weights
-        plain = ServingEngine(engine.params, config, engine.plan, device=dev, num_pages=256,
-                              page_size=128, max_batch=8,
+        plain = ServingEngine(engine.params, config, engine.plan, device=dev,
+                              num_pages=engine.pool.num_pages, page_size=128, max_batch=8,
                               max_pages_per_seq=engine.max_pages_per_seq)
         rids = [plain.submit(p, SPEC_MAX_TOKENS) for p in prompts]
         with torch.no_grad():
@@ -1799,25 +1960,33 @@ def serve_speculative(torch, card, dev, ckpt_root, tag="serve", agreement=SPEC_A
     return got
 
 
-def serve_quantized_kv(torch, dev, ckpt_root, speculative):
-    """``--quantized_kv``, with or without speculation: int8 pools take the
-    gather route, so neither paged kernel may launch; tokens are held by a
-    teacher-forced forward through the int8 dense cache."""
+def serve_quantized_kv(torch, dev, ckpt_root, speculative, route="gather", extra=(),
+                       tag="serve"):
+    """``--quantized_kv``, with or without speculation: int8 pools take
+    ``route``, the attention route expected (the gather route at head_dim 64
+    and 96, where neither paged kernel may launch; the kernels' int8 bodies
+    at 128 and 256: K3 once a layer a decode step, and under speculation K4
+    once a layer a macro-step). Tokens are held by a teacher-forced forward
+    through the int8 dense cache: within GAP_TOL on the gather route, and by
+    hold_to_plain's rule (a deep bf16 model's drift) on the kernel route.
+    ``extra``: more server flags; ``tag`` starts each printed line. Returns
+    the launches of K3 ("paged") and K4 ("chunk")."""
     import numpy as np
 
     from grasp_tpu_torch.ops.paged_attention import paged_attention, paged_attention_chunk
 
-    extra = ["--quantized_kv"]
+    flags = ["--quantized_kv"]
     if speculative:
-        extra += ["--speculative", "int8", "--gamma", str(SPEC_GAMMA)]
-    label = " ".join(extra)
+        flags += ["--speculative", "int8", "--gamma", str(SPEC_GAMMA)]
+    label = f"{tag} {' '.join(flags)}"
     rng = np.random.default_rng(29)
-    with _served(torch, dev, ckpt_root, extra) as (engine, port):
+    with _served(torch, dev, ckpt_root, flags + list(extra)) as (engine, port):
         if not engine.pool.quantized or engine.pool.k_pages.dtype != torch.int8:
-            raise AssertionError(f"serve {label}: the pool is not int8")
-        for route in [engine.route] + ([engine.draft_route] if speculative else []):
-            _route_layers(engine, engine.config, "gather", route)
+            raise AssertionError(f"{label}: the pool is not int8")
         config = engine.config
+        layers = _route_layers(engine, config, route)
+        if speculative:
+            dlayers = _route_layers(engine, engine.dconfig, route, engine.draft_route)
         prompts = [rng.integers(3, config.vocab_size, size=n).tolist()
                    for n in VARIANT_PROMPT_LENS]
         _reset_paged_counts(engine)
@@ -1826,18 +1995,32 @@ def serve_quantized_kv(torch, dev, ckpt_root, speculative):
             prompts, VARIANT_MAX_TOKENS, label)
         launches = (paged_attention.launches, paged_attention_chunk.launches)
         steps = engine.decode_steps
-        gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
-                                                list(zip(prompts, outs)), dev, quantized_kv=True)
+        if speculative:
+            want = (dlayers * steps, layers * engine.macro_steps)
+        else:
+            want = (layers * steps, 0)
+        if route == "gather":
+            gap, match, total = check_against_plain(torch, engine.params, config, engine.plan,
+                                                    list(zip(prompts, outs)), dev,
+                                                    quantized_kv=True)
+            bad = gap > GAP_TOL
+            report = (f"argmax agrees at {match}/{total} positions, max logit gap {gap:.4f} "
+                      f"(tol {GAP_TOL})")
+        else:
+            bad, report = hold_to_plain(torch, engine.params, config, engine.plan,
+                                        list(zip(prompts, outs)), dev, quantized_kv=True)
         spec = (f", {engine.macro_steps} macro-steps, drafts accepted "
                 f"{engine.last_stats['accepted']}/{engine.last_stats['drafted']}"
                 if speculative else "")
-        print(f"serve {label}: {len(outs)} completions of {VARIANT_MAX_TOKENS} tokens, {steps} "
-              f"decode steps in {engine.decode_seconds:.3f} s{spec}; decode and chunk kernel "
-              f"launches {launches} (want 0, 0); vs teacher-forced forward through the int8 "
-              f"dense cache: argmax agrees at {match}/{total} positions, max logit gap "
-              f"{gap:.4f} (tol {GAP_TOL})")
-        if steps == 0 or launches != (0, 0) or gap > GAP_TOL:
-            raise AssertionError(f"serve {label} failed")
+        print(f"{label}: routes {engine.route[0]} ({engine.route[1]})"
+              f"{', draft ' + engine.draft_route[0] if speculative else ''}; {len(outs)} "
+              f"completions of {VARIANT_MAX_TOKENS} tokens, {steps} decode steps in "
+              f"{engine.decode_seconds:.3f} s ({engine.decode_seconds / max(steps, 1) * 1e3:.2f} "
+              f"ms each){spec}; decode and chunk kernel launches {launches} (want {want}); vs "
+              f"teacher-forced forward through the int8 dense cache: {report}")
+        if steps == 0 or launches != want or bad:
+            raise AssertionError(f"{label} failed")
+    return {"paged": launches[0], "chunk": launches[1]}
 
 
 # the rest of the serving engine: one system prefix of 8 pages, suffixes of
@@ -4418,15 +4601,15 @@ def phase_families(torch, card, dev, mistral_layers=None):
     (a) Gemma-2B (18 layers, hidden 2048, 8 query heads over 1 kv head of
     256, vocab 256000, tied head): compressed with TinyLlama's flags through
     K1f, K1k and K1q at head_dim 256 (launches by the flash rule), one
-    attention round's gradients by route against fp32, served through the
-    gather route (head_dim 256 is no paged kernel's: K3 held at 0) plain and
-    under ``--quantize int4``, exported merged in bf16, re-imported and its
-    perplexity taken over windows of 2048 tokens, flash (K1f at hd 256)
-    against plain.
+    attention round's gradients by route against fp32, served through K3 at
+    head_dim 256 (18 launches a decode step) plain and under ``--quantize
+    int4``, exported merged in bf16, re-imported and its perplexity taken
+    over windows of 2048 tokens, flash (K1f at hd 256) against plain.
     (b) Mistral-7B (32 layers, hidden 4096, 32 over 8 heads of 128, window
     4096): compressed (2047 <= 4096: K1 at hd 128); served in bf16 over a
     table its window covers (K3 a decode step a layer, K4 under
-    ``--speculative int8``), the same requests over a table of 8192 slots
+    ``--speculative int8``; with ``--quantized_kv`` K3's and K4's int8
+    bodies at head_dim 128), the same requests over a table of 8192 slots
     (the gather route), and one prompt of 6000 tokens over that table (live
     pages bounded by the window); then its export served in fp32, the same
     requests through K3's fp32 body and the long row. bf16 tokens beyond
@@ -4480,9 +4663,9 @@ def phase_families(torch, card, dev, mistral_layers=None):
         del params
         torch.cuda.empty_cache()
         served["paged"] += _serve_main_path(torch, card, dev, ck, config, time.perf_counter(),
-                                            tag="gemma-2b serve", route="gather")
+                                            tag="gemma-2b serve", route="kernel")
         int4 = serve_variant(torch, dev, ck, "gemma-2b --quantize int4", ["--quantize", "int4"],
-                             route="gather")
+                             route="kernel")
         served["paged"] += int4["paged"]
         served["int4"] = {"grid": int4["grid"], "dma": int4["dma"]}
         ck_params, ck_config, _, _ = load_checkpoint(ck, dev)
@@ -4575,6 +4758,12 @@ def phase_families(torch, card, dev, mistral_layers=None):
         spec = serve_speculative(torch, card, dev, ck, tag="mistral-7b serve", agreement=None,
                                  extra=covered, route="kernel")
         served["chunk"] += spec["chunk"]
+        # int8 pages at head_dim 128: K3's and K4's int8 bodies
+        for speculative in (False, True):
+            q8 = serve_quantized_kv(torch, dev, ck, speculative, route="kernel", extra=covered,
+                                    tag="mistral-7b serve")
+            served["paged"] += q8["paged"]
+            served["chunk"] += q8["chunk"]
         shutil.rmtree(ck)
         # the export served in fp32 (written in bf16: its 29 GB in fp32 took
         # 17 to 25 s to write and 42 to 55 to load on an H100's host): the
@@ -4641,6 +4830,73 @@ def phase_families(torch, card, dev, mistral_layers=None):
     return total, served
 
 
+# phase 20: Gemma-7B served at full width; its depth in the whole smoke (the
+# time limit: 4 of 28 layers, the last two low-rank); --only gemma7b runs all 28
+GEMMA7B_LAYERS = 4
+# its pools: 64 pages of 128 hold the main path's nine requests (51 pages) and
+# keep the 16 MHA heads of 256 at 3.7 GB over 28 layers (256 pages: 15 GB,
+# then twice under speculation beside the plain engine's and an fp32 twin)
+GEMMA7B_SERVE = ["--num_pages", "64"]
+
+
+def phase_gemma7b(torch, card, dev, layers=None):
+    """Phase 20: Gemma-7B at full width (hidden 3072, 16 MHA heads of 256,
+    intermediate 24576, vocab 256000, tied head; 28 layers, 8.5 B parameters,
+    17 GB in bf16; random weights from a seed) with the serving slice's
+    recipe (the last two layers' projections low-rank at ratio 0.9), saved as
+    a port checkpoint and served by ``grasp-serve-torch``: the main path (1
+    streamed and 8 concurrent requests) through K3 at head_dim 256 (a launch
+    a layer a decode step), ``--quantized_kv`` through K3's int8 body at
+    head_dim 256, and ``--speculative int8 --gamma 4`` through K4 at head_dim
+    256 (a launch a layer a macro-step, the draft's decode through K3), every
+    token held to the teacher-forced forward (hold_to_plain). ``layers``: the
+    depth where the whole smoke cuts it. Returns K3's and K4's launches."""
+    import dataclasses
+
+    from grasp_tpu_torch import ModelConfig
+    from grasp_tpu_torch.checkpoints import save_checkpoint
+    from grasp_tpu_torch.models.convert import flatten_params
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    config = ModelConfig.gemma_7b()
+    if layers:
+        config = dataclasses.replace(config, num_hidden_layers=layers)
+    config, params, plan = build_flagship(torch, dev, config)
+    n_params = sum(t.numel() for t in flatten_params(params).values())
+    print(f"gemma-7b: {config.num_hidden_layers} layers, hidden {config.hidden_size}, "
+          f"{config.num_attention_heads} MHA heads of {config.head_dim_}, intermediate "
+          f"{config.intermediate_size}, vocab {config.vocab_size}, low-rank layers "
+          f"{[i for i, lp in enumerate(plan) if 'lowrank' in lp]}, {n_params} parameters in bf16;"
+          f" card {card}")
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    root = tempfile.mkdtemp(prefix="smoke_gemma7b_", dir=os.path.join(ROOT, "build"))
+    try:
+        _free_disk(root, 2.5 * n_params * 2, "gemma-7b")
+        t0 = time.perf_counter()
+        save_checkpoint(root, params, config, plan)
+        print(f"gemma-7b: checkpoint written in {time.perf_counter() - t0:.1f} s")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        served = {"paged": _serve_main_path(torch, card, dev, root, config, time.perf_counter(),
+                                            tag="gemma-7b serve", extra=GEMMA7B_SERVE,
+                                            route="kernel"), "chunk": 0}
+        q8 = serve_quantized_kv(torch, dev, root, False, route="kernel", extra=GEMMA7B_SERVE,
+                                tag="gemma-7b serve")
+        spec = serve_speculative(torch, card, dev, root, tag="gemma-7b serve", agreement=None,
+                                 extra=GEMMA7B_SERVE, route="kernel")
+        served["paged"] += q8["paged"] + spec["decode"]
+        served["chunk"] += spec["chunk"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"gemma-7b: phase {time.perf_counter() - t_phase:.1f} s; paged launches {served}")
+    return served
+
+
 # phase 17, the device mesh: TinyLlama-1.1B compressed with phase_compress's
 # flags on 2 x 2 ranks that share the card (gloo), two calibration rows a
 # batch so that each data rank runs one; its single-process twin takes the
@@ -4688,7 +4944,8 @@ def _mesh_kernels_at_local_shapes(torch, dev):
     paged_err = (paged.float() - paged_attention_reference(
         pq, pk[0], pv[0], lens, tables, hd ** -0.5).float()).abs().max().item()
     cq = torch.randn(8, SPEC_GAMMA + 1, nh, hd, generator=gen, device=dev).bfloat16()
-    chunk_err, unequal = _chunk_compare(torch, cq, pk[0], pv[0], lens - 1, tables, hd ** -0.5)
+    chunk_err, unequal, _ = _chunk_compare(torch, cq, pk[0], pv[0], lens - 1, tables,
+                                           hd ** -0.5)
     print(f"mesh: kernels at a rank's shapes (bf16, {nh} query heads over {nkv} KV heads of "
           f"{hd}): flash fwd max_abs_err {errs[0]:.3e} (tol {TOL['bfloat16']}), dq/dk/dv over "
           f"the plain gradient's max {[f'{r:.3e}' for r in rel]} (tol {FLASH_GRAD_RTOL}); paged "
@@ -5452,6 +5709,7 @@ PERF_DECODE = {"cache_len": 512, "prefill_len": 64, "k_small": 32, "k_large": 96
 PERF_BATCHES = {"bf16": (1, 8), "int4": (1, 8), "int4 dma": (8,)}
 PERF_REPS = 3  # rounds of graph replays, each length in turns
 PERF_EAGER_REPS = 1  # rounds of the eager chains: host-bound, seconds each
+PERF_LONGROPE_STEPS = 32  # the longrope chain: half its steps past the original context
 PERF_GEN = {"prompt_len": 256, "gen_len": 64, "warmup": 1, "iters": 2}
 # TinyLlama-1.1B: 22 layers of 44,044,288, two tables of 65,536,000, the final norm
 TINYLLAMA_PARAMS = 22 * 44_044_288 + 2 * 65_536_000 + 2_048
@@ -5548,7 +5806,9 @@ def phase_perf(torch, card, dev):
     K1f, the chain captured as one CUDA graph, beside the same chain run
     eagerly; (d) decode_device_benchmark at batch 1 and 8 on bf16 weights
     and on int4 weights (K5; K5d under GRASP_INT4_KERNEL=dma at batch 8),
-    beside the eager chain; (e) generation_benchmark on the fused compressed model
+    beside the eager chain, and a longrope decode chain across its original
+    context captured as one CUDA graph, bit-equal to the chain run eagerly;
+    (e) generation_benchmark on the fused compressed model
     (K2 in prefill); (f) trace around an eager int4 decode step and a flash
     forward, read back against the launch counts, and around one graph
     replay. Launch counts held to counts derived from the dispatch rules;
@@ -5702,6 +5962,36 @@ def phase_perf(torch, card, dev):
 
     print(f"perf (d): {time.perf_counter() - t0:.1f} s")
 
+    # (d) longrope: the factors are chosen on the device, so a chain whose
+    # steps cross original_max_position_embeddings captures
+    t0 = time.perf_counter()
+    k = PERF_LONGROPE_STEPS
+    rng = np.random.default_rng(19)
+    half = config.head_dim_ // 2
+    longrope = {"rope_type": "longrope", "short_factor": (1 + rng.random(half)).tolist(),
+                "long_factor": (2 + rng.random(half)).tolist(),
+                "original_max_position_embeddings": pd["prefill_len"] + k // 2,
+                "max_position_embeddings": config.max_position_embeddings}
+    chain = perf.decode_chain(params, dataclasses.replace(config, rope_scaling=longrope), plan,
+                              cache_len=pd["cache_len"], prefill_len=pd["prefill_len"])
+    graph, out = perf.capture_chain(chain, k)
+    graph.replay()
+    torch.cuda.synchronize()
+    replayed = out.clone()
+    eager = chain.run(k)
+    torch.cuda.synchronize()
+    short = perf.decode_chain(params, config, plan, cache_len=pd["cache_len"],
+                              prefill_len=pd["prefill_len"]).run(k)
+    same = torch.equal(replayed, eager)
+    print(f"perf (d) longrope: a decode chain of {k} steps from position {pd['prefill_len']} "
+          f"across original_max_position_embeddings {longrope['original_max_position_embeddings']}"
+          f" captured as one CUDA graph: replayed {float(replayed):.8e}, eager "
+          f"{float(eager):.8e}, bit for bit equal: {same}; the chain without longrope "
+          f"{float(short):.8e}; {time.perf_counter() - t0:.1f} s")
+    if not same or not math.isfinite(float(eager)) or float(short) == float(eager):
+        raise AssertionError("perf (d) longrope: the captured chain left the eager one")
+    del chain, graph
+
     # (e) generation through K2 in prefill
     t0 = time.perf_counter()
     fused_config = dataclasses.replace(config, use_pallas_lowrank=True)
@@ -5815,8 +6105,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
                                            "evaluate", "recover", "hf", "phi3serve",
-                                           "features", "mixtral", "families", "mesh",
-                                           "seqpipe", "perf"],
+                                           "features", "mixtral", "families", "gemma7b",
+                                           "mesh", "seqpipe", "perf"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -5855,13 +6145,20 @@ def main(argv=None) -> int:
         print(phase_slice(torch, card, dev, only="features"))
         return 0
     if args.only == "phi3serve":
-        print(phase_kernel(torch, hds=(96,)), phase_kernel_timing(torch, *PHI3_TIMING))
-        print(phase_chunk(torch, hds=(96,)), phase_chunk_timing(torch, *PHI3_TIMING))
+        print(phase_kernel(torch, hds=(96,), int8_hds=()), phase_kernel_timing(torch, *PHI3_TIMING))
+        print(phase_chunk(torch, hds=(96,), int8_hds=()), phase_chunk_timing(torch, *PHI3_TIMING))
         print(phase_phi3(torch, card, dev))
         return 0
     if args.only == "families":
         print(phase_flash_timing(torch, FLASH_TIMING_SHAPES[256]))
         print(phase_families(torch, card, dev))
+        return 0
+    if args.only == "gemma7b":
+        print(phase_kernel(torch, hds=(256,), int8_hds=(256,)),
+              phase_k7_timing(torch, phase_kernel_timing, gemma2b=False))
+        print(phase_chunk(torch, hds=(256,), int8_hds=(256,)),
+              phase_k7_timing(torch, phase_chunk_timing, gemma2b=False))
+        print(phase_gemma7b(torch, card, dev))
         return 0
     if args.only == "mesh":
         print(phase_mesh(torch, card, dev))
@@ -5873,8 +6170,10 @@ def main(argv=None) -> int:
         print(phase_perf(torch, card, dev))
         return 0
     if args.only == "mixtral":
-        print(phase_kernel(torch, hds=(128,)), phase_kernel_timing(torch, *MIXTRAL_TIMING))
-        print(phase_chunk(torch, hds=(128,)), phase_chunk_timing(torch, *MIXTRAL_TIMING))
+        print(phase_kernel(torch, hds=(128,), int8_hds=()),
+              phase_kernel_timing(torch, *MIXTRAL_TIMING))
+        print(phase_chunk(torch, hds=(128,), int8_hds=()),
+              phase_chunk_timing(torch, *MIXTRAL_TIMING))
         print(phase_flash_timing(torch, FLASH_TIMING_SHAPES[128]))
         print(phase_mixtral(torch, card, dev))
         return 0
@@ -5890,10 +6189,12 @@ def main(argv=None) -> int:
     paged = phase_kernel_timing(torch, *TINYLLAMA_TIMING)
     paged96 = phase_kernel_timing(torch, *PHI3_TIMING)
     paged128 = phase_kernel_timing(torch, *MIXTRAL_TIMING)
+    paged_k7 = phase_k7_timing(torch, phase_kernel_timing)
     chunk_err = phase_chunk(torch)
     chunk = phase_chunk_timing(torch, *TINYLLAMA_TIMING)
     chunk96 = phase_chunk_timing(torch, *PHI3_TIMING)
     chunk128 = phase_chunk_timing(torch, *MIXTRAL_TIMING)
+    chunk_k7 = phase_k7_timing(torch, phase_chunk_timing)
     if args.only == "spec":
         print(chunk, phase_slice(torch, card, dev, only="spec"))
         return 0
@@ -5921,6 +6222,8 @@ def main(argv=None) -> int:
     part("mixtral")
     families, families_served = phase_families(torch, card, dev, mistral_layers=MISTRAL_LAYERS)
     part("families")
+    gemma7b_served = phase_gemma7b(torch, card, dev, layers=GEMMA7B_LAYERS)
+    part("gemma7b")
     mesh_err, mesh = phase_mesh(torch, card, dev)
     part("mesh")
     seqpipe_err, seqpipe = phase_seqpipe(torch, card, dev)
@@ -5942,20 +6245,23 @@ def main(argv=None) -> int:
         {"name": "paged_attention_decode", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:122",
+         "also_replaces": K7_SITE,
          "launches": paged_launches + from_hf["paged"] + phi3_served["paged"]
          + features["paged"] + mixtral_served["paged"] + families_served["paged"]
-         + mesh["paged"] + seqpipe["paged"],
+         + gemma7b_served["paged"] + mesh["paged"] + seqpipe["paged"],
          "max_abs_err": max(paged_err, mesh_err["paged"]), **paged, "hd96": paged96,
-         "hd128": paged128},
+         "hd128": paged128, **paged_k7},
         # library_ms: no single PyTorch call reads a page table; the timing line
         # above has one decode launch per chunk position beside it
         {"name": "paged_attention_chunk", "route": "cuda",
          "source": "grasp_tpu_torch/csrc/paged_attention.cu",
          "replaces": "grasp_tpu/ops/pallas_paged64.py:251",
+         "also_replaces": K7_SITE,
          "launches": spec_launches["chunk"] + phi3_served["chunk"] + features["chunk"]
-         + mixtral_served["chunk"] + families_served["chunk"] + mesh["chunk"],
+         + mixtral_served["chunk"] + families_served["chunk"] + gemma7b_served["chunk"]
+         + mesh["chunk"],
          "max_abs_err": max(chunk_err, mesh_err["chunk"]),
-         **chunk, "hd96": chunk96, "hd128": chunk128},
+         **chunk, "hd96": chunk96, "hd128": chunk128, **chunk_k7},
         # the bf16 forward's body (the fp32 inputs of phase_flash take flash_fwd_kernel)
         # launches: the two compressions, the evaluation slice, the HF route,
         # the Phi-3 slice (head_dim 96: its compression and perplexity) and

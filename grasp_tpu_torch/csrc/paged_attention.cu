@@ -1,11 +1,15 @@
-// Paged attention for Hopper (sm_90a), head_dim 64, 96 and 128: the one-query
-// decode kernel and the chunk kernel of speculative verification.
+// Paged attention for Hopper (sm_90a): the one-query decode kernel and the
+// chunk kernel of speculative verification, over fp pages at head_dim 64,
+// 96, 128 and 256 and over int8 pages (fp32 scale per slot) at 128 and 256.
 //
 // The decode kernels replace the TPU kernel
 // grasp_tpu/ops/pallas_paged64.py::paged_attention_hd64 (its Pallas body
-// `_kernel`), and the library paged-attention kernel the JAX engine called for
-// head_dim % 128 == 0 (grasp_tpu/serving/paged.py). The chunk kernels replace
-// paged_attention_hd64_chunk (`_kernel_chunk`) of the same file.
+// `_kernel`), and jax's own TPU kernel
+// jax.experimental.pallas.ops.tpu.paged_attention, which the JAX engine calls
+// at grasp_tpu/serving/paged.py:306 for head_dim % 128 == 0 over fp pages and
+// over int8 pages (wrapped in its QuantizedTensor and read in place). The
+// chunk kernels replace paged_attention_hd64_chunk (`_kernel_chunk`) of
+// pallas_paged64.py, and take the decode kernels' layouts.
 //
 // What they compute: one query token per sequence attends to that sequence's
 // KV, read in place through its page table. q [B, nh, hd] (unscaled),
@@ -51,8 +55,18 @@
 //   head_dim 96 a row has 12, which that XOR would carry into the next row,
 //   so there rows are padded to HD + 8 elements (13 chunks: 8 rows at one
 //   chunk fall in 8 distinct bank groups, as in the q tile) and not permuted.
+// - head_dim 256: a 64-slot stage of K and V is 64 KB, so the plan gives a
+//   block the shared memory of two blocks an SM (one stage over bf16 pages,
+//   two over int8 pages), and a warp reads its q fragments again for every
+//   tile instead of holding 64 more registers beside the 128 of its output.
+// - int8 pages: the ring holds the tiles as they lie in the pool (half the
+//   bytes of bf16) and their scales; fragments are converted to bf16 in
+//   registers (exact). The key scale multiplies the scores after q.k, the
+//   value scale the rounded softmax numerators before P V, as the gather
+//   route orders them.
 // - fp32 keeps the first design's CUDA-core tile loop (its 1e-4 gate is below
-//   what bf16 products keep), now over one range and into the same combine.
+//   what bf16 products keep), now over one range and into the same combine;
+//   at head_dim 256 its tiles take dynamic shared memory (F32Smem).
 //   Its PV phase gives thread (warp w, lane) columns lane + 32 i of query
 //   rows w + 4 j, so all 128 threads work at every head_dim and a group of
 //   up to 16 rows fits in registers.
@@ -73,6 +87,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include <cooperative_groups.h>
 
@@ -218,46 +234,76 @@ struct Shape {
   static constexpr int kRows = kMaxGqa / kWarps;    // ... of rows warp + kWarps j
 };
 
+// The fp32 body's shared memory. Up to head_dim 128 it is static (43,600
+// bytes at 128 as ptxas reports it, 43,840 over int8 pages); at 256 it
+// outgrows the 48 KB of static shared memory (84,552 bytes, 84,800 over int8
+// pages) and is the launch's dynamic shared memory, which the plan states.
+template <int HD, bool kQ8>
+struct F32Smem {
+  static constexpr int kTile = Shape<HD>::kTile;
+  int64_t row[kTile];             // element offset of each slot's K/V row
+  float q[kMaxGqa][HD];
+  float k[kTile][HD + 1];         // +1: the score loop reads rows across a warp
+  float v[kTile][HD];
+  float p[kMaxGqa][kTile];        // scores, then softmax numerators (times the value scale)
+  float m[kMaxGqa], l[kMaxGqa], alpha[kMaxGqa];
+  float ksc[kQ8 ? kTile : 1], vsc[kQ8 ? kTile : 1];  // int8 pages: the slots' scales
+};
+
+template <int HD, bool kQ8>
+__host__ __device__ constexpr int f32_smem_bytes() {  // the launch's dynamic shared memory
+  return sizeof(F32Smem<HD, kQ8>) > 48 * 1024 ? (int)sizeof(F32Smem<HD, kQ8>) : 0;
+}
+
+template <int HD, bool kQ8>
+__device__ __forceinline__ F32Smem<HD, kQ8>& f32_smem() {
+  if constexpr (f32_smem_bytes<HD, kQ8>() > 0) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    return *reinterpret_cast<F32Smem<HD, kQ8>*>(smem_raw);
+  } else {
+    __shared__ F32Smem<HD, kQ8> smem;
+    return smem;
+  }
+}
+
 // One block's range, shared by the fp32 decode and chunk kernels: the gqa
 // query rows at ``qb`` (contiguous [gqa, HD]) attend to the live slots of
 // range `split` of one kv head of one sequence, then the cluster combines the
 // ranges into ``ob``. Within the range, the first design's loop: 16-byte
 // loads converted to fp32 in shared memory, scalar q.k over HD, one warp per
-// row for the online softmax, a scalar P V loop.
-template <int HD>
-__device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
-                                                 float* __restrict__ ob, int length,
-                                                 const int* __restrict__ table,
-                                                 const float* __restrict__ k_pages,
-                                                 const float* __restrict__ v_pages,
-                                                 int64_t head_pages, int gqa, int num_pages,
-                                                 int page_size, int pages_per_seq, float scale,
-                                                 int split, int split_slots) {
+// row for the online softmax, a scalar P V loop. Over int8 pages (kQ8) a
+// 16-byte load brings 16 values, the key scale multiplies a slot's score
+// after the contraction and the value scale its softmax numerator before the
+// P V loop (the gather route's order); l sums the numerators unscaled.
+template <int HD, bool kQ8>
+__device__ __forceinline__ void attend_split_f32(
+    const float* __restrict__ qb, float* __restrict__ ob, int length,
+    const int* __restrict__ table,
+    const std::conditional_t<kQ8, int8_t, float>* __restrict__ k_pages,
+    const std::conditional_t<kQ8, int8_t, float>* __restrict__ v_pages,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales, int64_t head_pages,
+    int gqa, int num_pages, int page_size, int pages_per_seq, float scale, int split,
+    int split_slots) {
   constexpr int kTile = Shape<HD>::kTile;
   constexpr int kCols = Shape<HD>::kCols;
   constexpr int kRows = Shape<HD>::kRows;
-  constexpr int kVec = 4;  // floats per 16-byte load
+  constexpr int kVec = kQ8 ? 16 : 4;  // values per 16-byte load
   constexpr int kVecPerRow = HD / kVec;
   static_assert(kTile <= kThreads, "one thread per slot fills the row offsets");
   static_assert(kSplitAlign % kTile == 0, "a range is a whole number of tiles");
   static_assert(kMaxGqa * HD <= kTile * (HD + 1), "the range's output fits in the drained k_s");
 
-  __shared__ float q_s[kMaxGqa][HD];
-  __shared__ float k_s[kTile][HD + 1];  // +1: the score loop reads rows across a warp
-  __shared__ float v_s[kTile][HD];
-  __shared__ float p_s[kMaxGqa][kTile];  // scores, then softmax numerators
-  __shared__ float m_s[kMaxGqa], l_s[kMaxGqa], alpha_s[kMaxGqa];
-  __shared__ int64_t row_s[kTile];       // element offset of each slot's K/V row
-  float* part_s = &k_s[0][0];  // after the loop: the range's unnormalised output [gqa][HD]
+  F32Smem<HD, kQ8>& sm = f32_smem<HD, kQ8>();
+  float* part_s = &sm.k[0][0];  // after the loop: the range's unnormalised output [gqa][HD]
 
   const int tid = threadIdx.x;
   const Range range = range_of(length, split, split_slots, pages_per_seq * page_size);
   if (dead_range<float, HD>(range, split, ob, gqa)) return;
 
-  for (int i = tid; i < gqa * HD; i += kThreads) q_s[i / HD][i % HD] = qb[i];
+  for (int i = tid; i < gqa * HD; i += kThreads) sm.q[i / HD][i % HD] = qb[i];
   for (int g = tid; g < gqa; g += kThreads) {
-    m_s[g] = -INFINITY;
-    l_s[g] = 0.f;
+    sm.m[g] = -INFINITY;
+    sm.l[g] = 0.f;
   }
 
   // PV phase layout: acc[j][i] is column lane + 32 i of query row warp + kWarps j
@@ -276,21 +322,38 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
       const int slot = s0 + tid;
       int page = table[slot / page_size];
       page = min(max(page, 0), num_pages - 1);  // never read outside the pool
-      row_s[tid] = ((head_pages + page) * page_size + slot % page_size) * HD;
+      const int64_t row = (head_pages + page) * page_size + slot % page_size;
+      sm.row[tid] = row * HD;
+      if constexpr (kQ8) {
+        sm.ksc[tid] = k_scales[row];
+        sm.vsc[tid] = v_scales[row];
+      }
     }
     __syncthreads();
 
     for (int i = tid; i < n * kVecPerRow; i += kThreads) {
       const int t = i / kVecPerRow;
       const int c = (i % kVecPerRow) * kVec;
-      const float4 kr = *reinterpret_cast<const float4*>(k_pages + row_s[t] + c);
-      const float4 vr = *reinterpret_cast<const float4*>(v_pages + row_s[t] + c);
-      k_s[t][c] = kr.x, k_s[t][c + 1] = kr.y, k_s[t][c + 2] = kr.z, k_s[t][c + 3] = kr.w;
-      v_s[t][c] = vr.x, v_s[t][c + 1] = vr.y, v_s[t][c + 2] = vr.z, v_s[t][c + 3] = vr.w;
+      if constexpr (kQ8) {  // int8 -> fp32 is exact
+        const int4 kr = *reinterpret_cast<const int4*>(k_pages + sm.row[t] + c);
+        const int4 vr = *reinterpret_cast<const int4*>(v_pages + sm.row[t] + c);
+        const int8_t* kb = reinterpret_cast<const int8_t*>(&kr);
+        const int8_t* vb = reinterpret_cast<const int8_t*>(&vr);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          sm.k[t][c + e] = (float)kb[e];
+          sm.v[t][c + e] = (float)vb[e];
+        }
+      } else {
+        const float4 kr = *reinterpret_cast<const float4*>(k_pages + sm.row[t] + c);
+        const float4 vr = *reinterpret_cast<const float4*>(v_pages + sm.row[t] + c);
+        sm.k[t][c] = kr.x, sm.k[t][c + 1] = kr.y, sm.k[t][c + 2] = kr.z, sm.k[t][c + 3] = kr.w;
+        sm.v[t][c] = vr.x, sm.v[t][c + 1] = vr.y, sm.v[t][c + 2] = vr.z, sm.v[t][c + 3] = vr.w;
+      }
     }
     __syncthreads();
 
-    // scores s[g][t] = (q_g . k_t) * scale; slots past the length are -inf
+    // scores s[g][t] = (q_g . k_t) * scale [* key scale]; slots past the length are -inf
     for (int i = tid; i < gqa * kTile; i += kThreads) {
       const int g = i / kTile;
       const int t = i % kTile;
@@ -298,34 +361,38 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
       if (t < n) {
         float a = 0.f;
 #pragma unroll 16
-        for (int e = 0; e < HD; ++e) a += q_s[g][e] * k_s[t][e];
+        for (int e = 0; e < HD; ++e) a += sm.q[g][e] * sm.k[t][e];
         s = a * scale;
+        if constexpr (kQ8) s *= sm.ksc[t];
       }
-      p_s[g][t] = s;
+      sm.p[g][t] = s;
     }
     __syncthreads();
 
     // online softmax, one warp per query row; NaN-free when a tile is all -inf
     for (int g = warp; g < gqa; g += kWarps) {
       float mx = -INFINITY;
-      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, p_s[g][t]);
+      for (int t = lane; t < kTile; t += 32) mx = fmaxf(mx, sm.p[g][t]);
       mx = warp_max(mx);
-      const float m_prev = m_s[g];
+      const float m_prev = sm.m[g];
       const float m_new = fmaxf(m_prev, mx);
       const float m_safe = isfinite(m_new) ? m_new : 0.f;
       float sum = 0.f;
       for (int t = lane; t < kTile; t += 32) {
-        const float s = p_s[g][t];
+        const float s = sm.p[g][t];
         const float p = isfinite(s) ? expf(s - m_safe) : 0.f;
-        p_s[g][t] = p;
+        if constexpr (kQ8)
+          sm.p[g][t] = t < n ? p * sm.vsc[t] : 0.f;
+        else
+          sm.p[g][t] = p;
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
         const float alpha = isfinite(m_prev) ? expf(m_prev - m_safe) : 0.f;
-        alpha_s[g] = alpha;
-        l_s[g] = alpha * l_s[g] + sum;
-        m_s[g] = m_new;
+        sm.alpha[g] = alpha;
+        sm.l[g] = alpha * sm.l[g] + sum;
+        sm.m[g] = m_new;
       }
     }
     __syncthreads();
@@ -336,18 +403,18 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
       const int g = warp + j * kWarps;
       if (g < gqa) {
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) acc[j][i] *= alpha_s[g];
+        for (int i = 0; i < kCols; ++i) acc[j][i] *= sm.alpha[g];
       }
     }
     for (int t = 0; t < n; ++t) {
       float v[kCols];
 #pragma unroll
-      for (int i = 0; i < kCols; ++i) v[i] = v_s[t][lane + 32 * i];
+      for (int i = 0; i < kCols; ++i) v[i] = sm.v[t][lane + 32 * i];
 #pragma unroll
       for (int j = 0; j < kRows; ++j) {
         const int g = warp + j * kWarps;
         if (g < gqa) {
-          const float p = p_s[g][t];
+          const float p = sm.p[g][t];
 #pragma unroll
           for (int i = 0; i < kCols; ++i) acc[j][i] += p * v[i];
         }
@@ -364,7 +431,7 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
       for (int i = 0; i < kCols; ++i) part_s[g * HD + lane + 32 * i] = acc[j][i];
     }
   }
-  combine_splits<float, HD, false>(m_s, l_s, part_s, ob, gqa, range.n_live, split);
+  combine_splits<float, HD, false>(sm.m, sm.l, part_s, ob, gqa, range.n_live, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -372,10 +439,10 @@ __device__ __forceinline__ void attend_split_f32(const float* __restrict__ qb,
 // ---------------------------------------------------------------------------
 
 // A ring row of the bf16 body: HD elements whose 16-byte chunks are permuted
-// by chunk ^ (row % 8) where a row holds a multiple of 8 chunks (hd 64, 128),
-// else HD + 8 elements in order (hd 96: 13 chunks, so the 8 rows an ldmatrix
-// reads at one chunk meet 8 distinct bank groups). Element offset of chunk ch
-// of row r: at(r, ch).
+// by chunk ^ (row % 8) where a row holds a multiple of 8 chunks (hd 64, 128,
+// 256), else HD + 8 elements in order (hd 96: 13 chunks, so the 8 rows an
+// ldmatrix reads at one chunk meet 8 distinct bank groups). Element offset of
+// chunk ch of row r: at(r, ch).
 template <int HD>
 struct Ring {
   static constexpr bool kSwizzle = HD % 64 == 0;
@@ -385,9 +452,23 @@ struct Ring {
   }
 };
 
-template <int HD>
-__host__ __device__ constexpr int mma_stage_bytes() {  // K and V tiles
-  return 2 * kMmaTile * Ring<HD>::kLd * 2;
+// A stage of the ring: the K tile, the V tile and, over int8 pages (kQ8),
+// the tile's 64 key scales and 64 value scales. An int8 row is HD + 16
+// bytes: the 8 rows a fragment load reads meet in 8 distinct bank groups.
+template <int HD, bool kQ8>
+struct Stage {
+  static constexpr int kRowBytes = kQ8 ? HD + 16 : Ring<HD>::kLd * 2;
+  static constexpr int kTileBytes = kMmaTile * kRowBytes;
+  static constexpr int kBytes = 2 * kTileBytes + (kQ8 ? 2 * kMmaTile * 4 : 0);
+};
+
+// The ring: its stages, and at least the warps' partial outputs, which it
+// holds once drained
+template <int HD, bool kQ8>
+__host__ __device__ constexpr int mma_ring_bytes(int stages) {
+  return stages * Stage<HD, kQ8>::kBytes > kWarps * kMmaRows * HD * 4
+             ? stages * Stage<HD, kQ8>::kBytes
+             : kWarps * kMmaRows * HD * 4;
 }
 
 // the q tile and the block's partial (m, l, acc of 16 rows)
@@ -401,35 +482,54 @@ __host__ __device__ inline int range_pages(int split_slots, int page_size) {
   return (split_slots - 1) / page_size + 2;
 }
 
-template <int HD>
+template <int HD, bool kQ8>
 int mma_smem_bytes(int stages, int split_slots, int page_size) {
-  return stages * mma_stage_bytes<HD>() + mma_fixed_bytes<HD>() +
+  return mma_ring_bytes<HD, kQ8>(stages) + mma_fixed_bytes<HD>() +
          (range_pages(split_slots, page_size) * 4 + 15) / 16 * 16;
+}
+
+// two int8 values -> a bf16x2 register, lo in the low half (exact)
+__device__ __forceinline__ uint32_t pack_int8(int8_t lo, int8_t hi) {
+  return tc::pack_bf16((float)lo, (float)hi);
 }
 
 // One block's range, shared by the bf16 decode and chunk kernels (see the note
 // at the top). Dynamic shared memory: the ring of `stages` K/V tiles (once
-// drained, its first stage holds the warps' partial outputs), the q tile (once
-// in registers, it holds the warps' m and l), the block's partial, the range's
-// page ids. Ring rows are laid out by Ring<HD>, so that the 8 rows an
-// ldmatrix reads meet in no bank.
-template <int HD>
+// drained, it holds the warps' partial outputs), the q tile (once read, it
+// holds the warps' m and l), the block's partial, the range's page ids. Ring
+// rows are laid out by Ring<HD> (bf16 pages) or Stage<HD, true> (int8
+// pages), so that the 8 rows a fragment load reads meet in no bank.
+//
+// Up to head_dim 128 a warp keeps its q fragments in registers from the
+// first tile on; at 256 they would take 64 registers beside the 128 of its
+// output, so it reads them from the q tile again for every tile.
+//
+// Over int8 pages (kQ8) the K and V tiles are copied into the ring as they
+// lie in the pool, half the bytes of bf16, with their scales; each fragment
+// is read from the ring as int8 and converted to bf16 in registers, exactly.
+// The key scale multiplies the scores after the contraction; P is rounded to
+// bf16, multiplied by the bf16 value scale and rounded again before P V: the
+// gather route's order (ops/paged_attention.py::paged_attention_gather).
+template <int HD, bool kQ8>
 __device__ __forceinline__ void attend_split_mma(
     const __nv_bfloat16* __restrict__ qb, __nv_bfloat16* __restrict__ ob, int length,
-    const int* __restrict__ table, const __nv_bfloat16* __restrict__ k_pages,
-    const __nv_bfloat16* __restrict__ v_pages, int64_t head_pages, int gqa, int num_pages,
-    int page_size, int pages_per_seq, float scale_log2, int split, int split_slots, int stages) {
+    const int* __restrict__ table,
+    const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ k_pages,
+    const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ v_pages,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales, int64_t head_pages,
+    int gqa, int num_pages, int page_size, int pages_per_seq, float scale_log2, int split,
+    int split_slots, int stages) {
+  using St = Stage<HD, kQ8>;
   constexpr int LD = HD + 8;  // q tile row stride: its ldmatrix is free of bank conflicts
-  constexpr int kChunks = HD / 8;  // 16-byte pieces a row
-  constexpr int RLD = Ring<HD>::kLd;  // ring row stride
-  constexpr int kStage = 2 * kMmaTile * RLD;  // elements of a stage: K tile, then V tile
-  static_assert(kWarps * kMmaRows * HD * 4 <= mma_stage_bytes<HD>(),
-                "the warps' partial outputs fit in the drained ring's first stage");
+  constexpr int kChunks = kQ8 ? HD / 16 : HD / 8;  // 16-byte pieces a row
+  constexpr int RLD = Ring<HD>::kLd;  // bf16 ring row stride, in elements
+  constexpr int RB = St::kRowBytes;
+  constexpr bool kQRegs = HD <= 128;  // q fragments kept in registers
   static_assert(kWarps * 2 * kMmaRows * 4 <= kMmaRows * LD * 2,
                 "the warps' m and l fit in the q tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* q_s = ring + stages * kStage;
+  unsigned char* ring = smem_raw;
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(ring + mma_ring_bytes<HD, kQ8>(stages));
   float* pm = reinterpret_cast<float*>(q_s + kMmaRows * LD);
   float* pl = pm + kMmaRows;
   float* pacc = pl + kMmaRows;
@@ -444,8 +544,8 @@ __device__ __forceinline__ void attend_split_mma(
     pid_s[i] = min(max(table[p_lo + i], 0), num_pages - 1);  // never read outside the pool
   if (dead_range<__nv_bfloat16, HD>(rg, split, ob, gqa)) return;
 
-  for (int i = tid; i < kMmaRows * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
+  for (int i = tid; i < kMmaRows * (HD / 8); i += kThreads) {
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
     tc::cp_async16(q_s + r * LD + c, qb + (r < gqa ? r * HD + c : 0), r < gqa);
   }
   __syncthreads();  // the page ids, before the tile loads read them
@@ -453,21 +553,35 @@ __device__ __forceinline__ void attend_split_mma(
   // tile j of the range into stage st; slots at or past the end are zero
   // (a stale V row could hold a NaN that p = 0 would not cancel)
   auto load_tile = [&](int j, int st) {
-    __nv_bfloat16* ks = ring + st * kStage;
-    __nv_bfloat16* vs = ks + kMmaTile * RLD;
+    unsigned char* ks = ring + st * St::kBytes;
+    unsigned char* vs = ks + St::kTileBytes;
     const int t0 = rg.s_lo + j * kMmaTile;
 #pragma unroll
     for (int i = tid; i < kMmaTile * kChunks; i += kThreads) {
       const int r = i / kChunks, ch = i % kChunks;
       const int slot = t0 + r;
       const bool ok = slot < rg.s_end;
-      int64_t off = 0;
-      if (ok)
-        off = ((head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size) *
-                  HD + ch * 8;
-      const int dst = Ring<HD>::at(r, ch);
-      tc::cp_async16(ks + dst, k_pages + off, ok);
-      tc::cp_async16(vs + dst, v_pages + off, ok);
+      int64_t row = 0;
+      if (ok) row = (head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size;
+      if constexpr (kQ8) {
+        const int dst = r * RB + ch * 16;
+        tc::cp_async16(ks + dst, k_pages + row * HD + ch * 16, ok);
+        tc::cp_async16(vs + dst, v_pages + row * HD + ch * 16, ok);
+      } else {
+        const int dst = Ring<HD>::at(r, ch) * 2;
+        tc::cp_async16(ks + dst, k_pages + row * HD + ch * 8, ok);
+        tc::cp_async16(vs + dst, v_pages + row * HD + ch * 8, ok);
+      }
+    }
+    if constexpr (kQ8) {  // the slots' scales; zero past the end
+      float* sc = reinterpret_cast<float*>(vs + St::kTileBytes);
+      for (int i = tid; i < 2 * kMmaTile; i += kThreads) {
+        const int r = i % kMmaTile, slot = t0 + r;
+        const bool ok = slot < rg.s_end;
+        int64_t row = 0;
+        if (ok) row = (head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size;
+        tc::cp_async4(sc + i, (i < kMmaTile ? k_scales : v_scales) + row, ok);
+      }
     }
   };
   const int n_tiles = (rg.s_end - rg.s_lo + kMmaTile - 1) / kMmaTile;
@@ -476,7 +590,7 @@ __device__ __forceinline__ void attend_split_mma(
     tc::cp_async_commit();
   }
 
-  uint32_t qf[HD / 16][4];
+  uint32_t qf[kQRegs ? HD / 16 : 1][4];
   float acc[HD / 8][4];
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i)
@@ -484,20 +598,26 @@ __device__ __forceinline__ void attend_split_mma(
     for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores (base 2)
   float l[2] = {0.f, 0.f};
+  const int g = lane / 4, t = lane % 4;  // the lane's rows g and g + 8, its pair 2 t, 2 t + 1
 
   for (int j = 0; j < n_tiles; ++j) {
     const int st = j % stages;
     cp_async_wait_upto(stages - 1);  // tile j (and, at j = 0, the q tile) has landed
     __syncthreads();                 // ... for every thread
-    if (j == 0) {
+    if constexpr (kQRegs) {
+      if (j == 0) {
 #pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk)
-        tc::ldmatrix_x4(qf[kk], q_s + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+        for (int kk = 0; kk < HD / 16; ++kk)
+          tc::ldmatrix_x4(qf[kk], q_s + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+      }
     }
     const int key0 = rg.s_lo + j * kMmaTile + warp * 16;  // the warp's 16 slots
     if (key0 < rg.s_end) {
-      const __nv_bfloat16* ks = ring + st * kStage + warp * 16 * RLD;
-      const __nv_bfloat16* vs = ks + kMmaTile * RLD;
+      const unsigned char* kt = ring + st * St::kBytes + warp * 16 * RB;  // the warp's K rows
+      const unsigned char* vt = kt + St::kTileBytes;                       // ... and V rows
+      const float* ksc = reinterpret_cast<const float*>(ring + st * St::kBytes +
+                                                        2 * St::kTileBytes) + warp * 16;
+      const float* vsc = ksc + kMmaTile;
       const int r8 = lane % 8;  // the row of its matrix a lane addresses
       float s[2][4];
 #pragma unroll
@@ -506,10 +626,29 @@ __device__ __forceinline__ void attend_split_mma(
         for (int e = 0; e < 4; ++e) s[i][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < HD / 16; ++kk) {
-        uint32_t kb[4];
-        tc::ldmatrix_x4(kb, ks + Ring<HD>::at((lane / 16) * 8 + r8, kk * 2 + (lane / 8) % 2));
-        tc::mma_bf16(s[0], qf[kk], kb[0], kb[1]);
-        tc::mma_bf16(s[1], qf[kk], kb[2], kb[3]);
+        uint32_t qa[4];
+        if constexpr (kQRegs) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          tc::ldmatrix_x4(qa, q_s + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
+        }
+        if constexpr (kQ8) {  // b0: dims 2t, 2t+1 of slot g (of n-tile i); b1: dims + 8
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int8_t* kr =
+                reinterpret_cast<const int8_t*>(kt) + (i * 8 + g) * RB + kk * 16 + 2 * t;
+            const char2 lo = *reinterpret_cast<const char2*>(kr);
+            const char2 hi = *reinterpret_cast<const char2*>(kr + 8);
+            tc::mma_bf16(s[i], qa, pack_int8(lo.x, lo.y), pack_int8(hi.x, hi.y));
+          }
+        } else {
+          uint32_t kb[4];
+          tc::ldmatrix_x4(kb, reinterpret_cast<const __nv_bfloat16*>(kt) +
+                                  Ring<HD>::at((lane / 16) * 8 + r8, kk * 2 + (lane / 8) % 2));
+          tc::mma_bf16(s[0], qa, kb[0], kb[1]);
+          tc::mma_bf16(s[1], qa, kb[2], kb[3]);
+        }
       }
 
       // online softmax over the warp's slots, NaN-free for a row with no
@@ -521,7 +660,8 @@ __device__ __forceinline__ void attend_split_mma(
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           float x = s[i][e] * scale_log2;
-          if (masked && key0 + i * 8 + (lane % 4) * 2 + (e & 1) >= rg.s_end) x = -INFINITY;
+          if constexpr (kQ8) x *= ksc[i * 8 + 2 * t + (e & 1)];
+          if (masked && key0 + i * 8 + 2 * t + (e & 1) >= rg.s_end) x = -INFINITY;
           s[i][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -558,14 +698,34 @@ __device__ __forceinline__ void attend_split_mma(
 
       // O += P V, P rounded to bf16 in registers (the accumulators of the
       // two n-tiles are the A fragment)
+      if constexpr (kQ8) {  // P rounded, times the bf16 value scale, rounded again
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][e] = __bfloat162float(__float2bfloat16(s[i][e])) *
+                      __bfloat162float(__float2bfloat16(vsc[i * 8 + 2 * t + (e & 1)]));
+      }
       const uint32_t pa[4] = {tc::pack_bf16(s[0][0], s[0][1]), tc::pack_bf16(s[0][2], s[0][3]),
                               tc::pack_bf16(s[1][0], s[1][1]), tc::pack_bf16(s[1][2], s[1][3])};
 #pragma unroll
       for (int d2 = 0; d2 < HD / 16; ++d2) {
-        uint32_t vb[4];
-        tc::ldmatrix_x4_trans(vb, vs + Ring<HD>::at(((lane / 8) % 2) * 8 + r8, d2 * 2 + lane / 16));
-        tc::mma_bf16(acc[2 * d2], pa, vb[0], vb[1]);
-        tc::mma_bf16(acc[2 * d2 + 1], pa, vb[2], vb[3]);
+        if constexpr (kQ8) {  // b0: slots 2t, 2t+1 of dim g (of n-tile nt); b1: slots + 8
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int8_t* vc =
+                reinterpret_cast<const int8_t*>(vt) + 2 * t * RB + d2 * 16 + nt * 8 + g;
+            tc::mma_bf16(acc[2 * d2 + nt], pa, pack_int8(vc[0], vc[RB]),
+                         pack_int8(vc[8 * RB], vc[9 * RB]));
+          }
+        } else {
+          uint32_t vb[4];
+          tc::ldmatrix_x4_trans(
+              vb, reinterpret_cast<const __nv_bfloat16*>(vt) +
+                      Ring<HD>::at(((lane / 8) % 2) * 8 + r8, d2 * 2 + lane / 16));
+          tc::mma_bf16(acc[2 * d2], pa, vb[0], vb[1]);
+          tc::mma_bf16(acc[2 * d2 + 1], pa, vb[2], vb[3]);
+        }
       }
     }
     if (j + stages < n_tiles) {
@@ -575,13 +735,12 @@ __device__ __forceinline__ void attend_split_mma(
     tc::cp_async_commit();  // one group an iteration, empty or not
   }
   tc::cp_async_wait<0>();
-  __syncthreads();  // the ring is drained and q is in registers: the warps' partials move in
+  __syncthreads();  // the ring is drained and q is read: the warps' partials move in
 
   float* wm = reinterpret_cast<float*>(q_s);   // [warp][16]
   float* wl = wm + kWarps * kMmaRows;          // [warp][16]
   float* wacc = reinterpret_cast<float*>(ring);  // [warp][16][HD]
-  const int g = lane / 4;                      // the lane's rows: g and g + 8
-  if (lane % 4 == 0) {
+  if (t == 0) {
     wm[warp * kMmaRows + g] = m[0];
     wm[warp * kMmaRows + g + 8] = m[1];
     wl[warp * kMmaRows + g] = l[0];
@@ -590,7 +749,7 @@ __device__ __forceinline__ void attend_split_mma(
   float* wa = wacc + warp * kMmaRows * HD;
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
-    const int col = i * 8 + (lane % 4) * 2;
+    const int col = i * 8 + t * 2;
     *reinterpret_cast<float2*>(wa + g * HD + col) = make_float2(acc[i][0], acc[i][1]);
     *reinterpret_cast<float2*>(wa + (g + 8) * HD + col) = make_float2(acc[i][2], acc[i][3]);
   }
@@ -626,64 +785,73 @@ __device__ __forceinline__ void attend_split_mma(
 // kernels: grid (splits [x C], nkv, B); the splits of one row are one cluster
 // ---------------------------------------------------------------------------
 
-// Decode: one query token per sequence.
-template <int HD>
+// Decode: one query token per sequence. kQ8: int8 pages and their scales
+// (k_scales, v_scales [nkv, P, ps] fp32); otherwise both are null.
+template <int HD, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                    const float* __restrict__ v_pages, const int* __restrict__ lengths,
-                    const int* __restrict__ tables, float* __restrict__ out, int nh, int nkv,
-                    int num_pages, int page_size, int pages_per_seq, float scale, int splits,
-                    int split_slots) {
+paged_decode_kernel(const float* __restrict__ q,
+                    const std::conditional_t<kQ8, int8_t, float>* __restrict__ k_pages,
+                    const std::conditional_t<kQ8, int8_t, float>* __restrict__ v_pages,
+                    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+                    const int* __restrict__ lengths, const int* __restrict__ tables,
+                    float* __restrict__ out, int nh, int nkv, int num_pages, int page_size,
+                    int pages_per_seq, float scale, int splits, int split_slots) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
   const int64_t rows = ((int64_t)b * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_f32<HD>(q + rows, out + rows, lengths[b], tables + (int64_t)b * pages_per_seq,
-                       k_pages, v_pages, (int64_t)kvh * num_pages, gqa, num_pages, page_size,
-                       pages_per_seq, scale, split, split_slots);
+  attend_split_f32<HD, kQ8>(q + rows, out + rows, lengths[b], tables + (int64_t)b * pages_per_seq,
+                            k_pages, v_pages, k_scales, v_scales, (int64_t)kvh * num_pages, gqa,
+                            num_pages, page_size, pages_per_seq, scale, split, split_slots);
 }
 
-template <int HD>
+template <int HD, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k_pages,
-                        const __nv_bfloat16* __restrict__ v_pages, const int* __restrict__ lengths,
-                        const int* __restrict__ tables, __nv_bfloat16* __restrict__ out, int nh,
-                        int nkv, int num_pages, int page_size, int pages_per_seq,
-                        float scale_log2, int splits, int split_slots, int stages) {
+                        const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ k_pages,
+                        const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ v_pages,
+                        const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+                        const int* __restrict__ lengths, const int* __restrict__ tables,
+                        __nv_bfloat16* __restrict__ out, int nh, int nkv, int num_pages,
+                        int page_size, int pages_per_seq, float scale_log2, int splits,
+                        int split_slots, int stages) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
   const int64_t rows = ((int64_t)b * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_mma<HD>(q + rows, out + rows, lengths[b], tables + (int64_t)b * pages_per_seq,
-                       k_pages, v_pages, (int64_t)kvh * num_pages, gqa, num_pages, page_size,
-                       pages_per_seq, scale_log2, split, split_slots, stages);
+  attend_split_mma<HD, kQ8>(q + rows, out + rows, lengths[b], tables + (int64_t)b * pages_per_seq,
+                            k_pages, v_pages, k_scales, v_scales, (int64_t)kvh * num_pages, gqa,
+                            num_pages, page_size, pages_per_seq, scale_log2, split, split_slots,
+                            stages);
 }
 
 // Chunk (speculative verify): C query tokens per sequence, q and out
 // [B, C, nh, HD]; query c of sequence b sees slots < base_lengths[b] + c.
 // blockIdx.x = c * splits + split: the cluster of a chunk position is a
 // decode cluster at length base + c.
-template <int HD>
+template <int HD, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
-paged_chunk_kernel(const float* __restrict__ q, const float* __restrict__ k_pages,
-                   const float* __restrict__ v_pages, const int* __restrict__ base_lengths,
-                   const int* __restrict__ tables, float* __restrict__ out, int chunk, int nh,
-                   int nkv, int num_pages, int page_size, int pages_per_seq, float scale,
-                   int splits, int split_slots) {
+paged_chunk_kernel(const float* __restrict__ q,
+                   const std::conditional_t<kQ8, int8_t, float>* __restrict__ k_pages,
+                   const std::conditional_t<kQ8, int8_t, float>* __restrict__ v_pages,
+                   const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+                   const int* __restrict__ base_lengths, const int* __restrict__ tables,
+                   float* __restrict__ out, int chunk, int nh, int nkv, int num_pages,
+                   int page_size, int pages_per_seq, float scale, int splits, int split_slots) {
   const int c = blockIdx.x / splits, split = blockIdx.x % splits;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
   const int64_t rows = (((int64_t)b * chunk + c) * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_f32<HD>(q + rows, out + rows, base_lengths[b] + c,
-                       tables + (int64_t)b * pages_per_seq, k_pages, v_pages,
-                       (int64_t)kvh * num_pages, gqa, num_pages, page_size, pages_per_seq, scale,
-                       split, split_slots);
+  attend_split_f32<HD, kQ8>(q + rows, out + rows, base_lengths[b] + c,
+                            tables + (int64_t)b * pages_per_seq, k_pages, v_pages, k_scales,
+                            v_scales, (int64_t)kvh * num_pages, gqa, num_pages, page_size,
+                            pages_per_seq, scale, split, split_slots);
 }
 
-template <int HD>
+template <int HD, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k_pages,
-                       const __nv_bfloat16* __restrict__ v_pages,
+                       const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ k_pages,
+                       const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ v_pages,
+                       const float* __restrict__ k_scales, const float* __restrict__ v_scales,
                        const int* __restrict__ base_lengths, const int* __restrict__ tables,
                        __nv_bfloat16* __restrict__ out, int chunk, int nh, int nkv, int num_pages,
                        int page_size, int pages_per_seq, float scale_log2, int splits,
@@ -692,10 +860,10 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
   const int64_t rows = (((int64_t)b * chunk + c) * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_mma<HD>(q + rows, out + rows, base_lengths[b] + c,
-                       tables + (int64_t)b * pages_per_seq, k_pages, v_pages,
-                       (int64_t)kvh * num_pages, gqa, num_pages, page_size, pages_per_seq,
-                       scale_log2, split, split_slots, stages);
+  attend_split_mma<HD, kQ8>(q + rows, out + rows, base_lengths[b] + c,
+                            tables + (int64_t)b * pages_per_seq, k_pages, v_pages, k_scales,
+                            v_scales, (int64_t)kvh * num_pages, gqa, num_pages, page_size,
+                            pages_per_seq, scale_log2, split, split_slots, stages);
 }
 
 // Launch on a grid (x_blocks, nkv, batch) with the splits of a row as one
@@ -727,91 +895,105 @@ int launch_clusters(Kernel kernel, int splits, int x_blocks, int nkv, int batch,
 
 // The plan's checks (ops/paged_attention.py::paged_plan makes the plan):
 // ranges of whole 64-slot tiles that cover the table in at most a cluster;
-// fp32 takes no stages and no dynamic shared memory, bf16 1 to kMaxStages
-// stages and exactly this file's shared bytes for them.
-template <int HD>
+// fp32 takes no stages and the fp32 body's own dynamic shared memory (0 up to
+// head_dim 128), bf16 1 to kMaxStages stages and exactly this file's shared
+// bytes for them.
+template <int HD, bool kQ8>
 bool plan_ok(int dtype, int gqa, int page_size, int pages_per_seq, int split_slots, int splits,
              int stages, int smem_bytes) {
   const int64_t capacity = (int64_t)page_size * pages_per_seq;
   if (split_slots <= 0 || split_slots % kSplitAlign != 0 || splits < 1 || splits > kMaxCluster ||
       splits != (capacity + split_slots - 1) / split_slots)
     return false;
-  if (dtype == 0) return gqa <= kMaxGqa && stages == 0 && smem_bytes == 0;
+  if (dtype == 0)
+    return gqa <= kMaxGqa && stages == 0 && smem_bytes == f32_smem_bytes<HD, kQ8>();
   return gqa <= kMaxGqa && stages >= 1 && stages <= kMaxStages &&
-         smem_bytes == mma_smem_bytes<HD>(stages, split_slots, page_size) &&
+         smem_bytes == mma_smem_bytes<HD, kQ8>(stages, split_slots, page_size) &&
          (size_t)smem_bytes <= kMaxSharedBytes;
 }
 
-template <int HD>
-int dispatch(const void* q, const void* k_pages, const void* v_pages, const void* lengths,
-             const void* tables, void* out, int batch, int chunk, int nh, int nkv, int num_pages,
-             int page_size, int pages_per_seq, int dtype, int split_slots, int splits, int stages,
-             int smem_bytes, float scale, cudaStream_t s) {
+template <int HD, bool kQ8>
+int dispatch(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+             const void* v_scales, const void* lengths, const void* tables, void* out, int batch,
+             int chunk, int nh, int nkv, int num_pages, int page_size, int pages_per_seq,
+             int dtype, int split_slots, int splits, int stages, int smem_bytes, float scale,
+             cudaStream_t s) {
   if (nh % nkv != 0 ||
-      !plan_ok<HD>(dtype, nh / nkv, page_size, pages_per_seq, split_slots, splits, stages,
-                   smem_bytes))
+      !plan_ok<HD, kQ8>(dtype, nh / nkv, page_size, pages_per_seq, split_slots, splits, stages,
+                        smem_bytes))
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
+  using F32Page = std::conditional_t<kQ8, int8_t, float>;
+  using Bf16Page = std::conditional_t<kQ8, int8_t, bf16>;
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
+  const int* lens = static_cast<const int*>(lengths);
+  const int* tab = static_cast<const int*>(tables);
   const float scale_log2 = scale * 1.4426950408889634f;
   const int x = chunk == 0 ? splits : splits * chunk;
   if (dtype == 0 && chunk == 0)
-    return launch_clusters(paged_decode_kernel<HD>, splits, x, nkv, batch, 0, s,
-                           static_cast<const float*>(q), static_cast<const float*>(k_pages),
-                           static_cast<const float*>(v_pages), static_cast<const int*>(lengths),
-                           static_cast<const int*>(tables), static_cast<float*>(out), nh, nkv,
-                           num_pages, page_size, pages_per_seq, scale, splits, split_slots);
+    return launch_clusters(paged_decode_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes, s,
+                           static_cast<const float*>(q), static_cast<const F32Page*>(k_pages),
+                           static_cast<const F32Page*>(v_pages), ks, vs, lens, tab,
+                           static_cast<float*>(out), nh, nkv, num_pages, page_size,
+                           pages_per_seq, scale, splits, split_slots);
   if (dtype == 0)
-    return launch_clusters(paged_chunk_kernel<HD>, splits, x, nkv, batch, 0, s,
-                           static_cast<const float*>(q), static_cast<const float*>(k_pages),
-                           static_cast<const float*>(v_pages), static_cast<const int*>(lengths),
-                           static_cast<const int*>(tables), static_cast<float*>(out), chunk, nh,
-                           nkv, num_pages, page_size, pages_per_seq, scale, splits, split_slots);
+    return launch_clusters(paged_chunk_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes, s,
+                           static_cast<const float*>(q), static_cast<const F32Page*>(k_pages),
+                           static_cast<const F32Page*>(v_pages), ks, vs, lens, tab,
+                           static_cast<float*>(out), chunk, nh, nkv, num_pages, page_size,
+                           pages_per_seq, scale, splits, split_slots);
   if (chunk == 0)
-    return launch_clusters(paged_decode_mma_kernel<HD>, splits, x, nkv, batch, smem_bytes, s,
-                           static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
-                           static_cast<const bf16*>(v_pages), static_cast<const int*>(lengths),
-                           static_cast<const int*>(tables), static_cast<bf16*>(out), nh, nkv,
-                           num_pages, page_size, pages_per_seq, scale_log2, splits, split_slots,
-                           stages);
-  return launch_clusters(paged_chunk_mma_kernel<HD>, splits, x, nkv, batch, smem_bytes, s,
-                         static_cast<const bf16*>(q), static_cast<const bf16*>(k_pages),
-                         static_cast<const bf16*>(v_pages), static_cast<const int*>(lengths),
-                         static_cast<const int*>(tables), static_cast<bf16*>(out), chunk, nh, nkv,
-                         num_pages, page_size, pages_per_seq, scale_log2, splits, split_slots,
-                         stages);
+    return launch_clusters(paged_decode_mma_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes,
+                           s, static_cast<const bf16*>(q), static_cast<const Bf16Page*>(k_pages),
+                           static_cast<const Bf16Page*>(v_pages), ks, vs, lens, tab,
+                           static_cast<bf16*>(out), nh, nkv, num_pages, page_size, pages_per_seq,
+                           scale_log2, splits, split_slots, stages);
+  return launch_clusters(paged_chunk_mma_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes, s,
+                         static_cast<const bf16*>(q), static_cast<const Bf16Page*>(k_pages),
+                         static_cast<const Bf16Page*>(v_pages), ks, vs, lens, tab,
+                         static_cast<bf16*>(out), chunk, nh, nkv, num_pages, page_size,
+                         pages_per_seq, scale_log2, splits, split_slots, stages);
 }
 
-int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const void* lengths,
-                const void* tables, void* out, int batch, int chunk, int nh, int nkv,
-                int num_pages, int page_size, int pages_per_seq, int head_dim, int dtype,
-                int split_slots, int splits, int stages, int smem_bytes, float scale,
-                void* stream) {
+// fp pages at head_dim 64, 96, 128 and 256; int8 pages (k_scales non-null)
+// at 128 and 256, the layouts where the JAX package's TPU route reads pages
+// in place
+int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
+                const void* v_scales, const void* lengths, const void* tables, void* out,
+                int batch, int chunk, int nh, int nkv, int num_pages, int page_size,
+                int pages_per_seq, int head_dim, int dtype, int split_slots, int splits,
+                int stages, int smem_bytes, float scale, void* stream) {
   if (batch < 0 || batch > 65535 || chunk < 0 || nkv <= 0 || nkv > 65535 || page_size <= 0 ||
-      num_pages <= 0 || pages_per_seq <= 0 || (dtype != 0 && dtype != 1))
+      num_pages <= 0 || pages_per_seq <= 0 || (dtype != 0 && dtype != 1) ||
+      (k_scales == nullptr) != (v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return dispatch<64>(q, k_pages, v_pages, lengths, tables, out, batch, chunk, nh, nkv,
-                        num_pages, page_size, pages_per_seq, dtype, split_slots, splits, stages,
-                        smem_bytes, scale, s);
-  if (head_dim == 96)
-    return dispatch<96>(q, k_pages, v_pages, lengths, tables, out, batch, chunk, nh, nkv,
-                        num_pages, page_size, pages_per_seq, dtype, split_slots, splits, stages,
-                        smem_bytes, scale, s);
-  if (head_dim == 128)
-    return dispatch<128>(q, k_pages, v_pages, lengths, tables, out, batch, chunk, nh, nkv,
-                         num_pages, page_size, pages_per_seq, dtype, split_slots, splits, stages,
-                         smem_bytes, scale, s);
+#define GRASP_PAGED_DISPATCH(HD, Q8)                                                          \
+  return dispatch<HD, Q8>(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, out,     \
+                          batch, chunk, nh, nkv, num_pages, page_size, pages_per_seq, dtype, \
+                          split_slots, splits, stages, smem_bytes, scale, s)
+  if (k_scales != nullptr) {
+    if (head_dim == 128) GRASP_PAGED_DISPATCH(128, true);
+    if (head_dim == 256) GRASP_PAGED_DISPATCH(256, true);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (head_dim == 64) GRASP_PAGED_DISPATCH(64, false);
+  if (head_dim == 96) GRASP_PAGED_DISPATCH(96, false);
+  if (head_dim == 128) GRASP_PAGED_DISPATCH(128, false);
+  if (head_dim == 256) GRASP_PAGED_DISPATCH(256, false);
+#undef GRASP_PAGED_DISPATCH
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. The plan (split_slots, splits, stages,
-// smem_bytes) is ops/paged_attention.py::paged_plan's for the table's page
-// size, pages per row, head_dim, group size and dtype; a plan of another
-// layout is refused. Returns 0 or a cudaError_t code; an unsupported
-// head_dim, dtype, group size or plan returns cudaErrorInvalidValue.
+// dtype (of q and, for fp pages, of the pages): 0 = float32, 1 = bfloat16.
+// The plan (split_slots, splits, stages, smem_bytes) is
+// ops/paged_attention.py::paged_plan's for the table's page size, pages per
+// row, head_dim, group size and dtypes; a plan of another layout is refused.
+// Returns 0 or a cudaError_t code; an unsupported head_dim, dtype, group size
+// or plan returns cudaErrorInvalidValue.
 extern "C" int grasp_paged_attention_decode(const void* q, const void* k_pages,
                                             const void* v_pages, const void* lengths,
                                             const void* tables, void* out, int batch, int nh,
@@ -820,9 +1002,9 @@ extern "C" int grasp_paged_attention_decode(const void* q, const void* k_pages,
                                             int split_slots, int splits, int stages,
                                             int smem_bytes, float scale, void* stream) {
   if (batch == 0) return 0;
-  return dispatch_hd(q, k_pages, v_pages, lengths, tables, out, batch, 0, nh, nkv, num_pages,
-                     page_size, pages_per_seq, head_dim, dtype, split_slots, splits, stages,
-                     smem_bytes, scale, stream);
+  return dispatch_hd(q, k_pages, v_pages, nullptr, nullptr, lengths, tables, out, batch, 0, nh,
+                     nkv, num_pages, page_size, pages_per_seq, head_dim, dtype, split_slots,
+                     splits, stages, smem_bytes, scale, stream);
 }
 
 // The chunk form: q and out [batch, chunk, nh, head_dim], base_lengths [batch]
@@ -837,7 +1019,25 @@ extern "C" int grasp_paged_attention_chunk(const void* q, const void* k_pages,
                                            int smem_bytes, float scale, void* stream) {
   if (batch == 0 || chunk == 0) return 0;
   if (chunk < 0) return (int)cudaErrorInvalidValue;
-  return dispatch_hd(q, k_pages, v_pages, base_lengths, tables, out, batch, chunk, nh, nkv,
-                     num_pages, page_size, pages_per_seq, head_dim, dtype, split_slots, splits,
-                     stages, smem_bytes, scale, stream);
+  return dispatch_hd(q, k_pages, v_pages, nullptr, nullptr, base_lengths, tables, out, batch,
+                     chunk, nh, nkv, num_pages, page_size, pages_per_seq, head_dim, dtype,
+                     split_slots, splits, stages, smem_bytes, scale, stream);
+}
+
+// Both forms over int8 pages: k_pages, v_pages int8 [nkv, P, ps, hd] and
+// their scales k_scales, v_scales fp32 [nkv, P, ps, 1]; q and out in dtype.
+// chunk 0 is the decode form (q [batch, nh, hd]). head_dim 128 or 256.
+extern "C" int grasp_paged_attention_int8(const void* q, const void* k_pages,
+                                          const void* v_pages, const void* k_scales,
+                                          const void* v_scales, const void* lengths,
+                                          const void* tables, void* out, int batch, int chunk,
+                                          int nh, int nkv, int num_pages, int page_size,
+                                          int pages_per_seq, int head_dim, int dtype,
+                                          int split_slots, int splits, int stages,
+                                          int smem_bytes, float scale, void* stream) {
+  if (batch == 0) return 0;
+  if (chunk < 0 || k_scales == nullptr || v_scales == nullptr) return (int)cudaErrorInvalidValue;
+  return dispatch_hd(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, out, batch, chunk,
+                     nh, nkv, num_pages, page_size, pages_per_seq, head_dim, dtype, split_slots,
+                     splits, stages, smem_bytes, scale, stream);
 }

@@ -44,6 +44,7 @@ code path and its bits are unchanged.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -60,6 +61,7 @@ from grasp_tpu_torch.ops.quant import _absmax_scale, quant_matmul, quant_matmul_
 from grasp_tpu_torch.parallel.mesh import (
     COLUMN_PROJS,
     Mesh,
+    int4_byte_span,
     int4_in_features,
     kv_replicas,
     local_heads,
@@ -266,15 +268,24 @@ def embed_lookup(params: Params, ids: torch.Tensor, config: ModelConfig,
     return h
 
 
+@functools.lru_cache(maxsize=None)
+def _longrope_factors(short: tuple, long: tuple, device: torch.device):
+    """Phi-3's short and long factor tensors on ``device``, made once: the
+    copy from the host happens at the first call, outside any CUDA graph
+    that a later call is captured in."""
+    return (torch.tensor(short, dtype=torch.float32, device=device),
+            torch.tensor(long, dtype=torch.float32, device=device))
+
+
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
                  scaling=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for rotary embedding, HF convention (duplicated freqs),
     in fp32, shaped [..., S, hd]. scaling: HF rope_scaling, "linear",
     "llama3" or Phi-3's "longrope": per-dimension short and long factors
     divide the frequencies, the long set exactly when the call's largest
-    position + 1 exceeds original_max_position_embeddings, and the attention
-    factor (default sqrt(1 + ln(factor) / ln(original))) multiplies cos and
-    sin."""
+    position + 1 exceeds original_max_position_embeddings (a choice made on
+    the device, never read back to the host), and the attention factor
+    (default sqrt(1 + ln(factor) / ln(original))) multiplies cos and sin."""
     dev = positions.device
     inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
                                              device=dev) / head_dim))
@@ -289,10 +300,11 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
             if attn_scale is None:
                 attn_scale = (1.0 if factor <= 1.0
                               else math.sqrt(1.0 + math.log(factor) / math.log(orig)))
-            use_long = int(positions.max()) + 1 > orig
-            rescale = torch.tensor(d["long_factor"] if use_long else d["short_factor"],
-                                   dtype=torch.float32, device=dev)
-            inv_freq = inv_freq / rescale
+            # chosen on the device, as JAX does: no host read, so a decode
+            # step captures in a CUDA graph
+            short, long = _longrope_factors(tuple(d["short_factor"]), tuple(d["long_factor"]),
+                                            dev)
+            inv_freq = inv_freq / torch.where(positions.max() + 1 > orig, long, short)
         elif rtype == "llama3":
             factor = float(d["factor"])
             lo, hi = float(d["low_freq_factor"]), float(d["high_freq_factor"])
@@ -364,15 +376,22 @@ def int4_row_product(x: torch.Tensor, rows: torch.Tensor, scale: torch.Tensor, r
                      gs: int) -> torch.Tensor:
     """``x @ dequant`` of a row-parallel rank's part of an int4 weight: ``x``
     [..., n] the input columns [r0, r0 + n) of the whole, ``rows`` the packed
-    rows that hold them [n / 2, out], ``scale`` the whole weight's scales
-    [groups, out], ``gs`` its group size. The product takes the scale rows
-    of the groups that the columns touch; where the columns start or end
-    inside a group, the packed rows and ``x`` are padded to the group's
-    edges with zeros (a zero nibble dequantizes to zero), so the int4
-    kernel runs as on a whole weight."""
+    bytes that hold them (parallel.mesh.int4_byte_span: a byte the rank
+    shares with a neighbour whole), ``scale`` the whole weight's scales
+    [groups, out], ``gs`` its group size. Where the columns start or end
+    inside a byte, ``x`` takes a zero column for the neighbour's nibble (its
+    product adds zero). The product takes the scale rows of the groups that
+    the columns touch; where the columns start or end inside a group, the
+    packed rows and ``x`` are padded to the group's edges with zeros (a zero
+    nibble dequantizes to zero), so the int4 kernel runs as on a whole
+    weight."""
+    if r0 % 2 or x.shape[-1] % 2:  # the neighbours' nibbles, zero columns
+        end = r0 + x.shape[-1]
+        x = F.pad(x, (r0 % 2, end % 2))
+        r0 -= r0 % 2
     n = x.shape[-1]
-    if r0 % 2 or n % 2:
-        raise ValueError(f"int4 rows {r0}:{r0 + n} do not split into whole bytes")
+    if rows.shape[0] * 2 != n:
+        raise ValueError(f"{rows.shape[0]} packed rows do not hold int4 rows {r0}:{r0 + n}")
     g0, g1 = r0 // gs, -(-(r0 + n) // gs)
     lead, width = r0 - g0 * gs, (g1 - g0) * gs
     if lead or width != n:
@@ -412,10 +431,11 @@ def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: Mod
             if col:
                 y = quant_matmul_int4(x, packed, scale)
             else:
-                n = (span[1] - span[0]) // 2
-                # the rank's rows, then the quantizer's padding: the whole contraction
-                in_pad = int4_in_features(proj, config) + 2 * (packed.shape[0] - n)
-                y = int4_row_product(x, packed[:n], scale, span[0], in_pad // scale.shape[0])
+                b0, b1 = int4_byte_span(*span)
+                # the rank's bytes, then the quantizer's padding: the whole contraction
+                in_pad = int4_in_features(proj, config) + 2 * (packed.shape[0] - (b1 - b0))
+                y = int4_row_product(x, packed[:b1 - b0], scale, span[0],
+                                     in_pad // scale.shape[0])
         else:
             w = p["kernel"]
             if proj in ("k_proj", "v_proj") and kv_replicas(config, tp.tp) > 1:
@@ -441,7 +461,7 @@ def _tp_proj_apply(x: torch.Tensor, p: Params, kind: str, proj: str, config: Mod
                                       b[:, span[0]:span[1]].contiguous(),
                                       b_s[:, span[0]:span[1]].contiguous())
             else:
-                rows = a[span[0] // 2:span[1] // 2]
+                rows = a[slice(*int4_byte_span(*span))]
                 h = tp_reduce(int4_row_product(x, rows, a_s, span[0],
                                                2 * a.shape[0] // a_s.shape[0]), tp)
                 return _biased(quant_matmul_int4(h, b, b_s), bias)

@@ -41,6 +41,12 @@ SIGNATURES = {
     "grasp_paged_attention_chunk": (
         _I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F,
              _P]),
+    # q k_pages v_pages k_scales v_scales lengths tables out | batch chunk nh nkv num_pages
+    # page_size pages_per_seq head_dim dtype split_slots splits stages smem_bytes | scale
+    # stream
+    "grasp_paged_attention_int8": (
+        _I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+             _F, _P]),
     # q k v o lse | batch nh nkv S head_dim dtype block_m smem_bytes | scale stream
     "grasp_flash_attention_fwd": (
         _I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]),

@@ -1,10 +1,12 @@
 """Paged attention: the CUDA kernels and their plain versions.
 
-Counterpart of grasp_tpu/ops/pallas_paged64.py. The kernels
+Counterpart of grasp_tpu/ops/pallas_paged64.py and of jax's own
+``paged_attention`` TPU kernel, which the JAX engine calls at head_dim 128
+and 256 over fp and int8 pages (grasp_tpu/serving/paged.py). The kernels
 (csrc/paged_attention.cu) read each sequence's K/V in place through its page
-table; the plain versions gather the pages into a dense copy and run softmax
-attention, the way the JAX engine's gather path does
-(grasp_tpu/serving/paged.py, spec_paged.py).
+table: fp pages at head_dim 64, 96, 128 and 256, int8 pages with their fp32
+per-slot scales at 128 and 256. The plain versions gather the pages (int8
+pages dequantized) into a dense copy and run softmax attention.
 
 - :func:`paged_attention` (``paged_attention_hd64``): one query per sequence,
   the decode step.
@@ -12,7 +14,10 @@ attention, the way the JAX engine's gather path does
   per sequence, the verify step of speculative serving; query c sees slots
   below ``base_lengths[b] + c``. On CUDA its row (b, c) is bit-equal to
   :func:`paged_attention` at that length: both kernels inline one function
-  and take one plan.
+  and take one plan. At head_dim 128 and 256 and over int8 pages the JAX
+  package's verify step gathers (it has no chunk form of jax's kernel); the
+  chunk kernel computes the same attention, and follows the decode kernel's
+  rule so that greedy speculation stays bit-equal to plain decoding.
 
 Both kernels cut each row's table into ranges of :func:`paged_plan`'s
 ``split_slots`` slots, one block a range, and add the ranges up inside the
@@ -21,9 +26,9 @@ CUDA tensors and takes the plain version only for CPU tensors.
 
 :func:`paged_attention_gather` is not a kernel's plain version: it is the
 gather route of the JAX engines, plain PyTorch on every device, for what the
-kernels do not compute (int8 pages, a window shorter than the table, an
-attention softcap, a head layout the kernels lack); the serving engines pick
-it by one rule (serving/paged.py, ``paged_route``).
+kernels do not compute (int8 pages at head_dim 64 and 96, a window shorter
+than the table, an attention softcap, a head layout the kernels lack); the
+serving engines pick it by one rule (serving/paged.py, ``paged_route``).
 """
 
 from __future__ import annotations
@@ -34,7 +39,9 @@ import functools
 import torch
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 96, 128)
+_HEAD_DIMS = (64, 96, 128, 256)
+# int8 pages: where jax's TPU kernel reads them in place (head_dim % 128 == 0)
+_INT8_HEAD_DIMS = (128, 256)
 
 MAX_CLUSTER = 8        # ranges of a row: one portable thread-block cluster
 SPLIT_ALIGN = 64       # a range is a whole number of 64-slot tiles
@@ -43,10 +50,23 @@ MMA_ROWS = 16          # query rows of the bf16 kernel's m16 tile
 MAX_GQA = 16           # query heads of a kv head: the m16 tile, and the fp32 body's registers
 MAX_STAGES = 4
 MAX_SHARED_BYTES = 232448
-# four blocks an SM (each also costs the SM 1 KB it reserves, of 228 KB): the
-# verify kernel launches 5 clusters a row, and 3 stages at head_dim 64 read
-# as fast as 4 in decode (scripts/paged_breakdown_torch.py)
-SMEM_BUDGET = 228 * 1024 // 4 - 1024
+MAX_STATIC_SHARED = 48 * 1024
+
+
+def smem_budget(head_dim: int) -> int:
+    """Dynamic shared memory the plan gives a bf16 block: four blocks an SM
+    (each also costs the SM 1 KB it reserves, of 228 KB) up to head_dim 128,
+    where the verify kernel launches 5 clusters a row and 3 stages at
+    head_dim 64 read as fast as 4 in decode (scripts/paged_breakdown_torch.py).
+    At head_dim 256 one stage of 64 K and V rows is 64 KB and the block's
+    partial 16 KB, so the budget is two blocks an SM: one stage over bf16
+    pages, two over int8 pages. The kernel stays whole (no split of the
+    output columns as flash's hd-256 blocks do): a decode block reads its K
+    and V tiles once."""
+    return 228 * 1024 // (2 if head_dim > 128 else 4) - 1024
+
+
+SMEM_BUDGET = smem_budget(128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,22 +95,47 @@ def fp32_tile(head_dim: int) -> int:
     return 64 if head_dim <= 64 else 32
 
 
-def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int) -> int:
+def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int,
+                   quantized: bool = False) -> int:
     """Dynamic shared memory of the bf16 kernels (csrc/paged_attention.cu,
-    mma_smem_bytes): the ring of K and V tiles, the q tile, the block's
-    partial (m, l and the output of 16 rows), the range's page ids."""
+    mma_smem_bytes): the ring of K and V tiles (int8 pages: rows of head_dim
+    + 16 bytes and the tile's 64 key and 64 value scales a stage), at least
+    the warps' partial outputs that the drained ring holds, the q tile, the
+    block's partial (m, l and the output of 16 rows), the range's page ids."""
     range_pages = (split_slots - 1) // page_size + 2
-    return (stages * 2 * MMA_TILE * ring_ld(head_dim) * 2 + MMA_ROWS * (head_dim + 8) * 2
-            + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4 + -(-range_pages * 4 // 16) * 16)
+    if quantized:
+        stage = 2 * MMA_TILE * (head_dim + 16) + 2 * MMA_TILE * 4
+    else:
+        stage = 2 * MMA_TILE * ring_ld(head_dim) * 2
+    ring = max(stages * stage, 4 * MMA_ROWS * head_dim * 4)
+    return (ring + MMA_ROWS * (head_dim + 8) * 2 + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4
+            + -(-range_pages * 4 // 16) * 16)
 
 
-def kernel_shape_error(nh: int, nkv: int, head_dim: int):
-    """Why the CUDA kernels do not take this head layout, or None: they take
-    head_dim 64, 96 or 128, and a whole group of at most ``MAX_GQA`` query
-    heads a kv head (the bf16 body's m16 tile; the fp32 body keeps 16 rows of
-    head_dim / 32 columns a thread in registers)."""
-    if head_dim not in _HEAD_DIMS:
-        return f"the paged attention kernel supports head_dim {_HEAD_DIMS}, not {head_dim}"
+def fp32_smem_bytes(head_dim: int, quantized: bool = False) -> int:
+    """Dynamic shared memory of the fp32 kernels (csrc/paged_attention.cu,
+    F32Smem): 0 where their tiles fit static shared memory (head_dim up to
+    128), else the whole layout (head_dim 256): row offsets, q, the K tile
+    (rows of head_dim + 1), the V tile, the scores, m, l and alpha, and the
+    slots' scales over int8 pages."""
+    tile = fp32_tile(head_dim)
+    nbytes = 8 * tile + 4 * (MAX_GQA * head_dim + tile * (head_dim + 1) + tile * head_dim
+                             + MAX_GQA * tile + 3 * MAX_GQA + 2 * (tile if quantized else 1))
+    nbytes = -(-nbytes // 8) * 8
+    return nbytes if nbytes > MAX_STATIC_SHARED else 0
+
+
+def kernel_shape_error(nh: int, nkv: int, head_dim: int, page_dtype=None):
+    """Why the CUDA kernels do not take this head layout over pages of
+    ``page_dtype`` (None: fp pages), or None: they take head_dim 64, 96, 128
+    or 256 over fp pages and 128 or 256 over int8 pages, and a whole group of
+    at most ``MAX_GQA`` query heads a kv head (the bf16 body's m16 tile; the
+    fp32 body keeps 16 rows of head_dim / 32 columns a thread in registers)."""
+    dims = _INT8_HEAD_DIMS if page_dtype == torch.int8 else _HEAD_DIMS
+    if head_dim not in dims:
+        pages = "int8" if page_dtype == torch.int8 else "fp"
+        return (f"the paged attention kernel over {pages} pages supports head_dim {dims}, "
+                f"not {head_dim}")
     if nh % nkv or nh // nkv > MAX_GQA:
         return (f"{nh} query heads over {nkv} kv heads: the paged attention kernel needs "
                 f"a whole group of at most {MAX_GQA}")
@@ -99,20 +144,27 @@ def kernel_shape_error(nh: int, nkv: int, head_dim: int):
 
 @functools.lru_cache(maxsize=None)
 def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
-               dtype: torch.dtype) -> PagedPlan:
+               dtype: torch.dtype, page_dtype: torch.dtype = None) -> PagedPlan:
     """The launch plan of both kernels, a pure function of the table's shape,
-    head_dim, group size and dtype; csrc/paged_attention.cu refuses any other.
+    head_dim, group size, q's dtype and the pages' (``page_dtype``: None for
+    pages of q's dtype, or torch.int8); csrc/paged_attention.cu refuses any
+    other.
 
     It never depends on the batch, the chunk or the lengths: a decode call
     and a verify call on the same table must cut each row at the same edges,
     or the verify step's rows would not be bit-equal to decode. The table's
     capacity is cut into at most ``MAX_CLUSTER`` ranges of whole 64-slot
     tiles (pages of 128 slots, 16 a row: 8 ranges of 256). bf16 keeps as many
-    tiles of a range in flight as fit ``SMEM_BUDGET``, at most
+    tiles of a range in flight as fit :func:`smem_budget`, at most
     ``MAX_STAGES``. Cached: the decode step is bound by the host."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, got {dtype}")
-    why = kernel_shape_error(gqa, 1, head_dim)
+    page_dtype = dtype if page_dtype is None else page_dtype
+    if page_dtype not in (dtype, torch.int8):
+        raise TypeError(f"paged attention kernel takes pages of q's dtype ({dtype}) or int8, "
+                        f"got {page_dtype}")
+    quantized = page_dtype == torch.int8
+    why = kernel_shape_error(gqa, 1, head_dim, page_dtype)
     if why is not None:
         raise NotImplementedError(why)
     if page_size < 1 or pages_per_seq < 1:
@@ -122,28 +174,40 @@ def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
     split_slots = -(-split_slots // SPLIT_ALIGN) * SPLIT_ALIGN
     splits = -(-capacity // split_slots)
     if dtype == torch.float32:
-        return PagedPlan(split_slots, splits, fp32_tile(head_dim), 0, 0)
+        return PagedPlan(split_slots, splits, fp32_tile(head_dim), 0,
+                         fp32_smem_bytes(head_dim, quantized))
     tiles = split_slots // MMA_TILE
     stages = max(s for s in range(1, min(MAX_STAGES, tiles) + 1)
-                 if s == 1 or mma_smem_bytes(head_dim, s, split_slots, page_size) <= SMEM_BUDGET)
+                 if s == 1 or mma_smem_bytes(head_dim, s, split_slots, page_size, quantized)
+                 <= smem_budget(head_dim))
     return PagedPlan(split_slots, splits, MMA_TILE, stages,
-                     mma_smem_bytes(head_dim, stages, split_slots, page_size))
+                     mma_smem_bytes(head_dim, stages, split_slots, page_size, quantized))
 
 
 def _plan_for(q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor) -> PagedPlan:
     """The plan of a call, from the table's shape, head_dim, group size and
-    dtype alone: q is [B, nh, hd] (decode) or [B, C, nh, hd] (verify)."""
+    dtypes alone: q is [B, nh, hd] (decode) or [B, C, nh, hd] (verify)."""
     return paged_plan(k_pages.shape[2], tables.shape[1], q.shape[-1],
-                      q.shape[-2] // k_pages.shape[0], q.dtype)
+                      q.shape[-2] // k_pages.shape[0], q.dtype, k_pages.dtype)
+
+
+def _dequantized(k_pages, v_pages, k_scales, v_scales):
+    """fp32 pools of int8 pages times their per-slot scales, or the pools."""
+    if k_scales is None:
+        return k_pages, v_pages
+    return k_pages.float() * k_scales, v_pages.float() * v_scales
 
 
 def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
                               v_pages: torch.Tensor, lengths: torch.Tensor,
-                              tables: torch.Tensor, scale: float) -> torch.Tensor:
+                              tables: torch.Tensor, scale: float, *, k_scales=None,
+                              v_scales=None) -> torch.Tensor:
     """Plain PyTorch version: gather the pages, mask slots >= length, fp32
     softmax attention. q [B, nh, hd] (unscaled); pages [nkv, P, ps, hd];
-    lengths [B]; tables [B, pages_per_seq]. Returns [B, nh, hd] in q's
-    dtype; a row with no live slot returns 0, as the kernel does."""
+    lengths [B]; tables [B, pages_per_seq]. int8 pages pass their fp32
+    scales [nkv, P, ps, 1] and are dequantized first. Returns [B, nh, hd] in
+    q's dtype; a row with no live slot returns 0, as the kernel does."""
+    k_pages, v_pages = _dequantized(k_pages, v_pages, k_scales, v_scales)
     b, nh, hd = q.shape
     nkv, _, ps, _ = k_pages.shape
     t_max = tables.shape[1] * ps
@@ -165,10 +229,13 @@ def paged_attention_reference(q: torch.Tensor, k_pages: torch.Tensor,
 
 def paged_attention_chunk_reference(q: torch.Tensor, k_pages: torch.Tensor,
                                     v_pages: torch.Tensor, base_lengths: torch.Tensor,
-                                    tables: torch.Tensor, scale: float) -> torch.Tensor:
-    """Plain PyTorch version of the chunk form: gather the pages, mask slot t
-    for query c unless t < base_lengths[b] + c, fp32 softmax attention.
-    q [B, C, nh, hd] (unscaled); returns [B, C, nh, hd] in q's dtype."""
+                                    tables: torch.Tensor, scale: float, *, k_scales=None,
+                                    v_scales=None) -> torch.Tensor:
+    """Plain PyTorch version of the chunk form: gather the pages (int8 pages
+    dequantized by their scales), mask slot t for query c unless t <
+    base_lengths[b] + c, fp32 softmax attention. q [B, C, nh, hd]
+    (unscaled); returns [B, C, nh, hd] in q's dtype."""
+    k_pages, v_pages = _dequantized(k_pages, v_pages, k_scales, v_scales)
     b, c_len, nh, hd = q.shape
     nkv, _, ps, _ = k_pages.shape
     t_max = tables.shape[1] * ps
@@ -233,30 +300,43 @@ def paged_attention_gather(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     return torch.einsum("bhct,bhtd->bchd", probs, v_seq.to(q.dtype))
 
 
-def _check_cuda_args(q, k_pages, v_pages, lengths, tables) -> None:
-    """``q`` [B, nh, hd], or [B, C, nh, hd] for the chunk form."""
+def _check_cuda_args(q, k_pages, v_pages, lengths, tables, k_scales=None, v_scales=None) -> None:
+    """``q`` [B, nh, hd], or [B, C, nh, hd] for the chunk form; int8 pages
+    come with fp32 ``k_scales``/``v_scales`` [nkv, P, ps, 1]."""
     tensors = {"q": q, "k_pages": k_pages, "v_pages": v_pages,
                "lengths": lengths, "tables": tables}
+    if k_scales is not None or v_scales is not None:
+        tensors.update(k_scales=k_scales, v_scales=v_scales)
     for name, t in tensors.items():
+        if t is None:
+            raise ValueError(f"{name} is missing: int8 pages take both scales")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, got {q.dtype}")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError("q, k_pages and v_pages must share one dtype "
-                        f"(got {q.dtype}, {k_pages.dtype}, {v_pages.dtype})")
+    page_dtype = torch.int8 if k_scales is not None else q.dtype
+    if k_pages.dtype != page_dtype or v_pages.dtype != page_dtype:
+        raise TypeError(f"q of {q.dtype} takes k_pages and v_pages of {page_dtype} "
+                        f"(got {k_pages.dtype}, {v_pages.dtype}); int8 pages take their scales")
     if lengths.dtype != torch.int32 or tables.dtype != torch.int32:
         raise TypeError("lengths and tables must be int32")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)}, pages {tuple(k_pages.shape)}"
                          f"/{tuple(v_pages.shape)}")
+    if k_scales is not None:
+        want = tuple(k_pages.shape[:3]) + (1,)
+        if (k_scales.dtype, v_scales.dtype) != (torch.float32, torch.float32) or (
+                tuple(k_scales.shape), tuple(v_scales.shape)) != (want, want):
+            raise ValueError(f"int8 pages take fp32 scales of shape {want}, got "
+                             f"{tuple(k_scales.shape)} {k_scales.dtype} / "
+                             f"{tuple(v_scales.shape)} {v_scales.dtype}")
     b, nh, hd = q.shape[0], q.shape[-2], q.shape[-1]
     nkv = k_pages.shape[0]
     if k_pages.shape[3] != hd:
         raise ValueError(f"pages head_dim {k_pages.shape[3]} != q head_dim {hd}")
-    why = kernel_shape_error(nh, nkv, hd)
+    why = kernel_shape_error(nh, nkv, hd, k_pages.dtype)
     if why is not None:
         raise NotImplementedError(why)
     if lengths.shape != (b,) or tables.dim() != 2 or tables.shape[0] != b:
@@ -267,10 +347,45 @@ def _check_cuda_args(q, k_pages, v_pages, lengths, tables) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (16-byte loads)")
 
 
+def _launch(q, k_pages, v_pages, lengths, tables, scale, k_scales, v_scales, chunk):
+    """Launch the decode (``chunk`` 0) or chunk kernel on the current stream;
+    raises if the launch fails. Returns the output."""
+    _check_cuda_args(q, k_pages, v_pages, lengths, tables, k_scales, v_scales)
+    from grasp_tpu_torch.ops._build import load_library
+
+    lib = load_library()
+    b, nh, hd = q.shape[0], q.shape[-2], q.shape[-1]
+    nkv, num_pages, ps, _ = k_pages.shape
+    plan = _plan_for(q, k_pages, tables)
+    out = torch.empty_like(q)
+    rest = (nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype], plan.split_slots,
+            plan.splits, plan.stages, plan.smem_bytes, float(scale))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if k_scales is not None:
+            rc = lib.grasp_paged_attention_int8(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
+                v_scales.data_ptr(), lengths.data_ptr(), tables.data_ptr(), out.data_ptr(), b,
+                chunk, *rest, stream)
+        elif chunk:
+            rc = lib.grasp_paged_attention_chunk(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                tables.data_ptr(), out.data_ptr(), b, chunk, *rest, stream)
+        else:
+            rc = lib.grasp_paged_attention_decode(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
+                tables.data_ptr(), out.data_ptr(), b, *rest, stream)
+    if rc != 0:
+        form = "chunk " if chunk else ""
+        raise RuntimeError(f"paged attention {form}kernel launch failed: cudaError {rc}")
+    return out
+
+
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                    lengths: torch.Tensor, tables: torch.Tensor,
-                    scale: float) -> torch.Tensor:
-    """Decode attention through the page table. Returns [B, nh, hd].
+                    lengths: torch.Tensor, tables: torch.Tensor, scale: float, *,
+                    k_scales=None, v_scales=None) -> torch.Tensor:
+    """Decode attention through the page table. Returns [B, nh, hd]. int8
+    pages pass their fp32 scales ``k_scales``/``v_scales`` [nkv, P, ps, 1].
 
     CPU tensors take :func:`paged_attention_reference`. CUDA tensors launch
     the kernel on the current stream, or raise; there is no fallback.
@@ -283,26 +398,11 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tenso
     if q.dim() != 3:
         raise ValueError(f"q must be [B, nh, hd], got {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return paged_attention_reference(q, k_pages, v_pages, lengths, tables, scale)
+        return paged_attention_reference(q, k_pages, v_pages, lengths, tables, scale,
+                                         k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged attention runs on cpu or cuda, not {q.device}")
-    _check_cuda_args(q, k_pages, v_pages, lengths, tables)
-    from grasp_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    b, nh, hd = q.shape
-    nkv, num_pages, ps, _ = k_pages.shape
-    plan = _plan_for(q, k_pages, tables)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.grasp_paged_attention_decode(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            b, nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype],
-            plan.split_slots, plan.splits, plan.stages, plan.smem_bytes, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged attention kernel launch failed: cudaError {rc}")
+    out = _launch(q, k_pages, v_pages, lengths, tables, scale, k_scales, v_scales, 0)
     paged_attention.launches += 1
     return out
 
@@ -312,9 +412,10 @@ paged_attention.launches = 0
 
 def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                           base_lengths: torch.Tensor, tables: torch.Tensor,
-                          scale: float) -> torch.Tensor:
+                          scale: float, *, k_scales=None, v_scales=None) -> torch.Tensor:
     """Chunk attention through the page table: q [B, C, nh, hd], query c of
-    row b sees slots < base_lengths[b] + c. Returns [B, C, nh, hd].
+    row b sees slots < base_lengths[b] + c. Returns [B, C, nh, hd]. int8
+    pages pass their scales, as :func:`paged_attention`'s do.
 
     CPU tensors take :func:`paged_attention_chunk_reference`. CUDA tensors
     launch the chunk kernel once, on the current stream, or raise; there is no
@@ -327,26 +428,12 @@ def paged_attention_chunk(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch
     if q.dim() != 4 or q.shape[1] < 1:
         raise ValueError(f"q must be [B, C, nh, hd] with C >= 1, got {tuple(q.shape)}")
     if q.device.type == "cpu":
-        return paged_attention_chunk_reference(q, k_pages, v_pages, base_lengths, tables, scale)
+        return paged_attention_chunk_reference(q, k_pages, v_pages, base_lengths, tables, scale,
+                                               k_scales=k_scales, v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged attention runs on cpu or cuda, not {q.device}")
-    _check_cuda_args(q, k_pages, v_pages, base_lengths, tables)
-    from grasp_tpu_torch.ops._build import load_library
-
-    lib = load_library()
-    b, c_len, nh, hd = q.shape
-    nkv, num_pages, ps, _ = k_pages.shape
-    plan = _plan_for(q, k_pages, tables)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.grasp_paged_attention_chunk(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            base_lengths.data_ptr(), tables.data_ptr(), out.data_ptr(),
-            b, c_len, nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype],
-            plan.split_slots, plan.splits, plan.stages, plan.smem_bytes, float(scale), stream)
-    if rc != 0:
-        raise RuntimeError(f"paged attention chunk kernel launch failed: cudaError {rc}")
+    out = _launch(q, k_pages, v_pages, base_lengths, tables, scale, k_scales, v_scales,
+                  q.shape[1])
     paged_attention_chunk.launches += 1
     return out
 

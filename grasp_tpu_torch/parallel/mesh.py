@@ -34,9 +34,11 @@ rule, its ``[groups, out]`` scale as ``kernel_scale`` (with the output
 columns of a column-parallel projection, whole for a row-parallel one, as in
 JAX). A row-parallel rank holds the packed rows of its input columns
 followed by the quantizer's zero padding rows, so that every rank's shard
-has one shape and tells the group size; a forward takes the scale rows of
-the groups it touches and pads a group that the shard splits with zero rows
-(``models.llama.int4_row_product``).
+has one shape and tells the group size; a rank whose rows start or end
+inside a packed byte holds that whole byte (:func:`int4_byte_span`). A
+forward takes the scale rows of the groups it touches and pads a group that
+the shard splits with zero rows, and its input with a zero column for a
+neighbour's nibble (``models.llama.int4_row_product``).
 
 A mesh may also be one axis named ``"pipe"`` (``make_mesh((n,),
 axis_names=("pipe",))``, JAX's ``Mesh(devices, ("pipe",))``), whose stages
@@ -673,20 +675,29 @@ def int4_in_features(proj: str, config: ModelConfig) -> int:
     return config.q_dim if proj == "o_proj" else config.intermediate_size
 
 
+def int4_byte_span(r0: int, r1: int) -> Tuple[int, int]:
+    """The packed bytes [start, stop) that hold int4 rows [r0, r1): byte i
+    holds rows 2 i and 2 i + 1, so a span that starts or ends inside a byte
+    takes that whole byte, its neighbour's nibble with it. Spans of one
+    length take one count of bytes wherever they start (an even length its
+    half, an odd one its half rounded up)."""
+    return r0 // 2, (r1 + 1) // 2
+
+
 def int4_row_span(proj: str, packed_rows: int, config: ModelConfig,
                   mesh: Mesh) -> Tuple[int, int]:
     """The byte rows [start, stop) of ``proj``'s packed int4 kernel
     (``packed_rows`` rows whole) that hold a row-parallel rank's input
-    columns; the rows from half the input width to the end are the
-    quantizer's zero padding. A span that starts or ends inside a byte
-    raises ValueError."""
+    columns (:func:`int4_byte_span`: a rank whose rows start or end inside a
+    byte takes the whole byte, as GSPMD's partition of JAX's packed weight
+    reads it); the rows from half the input width to the end are the
+    quantizer's zero padding."""
     in_f = int4_in_features(proj, config)
     r0, r1 = proj_span(proj, config, mesh)
-    if r0 % 2 or r1 % 2 or 2 * packed_rows < in_f:
-        raise ValueError(f"an int4 {proj} of {packed_rows} packed rows for an input of {in_f} "
-                         f"does not split into whole bytes over {mesh.tp} model ranks "
-                         f"(rows {r0}:{r1} of rank {mesh.model_index})")
-    return r0 // 2, r1 // 2
+    if 2 * packed_rows < in_f:
+        raise ValueError(f"an int4 {proj} of {packed_rows} packed rows is narrower than its "
+                         f"input of {in_f}")
+    return int4_byte_span(r0, r1)
 
 
 def shard_leaf(path: str, t: torch.Tensor, config: ModelConfig, mesh: Mesh) -> torch.Tensor:
@@ -712,10 +723,14 @@ def gather_leaf(path: str, t: torch.Tensor, config: ModelConfig, mesh: Mesh) -> 
         return t
     dim, span, rep = rule
     parts = mesh.all_gather(t, MODEL_AXIS)[::rep]
-    if span == "int4_rows":
-        r0, r1 = proj_span(path.split(".")[-2], config, mesh)
-        n = (r1 - r0) // 2
-        return torch.cat([p[:n] for p in parts] + [parts[-1][n:]])
+    if span == "int4_rows":  # each rank's bytes, a byte two ranks share once
+        k = int4_in_features(path.split(".")[-2], config) // mesh.tp
+        pieces, done = [], 0
+        for r, p in enumerate(parts):
+            b0, b1 = int4_byte_span(r * k, (r + 1) * k)
+            pieces.append(p[done - b0:b1 - b0])
+            done = b1
+        return torch.cat(pieces + [parts[-1][b1 - b0:]])
     return torch.cat(parts, dim=dim)
 
 

@@ -18,8 +18,9 @@ timings (counterpart of grasp_tpu/perf.py).
     captured as one CUDA graph and its replays are timed with CUDA events
     (:func:`chain_seconds`), so the host's launches are out of the time. A
     chain that cannot be captured (a step that waits for the host, such as
-    longrope's choice of factors) raises: its eager time is never reported
-    as the device's. The same chain run eagerly is
+    a value read back with ``.item()``) raises: its eager time is never
+    reported as the device's. Longrope picks its factors on the device, so
+    a Phi-3 chain captures. The same chain run eagerly is
     ``chain_seconds(chain, ks, graph=False)``.
 
 Not ported: the JAX package's ahead-of-time priming, its tunnel probe, its
@@ -296,8 +297,8 @@ def capture_chain(chain: Chain, k: int):
     except RuntimeError as e:
         raise RuntimeError(
             f"the chain of {k} steps could not be captured as one CUDA graph, so its device "
-            f"time cannot be taken (a step that waits for the host, such as longrope's choice "
-            f"of factors from the largest position, cannot be captured): {e}") from e
+            f"time cannot be taken (a step that waits for the host, such as a value read back "
+            f"with .item(), cannot be captured): {e}") from e
     return graph, out
 
 

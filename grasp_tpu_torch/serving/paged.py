@@ -9,14 +9,15 @@ pages, and every decode step advances all live rows at once.
 
 Decode attention takes one of two routes, chosen by :func:`paged_route`
 from the config, the table's capacity and the pool's dtype, as the JAX engine
-chooses: the CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention` (its
-plain version on CPU tensors), which reads the pages in place through the
-page table, or the gather route (``paged_attention_gather``) for what the
-kernel does not compute: int8 pools (``quantized_kv``: int8 pages with one
-fp32 scale per page slot and head), an attention softcap (Gemma-2), a
-sliding window shorter than the table (Mistral, Gemma-2), a head layout the
-kernel lacks (head_dim 256: Gemma). The pools are updated in place; the JAX
-engine donated them to its jitted step instead.
+chooses on a TPU: the CUDA kernel of :mod:`grasp_tpu_torch.ops.paged_attention`
+(its plain version on CPU tensors), which reads the pages in place through
+the page table (fp pages at head_dim 64, 96, 128 and 256; int8 pools,
+``quantized_kv``: int8 pages with one fp32 scale per page slot and head, at
+128 and 256), or the gather route (``paged_attention_gather``) for what the
+kernel does not compute: an attention softcap (Gemma-2), a sliding window
+shorter than the table (Mistral, Gemma-2), int8 pages at head_dim 64 and 96,
+another head layout. The pools are updated in place; the JAX engine donated
+them to its jitted step instead.
 
 - Sliding windows: each layer attends under its own window. When every layer
   slides, a row's pages that every later query is masked from return to the
@@ -190,14 +191,16 @@ def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype,
                 heads: Optional[tuple] = None):
     """("kernel" | "gather", reason): the attention route of every paged
     decode and verify body over a table of ``capacity`` slots and pools of
-    ``pool_dtype``. The kernels (K3, K4) attend to every slot up to the
-    query's own, uncapped, over fp pages, at the head layouts they take; the
-    rest is the gather route, as in the JAX engine. A window of at least the
-    table's capacity masks nothing (slot > pos - w follows from slot <
-    capacity <= w), so it keeps the kernel. ``heads``: (query, KV) heads of
-    a tensor-parallel rank (default the config's)."""
-    if pool_dtype == torch.int8:
-        return "gather", "int8 pages: no kernel reads them"
+    ``pool_dtype``, as grasp_tpu/serving/paged.py chooses on a TPU. The
+    kernels (K3, K4) attend to every slot up to the query's own, uncapped,
+    at the head layouts they take: fp pages at head_dim 64, 96 and 128
+    (JAX's ``use_kernel64`` and ``use_kernel``) and 256, int8 pages at 128
+    and 256 (``use_kernel``, which reads int8 pages in place; ``use_kernel64``
+    excludes them, so at 64 and 96 they gather). The rest is the gather
+    route. A window of at least the table's capacity masks nothing (slot >
+    pos - w follows from slot < capacity <= w), so it keeps the kernel.
+    ``heads``: (query, KV) heads of a tensor-parallel rank (default the
+    config's)."""
     if config.attn_logit_softcapping is not None:
         return "gather", (f"attention softcap {config.attn_logit_softcapping:g}: "
                           "the kernels cannot cap")
@@ -207,10 +210,11 @@ def paged_route(config: ModelConfig, capacity: int, pool_dtype: torch.dtype,
         return "gather", (f"a sliding window of {short[0]} slots is shorter than the "
                           f"table's {capacity}")
     nh, nkv = heads or (config.num_attention_heads, config.num_key_value_heads)
-    why = kernel_shape_error(nh, nkv, config.head_dim_)
+    why = kernel_shape_error(nh, nkv, config.head_dim_, pool_dtype)
     if why is not None:
         return "gather", why
-    return "kernel", (f"fp pages, no softcap, every window covers the table's {capacity} "
+    pages = "int8" if pool_dtype == torch.int8 else "fp"
+    return "kernel", (f"{pages} pages, no softcap, every window covers the table's {capacity} "
                       f"slots, head_dim {config.head_dim_}")
 
 
@@ -272,7 +276,8 @@ def _paged_decode_fn(config: ModelConfig, plan: ModelPlan, mesh: Optional[Mesh] 
                 k_pages[li][:, phys, offset] = kw.to(k_pages.dtype)
                 v_pages[li][:, phys, offset] = vw.to(v_pages.dtype)
             if route == "kernel":
-                attn = paged_attention(q1, k_pages[li], v_pages[li], lengths, tables, scale)
+                attn = paged_attention(q1, k_pages[li], v_pages[li], lengths, tables, scale,
+                                       k_scales=ks, v_scales=vs)
             else:
                 attn = paged_attention_gather(
                     q1[:, None], k_pages[li], v_pages[li], lengths, tables, scale,

@@ -39,6 +39,15 @@ up to gamma + 1 tokens per forward instead of 1.
   Pages are allocated and freed through ``self.pool`` only; the draft pool
   never allocates.
 
+The verify step takes the decode step's route rule (``paged.paged_route``):
+the chunk kernel (K4) wherever decode takes K3, because K4 inlines K3's body
+and plan and the greedy identity between speculative and plain serving rests
+on its rows being bit-equal to K3's. JAX's verify step gathers at head_dim
+128 and 256 and over int8 pages (grasp_tpu/serving/spec_paged.py; jax's TPU
+kernel has no multi-query form); at those layouts K4 computes the attention
+that gather computes, masked at each query's own position, with the int8
+scales in the same order.
+
 Ported: fp and int8 pools, greedy and sampled rows in one batch, eos, every
 sampling control of the plain engine and the prefix cache. ``logprobs`` and
 ``prefill_chunk`` raise ValueError (as in the JAX engine).
@@ -103,11 +112,12 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int, mesh=None
     ``paged_attention_chunk`` (on CUDA the chunk kernel, row by row bit-equal
     to the decode kernel; on CPU tensors its plain version), the gather route
     through ``paged_attention_gather`` in its chunk form with each layer's
-    window and the softcap; int8 pools take the gather route, the chunk's
-    K/V quantized per position exactly as the single-token scatter quantizes
-    them. Dead rows (live=0) write on the null page 0 and attend from a base
-    length of 1. ``mesh``: tensor-parallel params, pools of this rank's KV
-    heads."""
+    window and the softcap. int8 pools take the route the rule gives them
+    (the kernel at head_dim 128 and 256), the chunk's K/V quantized per
+    position exactly as the single-token scatter quantizes them, so that the
+    chunk kernel's rows stay bit-equal to the decode kernel's. Dead rows
+    (live=0) write on the null page 0 and attend from a base length of 1.
+    ``mesh``: tensor-parallel params, pools of this rank's KV heads."""
     nh = local_heads(config, mesh)[0]
 
     def fn(params, toks, k_pages, v_pages, tables, pos, live, k_scales=None, v_scales=None):
@@ -150,7 +160,8 @@ def _paged_verify_fn(config: ModelConfig, plan: ModelPlan, chunk: int, mesh=None
                 k_pages[li][:, pf, of] = kw.to(k_pages.dtype)
                 v_pages[li][:, pf, of] = vw.to(v_pages.dtype)
             if route == "kernel":
-                attn = paged_attention_chunk(qc, k_pages[li], v_pages[li], base, tables, scale)
+                attn = paged_attention_chunk(qc, k_pages[li], v_pages[li], base, tables, scale,
+                                             k_scales=ks, v_scales=vs)
             else:
                 attn = paged_attention_gather(qc, k_pages[li], v_pages[li], base, tables, scale,
                                               window=config.layer_window(li),

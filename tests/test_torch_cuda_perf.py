@@ -2,7 +2,8 @@
 computes what the same chain computes eagerly, the device benchmarks time
 graphs (the flash forward's launches counted at the eager run and the
 capture, none at a replay), a chain that waits for the host refuses to be
-captured, and device memory follows the allocator.
+captured while a longrope chain captures, and device memory follows the
+allocator.
 
 Needs an NVIDIA GPU and no JAX; from the repository root:
 
@@ -77,9 +78,27 @@ def test_device_memory_follows_the_allocator(dev):
 
 
 def test_a_chain_that_waits_for_the_host_is_not_timed(dev):
-    longrope = {"rope_type": "longrope", "original_max_position_embeddings": 64,
+    """A decode chain whose every step reads a value back to the host (the
+    step's largest logit, with .item()) cannot be captured, and its time is
+    refused. Longrope, which used to be the example, picks its factors on
+    the device: its chain, across original_max_position_embeddings, captures
+    and replays to what it computes eagerly."""
+    config, params = _model(dev)
+    chain = perf.decode_chain(params, config, cache_len=128, prefill_len=16)
+
+    def run(k):
+        out = chain.run(k)
+        out.item()  # waits for the host
+        return out
+
+    with pytest.raises(RuntimeError, match="could not be captured"):
+        perf.chain_seconds(perf.Chain(run, chain.device), [1, 2], reps=1)
+    longrope = {"rope_type": "longrope", "original_max_position_embeddings": 20,
                 "short_factor": [1.0] * 32, "long_factor": [2.0] * 32}  # head_dim 64
     config, params = _model(dev, rope_scaling=longrope)
-    with pytest.raises(RuntimeError, match="could not be captured"):
-        perf.decode_device_benchmark(params, config, cache_len=128, prefill_len=16,
-                                     k_small=2, k_large=4, reps=1)
+    chain = perf.decode_chain(params, config, cache_len=128, prefill_len=16)
+    graph, out = perf.capture_chain(chain, 8)  # positions 16 to 23 cross 20
+    graph.replay()
+    torch.cuda.synchronize()
+    got, want = float(out), float(chain.run(8))
+    assert abs(got - want) <= GRAPH_EAGER_RTOL * abs(want)

@@ -71,6 +71,21 @@ def test_rope_tables_match_grasp_tpu_in_both_regimes(attention_factor):
             plain * attention_factor)
 
 
+def test_the_factors_are_chosen_on_the_device():
+    """The short or long factors are picked without a host read of the
+    positions (as JAX picks them under jit): on the meta device, where a
+    host read raises, the tables build in both regimes, so a decode step
+    that takes them can be captured in a CUDA graph."""
+    scaling = _scaling(64)
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        int(torch.arange(ORIGINAL + 1, device="meta").max())  # a host read raises there
+    for s in (ORIGINAL, ORIGINAL + 1):
+        cos, sin = tl.rope_cos_sin(torch.arange(s, device="meta")[None], 64, 1e4,
+                                   scaling=scaling)
+        assert cos.device.type == sin.device.type == "meta"
+        assert tuple(cos.shape) == tuple(sin.shape) == (1, s, 64)
+
+
 def test_forward_and_kv_decode_match_grasp_tpu_in_both_regimes(model):
     config, jp, tconfig, tp = model
     ids = np.random.default_rng(1).integers(1, 120, (1, 48))

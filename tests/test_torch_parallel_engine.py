@@ -196,8 +196,10 @@ def test_what_a_mesh_refuses():
     64 rows over two ranks; down_proj's 128 rows, one group of 128) runs:
     each rank's part, padded with zero rows to the group's edges, gives the
     whole product's share, and the parts put together are the whole
-    weight. A shard that would split a byte (178 rows over two ranks)
-    raises ValueError (ROADMAP.md, queue 2)."""
+    weight. A shard that splits a byte (178 rows over two ranks: 89
+    each) holds that byte whole on both ranks, and the parts' products,
+    each with a zero column for the other rank's nibble, add up to the
+    whole product."""
     from grasp_tpu_torch.models.llama import int4_row_product
     from grasp_tpu_torch.ops.quant import quant_matmul_int4
 
@@ -219,8 +221,18 @@ def test_what_a_mesh_refuses():
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
     odd = dataclasses.replace(_config(), intermediate_size=178)
     big = quantize_model_weights(to_port(init_params(jax.random.PRNGKey(0), odd)), bits=4)
-    with pytest.raises(ValueError, match="whole bytes"):
-        shard_params(big, meshes[1], port_config(odd))
+    whole = big["layers"][0]["mlp"]["down_proj"]
+    mine = [shard_params(big, m, port_config(odd))["layers"][0]["mlp"]["down_proj"]["kernel_q4"]
+            for m in meshes]
+    pad = whole["kernel_q4"].shape[0] - 89  # 256 padded rows: 128 bytes, 89 of them real
+    assert [tuple(t.shape) for t in mine] == [(45 + pad, 64)] * 2
+    assert torch.equal(mine[0][:45], whole["kernel_q4"][:45])
+    assert torch.equal(mine[1][:45], whole["kernel_q4"][44:89])  # byte 44 on both ranks
+    xs = torch.randn(3, 178, generator=torch.Generator().manual_seed(2))
+    got = sum(int4_row_product(xs[:, r * 89:(r + 1) * 89], mine[r][:45], whole["kernel_scale"],
+                               r * 89, 128) for r in (0, 1))
+    want = quant_matmul_int4(xs, whole["kernel_q4"], whole["kernel_scale"])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
     engine = GraspEngine(params, dataclasses.replace(config, use_pallas_lowrank=True),
                          mesh=meshes[0], device="cpu")
     assert engine.params["layers"][0]["self_attn"]["q_proj"]["kernel"].shape == (64, 32)

@@ -91,6 +91,8 @@ def setup(tmp_path_factory):
                 for _ in range(2)], GraspConfig(num_prune_layers=1, compression_ratio=0.4))
     qconfig = ModelConfig.tiny(num_hidden_layers=2)
     qparams = init_params(jax.random.PRNGKey(0), qconfig)
+    oddconfig = ModelConfig.tiny(num_hidden_layers=2, intermediate_size=178)
+    oddparams = init_params(jax.random.PRNGKey(1), oddconfig)
     qids = rng.integers(0, qconfig.vocab_size, (4, 8))
     hparams, hlayer, _ = jhybridize(engine.params, engine.plan)
     hplan = (hlayer,) * config.num_hidden_layers
@@ -113,6 +115,9 @@ def setup(tmp_path_factory):
         ("int4", "forward_logits", dict(params_np=jax.tree.map(np.asarray, qparams),
                                         config_json=port_config(qconfig).to_json(), ids=qids,
                                         quantize_bits=4)),
+        ("int4_odd", "forward_logits", dict(params_np=jax.tree.map(np.asarray, oddparams),
+                                            config_json=port_config(oddconfig).to_json(),
+                                            ids=qids, quantize_bits=4)),
         ("fused", "forward_logits", dict(
             params_np=jax.tree.map(np.asarray, engine.params), ids=ids, plan=engine.plan,
             config_json=port_config(config).to_json().replace(
@@ -134,6 +139,7 @@ def setup(tmp_path_factory):
             runs.setdefault(name, []).append(result)
     return {"config": config, "params": params, "ids": ids, "engine": engine,
             "qconfig": qconfig, "qparams": qparams, "qids": qids, "hybrid": (hparams, hplan),
+            "odd": (oddconfig, oddparams),
             "recover": (rconfig, rparams, rplan), "runs": runs, "best": best}
 
 
@@ -194,6 +200,22 @@ def test_sharded_int4_params(setup):
     assert got["shapes"]["layers.0.mlp.up_proj.kernel_q4"] == (up[0], up[1] // 2)
     assert got["shapes"]["layers.0.self_attn.o_proj.kernel_q4"] == (16, 64)
     assert got["shapes"]["layers.0.self_attn.o_proj.kernel_scale"] == (1, 64)
+    np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
+
+
+def test_int4_shards_that_start_or_end_inside_a_byte(setup):
+    """An intermediate of 178 over the two model ranks: 89 rows each, so
+    down_proj's second rank starts in the high nibble of byte 44. Each rank
+    holds the 45 bytes that cover its rows (byte 44 on both) and the
+    quantizer's padding, and its logits match JAX's unsharded int4 forward
+    (GSPMD partitions the same weight in JAX) within the int4 forward's
+    tolerance."""
+    oddconfig, oddparams = setup["odd"]
+    q = jquantize(oddparams, bits=4)
+    ref = np.asarray(jforward(q, jnp.asarray(setup["qids"]), config=oddconfig)["logits"])
+    got = _logits_equal_on_every_rank(setup["runs"]["int4_odd"])
+    packed = np.shape(q["layers"][0]["mlp"]["down_proj"]["kernel_q4"])  # 256 rows: 128 bytes
+    assert got["shapes"]["layers.0.mlp.down_proj.kernel_q4"] == (45 + packed[0] - 89, packed[1])
     np.testing.assert_allclose(got["logits"], ref, rtol=1e-4, atol=1e-5)
 
 

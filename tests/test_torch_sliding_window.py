@@ -90,20 +90,30 @@ def test_forward_and_kv_decode_match_grasp_tpu(model):
 
 
 def test_route_rule():
-    """Kernel only for fp pages, no softcap, every window covering the table
-    and a head layout the kernels take; the gather route otherwise."""
+    """The JAX engine's TPU rule (grasp_tpu/serving/paged.py): the kernels
+    for fp pages at head_dim 64, 96, 128 and 256 and int8 pages at 128 and
+    256, with no softcap and every window covering the table; the gather
+    route otherwise, with its reason."""
     win = port_config(_config(hidden_size=256))  # head_dim 64
     assert paged_route(win, 4096, torch.float32)[0] == "gather"  # 4 < 4096
     assert paged_route(win, 4, torch.bfloat16)[0] == "kernel"    # the window covers 4 slots
     assert "head_dim" in paged_route(port_config(_config()), 4, torch.bfloat16)[1]  # 16
     plain = port_config(_config(hidden_size=256, sliding_window=None))
     assert paged_route(plain, 1024, torch.bfloat16)[0] == "kernel"
-    assert paged_route(plain, 1024, torch.int8)[0] == "gather"
+    assert paged_route(plain, 1024, torch.int8)[0] == "gather"  # int8 pages at head_dim 64
     assert "softcap" in paged_route(port_config(_config(
         hidden_size=256, sliding_window=None, attn_logit_softcapping=50.0)), 1024,
         torch.float32)[1]
-    assert "head_dim" in paged_route(port_config(_config(
-        sliding_window=None, head_dim=256)), 1024, torch.float32)[1]
+    hd256 = port_config(_config(sliding_window=None, head_dim=256))
+    assert paged_route(hd256, 1024, torch.float32)[0] == "kernel"  # fp pages at head_dim 256
+    assert paged_route(hd256, 1024, torch.int8)[0] == "kernel"
+    hd128 = port_config(_config(hidden_size=512, sliding_window=None))
+    assert paged_route(hd128, 1024, torch.int8) == (
+        "kernel", "int8 pages, no softcap, every window covers the table's 1024 slots, "
+                  "head_dim 128")
+    route, why = paged_route(port_config(_config(sliding_window=None, head_dim=80)), 1024,
+                             torch.bfloat16)
+    assert route == "gather" and "head_dim" in why
 
 
 def test_paged_greedy_streams_equal_grasp_tpu(model):
