@@ -27,8 +27,11 @@ Phases, each of which raises on failure (exit code != 0):
    and 9, pages of 16 and 128 slots, lengths across tile, page and range
    edges, a dead row, the verify step's shape at TinyLlama's, Phi-3's,
    Gemma-7B's, Gemma-2B's and, over int8 pages, Mistral-7B's and Gemma-7B's
-   heads); and timed at the same shapes as the decode kernel against its
-   plain version and against one decode launch per chunk position.
+   heads, and chunks of 9 with a range live for the later positions only at
+   head_dim 256 and over int8 pages, whose C x gqa query rows take one to
+   nine groups of 16 in the bf16 kernel); and timed at the same shapes as
+   the decode kernel against its plain version and against one decode
+   launch per chunk position.
 4. flash kernels: the flash-attention forward, dK/dV and dQ kernels against
    the plain version (output and the gradients of sum(o ** 2)) at ten
    shapes (head_dim 64, 96, 128 and 256, the last in groups of 8 and 1) in
@@ -261,8 +264,8 @@ stand in for under "also_replaces");
 then the card's line; the last line is ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX, of grasp_tpu or of safetensors. ``--only
 flash|kernels|serve|spec|compress|evaluate|recover|hf|phi3serve|features|mixtral|families|mesh|seqpipe``
-(or ``perf``, ``gemma7b``) runs one part while developing and prints no result lines
-(phi3serve: the
+(or ``perf``, ``gemma7b``, ``paged``) runs one part while developing and prints no result
+lines (paged: phase 3 alone, its timing records as one JSON line; phi3serve: the
 paged kernels at head_dim 96 and phase 13 with its serving; features: phase
 14 alone; mixtral: the paged kernels and the flash timing at head_dim 128,
 then phase 15; families: the flash timing at head_dim 256, then phase 16;
@@ -643,6 +646,15 @@ SPEC_GAMMA = 4
 SERVED_CHUNK_BASES = (70, 127, 128, 632, 1532, 0, 2044, 1000)
 # the same shape with every chunk across an edge of the plan's 256-slot ranges
 SPLIT_EDGE_CHUNK_BASES = (252, 254, 255, 256, 508, 1020, 1788, 2043)
+# chunks of 9 with a range live for the chunk's later positions only (249:
+# the last position alone reaches slot 256), across every edge but the last
+SPLIT_EDGE_CHUNK9_BASES = (249, 252, 254, 256, 505, 1020, 1790, 2039)
+# verify steps of 9 queries whose C x gqa rows the bf16 kernel cuts into
+# groups of 16: Gemma-7B's one row a kv head and position, Mistral-7B's 4
+# over int8 pages (3 groups), Gemma-2B's 8 (5 groups), groups of 16 (9
+# groups: one position each) at head_dim 256 and over int8 pages at 128
+GROUP_CHUNK_SHAPES = ((GEMMA7B_HEADS, False), (GEMMA7B_HEADS, True), (MISTRAL_HEADS, True),
+                      (GEMMA2B_HEADS, False), ((32, 2, 256), False), ((32, 2, 128), True))
 
 
 def _chunk_compare(torch, q, k, v, base, tables, scale, **scales):
@@ -675,7 +687,10 @@ def phase_chunk(torch, hds=(64, 96, 128, 256), int8_hds=INT8_HDS):
     shape at TinyLlama's heads, Phi-3's (32 MHA heads of 96), Gemma-7B's and
     Gemma-2B's (head_dim 256); over int8 pages at ``int8_hds`` the grid and
     Mistral-7B's and Gemma-7B's heads. ``hds``: the head_dims to hold over fp
-    pages. Returns the worst error against the plain version."""
+    pages. At head_dim 256 and over int8 pages also chunks of 9 across the
+    range edges (a range live for the later positions only) with groups of
+    1 to 16 (GROUP_CHUNK_SHAPES), whose rows take one to nine groups of 16.
+    Returns the worst error against the plain version."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
     b, nkv = len(CHUNK_BASES), 2
@@ -717,12 +732,14 @@ def phase_chunk(torch, hds=(64, 96, 128, 256), int8_hds=INT8_HDS):
                 raise AssertionError(f"paged attention chunk kernel disagrees: hd={hd} {dtype_name}"
                                      f" int8 pages {quantized}")
             worst = max(worst, max(errs))
-    c_len = SPEC_GAMMA + 1
-    shapes = [(s, False) for s in ((32, 4, 64), PHI3_HEADS, GEMMA7B_HEADS, GEMMA2B_HEADS)
-              if s[2] in hds]
-    shapes += [(s, True) for s in (MISTRAL_HEADS, GEMMA7B_HEADS) if s[2] in int8_hds]
-    for ((nh, nkv, hd), quantized), dtype_name, bases in itertools.product(
-            shapes, ("float32", "bfloat16"), (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)):
+    shapes = [(s, False) for s in ((32, 4, 64), PHI3_HEADS, GEMMA7B_HEADS, GEMMA2B_HEADS)]
+    shapes += [(s, True) for s in (MISTRAL_HEADS, GEMMA7B_HEADS)]
+    verify = [(shape, SPEC_GAMMA + 1, bases) for shape in shapes
+              for bases in (SERVED_CHUNK_BASES, SPLIT_EDGE_CHUNK_BASES)]
+    verify += [(shape, 9, SPLIT_EDGE_CHUNK9_BASES) for shape in GROUP_CHUNK_SHAPES]
+    verify = [case for case in verify if case[0][0][2] in (int8_hds if case[0][1] else hds)]
+    for (((nh, nkv, hd), quantized), c_len, bases), dtype_name in itertools.product(
+            verify, ("float32", "bfloat16")):
         dtype = getattr(torch, dtype_name)
         b = len(bases)
         _, k, v, base, tables = _pages_case(torch, gen, dev, dtype, b, nh, nkv, hd, 128, 16, 256,
@@ -6106,7 +6123,7 @@ def main(argv=None) -> int:
     parser.add_argument("--only", choices=["flash", "kernels", "serve", "spec", "compress",
                                            "evaluate", "recover", "hf", "phi3serve",
                                            "features", "mixtral", "families", "gemma7b",
-                                           "mesh", "seqpipe", "perf"],
+                                           "mesh", "seqpipe", "perf", "paged"],
                         default=None,
                         help="development aid: run one part and print no result lines")
     args = parser.parse_args(argv)
@@ -6195,6 +6212,10 @@ def main(argv=None) -> int:
     chunk96 = phase_chunk_timing(torch, *PHI3_TIMING)
     chunk128 = phase_chunk_timing(torch, *MIXTRAL_TIMING)
     chunk_k7 = phase_k7_timing(torch, phase_chunk_timing)
+    if args.only == "paged":
+        print(json.dumps({"decode": [paged, paged96, paged128, paged_k7],
+                          "chunk": [chunk, chunk96, chunk128, chunk_k7]}))
+        return 0
     if args.only == "spec":
         print(chunk, phase_slice(torch, card, dev, only="spec"))
         return 0

@@ -19,9 +19,12 @@
 //
 // What bounds them: bytes. Decode attention does 2 flops per K/V element it
 // reads, so the least time is the live K/V rows over the memory rate (1.8 us
-// for a TinyLlama decode step's layer at batch 8). One block walking a whole
-// row alone, as the first design did, ends when the longest row's chain of
-// tiles ends, each tile a full round trip to device memory. So:
+// for a TinyLlama decode step's layer at batch 8, 28 us at Gemma-7B's 16 MHA
+// heads of 256). A kernel that only streams the same tiles with cp.async
+// comes near that rate; what held the first designs back was the work around
+// the copies, serial within a block: a chain of tiles each a round trip,
+// the page table's arithmetic on every copy, products with nothing in flight
+// under them, and the epilogue. So:
 //
 // - Split (flash-decoding). A row's table of ps * pages_per_seq slots is cut
 //   into `splits` ranges of `split_slots` slots (a whole number of 64-slot
@@ -41,29 +44,40 @@
 //   m) l_s, out = sum e^(m_s - m) acc_s / max(l, 1e-30). A row with one live
 //   range needs no barrier. No atomics, no scratch in device memory, the
 //   same bits from run to run.
-// - bf16 on the tensor cores (paged_*_mma_kernel). A block of 4 warps holds
-//   the gqa query rows of its kv head as one m16 tile (rows >= gqa are zero)
-//   and streams its range in 64-slot tiles through a ring of `stages`
-//   cp.async stages (all tiles of a range in flight at once where they fit);
-//   the page ids of the range are read once, at its start. Warp w owns slots
+// - bf16 on the tensor cores (paged_*_mma_kernel, attend_rows_mma). A block
+//   of 4 warps holds up to 16 query rows as one m16 tile (rows past them are
+//   zero): in decode the group of its kv head, in verify 16 of the chunk's C
+//   x gqa rows (below). Each row carries its own length. At its start the
+//   block reads the range's page ids and turns every slot into its row in
+//   the pool once (a multiply for the division by the page size), so a copy
+//   costs a shared-memory read and an add. It streams the range in 64-slot
+//   tiles through a cp.async ring of `ring_tiles` entries, each a K tile or
+//   a V tile: tile j's scores wait for its K tile alone, and while they and
+//   its products run, its V tile and the next tiles land. Warp w owns slots
 //   16 w .. 16 w + 15 of every tile: S = Q K^T by mma.sync m16n8k16 with K
-//   fragments by ldmatrix, an online softmax on the accumulators in base 2,
-//   P rounded to bf16 in registers (FlashAttention's arithmetic, as the flash
-//   forward does) and O += P V with V fragments by ldmatrix.trans. The four
-//   warps' states are added in warp order into the block's partial. A ring
-//   row of 8 or 16 16-byte chunks permutes them by chunk ^ (row % 8); at
-//   head_dim 96 a row has 12, which that XOR would carry into the next row,
-//   so there rows are padded to HD + 8 elements (13 chunks: 8 rows at one
-//   chunk fall in 8 distinct bank groups, as in the q tile) and not permuted.
-// - head_dim 256: a 64-slot stage of K and V is 64 KB, so the plan gives a
-//   block the shared memory of two blocks an SM (one stage over bf16 pages,
-//   two over int8 pages), and a warp reads its q fragments again for every
-//   tile instead of holding 64 more registers beside the 128 of its output.
+//   fragments by ldmatrix, an online softmax on the accumulators in base 2
+//   with each row masked at its own end, P rounded to bf16 in registers
+//   (FlashAttention's arithmetic, as the flash forward does) and O += P V
+//   with V fragments by ldmatrix.trans; a warp whose rows' maxima did not
+//   move skips the rescale (alpha = 1). The four warps' states are added in
+//   warp order into the block's partial, rows past the block's rows never
+//   stored. A ring row of 8 or 16 16-byte chunks permutes them by chunk ^
+//   (row % 8); at head_dim 96 a row has 12, which that XOR would carry into
+//   the next row, so there rows are padded to HD + 8 elements (13 chunks: 8
+//   rows at one chunk fall in 8 distinct bank groups, as in the q tile) and
+//   not permuted.
+// - head_dim 256: a 64-slot K tile is 32 KB and the drained ring holds the
+//   warps' 64 KB of partials, so the plan gives a block two blocks' share of
+//   an SM: three ring entries over bf16 pages (two in flight under every
+//   product), six over int8 pages; and a warp reads its q fragments again
+//   for every tile instead of holding 64 more registers beside the 128 of
+//   its output.
 // - int8 pages: the ring holds the tiles as they lie in the pool (half the
-//   bytes of bf16) and their scales; fragments are converted to bf16 in
-//   registers (exact). The key scale multiplies the scores after q.k, the
-//   value scale the rounded softmax numerators before P V, as the gather
-//   route orders them.
+//   bytes of bf16) and their scales; fragments become bf16 in registers,
+//   exactly, by a byte permute and one fp32 add (no int-to-float converts,
+//   which run at a quarter of the ALU's rate). The key scale multiplies the
+//   scores after q.k, the value scale the rounded softmax numerators before
+//   P V, as the gather route orders them.
 // - fp32 keeps the first design's CUDA-core tile loop (its 1e-4 gate is below
 //   what bf16 products keep), now over one range and into the same combine;
 //   at head_dim 256 its tiles take dynamic shared memory (F32Smem).
@@ -76,12 +90,20 @@
 // sees slots < base_lengths[b] + c. Their contract is not a tolerance: row
 // (b, c) must equal, bit for bit, what the decode kernel gives at length
 // base + c, because greedy speculation emits the plain engine's stream only
-// if verification and decode reduce in one order. So decode and chunk inline
-// one __device__ body per dtype and the chunk position is a grid axis: a
-// chunk block is a decode block with its own length; both cut the row at the
-// plan's edges (which do not depend on C or the batch), run the same tiles,
-// and combine the same live splits in the same order. The price is that K/V
-// rows are asked for C times: once from device memory, the rest from L2.
+// if verification and decode reduce in one order. bf16: the C x gqa query
+// rows of a (sequence, kv head), ordered (position c, head h), are cut into
+// groups of 16, and a group's cluster reads each K/V tile of the row once
+// for all its rows (once for Gemma-7B's heads at C 5, twice for Mistral-7B's
+// 4 a kv head, three times for Gemma-2B's 8, C times for 16). Decode and
+// verify inline one __device__ body and take one plan (which does not depend
+// on C or the batch): a row's scores, softmax steps and products are those of
+// the decode block at its length, whatever rows share its tile. A tile, or
+// a warp's 16 slots, past a row's end leaves its m, l and acc bit for bit as
+// they were (its numerators are 0 and its rescale e^0 = 1), and a range live
+// only for later rows adds nothing to it: the combine adds row r's own live
+// ranges only, in the decode kernel's order. fp32 keeps a cluster a chunk
+// position (a decode cluster at length base + c): K/V rows asked for C times,
+// once from device memory, the rest from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -105,7 +127,7 @@ constexpr int kMaxCluster = 8;      // splits of a row: one portable cluster
 constexpr int kSplitAlign = 64;     // a range is a whole number of 64-slot tiles
 constexpr int kMmaTile = 64;        // slots per bf16 tile: 16 per warp
 constexpr int kMmaRows = 16;        // query rows of the m16 tile
-constexpr int kMaxStages = 4;
+constexpr int kMaxRingTiles = 8;  // K and V tiles of the bf16 ring
 constexpr size_t kMaxSharedBytes = 232448;  // what one block may ask for on sm_90
 
 template <typename T>
@@ -132,13 +154,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// wait until at most n (0 .. kMaxStages - 1) committed groups are in flight
+// wait until at most n (0 .. kMaxRingTiles - 1) committed groups are in flight
 __device__ __forceinline__ void cp_async_wait_upto(int n) {
   switch (n) {
     case 0: tc::cp_async_wait<0>(); break;
     case 1: tc::cp_async_wait<1>(); break;
     case 2: tc::cp_async_wait<2>(); break;
-    default: tc::cp_async_wait<3>(); break;
+    case 3: tc::cp_async_wait<3>(); break;
+    case 4: tc::cp_async_wait<4>(); break;
+    case 5: tc::cp_async_wait<5>(); break;
+    case 6: tc::cp_async_wait<6>(); break;
+    default: tc::cp_async_wait<7>(); break;
   }
 }
 
@@ -171,8 +197,8 @@ __device__ __forceinline__ bool dead_range(const Range& rg, int split, T* __rest
   return true;
 }
 
-// The combine, shared by every kernel of this file, run by the live blocks
-// of a row (splits 0 .. n_live - 1). pm, pl [rows], pacc [rows][HD] are this
+// The fp32 bodies' combine (the bf16 body's is combine_rows), run by the
+// live blocks of a row (splits 0 .. n_live - 1). pm, pl [rows], pacc [rows][HD] are this
 // block's partial in its shared memory (the same offsets in every block of
 // the cluster); block `split` writes its share of the gqa * HD outputs from
 // the partials of splits 0 .. n_live - 1, added in that order. One live block
@@ -452,29 +478,34 @@ struct Ring {
   }
 };
 
-// A stage of the ring: the K tile, the V tile and, over int8 pages (kQ8),
-// the tile's 64 key scales and 64 value scales. An int8 row is HD + 16
-// bytes: the 8 rows a fragment load reads meet in 8 distinct bank groups.
+// A ring tile: the K tile or the V tile of 64 slots and, over int8 pages
+// (kQ8), its 64 scales. An int8 row is HD + 16 bytes: the 8 rows a fragment
+// load reads meet in 8 distinct bank groups.
 template <int HD, bool kQ8>
-struct Stage {
+struct RingTile {
   static constexpr int kRowBytes = kQ8 ? HD + 16 : Ring<HD>::kLd * 2;
-  static constexpr int kTileBytes = kMmaTile * kRowBytes;
-  static constexpr int kBytes = 2 * kTileBytes + (kQ8 ? 2 * kMmaTile * 4 : 0);
+  static constexpr int kRowsBytes = kMmaTile * kRowBytes;
+  static constexpr int kBytes = kRowsBytes + (kQ8 ? kMmaTile * 4 : 0);
 };
 
-// The ring: its stages, and at least the warps' partial outputs, which it
-// holds once drained
-template <int HD, bool kQ8>
-__host__ __device__ constexpr int mma_ring_bytes(int stages) {
-  return stages * Stage<HD, kQ8>::kBytes > kWarps * kMmaRows * HD * 4
-             ? stages * Stage<HD, kQ8>::kBytes
-             : kWarps * kMmaRows * HD * 4;
+// What the drained ring holds: the warps' partial outputs [warp][16][HD] and
+// the block's partial (m, l and the output of 16 rows)
+template <int HD>
+__host__ __device__ constexpr int mma_epilogue_bytes() {
+  return kWarps * kMmaRows * HD * 4 + (2 * kMmaRows + kMmaRows * HD) * 4;
 }
 
-// the q tile and the block's partial (m, l, acc of 16 rows)
+template <int HD, bool kQ8>
+__host__ __device__ constexpr int mma_ring_bytes(int ring_tiles) {
+  return ring_tiles * RingTile<HD, kQ8>::kBytes > mma_epilogue_bytes<HD>()
+             ? ring_tiles * RingTile<HD, kQ8>::kBytes
+             : mma_epilogue_bytes<HD>();
+}
+
+// the q tile, and each query row's output offset and live ranges
 template <int HD>
 __host__ __device__ constexpr int mma_fixed_bytes() {
-  return kMmaRows * (HD + 8) * 2 + (2 * kMmaRows + kMmaRows * HD) * 4;
+  return kMmaRows * (HD + 8) * 2 + kMmaRows * (8 + 4);
 }
 
 // page ids a range of split_slots slots can touch, whatever its first slot
@@ -482,23 +513,108 @@ __host__ __device__ inline int range_pages(int split_slots, int page_size) {
   return (split_slots - 1) / page_size + 2;
 }
 
+// ... and each slot's row in its head's pool: split_slots ints (a whole
+// number of 64-slot tiles: 16-byte aligned)
 template <int HD, bool kQ8>
-int mma_smem_bytes(int stages, int split_slots, int page_size) {
-  return mma_ring_bytes<HD, kQ8>(stages) + mma_fixed_bytes<HD>() +
+int mma_smem_bytes(int ring_tiles, int split_slots, int page_size) {
+  return mma_ring_bytes<HD, kQ8>(ring_tiles) + mma_fixed_bytes<HD>() + split_slots * 4 +
          (range_pages(split_slots, page_size) * 4 + 15) / 16 * 16;
 }
 
-// two int8 values -> a bf16x2 register, lo in the low half (exact)
-__device__ __forceinline__ uint32_t pack_int8(int8_t lo, int8_t hi) {
-  return tc::pack_bf16((float)lo, (float)hi);
+// two int8 values, lo in bits 0-7 and hi in bits 8-15 of w -> a bf16x2
+// register, lo in the low half, exactly and without int-to-float converts
+// (a quarter of the ALU's rate): a byte u = x + 128 becomes the low byte of
+// the fp32 2^23 + u, which less 2^23 + 128 is x; an integer of magnitude at
+// most 128 has zeros in its fp32's low 16 bits, so its bf16 is the upper half
+__device__ __forceinline__ uint32_t int8x2_to_bf16x2(uint32_t w) {
+  const uint32_t u = w ^ 0x8080u;
+  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - 8388736.f;
+  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - 8388736.f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
 }
 
-// One block's range, shared by the bf16 decode and chunk kernels (see the note
-// at the top). Dynamic shared memory: the ring of `stages` K/V tiles (once
-// drained, it holds the warps' partial outputs), the q tile (once read, it
-// holds the warps' m and l), the block's partial, the range's page ids. Ring
-// rows are laid out by Ring<HD> (bf16 pages) or Stage<HD, true> (int8
-// pages), so that the 8 rows a fragment load reads meet in no bank.
+// slot / page_size as a multiply by magic = ceil(2^32 / page_size): exact
+// while slot * page_size < 2^32, which the plan checks for the whole table
+__host__ __device__ inline uint64_t page_magic(int page_size) {
+  return (0x100000000ull + (uint64_t)page_size - 1) / (uint64_t)page_size;
+}
+
+__device__ __forceinline__ int page_of(int slot, uint64_t magic) {
+  return (int)(((uint64_t)slot * magic) >> 32);
+}
+
+// The combine of a bf16 block's query rows, run by the live blocks of the
+// group (splits 0 .. n_live_max - 1): pm, pl [16] and pacc [16][HD] are this
+// block's partial (the same offsets in every block of the cluster); row r's
+// output lies at out + row_off[r] and adds the partials of its own live
+// splits 0 .. row_live[r] - 1 in that order, as the decode kernel at that
+// row's length adds them (a later split, live only for later rows, adds
+// nothing). Block `split` writes its share of the n_rows * HD outputs,
+// combine_splits' arithmetic element by element. One live block writes its
+// own partial: the same bits as the sums, whose one weight is then e^0 = 1,
+// without a cluster barrier.
+template <int HD>
+__device__ __forceinline__ void combine_rows(const float* pm, const float* pl, const float* pacc,
+                                             __nv_bfloat16* __restrict__ out,
+                                             const int64_t* row_off, const int* row_live,
+                                             int n_rows, int n_live_max, int split) {
+  if (n_live_max == 1) {
+    __syncthreads();  // the block's partial is in place
+    for (int e = threadIdx.x; e < n_rows * HD; e += kThreads)
+      out[row_off[e / HD] + e % HD] = __float2bfloat16(pacc[e] / fmaxf(pl[e / HD], 1e-30f));
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partial is in place
+  const int total = n_rows * HD;
+  const int lo = split * total / n_live_max, hi = (split + 1) * total / n_live_max;
+  for (int e = lo + (int)threadIdx.x; e < hi; e += kThreads) {
+    const int r = e / HD, n_live = row_live[r];
+    float ms[kMaxCluster], ls[kMaxCluster], as[kMaxCluster];
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s) {  // every load in flight before the first add
+      if (s < n_live) {
+        ms[s] = cluster.map_shared_rank(pm, s)[r];
+        ls[s] = cluster.map_shared_rank(pl, s)[r];
+        as[s] = cluster.map_shared_rank(pacc, s)[e];
+      }
+    }
+    float m = -INFINITY;
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s)
+      if (s < n_live) m = fmaxf(m, ms[s]);
+    const float m_use = m == -INFINITY ? 0.f : m;
+    float l = 0.f, a = 0.f;
+#pragma unroll
+    for (int s = 0; s < kMaxCluster; ++s) {
+      if (s < n_live) {
+        const float w = exp2f(ms[s] - m_use);
+        l += w * ls[s];
+        a += w * as[s];
+      }
+    }
+    out[row_off[r] + e % HD] = __float2bfloat16(a / fmaxf(l, 1e-30f));
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// One block's range for up to 16 query rows, shared by the bf16 decode and
+// chunk kernels (see the note at the top). The rows are rows row_lo ..
+// row_lo + n_rows - 1 of the C x gqa query rows of one (sequence, kv head),
+// ordered (chunk position c, head h): row R is position R / gqa, head R %
+// gqa, at element offset row0 + (c nh + h) HD of q and out, and sees the
+// slots below base_length + c (the decode kernel: C = 1). Their lengths do
+// not decrease with R, so the last row's bounds the range's tiles.
+//
+// Dynamic shared memory: the ring of `ring_tiles` K or V tiles (once drained,
+// the warps' partial outputs and the block's partial), the q tile (once read,
+// the warps' m and l), each row's output offset and
+// live ranges, the range's page ids. Ring rows are laid out by Ring<HD> (bf16
+// pages) or RingTile<HD, true> (int8 pages), so that the 8 rows a fragment
+// load reads meet in no bank. Ring tile n is the K (n even) or the V (n odd)
+// tile of the range's tile n / 2, in ring place n % ring_tiles: tile j's
+// scores wait for its K tile alone, and while they and its products run, its
+// V tile and the next tiles land.
 //
 // Up to head_dim 128 a warp keeps its q fragments in registers from the
 // first tile on; at 256 they would take 64 registers beside the 128 of its
@@ -511,82 +627,102 @@ __device__ __forceinline__ uint32_t pack_int8(int8_t lo, int8_t hi) {
 // bf16, multiplied by the bf16 value scale and rounded again before P V: the
 // gather route's order (ops/paged_attention.py::paged_attention_gather).
 template <int HD, bool kQ8>
-__device__ __forceinline__ void attend_split_mma(
-    const __nv_bfloat16* __restrict__ qb, __nv_bfloat16* __restrict__ ob, int length,
-    const int* __restrict__ table,
+__device__ __forceinline__ void attend_rows_mma(
+    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ out, int64_t row0, int nh,
+    int gqa, int row_lo, int n_rows, int base_length, const int* __restrict__ table,
     const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ k_pages,
     const std::conditional_t<kQ8, int8_t, __nv_bfloat16>* __restrict__ v_pages,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales, int64_t head_pages,
-    int gqa, int num_pages, int page_size, int pages_per_seq, float scale_log2, int split,
-    int split_slots, int stages) {
-  using St = Stage<HD, kQ8>;
+    int num_pages, int page_size, uint64_t magic, int pages_per_seq, float scale_log2, int split,
+    int split_slots, int ring_tiles) {
+  using RT = RingTile<HD, kQ8>;
   constexpr int LD = HD + 8;  // q tile row stride: its ldmatrix is free of bank conflicts
   constexpr int kChunks = kQ8 ? HD / 16 : HD / 8;  // 16-byte pieces a row
-  constexpr int RLD = Ring<HD>::kLd;  // bf16 ring row stride, in elements
-  constexpr int RB = St::kRowBytes;
+  constexpr int RB = RT::kRowBytes;
   constexpr bool kQRegs = HD <= 128;  // q fragments kept in registers
-  static_assert(kWarps * 2 * kMmaRows * 4 <= kMmaRows * LD * 2,
+  static_assert(2 * kWarps * kMmaRows * 4 <= kMmaRows * LD * 2,
                 "the warps' m and l fit in the q tile");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring = smem_raw;
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(ring + mma_ring_bytes<HD, kQ8>(stages));
-  float* pm = reinterpret_cast<float*>(q_s + kMmaRows * LD);
-  float* pl = pm + kMmaRows;
-  float* pacc = pl + kMmaRows;
-  int* pid_s = reinterpret_cast<int*>(pacc + kMmaRows * HD);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(ring + mma_ring_bytes<HD, kQ8>(ring_tiles));
+  int64_t* row_off = reinterpret_cast<int64_t*>(q_s + kMmaRows * LD);
+  int* row_live = reinterpret_cast<int*>(row_off + kMmaRows);
+  int* slot_row = row_live + kMmaRows;  // [split_slots]: a slot's row in its head's pool
+  int* pid_s = slot_row + split_slots;
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Range rg = range_of(length, split, split_slots, pages_per_seq * page_size);
+  const int capacity = pages_per_seq * page_size;
+  const int s_lo = split * split_slots, s_hi = s_lo + split_slots;
   // the page ids of the whole range, asked for while the length arrives
-  const int p_lo = rg.s_lo / page_size;
-  const int n_pages = min(pages_per_seq, (rg.s_lo + split_slots - 1) / page_size + 1) - p_lo;
+  const int p_lo = s_lo / page_size;
+  const int n_pages = min(pages_per_seq, (s_hi - 1) / page_size + 1) - p_lo;
   for (int i = tid; i < n_pages; i += kThreads)
     pid_s[i] = min(max(table[p_lo + i], 0), num_pages - 1);  // never read outside the pool
-  if (dead_range<__nv_bfloat16, HD>(rg, split, ob, gqa)) return;
-
-  for (int i = tid; i < kMmaRows * (HD / 8); i += kThreads) {
-    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
-    tc::cp_async16(q_s + r * LD + c, qb + (r < gqa ? r * HD + c : 0), r < gqa);
+  // row r: its live slots (clamped to the table, for memory safety only: a
+  // longer length is the caller's error and its result undefined) and offset
+  auto row_length = [&](int r) {
+    return max(0, min(base_length + (row_lo + r) / gqa, capacity));
+  };
+  auto row_offset = [&](int r) {
+    const int R = row_lo + r;
+    return row0 + ((int64_t)(R / gqa) * nh + R % gqa) * HD;
+  };
+  const int len_max = row_length(n_rows - 1);
+  const int end_max = min(len_max, s_hi);
+  const int n_live_max = (len_max + split_slots - 1) / split_slots;
+  if (s_lo >= end_max) {  // no row has a live slot here; split 0 of rows without any writes zeros
+    if (n_live_max == 0 && split == 0)
+      for (int e = tid; e < n_rows * HD; e += kThreads)
+        out[row_offset(e / HD) + e % HD] = __float2bfloat16(0.f);
+    return;
   }
-  __syncthreads();  // the page ids, before the tile loads read them
+  if (tid < n_rows) {
+    row_off[tid] = row_offset(tid);
+    row_live[tid] = (row_length(tid) + split_slots - 1) / split_slots;
+  }
+  for (int i = tid; i < kMmaRows * (HD / 8); i += kThreads) {  // rows >= n_rows are zero
+    const int r = i / (HD / 8), c = (i % (HD / 8)) * 8;
+    tc::cp_async16(q_s + r * LD + c, q + (r < n_rows ? row_offset(r) + c : 0), r < n_rows);
+  }
+  __syncthreads();  // the page ids
+  // each live slot's row in its head's pool, once for both of its tiles
+  for (int i = tid; i < end_max - s_lo; i += kThreads) {
+    const int slot = s_lo + i, p = page_of(slot, magic);
+    slot_row[i] = pid_s[p - p_lo] * page_size + (slot - p * page_size);
+  }
+  __syncthreads();  // ... before the tile loads read them
 
-  // tile j of the range into stage st; slots at or past the end are zero
-  // (a stale V row could hold a NaN that p = 0 would not cancel)
-  auto load_tile = [&](int j, int st) {
-    unsigned char* ks = ring + st * St::kBytes;
-    unsigned char* vs = ks + St::kTileBytes;
-    const int t0 = rg.s_lo + j * kMmaTile;
+  // ring tile n into its place; slots at or past the rows' end are zero (a
+  // stale V row could hold a NaN that p = 0 would not cancel)
+  const int64_t head_row = head_pages * page_size;
+  auto load_tile = [&](int n) {
+    unsigned char* dst = ring + (n % ring_tiles) * RT::kBytes;
+    const auto* pages = (n & 1) ? v_pages : k_pages;
+    const int r0 = (n >> 1) * kMmaTile, live = end_max - s_lo - r0;  // rows r < live are live
+    static_assert(kMmaTile * kChunks % kThreads == 0, "a tile is whole 16-byte pieces a thread");
 #pragma unroll
-    for (int i = tid; i < kMmaTile * kChunks; i += kThreads) {
-      const int r = i / kChunks, ch = i % kChunks;
-      const int slot = t0 + r;
-      const bool ok = slot < rg.s_end;
-      int64_t row = 0;
-      if (ok) row = (head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size;
-      if constexpr (kQ8) {
-        const int dst = r * RB + ch * 16;
-        tc::cp_async16(ks + dst, k_pages + row * HD + ch * 16, ok);
-        tc::cp_async16(vs + dst, v_pages + row * HD + ch * 16, ok);
-      } else {
-        const int dst = Ring<HD>::at(r, ch) * 2;
-        tc::cp_async16(ks + dst, k_pages + row * HD + ch * 8, ok);
-        tc::cp_async16(vs + dst, v_pages + row * HD + ch * 8, ok);
-      }
+    for (int k = 0; k < kMmaTile * kChunks / kThreads; ++k) {
+      const int i = tid + k * kThreads, r = i / kChunks, ch = i % kChunks;
+      const bool ok = r < live;
+      const int64_t row = head_row + (ok ? slot_row[r0 + r] : 0);
+      if constexpr (kQ8)
+        tc::cp_async16(dst + r * RB + ch * 16, pages + row * HD + ch * 16, ok);
+      else
+        tc::cp_async16(dst + Ring<HD>::at(r, ch) * 2, pages + row * HD + ch * 8, ok);
     }
     if constexpr (kQ8) {  // the slots' scales; zero past the end
-      float* sc = reinterpret_cast<float*>(vs + St::kTileBytes);
-      for (int i = tid; i < 2 * kMmaTile; i += kThreads) {
-        const int r = i % kMmaTile, slot = t0 + r;
-        const bool ok = slot < rg.s_end;
-        int64_t row = 0;
-        if (ok) row = (head_pages + pid_s[slot / page_size - p_lo]) * page_size + slot % page_size;
-        tc::cp_async4(sc + i, (i < kMmaTile ? k_scales : v_scales) + row, ok);
+      if (tid < kMmaTile) {
+        const bool ok = tid < live;
+        tc::cp_async4(reinterpret_cast<float*>(dst + RT::kRowsBytes) + tid,
+                      ((n & 1) ? v_scales : k_scales) + head_row + (ok ? slot_row[r0 + tid] : 0),
+                      ok);
       }
     }
   };
-  const int n_tiles = (rg.s_end - rg.s_lo + kMmaTile - 1) / kMmaTile;
-  for (int st = 0; st < stages; ++st) {  // one group a stage, the q tile in the first
-    if (st < n_tiles) load_tile(st, st);
+  const int n_tiles = (end_max - s_lo + kMmaTile - 1) / kMmaTile;
+  const int n_ring = 2 * n_tiles;  // ring tiles of the range: K, V of each tile
+  for (int n = 0; n < ring_tiles; ++n) {  // one group a ring tile, the q tile in the first
+    if (n < n_ring) load_tile(n);
     tc::cp_async_commit();
   }
 
@@ -599,11 +735,19 @@ __device__ __forceinline__ void attend_split_mma(
   float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled scores (base 2)
   float l[2] = {0.f, 0.f};
   const int g = lane / 4, t = lane % 4;  // the lane's rows g and g + 8, its pair 2 t, 2 t + 1
+  // the end of the lane's rows within the range (at or below s_lo: no slot)
+  const int end[2] = {g < n_rows ? min(row_length(g), s_hi) : s_lo,
+                      g + 8 < n_rows ? min(row_length(g + 8), s_hi) : s_lo};
+  const int r8 = lane % 8;  // the row of its matrix a lane addresses
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int st = j % stages;
-    cp_async_wait_upto(stages - 1);  // tile j (and, at j = 0, the q tile) has landed
-    __syncthreads();                 // ... for every thread
+    // groups committed: ring_tiles, one at j = 0's middle, two an iteration since
+    cp_async_wait_upto(j == 0 ? ring_tiles - 1 : ring_tiles - 2);  // K of tile j has landed
+    __syncthreads();  // ... for every thread, and every warp is done with V of tile j - 1
+    if (j > 0) {
+      if (2 * j - 1 + ring_tiles < n_ring) load_tile(2 * j - 1 + ring_tiles);
+      tc::cp_async_commit();
+    }
     if constexpr (kQRegs) {
       if (j == 0) {
 #pragma unroll
@@ -611,15 +755,14 @@ __device__ __forceinline__ void attend_split_mma(
           tc::ldmatrix_x4(qf[kk], q_s + (lane % 16) * LD + kk * 16 + (lane / 16) * 8);
       }
     }
-    const int key0 = rg.s_lo + j * kMmaTile + warp * 16;  // the warp's 16 slots
-    if (key0 < rg.s_end) {
-      const unsigned char* kt = ring + st * St::kBytes + warp * 16 * RB;  // the warp's K rows
-      const unsigned char* vt = kt + St::kTileBytes;                       // ... and V rows
-      const float* ksc = reinterpret_cast<const float*>(ring + st * St::kBytes +
-                                                        2 * St::kTileBytes) + warp * 16;
-      const float* vsc = ksc + kMmaTile;
-      const int r8 = lane % 8;  // the row of its matrix a lane addresses
-      float s[2][4];
+    const int key0 = s_lo + j * kMmaTile + warp * 16;  // the warp's 16 slots
+    const bool live = key0 < end_max;
+    float s[2][4];
+    if (live) {
+      const unsigned char* kt =
+          ring + ((2 * j) % ring_tiles) * RT::kBytes + warp * 16 * RB;  // the warp's K rows
+      const float* ksc = reinterpret_cast<const float*>(ring + ((2 * j) % ring_tiles) * RT::kBytes +
+                                                        RT::kRowsBytes) + warp * 16;
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -636,11 +779,9 @@ __device__ __forceinline__ void attend_split_mma(
         if constexpr (kQ8) {  // b0: dims 2t, 2t+1 of slot g (of n-tile i); b1: dims + 8
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const int8_t* kr =
-                reinterpret_cast<const int8_t*>(kt) + (i * 8 + g) * RB + kk * 16 + 2 * t;
-            const char2 lo = *reinterpret_cast<const char2*>(kr);
-            const char2 hi = *reinterpret_cast<const char2*>(kr + 8);
-            tc::mma_bf16(s[i], qa, pack_int8(lo.x, lo.y), pack_int8(hi.x, hi.y));
+            const unsigned char* kr = kt + (i * 8 + g) * RB + kk * 16 + 2 * t;
+            tc::mma_bf16(s[i], qa, int8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(kr)),
+                         int8x2_to_bf16x2(*reinterpret_cast<const uint16_t*>(kr + 8)));
           }
         } else {
           uint32_t kb[4];
@@ -651,9 +792,11 @@ __device__ __forceinline__ void attend_split_mma(
         }
       }
 
-      // online softmax over the warp's slots, NaN-free for a row with no
-      // live slot yet; a row's state lives in the 4 lanes of a quad
-      const bool masked = key0 + 16 > rg.s_end;
+      // online softmax over the warp's slots, each row masked at its own
+      // end, NaN-free for a row with no live slot yet; a row's state lives in
+      // the 4 lanes of a quad. A row with no live slot among the 16 keeps its
+      // m, l and acc bit for bit (alpha = e^0 = 1, or 0 on a state of zeros)
+      const bool masked = key0 + 16 > min(end[0], end[1]);
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int i = 0; i < 2; ++i)
@@ -661,7 +804,7 @@ __device__ __forceinline__ void attend_split_mma(
         for (int e = 0; e < 4; ++e) {
           float x = s[i][e] * scale_log2;
           if constexpr (kQ8) x *= ksc[i * 8 + 2 * t + (e & 1)];
-          if (masked && key0 + i * 8 + 2 * t + (e & 1) >= rg.s_end) x = -INFINITY;
+          if (masked && key0 + i * 8 + 2 * t + (e & 1) >= end[e >> 1]) x = -INFINITY;
           s[i][e] = x;
           mx[e >> 1] = fmaxf(mx[e >> 1], x);
         }
@@ -688,17 +831,29 @@ __device__ __forceinline__ void attend_split_mma(
         sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
         l[h] = alpha[h] * l[h] + sum[h];
       }
+      if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // else acc * 1 = acc
 #pragma unroll
-      for (int i = 0; i < HD / 8; ++i) {
-        acc[i][0] *= alpha[0];
-        acc[i][1] *= alpha[0];
-        acc[i][2] *= alpha[1];
-        acc[i][3] *= alpha[1];
+        for (int i = 0; i < HD / 8; ++i) {
+          acc[i][0] *= alpha[0];
+          acc[i][1] *= alpha[0];
+          acc[i][2] *= alpha[1];
+          acc[i][3] *= alpha[1];
+        }
       }
-
+    }
+    cp_async_wait_upto(ring_tiles - 2);  // V of tile j has landed
+    __syncthreads();                     // ... for every thread, and every warp is done with K of tile j
+    if (2 * j + ring_tiles < n_ring) load_tile(2 * j + ring_tiles);
+    tc::cp_async_commit();
+    if (live) {
+      const unsigned char* vt =
+          ring + ((2 * j + 1) % ring_tiles) * RT::kBytes + warp * 16 * RB;  // the warp's V rows
       // O += P V, P rounded to bf16 in registers (the accumulators of the
       // two n-tiles are the A fragment)
       if constexpr (kQ8) {  // P rounded, times the bf16 value scale, rounded again
+        const float* vsc = reinterpret_cast<const float*>(
+                               ring + ((2 * j + 1) % ring_tiles) * RT::kBytes + RT::kRowsBytes) +
+                           warp * 16;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -713,10 +868,9 @@ __device__ __forceinline__ void attend_split_mma(
         if constexpr (kQ8) {  // b0: slots 2t, 2t+1 of dim g (of n-tile nt); b1: slots + 8
 #pragma unroll
           for (int nt = 0; nt < 2; ++nt) {
-            const int8_t* vc =
-                reinterpret_cast<const int8_t*>(vt) + 2 * t * RB + d2 * 16 + nt * 8 + g;
-            tc::mma_bf16(acc[2 * d2 + nt], pa, pack_int8(vc[0], vc[RB]),
-                         pack_int8(vc[8 * RB], vc[9 * RB]));
+            const unsigned char* vc = vt + 2 * t * RB + d2 * 16 + nt * 8 + g;
+            tc::mma_bf16(acc[2 * d2 + nt], pa, int8x2_to_bf16x2(vc[0] | vc[RB] << 8),
+                         int8x2_to_bf16x2(vc[8 * RB] | vc[9 * RB] << 8));
           }
         } else {
           uint32_t vb[4];
@@ -728,18 +882,16 @@ __device__ __forceinline__ void attend_split_mma(
         }
       }
     }
-    if (j + stages < n_tiles) {
-      __syncthreads();  // every warp is done with stage st
-      load_tile(j + stages, st);
-    }
-    tc::cp_async_commit();  // one group an iteration, empty or not
   }
   tc::cp_async_wait<0>();
   __syncthreads();  // the ring is drained and q is read: the warps' partials move in
 
-  float* wm = reinterpret_cast<float*>(q_s);   // [warp][16]
-  float* wl = wm + kWarps * kMmaRows;          // [warp][16]
+  float* wm = reinterpret_cast<float*>(q_s);     // [warp][16]
+  float* wl = wm + kWarps * kMmaRows;            // [warp][16]
   float* wacc = reinterpret_cast<float*>(ring);  // [warp][16][HD]
+  float* pm = wacc + kWarps * kMmaRows * HD;     // the block's partial: m [16], l [16],
+  float* pl = pm + kMmaRows;                     // acc [16][HD]
+  float* pacc = pl + kMmaRows;
   if (t == 0) {
     wm[warp * kMmaRows + g] = m[0];
     wm[warp * kMmaRows + g + 8] = m[1];
@@ -750,13 +902,15 @@ __device__ __forceinline__ void attend_split_mma(
 #pragma unroll
   for (int i = 0; i < HD / 8; ++i) {
     const int col = i * 8 + t * 2;
-    *reinterpret_cast<float2*>(wa + g * HD + col) = make_float2(acc[i][0], acc[i][1]);
-    *reinterpret_cast<float2*>(wa + (g + 8) * HD + col) = make_float2(acc[i][2], acc[i][3]);
+    if (g < n_rows)
+      *reinterpret_cast<float2*>(wa + g * HD + col) = make_float2(acc[i][0], acc[i][1]);
+    if (g + 8 < n_rows)
+      *reinterpret_cast<float2*>(wa + (g + 8) * HD + col) = make_float2(acc[i][2], acc[i][3]);
   }
   __syncthreads();
 
   // the block's partial: the warps' states added in warp order
-  for (int e = tid; e < gqa * HD; e += kThreads) {
+  for (int e = tid; e < n_rows * HD; e += kThreads) {
     const int row = e / HD;
     float mw[kWarps], mb = -INFINITY;
 #pragma unroll
@@ -778,7 +932,7 @@ __device__ __forceinline__ void attend_split_mma(
       pl[row] = lb;
     }
   }
-  combine_splits<__nv_bfloat16, HD, true>(pm, pl, pacc, ob, gqa, rg.n_live, split);
+  combine_rows<HD>(pm, pl, pacc, out, row_off, row_live, n_rows, n_live_max, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -812,21 +966,23 @@ paged_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const float* __restrict__ k_scales, const float* __restrict__ v_scales,
                         const int* __restrict__ lengths, const int* __restrict__ tables,
                         __nv_bfloat16* __restrict__ out, int nh, int nkv, int num_pages,
-                        int page_size, int pages_per_seq, float scale_log2, int splits,
-                        int split_slots, int stages) {
+                        int page_size, uint64_t magic, int pages_per_seq, float scale_log2,
+                        int splits, int split_slots, int ring_tiles) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
-  const int64_t rows = ((int64_t)b * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_mma<HD, kQ8>(q + rows, out + rows, lengths[b], tables + (int64_t)b * pages_per_seq,
-                            k_pages, v_pages, k_scales, v_scales, (int64_t)kvh * num_pages, gqa,
-                            num_pages, page_size, pages_per_seq, scale_log2, split, split_slots,
-                            stages);
+  attend_rows_mma<HD, kQ8>(q, out, ((int64_t)b * nh + (int64_t)kvh * gqa) * HD, nh, gqa, 0, gqa,
+                           lengths[b], tables + (int64_t)b * pages_per_seq, k_pages, v_pages,
+                           k_scales, v_scales, (int64_t)kvh * num_pages, num_pages, page_size,
+                           magic, pages_per_seq, scale_log2, split, split_slots, ring_tiles);
 }
 
 // Chunk (speculative verify): C query tokens per sequence, q and out
 // [B, C, nh, HD]; query c of sequence b sees slots < base_lengths[b] + c.
-// blockIdx.x = c * splits + split: the cluster of a chunk position is a
-// decode cluster at length base + c.
+// fp32: blockIdx.x = c * splits + split, the cluster of a chunk position is a
+// decode cluster at length base + c. bf16: blockIdx.x = group * splits +
+// split, the C x gqa query rows of a (sequence, kv head), ordered (c, h), cut
+// into groups of 16: a group's cluster reads each K/V tile of the row once
+// for all its rows, each row masked at its own length.
 template <int HD, bool kQ8>
 __global__ void __launch_bounds__(kThreads)
 paged_chunk_kernel(const float* __restrict__ q,
@@ -854,16 +1010,17 @@ paged_chunk_mma_kernel(const __nv_bfloat16* __restrict__ q,
                        const float* __restrict__ k_scales, const float* __restrict__ v_scales,
                        const int* __restrict__ base_lengths, const int* __restrict__ tables,
                        __nv_bfloat16* __restrict__ out, int chunk, int nh, int nkv, int num_pages,
-                       int page_size, int pages_per_seq, float scale_log2, int splits,
-                       int split_slots, int stages) {
-  const int c = blockIdx.x / splits, split = blockIdx.x % splits;
+                       int page_size, uint64_t magic, int pages_per_seq, float scale_log2,
+                       int splits, int split_slots, int ring_tiles) {
+  const int group = blockIdx.x / splits, split = blockIdx.x % splits;
   const int kvh = blockIdx.y, b = blockIdx.z;
   const int gqa = nh / nkv;
-  const int64_t rows = (((int64_t)b * chunk + c) * nh + (int64_t)kvh * gqa) * HD;
-  attend_split_mma<HD, kQ8>(q + rows, out + rows, base_lengths[b] + c,
-                            tables + (int64_t)b * pages_per_seq, k_pages, v_pages, k_scales,
-                            v_scales, (int64_t)kvh * num_pages, gqa, num_pages, page_size,
-                            pages_per_seq, scale_log2, split, split_slots, stages);
+  const int row_lo = group * kMmaRows;
+  attend_rows_mma<HD, kQ8>(q, out, ((int64_t)b * chunk * nh + (int64_t)kvh * gqa) * HD, nh, gqa,
+                           row_lo, min(kMmaRows, chunk * gqa - row_lo), base_lengths[b],
+                           tables + (int64_t)b * pages_per_seq, k_pages, v_pages, k_scales,
+                           v_scales, (int64_t)kvh * num_pages, num_pages, page_size, magic,
+                           pages_per_seq, scale_log2, split, split_slots, ring_tiles);
 }
 
 // Launch on a grid (x_blocks, nkv, batch) with the splits of a row as one
@@ -895,32 +1052,34 @@ int launch_clusters(Kernel kernel, int splits, int x_blocks, int nkv, int batch,
 
 // The plan's checks (ops/paged_attention.py::paged_plan makes the plan):
 // ranges of whole 64-slot tiles that cover the table in at most a cluster;
-// fp32 takes no stages and the fp32 body's own dynamic shared memory (0 up to
-// head_dim 128), bf16 1 to kMaxStages stages and exactly this file's shared
-// bytes for them.
+// fp32 takes no ring and the fp32 body's own dynamic shared memory (0 up to
+// head_dim 128), bf16 a ring of 2 to kMaxRingTiles K and V tiles, exactly
+// this file's shared bytes for them, and a table whose slots times its page
+// size stay below 2^32 (page_of's exact range).
 template <int HD, bool kQ8>
 bool plan_ok(int dtype, int gqa, int page_size, int pages_per_seq, int split_slots, int splits,
-             int stages, int smem_bytes) {
+             int ring_tiles, int smem_bytes) {
   const int64_t capacity = (int64_t)page_size * pages_per_seq;
   if (split_slots <= 0 || split_slots % kSplitAlign != 0 || splits < 1 || splits > kMaxCluster ||
       splits != (capacity + split_slots - 1) / split_slots)
     return false;
   if (dtype == 0)
-    return gqa <= kMaxGqa && stages == 0 && smem_bytes == f32_smem_bytes<HD, kQ8>();
-  return gqa <= kMaxGqa && stages >= 1 && stages <= kMaxStages &&
-         smem_bytes == mma_smem_bytes<HD, kQ8>(stages, split_slots, page_size) &&
-         (size_t)smem_bytes <= kMaxSharedBytes;
+    return gqa <= kMaxGqa && ring_tiles == 0 && smem_bytes == f32_smem_bytes<HD, kQ8>();
+  return gqa <= kMaxGqa && ring_tiles >= 2 && ring_tiles <= kMaxRingTiles &&
+         smem_bytes == mma_smem_bytes<HD, kQ8>(ring_tiles, split_slots, page_size) &&
+         (size_t)smem_bytes <= kMaxSharedBytes && capacity * page_size < (int64_t{1} << 32);
 }
 
 template <int HD, bool kQ8>
 int dispatch(const void* q, const void* k_pages, const void* v_pages, const void* k_scales,
              const void* v_scales, const void* lengths, const void* tables, void* out, int batch,
              int chunk, int nh, int nkv, int num_pages, int page_size, int pages_per_seq,
-             int dtype, int split_slots, int splits, int stages, int smem_bytes, float scale,
+             int dtype, int split_slots, int splits, int ring_tiles, int smem_bytes, float scale,
              cudaStream_t s) {
   if (nh % nkv != 0 ||
-      !plan_ok<HD, kQ8>(dtype, nh / nkv, page_size, pages_per_seq, split_slots, splits, stages,
-                        smem_bytes))
+      !plan_ok<HD, kQ8>(dtype, nh / nkv, page_size, pages_per_seq, split_slots, splits,
+                        ring_tiles, smem_bytes) ||
+      (int64_t)num_pages * page_size >= (int64_t{1} << 31))  // a slot's row is an int
     return (int)cudaErrorInvalidValue;
   using bf16 = __nv_bfloat16;
   using F32Page = std::conditional_t<kQ8, int8_t, float>;
@@ -930,7 +1089,10 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages, const void
   const int* lens = static_cast<const int*>(lengths);
   const int* tab = static_cast<const int*>(tables);
   const float scale_log2 = scale * 1.4426950408889634f;
-  const int x = chunk == 0 ? splits : splits * chunk;
+  const uint64_t magic = page_magic(page_size);
+  // fp32: a cluster a chunk position; bf16: a cluster a group of 16 query rows
+  const int x = chunk == 0 ? splits
+                           : splits * (dtype == 0 ? chunk : (chunk * (nh / nkv) + kMmaRows - 1) / kMmaRows);
   if (dtype == 0 && chunk == 0)
     return launch_clusters(paged_decode_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes, s,
                            static_cast<const float*>(q), static_cast<const F32Page*>(k_pages),
@@ -947,13 +1109,13 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages, const void
     return launch_clusters(paged_decode_mma_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes,
                            s, static_cast<const bf16*>(q), static_cast<const Bf16Page*>(k_pages),
                            static_cast<const Bf16Page*>(v_pages), ks, vs, lens, tab,
-                           static_cast<bf16*>(out), nh, nkv, num_pages, page_size, pages_per_seq,
-                           scale_log2, splits, split_slots, stages);
+                           static_cast<bf16*>(out), nh, nkv, num_pages, page_size, magic,
+                           pages_per_seq, scale_log2, splits, split_slots, ring_tiles);
   return launch_clusters(paged_chunk_mma_kernel<HD, kQ8>, splits, x, nkv, batch, smem_bytes, s,
                          static_cast<const bf16*>(q), static_cast<const Bf16Page*>(k_pages),
                          static_cast<const Bf16Page*>(v_pages), ks, vs, lens, tab,
-                         static_cast<bf16*>(out), chunk, nh, nkv, num_pages, page_size,
-                         pages_per_seq, scale_log2, splits, split_slots, stages);
+                         static_cast<bf16*>(out), chunk, nh, nkv, num_pages, page_size, magic,
+                         pages_per_seq, scale_log2, splits, split_slots, ring_tiles);
 }
 
 // fp pages at head_dim 64, 96, 128 and 256; int8 pages (k_scales non-null)
@@ -963,7 +1125,7 @@ int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const v
                 const void* v_scales, const void* lengths, const void* tables, void* out,
                 int batch, int chunk, int nh, int nkv, int num_pages, int page_size,
                 int pages_per_seq, int head_dim, int dtype, int split_slots, int splits,
-                int stages, int smem_bytes, float scale, void* stream) {
+                int ring_tiles, int smem_bytes, float scale, void* stream) {
   if (batch < 0 || batch > 65535 || chunk < 0 || nkv <= 0 || nkv > 65535 || page_size <= 0 ||
       num_pages <= 0 || pages_per_seq <= 0 || (dtype != 0 && dtype != 1) ||
       (k_scales == nullptr) != (v_scales == nullptr))
@@ -972,7 +1134,7 @@ int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const v
 #define GRASP_PAGED_DISPATCH(HD, Q8)                                                          \
   return dispatch<HD, Q8>(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, out,     \
                           batch, chunk, nh, nkv, num_pages, page_size, pages_per_seq, dtype, \
-                          split_slots, splits, stages, smem_bytes, scale, s)
+                          split_slots, splits, ring_tiles, smem_bytes, scale, s)
   if (k_scales != nullptr) {
     if (head_dim == 128) GRASP_PAGED_DISPATCH(128, true);
     if (head_dim == 256) GRASP_PAGED_DISPATCH(256, true);
@@ -989,7 +1151,7 @@ int dispatch_hd(const void* q, const void* k_pages, const void* v_pages, const v
 }  // namespace
 
 // dtype (of q and, for fp pages, of the pages): 0 = float32, 1 = bfloat16.
-// The plan (split_slots, splits, stages, smem_bytes) is
+// The plan (split_slots, splits, ring_tiles, smem_bytes) is
 // ops/paged_attention.py::paged_plan's for the table's page size, pages per
 // row, head_dim, group size and dtypes; a plan of another layout is refused.
 // Returns 0 or a cudaError_t code; an unsupported head_dim, dtype, group size
@@ -999,12 +1161,12 @@ extern "C" int grasp_paged_attention_decode(const void* q, const void* k_pages,
                                             const void* tables, void* out, int batch, int nh,
                                             int nkv, int num_pages, int page_size,
                                             int pages_per_seq, int head_dim, int dtype,
-                                            int split_slots, int splits, int stages,
+                                            int split_slots, int splits, int ring_tiles,
                                             int smem_bytes, float scale, void* stream) {
   if (batch == 0) return 0;
   return dispatch_hd(q, k_pages, v_pages, nullptr, nullptr, lengths, tables, out, batch, 0, nh,
                      nkv, num_pages, page_size, pages_per_seq, head_dim, dtype, split_slots,
-                     splits, stages, smem_bytes, scale, stream);
+                     splits, ring_tiles, smem_bytes, scale, stream);
 }
 
 // The chunk form: q and out [batch, chunk, nh, head_dim], base_lengths [batch]
@@ -1015,13 +1177,13 @@ extern "C" int grasp_paged_attention_chunk(const void* q, const void* k_pages,
                                            const void* tables, void* out, int batch, int chunk,
                                            int nh, int nkv, int num_pages, int page_size,
                                            int pages_per_seq, int head_dim, int dtype,
-                                           int split_slots, int splits, int stages,
+                                           int split_slots, int splits, int ring_tiles,
                                            int smem_bytes, float scale, void* stream) {
   if (batch == 0 || chunk == 0) return 0;
   if (chunk < 0) return (int)cudaErrorInvalidValue;
   return dispatch_hd(q, k_pages, v_pages, nullptr, nullptr, base_lengths, tables, out, batch,
                      chunk, nh, nkv, num_pages, page_size, pages_per_seq, head_dim, dtype,
-                     split_slots, splits, stages, smem_bytes, scale, stream);
+                     split_slots, splits, ring_tiles, smem_bytes, scale, stream);
 }
 
 // Both forms over int8 pages: k_pages, v_pages int8 [nkv, P, ps, hd] and
@@ -1033,11 +1195,11 @@ extern "C" int grasp_paged_attention_int8(const void* q, const void* k_pages,
                                           const void* tables, void* out, int batch, int chunk,
                                           int nh, int nkv, int num_pages, int page_size,
                                           int pages_per_seq, int head_dim, int dtype,
-                                          int split_slots, int splits, int stages,
+                                          int split_slots, int splits, int ring_tiles,
                                           int smem_bytes, float scale, void* stream) {
   if (batch == 0) return 0;
   if (chunk < 0 || k_scales == nullptr || v_scales == nullptr) return (int)cudaErrorInvalidValue;
   return dispatch_hd(q, k_pages, v_pages, k_scales, v_scales, lengths, tables, out, batch, chunk,
                      nh, nkv, num_pages, page_size, pages_per_seq, head_dim, dtype, split_slots,
-                     splits, stages, smem_bytes, scale, stream);
+                     splits, ring_tiles, smem_bytes, scale, stream);
 }

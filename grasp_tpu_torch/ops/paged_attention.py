@@ -21,7 +21,9 @@ pages dequantized) into a dense copy and run softmax attention.
 
 Both kernels cut each row's table into ranges of :func:`paged_plan`'s
 ``split_slots`` slots, one block a range, and add the ranges up inside the
-launch (one thread-block cluster a row). Each wrapper launches its kernel for
+launch (one thread-block cluster a row). A bf16 block holds up to 16 query
+rows, each with its own length, so the verify kernel reads a row's K/V once
+a group of 16 of its chunk's query rows. Each wrapper launches its kernel for
 CUDA tensors and takes the plain version only for CPU tensors.
 
 :func:`paged_attention_gather` is not a kernel's plain version: it is the
@@ -48,7 +50,7 @@ SPLIT_ALIGN = 64       # a range is a whole number of 64-slot tiles
 MMA_TILE = 64          # slots per bf16 tile (16 for each of the 4 warps)
 MMA_ROWS = 16          # query rows of the bf16 kernel's m16 tile
 MAX_GQA = 16           # query heads of a kv head: the m16 tile, and the fp32 body's registers
-MAX_STAGES = 4
+MAX_RING_TILES = 8     # K and V tiles of the bf16 kernels' ring
 MAX_SHARED_BYTES = 232448
 MAX_STATIC_SHARED = 48 * 1024
 
@@ -56,13 +58,20 @@ MAX_STATIC_SHARED = 48 * 1024
 def smem_budget(head_dim: int) -> int:
     """Dynamic shared memory the plan gives a bf16 block: four blocks an SM
     (each also costs the SM 1 KB it reserves, of 228 KB) up to head_dim 128,
-    where the verify kernel launches 5 clusters a row and 3 stages at
-    head_dim 64 read as fast as 4 in decode (scripts/paged_breakdown_torch.py).
-    At head_dim 256 one stage of 64 K and V rows is 64 KB and the block's
-    partial 16 KB, so the budget is two blocks an SM: one stage over bf16
-    pages, two over int8 pages. The kernel stays whole (no split of the
-    output columns as flash's hd-256 blocks do): a decode block reads its K
-    and V tiles once."""
+    two at head_dim 256, where a 64-slot K tile alone is 32 KB and the
+    drained ring holds the warps' 64 KB of partials.
+
+    What bounds the kernels is bytes, and a block streams its range's tiles
+    one after another, so what a budget buys is copies in flight under the
+    products. The ring holds K and V tiles as separate entries (a tile's
+    scores wait for its K tile alone): at head_dim 256 the two-block budget
+    holds three entries over bf16 pages, so two are in flight under every
+    product where one K+V stage left none, and six over int8 pages; at 128
+    over int8 pages five. One block an SM with four to six entries was
+    slower at Gemma-7B's heads (K3 0.087 ms against 0.053 for three,
+    ``scripts/paged_breakdown_torch.py --layout gemma7b``, NVIDIA H100 80GB
+    HBM3, 700.00 W): a block's start and its combine then run with nothing
+    else on the SM."""
     return 228 * 1024 // (2 if head_dim > 128 else 4) - 1024
 
 
@@ -74,12 +83,13 @@ class PagedPlan:
     """How a paged-attention call is launched: range ``s`` of a row holds
     slots [s split_slots, (s + 1) split_slots) of its table, ``splits``
     ranges (one cluster) cover the table. ``tile`` slots a step of the loop
-    within a range. bf16: ``stages`` cp.async ring stages and ``smem_bytes``
-    of dynamic shared memory; fp32 (static shared memory): both 0."""
+    within a range. bf16: a cp.async ring of ``ring_tiles`` K and V tiles
+    (each tile its own entry) and ``smem_bytes`` of dynamic shared memory;
+    fp32: no ring, and dynamic shared memory only at head_dim 256."""
     split_slots: int
     splits: int
     tile: int
-    stages: int
+    ring_tiles: int
     smem_bytes: int
 
 
@@ -95,20 +105,21 @@ def fp32_tile(head_dim: int) -> int:
     return 64 if head_dim <= 64 else 32
 
 
-def mma_smem_bytes(head_dim: int, stages: int, split_slots: int, page_size: int,
+def mma_smem_bytes(head_dim: int, ring_tiles: int, split_slots: int, page_size: int,
                    quantized: bool = False) -> int:
     """Dynamic shared memory of the bf16 kernels (csrc/paged_attention.cu,
-    mma_smem_bytes): the ring of K and V tiles (int8 pages: rows of head_dim
-    + 16 bytes and the tile's 64 key and 64 value scales a stage), at least
-    the warps' partial outputs that the drained ring holds, the q tile, the
-    block's partial (m, l and the output of 16 rows), the range's page ids."""
+    mma_smem_bytes): the ring of ``ring_tiles`` K or V tiles of 64 slots
+    (over int8 pages rows of head_dim + 16 bytes and the tile's 64 scales),
+    at least what the drained ring holds (the warps' partial outputs and the
+    block's partial: m, l and the output of 16 rows), the q tile, each query
+    row's output offset and live ranges, each slot's row in its head's pool
+    (an int a slot of the range), the range's page ids."""
     range_pages = (split_slots - 1) // page_size + 2
-    if quantized:
-        stage = 2 * MMA_TILE * (head_dim + 16) + 2 * MMA_TILE * 4
-    else:
-        stage = 2 * MMA_TILE * ring_ld(head_dim) * 2
-    ring = max(stages * stage, 4 * MMA_ROWS * head_dim * 4)
-    return (ring + MMA_ROWS * (head_dim + 8) * 2 + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4
+    drained = 4 * MMA_ROWS * head_dim * 4 + (2 * MMA_ROWS + MMA_ROWS * head_dim) * 4
+    tile = (MMA_TILE * (head_dim + 16) + MMA_TILE * 4 if quantized
+            else MMA_TILE * ring_ld(head_dim) * 2)
+    ring = max(ring_tiles * tile, drained)
+    return (ring + MMA_ROWS * (head_dim + 8) * 2 + MMA_ROWS * (8 + 4) + split_slots * 4
             + -(-range_pages * 4 // 16) * 16)
 
 
@@ -151,12 +162,16 @@ def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
     other.
 
     It never depends on the batch, the chunk or the lengths: a decode call
-    and a verify call on the same table must cut each row at the same edges,
-    or the verify step's rows would not be bit-equal to decode. The table's
-    capacity is cut into at most ``MAX_CLUSTER`` ranges of whole 64-slot
-    tiles (pages of 128 slots, 16 a row: 8 ranges of 256). bf16 keeps as many
-    tiles of a range in flight as fit :func:`smem_budget`, at most
-    ``MAX_STAGES``. Cached: the decode step is bound by the host."""
+    and a verify call on the same table must cut each row at the same edges
+    and stream its tiles through the same ring, or the verify step's rows
+    would not be bit-equal to decode. The table's capacity is cut into at
+    most ``MAX_CLUSTER`` ranges of whole 64-slot tiles (pages of 128 slots,
+    16 a row: 8 ranges of 256). bf16 holds as many K and V tiles of a range
+    in its ring as fit :func:`smem_budget`, at least 2 and at most
+    ``MAX_RING_TILES`` (two a tile of the range), and divides a slot by the
+    page size with a multiply that is exact while the table's slots times
+    the page size stay below 2^32. Cached: the decode step is bound by the
+    host."""
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"paged attention kernel takes float32 or bfloat16, got {dtype}")
     page_dtype = dtype if page_dtype is None else page_dtype
@@ -176,12 +191,15 @@ def paged_plan(page_size: int, pages_per_seq: int, head_dim: int, gqa: int,
     if dtype == torch.float32:
         return PagedPlan(split_slots, splits, fp32_tile(head_dim), 0,
                          fp32_smem_bytes(head_dim, quantized))
+    if capacity * page_size >= 2 ** 32:
+        raise ValueError(f"table of {pages_per_seq} pages of {page_size} slots: the bf16 kernel "
+                         f"takes slots times page size below 2^32")
     tiles = split_slots // MMA_TILE
-    stages = max(s for s in range(1, min(MAX_STAGES, tiles) + 1)
-                 if s == 1 or mma_smem_bytes(head_dim, s, split_slots, page_size, quantized)
-                 <= smem_budget(head_dim))
-    return PagedPlan(split_slots, splits, MMA_TILE, stages,
-                     mma_smem_bytes(head_dim, stages, split_slots, page_size, quantized))
+    ring_tiles = max(n for n in range(2, min(MAX_RING_TILES, 2 * tiles) + 1)
+                     if n == 2 or mma_smem_bytes(head_dim, n, split_slots, page_size, quantized)
+                     <= smem_budget(head_dim))
+    return PagedPlan(split_slots, splits, MMA_TILE, ring_tiles,
+                     mma_smem_bytes(head_dim, ring_tiles, split_slots, page_size, quantized))
 
 
 def _plan_for(q: torch.Tensor, k_pages: torch.Tensor, tables: torch.Tensor) -> PagedPlan:
@@ -339,6 +357,9 @@ def _check_cuda_args(q, k_pages, v_pages, lengths, tables, k_scales=None, v_scal
     why = kernel_shape_error(nh, nkv, hd, k_pages.dtype)
     if why is not None:
         raise NotImplementedError(why)
+    if k_pages.shape[1] * k_pages.shape[2] >= 2 ** 31:
+        raise ValueError(f"a pool of {k_pages.shape[1]} pages of {k_pages.shape[2]} slots a kv "
+                         f"head: the kernels index a head's slots with 32-bit ints")
     if lengths.shape != (b,) or tables.dim() != 2 or tables.shape[0] != b:
         raise ValueError(f"lengths {tuple(lengths.shape)} / tables "
                          f"{tuple(tables.shape)} do not match batch {b}")
@@ -359,7 +380,7 @@ def _launch(q, k_pages, v_pages, lengths, tables, scale, k_scales, v_scales, chu
     plan = _plan_for(q, k_pages, tables)
     out = torch.empty_like(q)
     rest = (nh, nkv, num_pages, ps, tables.shape[1], hd, _DTYPE_CODES[q.dtype], plan.split_slots,
-            plan.splits, plan.stages, plan.smem_bytes, float(scale))
+            plan.splits, plan.ring_tiles, plan.smem_bytes, float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if k_scales is not None:

@@ -4,14 +4,17 @@ time, on one NVIDIA GPU.
 
     python scripts/profile_serving_torch.py [--steps 20] [--quantize none|int8|int4]
                                             [--speculative none|int8] [--gamma 4]
-                                            [--model tinyllama|phi3]
+                                            [--model tinyllama|phi3|gemma7b] [--quantized_kv]
                                             [--out build/serving_profile.json]
 
 Builds chip_smoke.py's GRASP-compressed TinyLlama-1.1B, or with ``--model
-phi3`` Phi-3-mini-4k (32 layers, 32 MHA heads of 96) compressed the same way
-(bf16, random weights from a seed, the last two layers low-rank), quantizes its weights if asked (as ``grasp-serve-torch
+phi3`` Phi-3-mini-4k (32 layers, 32 MHA heads of 96) or ``--model gemma7b``
+Gemma-7B (28 layers, 16 MHA heads of 256) compressed the same way (bf16,
+random weights from a seed, the last two layers low-rank), quantizes its weights if asked (as ``grasp-serve-torch
 --quantize`` does), admits 8 requests with the smoke's prompt lengths into a
-ServingEngine with the grasp-serve-torch defaults, and then
+ServingEngine with the grasp-serve-torch defaults (``--quantized_kv``: int8
+pages with their per-slot scales, as ``grasp-serve-torch --quantized_kv``),
+and then
 
 - times ``--steps`` decode steps on the host clock (each step ends with the
   sampled tokens on the host, so the clock covers the device work);
@@ -44,6 +47,9 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+
+MODELS = {"tinyllama": "TinyLlama-1.1B", "phi3": "Phi-3-mini-4k", "gemma7b": "Gemma-7B"}
 
 
 def _kind(name: str) -> str:
@@ -109,7 +115,8 @@ def main(argv=None) -> int:
     p.add_argument("--quantize", choices=["none", "int8", "int4"], default="none")
     p.add_argument("--speculative", choices=["none", "int8"], default="none")
     p.add_argument("--gamma", type=int, default=4)
-    p.add_argument("--model", choices=["tinyllama", "phi3"], default="tinyllama")
+    p.add_argument("--model", choices=["tinyllama", "phi3", "gemma7b"], default="tinyllama")
+    p.add_argument("--quantized_kv", action="store_true")
     p.add_argument("--out", default=os.path.join(ROOT, "build", "serving_profile.json"))
     args = p.parse_args(argv)
 
@@ -129,8 +136,9 @@ def main(argv=None) -> int:
     load_library()  # build the kernels before anything is timed
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    config, params, plan = build_flagship(
-        torch, dev, ModelConfig.phi3_mini_4k() if args.model == "phi3" else None)
+    config, params, plan = build_flagship(torch, dev, {
+        "tinyllama": None, "phi3": ModelConfig.phi3_mini_4k(),
+        "gemma7b": ModelConfig.gemma_7b()}[args.model])
     last = config.num_hidden_layers - 1
     speculative = args.speculative == "int8"
     draft = quantize_model_weights(params, bits=8) if speculative else None
@@ -139,7 +147,8 @@ def main(argv=None) -> int:
                                         consume=True)
         torch.cuda.empty_cache()
     weight_bytes = quantized_size_bytes(params)
-    pool = dict(device=dev, num_pages=256, page_size=128, max_batch=8, max_pages_per_seq=16)
+    pool = dict(device=dev, num_pages=256, page_size=128, max_batch=8, max_pages_per_seq=16,
+                quantized_kv=args.quantized_kv)
     if speculative:
         engine = SpeculativeServingEngine(params, config, draft, config, plan=plan,
                                           draft_plan=plan, gamma=args.gamma, **pool)
@@ -196,9 +205,10 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     record = {
         "card": card_line(),
-        "config": f"{'Phi-3-mini-4k' if args.model == 'phi3' else 'TinyLlama-1.1B'} bf16, "
-                  f"layers {last - 1}-{last} low-rank (ratio 0.9), batch 8, page 128",
+        "config": f"{MODELS[args.model]} bf16, {last + 1} layers, layers {last - 1}-{last} "
+                  f"low-rank (ratio 0.9), batch 8, page 128",
         "quantize": args.quantize,
+        "kv_pages": "int8" if args.quantized_kv else "bf16",
         "param_bytes": weight_bytes,
         "live_rows": live,
         "first_step_s_admits_8_prompts": admit_s,

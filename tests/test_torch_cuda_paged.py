@@ -155,18 +155,20 @@ def test_entry_points_refuse_a_plan_of_another_layout(dev):
     plan = paged_plan(PS, PPS, 64, 4, torch.bfloat16)
     stream = torch.cuda.current_stream().cuda_stream
 
-    def call(split_slots, splits, stages, smem):
+    def call(split_slots, splits, ring_tiles, smem):
         return lib.grasp_paged_attention_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), tables.data_ptr(),
-            out.data_ptr(), 2, 8, 2, k.shape[1], PS, PPS, 64, 1, split_slots, splits, stages,
+            out.data_ptr(), 2, 8, 2, k.shape[1], PS, PPS, 64, 1, split_slots, splits, ring_tiles,
             smem, ctypes.c_float(0.125), stream)
 
-    assert call(plan.split_slots, plan.splits, plan.stages, plan.smem_bytes) == 0
+    assert call(plan.split_slots, plan.splits, plan.ring_tiles, plan.smem_bytes) == 0
     invalid = 1  # cudaErrorInvalidValue
-    assert call(plan.split_slots + 32, plan.splits, plan.stages, plan.smem_bytes) == invalid
-    assert call(plan.split_slots // 2, plan.splits * 2, plan.stages, plan.smem_bytes) == invalid
-    assert call(plan.split_slots, plan.splits, plan.stages - 1, plan.smem_bytes) == invalid
-    assert call(plan.split_slots, plan.splits, 5, plan.smem_bytes) == invalid
+    assert call(plan.split_slots + 32, plan.splits, plan.ring_tiles, plan.smem_bytes) == invalid
+    assert call(plan.split_slots // 2, plan.splits * 2, plan.ring_tiles,
+                plan.smem_bytes) == invalid
+    assert call(plan.split_slots, plan.splits, plan.ring_tiles - 1, plan.smem_bytes) == invalid
+    assert call(plan.split_slots, plan.splits, 1, plan.smem_bytes) == invalid
+    assert call(plan.split_slots, plan.splits, 9, plan.smem_bytes) == invalid
     # head_dim 96: its plan is taken, and a ring of unpadded rows is refused
     q, k, v, lens, tables = _case(dev, torch.bfloat16, [300, 7], 2, 2, 96)
     out = torch.empty_like(q)
@@ -176,10 +178,10 @@ def test_entry_points_refuse_a_plan_of_another_layout(dev):
         return lib.grasp_paged_attention_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), tables.data_ptr(),
             out.data_ptr(), 2, 2, 2, k.shape[1], PS, PPS, 96, 1, plan.split_slots, plan.splits,
-            plan.stages, smem, ctypes.c_float(0.125), stream)
+            plan.ring_tiles, smem, ctypes.c_float(0.125), stream)
 
     assert call96(plan.smem_bytes) == 0
-    assert call96(plan.smem_bytes - 2 * 64 * 8 * 2) == invalid
+    assert call96(plan.smem_bytes - plan.ring_tiles * 64 * 8 * 2) == invalid
     # int8 pages: their own plan (ring rows of head_dim + 16 bytes); shared
     # memory of another layout, a head_dim without an int8 body and missing
     # scales refused
@@ -187,13 +189,14 @@ def test_entry_points_refuse_a_plan_of_another_layout(dev):
     k8, v8, scales = _int8(k, v)
     out = torch.empty_like(q)
     plan8 = paged_plan(PS, PPS, 128, 8, torch.bfloat16, torch.int8)
-    bf16_ring = dataclasses.replace(plan8, smem_bytes=mma_smem_bytes(128, plan8.stages, 256, PS))
+    bf16_ring = dataclasses.replace(plan8,
+                                    smem_bytes=mma_smem_bytes(128, plan8.ring_tiles, 256, PS))
 
     def call8(plan, hd=128, ks=scales["k_scales"].data_ptr()):
         return lib.grasp_paged_attention_int8(
             q.data_ptr(), k8.data_ptr(), v8.data_ptr(), ks, scales["v_scales"].data_ptr(),
             lens.data_ptr(), tables.data_ptr(), out.data_ptr(), 2, 0, 16, 2, k8.shape[1], PS,
-            PPS, hd, 1, plan.split_slots, plan.splits, plan.stages, plan.smem_bytes,
+            PPS, hd, 1, plan.split_slots, plan.splits, plan.ring_tiles, plan.smem_bytes,
             ctypes.c_float(0.125), stream)
 
     assert call8(plan8) == 0

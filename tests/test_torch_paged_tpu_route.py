@@ -149,23 +149,23 @@ def test_engines_take_the_kernel_route_and_match_grasp_tpu(hd, nh, nkv, quantize
 
 
 def test_plans_at_the_new_layouts_fit_and_are_one_for_decode_and_verify():
-    """head_dim 256 over bf16 pages: one stage of 64 K and V rows under the
-    budget of two blocks an SM; over int8 pages two stages; head_dim 128 over
-    int8 pages two stages under the four-block budget; fp32 at head_dim 256
+    """head_dim 256 over bf16 pages: a ring of three 64-slot K or V tiles
+    under the budget of two blocks an SM; over int8 pages six; head_dim 128
+    over int8 pages five under the four-block budget; fp32 at head_dim 256
     in dynamic shared memory. Decode and verify calls take one plan, from
     the table, head_dim, group and dtypes alone."""
-    want_stages = {(256, False): 1, (128, True): 2, (256, True): 2}
-    for (hd, quantized), stages in want_stages.items():
+    want_ring = {(256, False): 3, (128, True): 5, (256, True): 6}
+    for (hd, quantized), ring_tiles in want_ring.items():
         pages = torch.int8 if quantized else None
         for gqa in (1, 4, 8, 16):
             plan = paged_plan(128, 16, hd, gqa, torch.bfloat16, pages)
-            assert (plan.split_slots, plan.splits, plan.tile, plan.stages) == (256, 8, MMA_TILE,
-                                                                              stages)
-            assert plan.smem_bytes == mma_smem_bytes(hd, stages, 256, 128, quantized)
+            assert (plan.split_slots, plan.splits, plan.tile, plan.ring_tiles) == (
+                256, 8, MMA_TILE, ring_tiles)
+            assert plan.smem_bytes == mma_smem_bytes(hd, ring_tiles, 256, 128, quantized)
             assert plan.smem_bytes <= smem_budget(hd) <= MAX_SHARED_BYTES
-            assert mma_smem_bytes(hd, stages + 1, 256, 128, quantized) > smem_budget(hd)
+            assert mma_smem_bytes(hd, ring_tiles + 1, 256, 128, quantized) > smem_budget(hd)
             fp32 = paged_plan(128, 16, hd, gqa, torch.float32, pages)
-            assert (fp32.stages, fp32.smem_bytes) == (0, fp32_smem_bytes(hd, quantized))
+            assert (fp32.ring_tiles, fp32.smem_bytes) == (0, fp32_smem_bytes(hd, quantized))
             assert (fp32.smem_bytes > 48 * 1024) == (hd == 256)
             for dtype in (torch.float32, torch.bfloat16):
                 k = torch.empty(2, 3, 128, hd, dtype=torch.int8 if quantized else dtype)
